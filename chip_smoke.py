@@ -12,12 +12,18 @@ Phases, each printing one JSON object per line (the card's
                  built from ``dtf_tpu_torch/csrc`` (one nvcc per source,
                  all started together) and the build time printed.
   2. kernels  -- each CUDA kernel against its plain PyTorch version on
-                 the same inputs on the card, at the serving path's
-                 shapes: max abs error and tolerance (per output row),
-                 then kernel, plain and library times (CUDA events,
-                 warmed up, median of five, inputs rotated through
-                 enough copies to defeat the 50 MB L2) and the least
-                 time the card could take.
+                 the same inputs on the card: max abs error and
+                 tolerance, then kernel, plain and library times (CUDA
+                 events, warmed up, median of five, inputs rotated
+                 through enough copies to defeat the 50 MB L2) and the
+                 least time the card could take.  K1 at serving and
+                 training shapes; the backward K2a, K2b and K3 at
+                 [2, 200, 6, 128], [1, 2048, 6, 128] and [2, 256, 8, 64],
+                 causal and full, f32 and bf16, K3 against K2a + K2b and
+                 K3 run twice bit for bit, then timed at the training
+                 shape [8, 2048, 6, 128] beside the backward of
+                 F.scaled_dot_product_attention; K4 at decode and chunk
+                 shapes.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -28,14 +34,31 @@ Phases, each printing one JSON object per line (the card's
   4. serve    -- ``cli.serve_main.main`` in bf16: 16 requests, prompts
                  up to 512 tokens, 64 new tokens each, 8 slots.  The
                  kernels' launch counters are zeroed just before and
-                 read just after; both kernels must have run, as many
+                 read just after; K1 and K4 must have run, as many
                  times per first prefill chunk (K1) and per decode step
                  and continuation chunk (K4) as phase 3 counted.
+  5. train_f32 -- ``transformer_tpu`` in float32, batch 2 x 2048: one
+                 step's gradients through K1 + K3 equal those with
+                 attention bound to K1 + K2a/K2b and to the plain
+                 versions (each within 1e-4 of its largest |value|);
+                 launches per step counted for each binding and for
+                 remat; three AdamW steps with K3 and with K2a/K2b give
+                 the same losses (1e-5 relative).
+  6. train    -- ``cli.lm_main.main`` in bf16, batch 8 x 2048, 30 steps,
+                 the counters zeroed just before and read just after:
+                 finite falling losses, tokens/s, synced step-time p50,
+                 peak memory, MFU against 989 TFLOP/s, 12 K1 and 12 K3
+                 launches a step.  Then two more steps of a fresh
+                 trainer under torch.profiler: device time by kernel
+                 kind and the device's idle share.
 
-Then the ``{"kernels": [...]}`` line (with the serving run's launch
-counts) and, last, the device line.  Any failure raises: the script
-exits non-zero and prints no result.  Without CUDA, or without the
-``dtf_tpu_torch`` package beside it, it exits 2 before doing anything.
+Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
+case is on its own phase-2 line) and its launches from the run of its
+path (K1 and K3 training, K2a/K2b the split-bound training steps of
+phase 5, K4 serving) -- and, last, the device line.  Any
+failure raises: the script exits non-zero and prints no result.
+Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
+exits 2 before doing anything.
 """
 
 from __future__ import annotations
@@ -55,6 +78,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
               "bfloat16": 989e12}    # dense tensor cores
 L2_BYTES = 50e6
+TRAIN_SHAPE = (8, 2048, 6, 128)      # transformer_tpu at batch 8
 
 
 def emit(obj) -> None:
@@ -149,8 +173,8 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 def check_flash(torch, timer, gen):
     """K1 against its plain version: [1, 64, 6, 128] (a first prefill
-    chunk) and [1, 2048, 6, 128] (a whole-context chunk), causal and
-    full, float32 and bfloat16."""
+    chunk), [1, 2048, 6, 128] (a whole-context chunk) and the training
+    shape [8, 2048, 6, 128], causal and full, float32 and bfloat16."""
     import torch.nn.functional as F
 
     from dtf_tpu_torch.ops import flash_attention as fa
@@ -158,7 +182,7 @@ def check_flash(torch, timer, gen):
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for shape in ((1, 64, 6, 128), (1, 2048, 6, 128)):
+        for shape in ((1, 64, 6, 128), (1, 2048, 6, 128), TRAIN_SHAPE):
             b, s, h, d = shape
             for causal in (True, False):
                 q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype)
@@ -200,6 +224,173 @@ def check_flash(torch, timer, gen):
                     "bound_ms": bound_ms, "bound_by": bound_by})
                 emit({"phase": "kernels", "kernel": "K1", **cases[-1]})
     return cases
+
+
+def grad_tolerance(torch, out, ref):
+    """Backward kernel output against its plain version: float32 within
+    1e-5 absolute, scaled by the output's largest |ref| where that
+    exceeds 1 (dk and dv sum up to S terms); bfloat16 by the per-row rule
+    of :func:`compare`.  Returns (max abs error, tolerance of the worst
+    row, its error over its tolerance)."""
+    if out.dtype == torch.float32:
+        err = float((out.float() - ref.float()).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.float().abs().max()))
+        return err, tol, err / tol
+    return compare(torch, out, ref)
+
+
+
+def check_backward(torch, timer, gen):
+    """K2a, K2b and K3 against their plain versions on the same inputs:
+    [2, 200, 6, 128] (ragged against any tile), [1, 2048, 6, 128] and
+    [2, 256, 8, 64], causal and full, float32 and bfloat16; K3 against
+    K2a + K2b in float32; K3 twice gives the same bits.  Then each at
+    the training shape, causal bf16: kernel, plain and library times
+    and bounds, the library yardstick being the backward of
+    F.scaled_dot_product_attention (autograd.grad of its output)."""
+    import torch.nn.functional as F
+
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    def inputs(shape, dtype, causal):
+        q, k, v, do = (torch.randn(shape, generator=gen).to("cuda", dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_forward(q, k, v, causal=causal)
+        b, s, h, _ = shape
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+            b * h, s).contiguous()
+        return q, k, v, do, o, lse, delta
+
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for shape in ((2, 200, 6, 128), (1, 2048, 6, 128), (2, 256, 8, 64)):
+            for causal in (True, False):
+                q, k, v, do, o, lse, delta = inputs(shape, dtype, causal)
+                args = (q, k, v, do, lse, delta)
+                kw = dict(causal=causal, scale=shape[-1] ** -0.5)
+                dq = fa.flash_bwd_dq(*args, **kw)
+                dk, dv = fa.flash_bwd_dkdv(*args, **kw)
+                fused = fa.flash_bwd_fused(*args, **kw)
+                again = fa.flash_bwd_fused(*args, **kw)
+                plain = fa.flash_bwd_fused_plain(*args, **kw)
+                torch.cuda.synchronize()
+                row = {"shape": list(shape), "causal": causal,
+                       "dtype": dname}
+                for kname, outs in (("K2a", (dq,)), ("K2b", (dk, dv)),
+                                    ("K3", fused)):
+                    refs = plain[:1] if kname == "K2a" else (
+                        plain[1:] if kname == "K2b" else plain)
+                    res = [grad_tolerance(torch, o_, r_)
+                           for o_, r_ in zip(outs, refs)]
+                    worst = max(res, key=lambda x: x[2])
+                    row[kname] = {"max_abs_err": max(x[0] for x in res),
+                                  "tol": worst[1], "err_over_tol": worst[2]}
+                    if not worst[2] <= 1.0:
+                        raise AssertionError(
+                            f"{kname} {dname} {shape} causal={causal}: "
+                            f"{row[kname]}")
+                if dtype == torch.float32:
+                    split_gap = max(
+                        grad_tolerance(torch, a, b_)[2]
+                        for a, b_ in zip(fused, (dq, dk, dv)))
+                    row["K3_vs_split_err_over_tol"] = split_gap
+                    if not split_gap <= 1.0:
+                        raise AssertionError(f"K3 != K2a + K2b: {row}")
+                row["K3_bit_identical"] = all(
+                    torch.equal(a, b_) for a, b_ in zip(fused, again))
+                if not row["K3_bit_identical"]:
+                    raise AssertionError(f"K3 not deterministic: {row}")
+                checks.append(row)
+                emit({"phase": "backward", **row})
+                del q, k, v, do, o, lse, delta, args, dq, dk, dv, fused, \
+                    again, plain
+
+    # times at the training shape, causal, bf16
+    b, s, h, d = TRAIN_SHAPE
+    q, k, v, do, o, lse, delta = inputs(TRAIN_SHAPE, torch.bfloat16, True)
+    args = (q, k, v, do, lse, delta)
+    kw = dict(causal=True, scale=d ** -0.5)
+    elem = q.element_size()
+    copies = rotated(args, 4 * q.numel() * elem)
+    pairs = b * h * s * (s + 1) / 2
+    rows = b * h * s * 8                 # lse and delta, f32
+    qkvo = q.numel() * elem
+    # tile products per (query, key) pair: S and dP, then dq (K2a), dk
+    # and dv (K2b), all three (K3); 2 D operations each
+    work = {"K2a": (3, 4 * qkvo + rows + qkvo),
+            "K2b": (4, 4 * qkvo + rows + 2 * qkvo),
+            "K3": (5, 4 * qkvo + rows + 3 * qkvo)}
+    kernel = {"K2a": fa.flash_bwd_dq, "K2b": fa.flash_bwd_dkdv,
+              "K3": fa.flash_bwd_fused}
+    plain = {"K2a": fa.flash_bwd_dq_plain, "K2b": fa.flash_bwd_dkdv_plain,
+             "K3": fa.flash_bwd_fused_plain}
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                       for t in (q, k, v, do))
+    ref_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms = timer.ms(
+        lambda: torch.autograd.grad(ref_o, (qt, kt, vt), dot,
+                                    retain_graph=True), [()])
+    outs = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
+            "K2b": fa.flash_bwd_dkdv(*args, **kw),
+            "K3": fa.flash_bwd_fused(*args, **kw)}
+    ref = fa.flash_bwd_fused_plain(*args, **kw)
+    refs = {"K2a": ref[:1], "K2b": ref[1:], "K3": ref}
+    torch.cuda.synchronize()
+    timings = {}
+    for name in ("K2a", "K2b", "K3"):
+        res = [grad_tolerance(torch, o_, r_)
+               for o_, r_ in zip(outs[name], refs[name])]
+        worst = max(res, key=lambda x: x[2])
+        if not worst[2] <= 1.0:
+            raise AssertionError(f"{name} at the training shape: {res}")
+        timings[name] = {"max_abs_err": max(x[0] for x in res),
+                         "tol": worst[1], "err_over_tol": worst[2]}
+    del outs, ref, refs
+    for name in ("K2a", "K2b", "K3"):
+        products, nbytes = work[name]
+        bound_ms, bound_by = bound(2 * d * products * pairs, nbytes,
+                                   "bfloat16")
+        timings[name].update({
+            "shape": list(TRAIN_SHAPE), "causal": True, "dtype": "bfloat16",
+            "ms": timer.ms(lambda *a, f=kernel[name]: f(*a, **kw), copies),
+            "plain_ms": timer.ms(lambda *a, f=plain[name]: f(*a, **kw),
+                                 copies[:1]),
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by})
+        emit({"phase": "backward_time", "kernel": name, **timings[name]})
+    timings["K3"]["partial_bytes"] = fa.fused_partial_bytes(q, k)
+    timings["K3"]["passes_ms"] = profile_passes(torch, fa, args, kw)
+    emit({"phase": "backward_time", "kernel": "K3",
+          "partial_bytes": timings["K3"]["partial_bytes"],
+          "passes_ms": timings["K3"]["passes_ms"]})
+    del q, k, v, do, o, lse, delta, args, copies, qt, kt, vt, dot, ref_o
+    torch.cuda.empty_cache()
+    return checks, timings
+
+
+def profile_passes(torch, fa, args, kw):
+    """Device time of K3's two passes (the key-block walk and the dq
+    reduce) from torch.profiler, or "not measured" where the profiler
+    sees no device time."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        fa.flash_bwd_fused(*args, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fa.flash_bwd_fused(*args, **kw)
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            for tag in ("kv_block_kernel", "dq_reduce_kernel"):
+                if tag in ev.key:
+                    dev_us = getattr(ev, "device_time_total",
+                                     getattr(ev, "cuda_time_total", 0.0))
+                    out[tag] = dev_us / 1e3 / 3
+        return out or "not measured"
+    except Exception as e:  # noqa: BLE001 -- a report, never a failure
+        return f"not measured ({type(e).__name__}: {e})"
 
 
 def check_paged(torch, timer, gen):
@@ -369,10 +560,9 @@ def serve_bf16(torch, seed: int, per_call):
             "--seed", str(seed), "--serve_max_batch", "8",
             "--serve_requests", str(n_req), "--serve_prompt_len", "512",
             "--serve_max_new_tokens", str(n_new)]
-    fa.launches = 0
-    pa.launches = 0
+    reset_counts(fa, pa)
     out = serve_main.main(argv)
-    launches = {"K1": fa.launches, "K4": pa.launches}
+    launches = kernel_counts(fa, pa)
     if not (out["requests"] == n_req and out["shed"] == 0
             and out["new_tokens"] == out["streamed_tokens"]
             == n_req * n_new):
@@ -381,14 +571,305 @@ def serve_bf16(torch, seed: int, per_call):
     # every decode step attends over pages (K4), each as many times as
     # phase 3 counted in one such call
     want = {"K1": per_call["first_chunk"]["K1"] * n_req,
+            "K2a": 0, "K2b": 0, "K3": 0,
             "K4": per_call["decode_step"]["K4"] * out["decode_steps"]
             + per_call["continuation_chunk"]["K4"]
             * (out["prefill_chunks"] - n_req)}
-    if launches != want or min(launches.values()) <= 0:
+    if launches != want or min(launches["K1"], launches["K4"]) <= 0:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     emit({"phase": "serve", "model": "transformer_tpu", "dtype": "bf16",
           **out, "launches": launches})
     return launches
+
+
+def kernel_counts(fa, pa):
+    return {"K1": fa.launches, "K2a": fa.launches_dq,
+            "K2b": fa.launches_dkdv, "K3": fa.launches_fused,
+            "K4": pa.launches}
+
+
+def reset_counts(fa, pa):
+    fa.launches = fa.launches_dq = fa.launches_dkdv = 0
+    fa.launches_fused = pa.launches = 0
+
+
+def make_plain_attention(torch, fa):
+    """flash attention through the kernels' plain versions, forward and
+    backward, on any device: phase 5's reference binding."""
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            scale = q.shape[-1] ** -0.5
+            o, lse = fa.flash_forward_plain(q, k, v, causal=causal,
+                                            scale=scale)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal, ctx.scale = causal, scale
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            b, s, h, _ = q.shape
+            do = do.contiguous()
+            delta = (do.float() * o.float()).sum(-1).transpose(
+                1, 2).reshape(b * h, s).contiguous()
+            return (*fa.flash_bwd_fused_plain(q, k, v, do, lse, delta,
+                                              causal=ctx.causal,
+                                              scale=ctx.scale), None)
+
+    def plain_attention(q, k, v, *, causal=False, **_):
+        return PlainFlash.apply(q, k, v, causal)
+
+    return plain_attention
+
+
+def check_training_f32(torch, seed: int):
+    """transformer_tpu at full width and depth in float32, batch 2 x
+    2048, random weights from ``seed``: one step's gradients through
+    K1 + K3 (the default) against the same step with attention bound to
+    K1 + K2a/K2b and to the plain versions, each gradient within 1e-4 of
+    its own largest |value|; the launches of each binding and of remat;
+    then three AdamW steps with K3 and with K2a/K2b, per-step losses
+    within 1e-5 relative.  The counters are zeroed just before each run
+    and read just after."""
+    import functools
+
+    from dtf_tpu_torch.config import Config
+    from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
+    from dtf_tpu_torch.models import transformer
+    from dtf_tpu_torch.models.registry import build_model
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+    from dtf_tpu_torch.serve.bridge import random_init
+    from dtf_tpu_torch.train.loop import Trainer, cross_entropy
+
+    spec = get_dataset_spec("lm")
+    batch = 2
+    tokens, labels = (torch.from_numpy(x).cuda() for x in
+                      next(synthetic_input_fn(spec, True, batch, seed)))
+
+    def fresh(**kw):
+        model, _ = build_model("transformer_tpu", dtype=torch.float32, **kw)
+        return random_init(model, seed).cuda()
+
+    bindings = {"K3": fa.flash_attention,
+                "K2a+K2b": functools.partial(fa.flash_attention,
+                                             fused_bwd=False),
+                "plain": make_plain_attention(torch, fa)}
+    default = transformer.flash_attention
+    grads, losses, launches = {}, {}, {}
+    try:
+        for name, attn in bindings.items():
+            transformer.flash_attention = attn
+            model = fresh()
+            reset_counts(fa, pa)
+            loss = cross_entropy(model(tokens), labels)
+            names, params = zip(*model.named_parameters())
+            grads[name] = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            launches[f"step_{name}"] = kernel_counts(fa, pa)
+            losses[f"step_{name}"] = float(loss.detach())
+            del model, loss, params
+        transformer.flash_attention = default
+        model = fresh(remat=True)
+        reset_counts(fa, pa)
+        cross_entropy(model(tokens), labels).backward()
+        torch.cuda.synchronize()
+        launches["step_K3_remat"] = kernel_counts(fa, pa)
+        del model
+        cfg = Config(device="cuda", dataset="lm", batch_size=batch,
+                     train_steps=3, optimizer="adamw", seed=seed)
+        for name in ("K3", "K2a+K2b"):
+            transformer.flash_attention = bindings[name]
+            trainer = Trainer(cfg, fresh(), 0.0, spec)
+            state = trainer.init_state()
+            reset_counts(fa, pa)
+            run = []
+            for _ in range(3):
+                state, metrics = trainer.train_step(state, tokens, labels)
+                run.append(float(metrics["loss"]))
+            launches[f"adamw_{name}"] = kernel_counts(fa, pa)
+            losses[f"adamw_{name}"] = run
+            del trainer, state
+    finally:
+        transformer.flash_attention = default
+
+    worst = {}
+    for other in ("K2a+K2b", "plain"):
+        ratios = []
+        for name, a, b in zip(names, grads[other], grads["K3"]):
+            top = float(b.abs().max())
+            ratios.append((float((a - b).abs().max())
+                           / (1e-4 * max(top, 1e-30)), name))
+        worst[other] = max(ratios)
+        if not worst[other][0] <= 1.0:
+            raise AssertionError(f"{other} gradient of {worst[other][1]} "
+                                 f"differs from K3's by {worst[other][0]} "
+                                 f"of its tolerance")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["adamw_K2a+K2b"],
+                                                  losses["adamw_K3"]))
+    if not (rel <= 1e-5 and all(math.isfinite(x)
+                                for x in losses["adamw_K3"])):
+        raise AssertionError(f"AdamW losses K3 vs K2a/K2b: {losses}")
+    layers = 12
+    want = {"step_K3": (layers, 0, 0, layers),
+            "step_K2a+K2b": (layers, layers, layers, 0),
+            "step_plain": (0, 0, 0, 0),
+            "step_K3_remat": (2 * layers, 0, 0, layers),
+            "adamw_K3": (3 * layers, 0, 0, 3 * layers),
+            "adamw_K2a+K2b": (3 * layers, 3 * layers, 3 * layers, 0)}
+    got = {k: tuple(v[n] for n in ("K1", "K2a", "K2b", "K3"))
+           for k, v in launches.items()}
+    if got != want:
+        raise AssertionError(f"launches per run {got}, expected {want}")
+    out = {"phase": "train_f32", "model": "transformer_tpu",
+           "batch": batch, "seq": spec.seq_len, "losses": losses,
+           "grad_err_over_tol": {k: v[0] for k, v in worst.items()},
+           "grad_worst_param": {k: v[1] for k, v in worst.items()},
+           "adamw_loss_rel_gap": rel, "launches": launches}
+    emit(out)
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+FLOPS_PER_TOKEN = ("6 * (L * (4 d^2 + 2 d d_ff) + d V) + 6 L S d: the "
+                   "weight matmuls forward and backward, plus causal "
+                   "attention's QK^T and PV (S/2 keys a query on average)")
+
+
+def train_bf16(torch, seed: int):
+    """The main path of the training slice: ``cli/lm_main.main`` trains
+    transformer_tpu in bf16, batch 8 x 2048, 30 steps, with the counters
+    zeroed just before and read just after.  Every logged loss finite,
+    the last below the first (the synthetic stream repeats one batch);
+    12 K1 and 12 K3 launches a step."""
+    from dtf_tpu_torch.cli import lm_main
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    steps, log_steps = 30, 5
+    b, s, h, dh = TRAIN_SHAPE
+    argv = ["--use_synthetic_data", "--device", "cuda",
+            "--model", "transformer_tpu", "--dtype", "bf16",
+            "--batch_size", str(b), "--train_steps", str(steps),
+            "--log_steps", str(log_steps), "--seed", str(seed)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, pa)
+    t0 = time.perf_counter()
+    stats = lm_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, pa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in stats["train_loss_log"]]
+    if not (len(losses) == steps // log_steps
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {stats['train_loss_log']}")
+    layers = 12
+    want = {"K1": layers * steps, "K2a": 0, "K2b": 0,
+            "K3": layers * steps, "K4": 0}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    step_p50 = statistics.median(stats["window_step_s"])
+    d, d_ff, vocab = h * dh, 3072, 32768
+    flops_per_token = (6 * (layers * (4 * d * d + 2 * d * d_ff) + d * vocab)
+                       + 6 * layers * s * d)
+    tokens_per_s = b * s / step_p50
+    out = {"phase": "train", "model": "transformer_tpu", "dtype": "bf16",
+           "batch": b, "seq": s, "steps": steps, "log_steps": log_steps,
+           "losses": stats["train_loss_log"],
+           "step_s_p50": step_p50, "window_step_s": stats["window_step_s"],
+           "tokens_per_s": tokens_per_s,
+           "avg_tokens_per_s": stats["avg_exp_per_second"] * s,
+           "peak_memory_bytes": peak,
+           "flops_per_token": flops_per_token,
+           "flops_per_token_formula": FLOPS_PER_TOKEN,
+           "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+           "wall_s": wall, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(torch, seed: int):
+    """Where one bf16 training step's device time goes: two steps of a
+    fresh ``transformer_tpu`` trainer (after the counted run) under
+    torch.profiler, kernel time summed by kind, and the device's idle
+    share of the steps' wall time.  "not measured" where the profiler
+    sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtf_tpu_torch.cli.lm_main import LM_DEFAULTS
+    from dtf_tpu_torch.cli.runner import build_training
+    from dtf_tpu_torch.config import parse_flags
+
+    b = TRAIN_SHAPE[0]
+    cfg = parse_flags(["--use_synthetic_data", "--device", "cuda",
+                       "--model", "transformer_tpu", "--batch_size", str(b),
+                       "--train_steps", "4", "--seed", str(seed)],
+                      defaults=LM_DEFAULTS)
+    trainer, state, train_fn, _ = build_training(cfg)
+    x, y = (torch.from_numpy(a).cuda() for a in next(train_fn()))
+    state, m = trainer.train_step(state, x, y)
+    float(m["loss"])
+    try:
+        steps = 2
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, m = trainer.train_step(state, x, y)
+            float(m["loss"])
+            wall = time.perf_counter() - t0
+        kinds = (("K1 flash_fwd", "flash_fwd_kernel"),
+                 ("K3 pass 1", "kv_block_kernel"),
+                 ("K3 pass 2 (dq reduce)", "dq_reduce_kernel"),
+                 ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
+                 ("cross-entropy / softmax", ("softmax", "nll", "cross")),
+                 ("layer norm", "layer_norm"),
+                 ("reductions", "reduce"),
+                 ("elementwise (incl. AdamW, casts)", ("elementwise",
+                                                       "vectorized")))
+        by_kind, by_name, busy = {}, {}, 0.0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = ev.time_range.elapsed_us()
+            busy += us
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3 / steps
+            name = ev.name.lower()
+            kind = "other (copies, ...)"
+            for label, tags in kinds:
+                tags = (tags,) if isinstance(tags, str) else tags
+                if any(t.lower() in name for t in tags):
+                    kind = label
+                    break
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+        if not busy:
+            out = {"phase": "train_profile", "breakdown": "not measured"}
+        else:
+            out = {"phase": "train_profile", "steps": steps,
+                   "wall_ms_per_step": wall * 1e3 / steps,
+                   "device_busy_ms_per_step": busy / 1e3 / steps,
+                   "device_idle_share": max(0.0, 1 - busy / 1e6 / wall),
+                   "device_ms_per_step_by_kind": dict(sorted(
+                       by_kind.items(), key=lambda kv: -kv[1])),
+                   "top_kernels_ms_per_step": [
+                       [n[:90], ms] for n, ms in sorted(
+                           by_name.items(), key=lambda kv: -kv[1])[:10]]}
+    except Exception as e:  # noqa: BLE001 -- a report, never a failure
+        out = {"phase": "train_profile",
+               "breakdown": f"not measured ({type(e).__name__}: {e})"}
+    emit(out)
+    del trainer, state, x, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -421,44 +902,67 @@ def main(argv=None) -> int:
           "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": time.perf_counter() - t0,
-          "build_s_per_kernel": _build.build_seconds,
-          "ptxas": {n: _build.ptxas_report(n) for n in _build.SIGNATURES}})
+          "build_s_per_source": _build.build_seconds,
+          "ptxas": {n: _build.ptxas_report(n) for n in _build.SOURCES}})
 
     # phase 2: each kernel against its plain version
     gen = torch.Generator().manual_seed(args.seed)
     timer = Timer(torch)
     k1 = check_flash(torch, timer, gen)
+    _, bwd = check_backward(torch, timer, gen)
     k4 = check_paged(torch, timer, gen)
 
     # phases 3 and 4: the serving path
     per_call = check_serving_f32(torch, args.seed)
-    launches = serve_bf16(torch, args.seed, per_call)
+    serve_launches = serve_bf16(torch, args.seed, per_call)
 
-    def entry(name, source, replaces, cases, main_case):
+    # phases 5 and 6: the training path
+    train32 = check_training_f32(torch, args.seed)
+    train = train_bf16(torch, args.seed)
+    profile_train_step(torch, args.seed)
+
+    keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def entry(name, source, replaces, main_case, launches, run, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                # counted in phase 3, one model call of each kind
-                "launches_per_call": {c: n[name]
-                                      for c, n in per_call.items()},
+                "replaces": replaces, "launches": launches,
+                "launches_run": run,
                 "main_path_case": {k: main_case[k] for k in main_case
                                    if k in ("shape", "causal", "case",
                                             "dtype")},
-                **{k: main_case[k] for k in
-                   ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")},
-                "cases": cases}
+                **{k: main_case[k] for k in keys}, **extra}
 
-    # the cases the bf16 serving run launches most: a 64-token first
-    # chunk (K1) and a decode step over 8 rows (K4)
+    # the cases the runs launch most: K1 at the training shape (and a
+    # 64-token first chunk when serving), K4 at a decode step over 8 rows
     k1_main = next(c for c in k1 if c["dtype"] == "bfloat16"
-                   and c["shape"][1] == 64 and c["causal"])
+                   and c["shape"] == list(TRAIN_SHAPE) and c["causal"])
     k4_main = next(c for c in k4 if c["dtype"] == "bfloat16"
                    and c["case"] == "decode")
+    split = train32["launches"]["adamw_K2a+K2b"]
     emit({"kernels": [
         entry("K1", "dtf_tpu_torch/csrc/flash_fwd.cu",
-              "dtf_tpu/ops/flash_attention.py:98", k1, k1_main),
+              "dtf_tpu/ops/flash_attention.py:98", k1_main,
+              train["launches"]["K1"], "train (phase 6)",
+              launches_serve=serve_launches["K1"],
+              launches_per_serve_call={c: n["K1"]
+                                       for c, n in per_call.items()}),
+        entry("K2a", "dtf_tpu_torch/csrc/flash_bwd.cu",
+              "dtf_tpu/ops/flash_attention.py:258", bwd["K2a"],
+              split["K2a"], "train f32 bound to fused_bwd=False (phase 5)"),
+        entry("K2b", "dtf_tpu_torch/csrc/flash_bwd.cu",
+              "dtf_tpu/ops/flash_attention.py:317", bwd["K2b"],
+              split["K2b"], "train f32 bound to fused_bwd=False (phase 5)"),
+        entry("K3", "dtf_tpu_torch/csrc/flash_bwd_fused.cu",
+              "dtf_tpu/ops/flash_attention.py:367", bwd["K3"],
+              train["launches"]["K3"], "train (phase 6)",
+              partial_bytes=bwd["K3"]["partial_bytes"],
+              passes_ms=bwd["K3"]["passes_ms"]),
         entry("K4", "dtf_tpu_torch/csrc/paged_decode.cu",
-              "dtf_tpu/ops/paged_attention.py:170", k4, k4_main)]})
+              "dtf_tpu/ops/paged_attention.py:170", k4_main,
+              serve_launches["K4"], "serve (phase 4)",
+              launches_per_serve_call={c: n["K4"]
+                                       for c, n in per_call.items()})]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

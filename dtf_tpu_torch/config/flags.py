@@ -1,15 +1,20 @@
-"""Typed configuration + CLI flags for the port's serving path.
+"""Typed configuration + CLI flags for the port's entry points.
 
 The PyTorch counterpart of ``dtf_tpu/config/flags.py``, cut to the
-fields the serving entry (``cli/serve_main.py``) reads: the model and
-its dtype, the seed, the device, the ``serve_*`` and ``kv_*`` knobs and
-the benchmark log.  Parsing is the same absl style: ``--name value``,
-``--name=value`` or ``-name value``.
+fields the ported paths read: the model and its dtype, the seed, the
+device, the training fields of ``cli/lm_main.py`` (dataset, batch,
+steps, optimizer, loss scaling, accumulation, clipping, logging, remat),
+the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py`` and the
+benchmark log.  Names and defaults are the JAX package's.  Parsing is
+the same absl style: ``--name value``, ``--name=value``, ``-name value``
+and bare boolean flags (``--use_synthetic_data``).
 
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (``--serve_tp``, ``--serve_prefix_sharing``) are unknown flags here.
+yet (checkpoints, meshes and model parallelism, the profiler, chaos,
+...) raise with a message that says so; any other unknown flag raises
+too.
 """
 
 from __future__ import annotations
@@ -24,9 +29,25 @@ DTYPES = {"fp32": torch.float32, "float32": torch.float32,
           "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
+# flags of the JAX package whose features the port does not have yet
+NOT_PORTED = {
+    "model_dir": "checkpointing", "resume": "checkpointing",
+    "checkpoint_steps": "checkpointing", "export_dir": "checkpointing",
+    "distribution_strategy": "data parallelism (the mesh)",
+    "num_devices": "data parallelism (the mesh)",
+    "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
+    "model_parallelism": "tensor/pipeline/expert parallelism",
+    "seq_parallelism": "ring attention",
+    "remat_policy": "selective remat (use --remat)",
+    "profile_steps": "the profiler", "trace_dir": "tracing",
+    "fault": "chaos injection", "preemption_poll_s": "preemption",
+    "plan": "the planner", "use_trivial_model": "the trivial model",
+}
+
+
 @dataclasses.dataclass
 class Config:
-    """Every knob of a serving run."""
+    """Every knob of a run."""
 
     model: str = "transformer_small"
     num_classes: Optional[int] = None   # vocabulary; None = the model's
@@ -35,6 +56,25 @@ class Config:
     device: str = "cuda"                # cuda | cpu; never a silent fallback
     benchmark_log_dir: str = ""         # writes metric.log when set
     benchmark_test_id: str = ""
+
+    # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
+    dataset: str = ""                   # lm | cifar10 | imagenet
+    data_dir: str = ""                  # real pipelines not ported: raises
+    use_synthetic_data: bool = False    # one random batch, repeated
+    batch_size: int = 128               # global batch size
+    train_epochs: int = 182
+    train_steps: Optional[int] = None   # caps training to one epoch of N
+    epochs_between_evals: int = 1
+    seq_len: Optional[int] = None       # override the LM dataset's length
+    optimizer: str = "sgd"              # sgd | momentum | adamw
+    # a number (static scale) or "dynamic" (TF2 LossScaleOptimizer)
+    loss_scale: Optional[Any] = None
+    grad_accum_steps: int = 1           # sequential micro-batches per step
+    clip_grad_norm: Optional[float] = None  # global-norm clip threshold
+    log_steps: int = 100                # BenchmarkMetric cadence (and sync)
+    skip_eval: bool = False
+    report_accuracy_metrics: bool = True
+    remat: bool = False                 # recompute each block in backward
 
     # --- serving (cli/serve_main.py over dtf_tpu_torch/serve) ---
     serve_max_batch: int = 8            # decode slots = max concurrent sequences
@@ -79,18 +119,42 @@ class Config:
                 f"serve_prefill_chunk ({self.serve_prefill_chunk}) must be "
                 f"a multiple of kv_page_size ({self.kv_page_size})")
 
+        if self.optimizer not in ("sgd", "momentum", "adamw"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.batch_size < 1 or self.log_steps < 1:
+            raise ValueError("batch_size and log_steps must be >= 1")
+
     @property
     def compute_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
+    @property
+    def loss_scale_value(self):
+        """A float (static scale; 1.0 when unset -- bf16 and fp32 need
+        none) or the string "dynamic"."""
+        if self.loss_scale is not None:
+            if str(self.loss_scale).lower() == "dynamic":
+                return "dynamic"
+            return float(self.loss_scale)
+        return 1.0
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+_TRUE = ("true", "1", "yes", "t")
+_BOOL_WORDS = _TRUE + ("false", "0", "no", "f")
 
 
 def _coerce(field: dataclasses.Field, raw: str) -> Any:
     t = str(field.type)
     if raw.lower() in ("none", "null"):
         return None
+    if t == "bool":
+        return raw.lower() in _TRUE
     if "int" in t:
         return int(raw)
     if "float" in t:
@@ -98,11 +162,13 @@ def _coerce(field: dataclasses.Field, raw: str) -> Any:
     return raw
 
 
-def parse_flags(argv=None) -> Config:
+def parse_flags(argv=None, defaults: Optional[dict] = None) -> Config:
     """absl-style parsing into a :class:`Config`: ``--name value``,
-    ``--name=value`` or ``-name value``."""
+    ``--name=value``, ``-name value`` and bare boolean flags.
+    ``defaults`` are the entry point's own defaults (``LM_DEFAULTS``),
+    which flags override."""
     names = {f.name: f for f in dataclasses.fields(Config)}
-    kw = {}
+    kw = dict(defaults or {})
     argv = list(argv or [])
     i = 0
     while i < len(argv):
@@ -110,13 +176,21 @@ def parse_flags(argv=None) -> Config:
         if not tok.startswith("-"):
             raise ValueError(f"unexpected argument {tok!r}")
         name, eq, val = tok.lstrip("-").partition("=")
+        if name in NOT_PORTED:
+            raise ValueError(f"--{name}: {NOT_PORTED[name]} is not ported "
+                             f"to dtf_tpu_torch yet")
         if name not in names:
             raise ValueError(f"unknown flag --{name}")
         if not eq:
-            if i + 1 == len(argv):
+            nxt = argv[i + 1] if i + 1 < len(argv) else None
+            if str(names[name].type) == "bool" and (
+                    nxt is None or nxt.lower() not in _BOOL_WORDS):
+                val = "true"                 # a bare boolean flag
+            elif nxt is None:
                 raise ValueError(f"flag --{name} needs a value")
-            i += 1
-            val = argv[i]
+            else:
+                i += 1
+                val = nxt
         kw[name] = _coerce(names[name], val)
         i += 1
     return Config(**kw)

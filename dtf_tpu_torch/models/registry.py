@@ -1,6 +1,14 @@
-"""Model registry -- the transformer LM entries of
-``dtf_tpu/models/registry.py``, with the same names, widths and default
-vocabulary.  The ResNet, MoE and pipeline families are not ported yet.
+"""Model registry + the L2-as-loss-term rule -- the transformer LM
+entries of ``dtf_tpu/models/registry.py``, with the same names, widths,
+default vocabulary and L2 weights.  The ResNet, MoE and pipeline
+families are not ported yet.
+
+The reference applies L2 through Keras kernel_regularizers, which fold
+into the loss: every conv/dense kernel is penalized, plus the final
+classifier's bias (``fc``), never a normalization scale or bias.
+:func:`l2_weight_penalty` re-expresses that rule over torch parameter
+names: the ``weight`` of every Linear and Conv module (flax ``kernel``)
+and the ``bias`` of a module whose path has an ``fc`` component.
 """
 
 from __future__ import annotations
@@ -8,32 +16,67 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch import nn
 
 from dtf_tpu_torch.models import transformer
 
+# reference weight-decay constants
+L2_IMAGENET = 1e-4
+L2_CIFAR = 2e-4
+
 _REGISTRY = {
-    "transformer": (transformer.TransformerLM, 32_768),
+    # LM family (no L2: the reference's weight-decay rule is ResNet-only)
+    "transformer": (transformer.TransformerLM, 32_768, 0.0),
     "transformer_small": (
         functools.partial(transformer.TransformerLM, num_layers=4,
                           d_model=256, num_heads=4, d_ff=1024),
-        32_768),
+        32_768, 0.0),
     # GPT-2-small-sized flagship with 6 heads x d_head 128 (the same
     # parameter shapes and count as GPT-2's 12 x 64)
     "transformer_tpu": (
         functools.partial(transformer.TransformerLM, num_layers=12,
                           d_model=768, num_heads=6, d_ff=3072),
-        32_768),
+        32_768, 0.0),
 }
+
+_KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
 
 
 def build_model(name: str, num_classes: int | None = None,
                 dtype=torch.float32, **model_kw):
-    """Returns (module, l2_weight); the LM family has no L2 term, so
-    l2_weight is always 0.0.  The module's parameters are left as
-    constructed (see ``serve.bridge`` for the serving initialization)."""
+    """Returns (module, l2_weight).  Parameters are float32 and left as
+    constructed (``serve.bridge.random_init`` draws them for serving;
+    training draws them from the seed in ``cli/runner.py``)."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
-    ctor, default_classes = _REGISTRY[name]
+    ctor, default_classes, l2 = _REGISTRY[name]
     module = ctor(vocab_size=num_classes or default_classes, dtype=dtype,
                   **model_kw)
-    return module, 0.0
+    return module, l2
+
+
+def penalized_parameters(model: nn.Module):
+    """(name, parameter) pairs the L2 rule covers: each Linear/Conv
+    weight, and the bias of a module under an ``fc`` path component."""
+    out = []
+    for mod_name, mod in model.named_modules():
+        if not isinstance(mod, _KERNEL_MODULES):
+            continue
+        prefix = f"{mod_name}." if mod_name else ""
+        out.append((prefix + "weight", mod.weight))
+        if mod.bias is not None and "fc" in mod_name.split("."):
+            out.append((prefix + "bias", mod.bias))
+    return out
+
+
+def l2_weight_penalty(model: nn.Module, l2_weight: float) -> torch.Tensor:
+    """Keras-parity L2 term: ``l2 * sum(w^2)`` over the penalized
+    parameters (Keras ``regularizers.l2(l)`` has no 1/2 factor), in
+    float32 -- a 0-d tensor, zero when ``l2_weight`` is 0."""
+    dev = next(model.parameters()).device
+    if not l2_weight:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for _, p in penalized_parameters(model):
+        total = total + p.float().square().sum()
+    return l2_weight * total

@@ -1,0 +1,310 @@
+"""The single-device training and eval loop -- the PyTorch counterpart of
+``dtf_tpu/train/loop.py`` ``Trainer``, one GPU (or the CPU) and no mesh.
+
+``train_step`` is the JAX step's arithmetic in eager PyTorch:
+  - cross-entropy (the mean over positions, on float32 logits) plus the
+    model's L2 term;
+  - ``grad_accum_steps`` sequential micro-batches, their gradients
+    summed into the float32 ``.grad`` of the float32 parameters and
+    divided by the count;
+  - static loss scaling (``--loss_scale N``) or dynamic scaling with TF2
+    LossScaleOptimizer semantics: a step whose gradients are not all
+    finite is skipped (parameters and optimizer state kept) and the
+    scale halved (not below 1); the scale doubles after
+    ``DYNAMIC_GROWTH_INTERVAL`` finite steps in a row;
+  - global-norm clipping (``--clip_grad_norm``);
+  - the optimizer update at ``schedule(state.step)``; the metrics
+    ``loss``, ``learning_rate`` and ``accuracy`` (0-d device tensors,
+    read only at log cadence).
+``evaluate`` takes masked sums, so a padded last batch counts each real
+example once.  ``fit`` runs the reference's ``TimeHistory`` cadence: it
+reads the loss from the device at every log boundary -- a sync, so the
+logged time is the device's and not the enqueue's -- before the
+BenchmarkMetric line is written.
+
+Not ported yet: the mesh and data parallelism, ZeRO, TP/EP/PP, the MFU
+ledger, the profiler, watchdogs, chaos, preemption and checkpoints; the
+flags that ask for them raise (``config/flags.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Iterator, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dtf_tpu_torch.data.base import DatasetSpec
+from dtf_tpu_torch.models.registry import l2_weight_penalty
+from dtf_tpu_torch.train import schedules as sched_lib
+from dtf_tpu_torch.train.optimizer import apply_updates, build_optimizer
+from dtf_tpu_torch.utils.logs import TimeHistory, build_stats
+
+log = logging.getLogger("dtf_tpu_torch")
+
+# TF2 LossScaleOptimizer dynamic defaults (the JAX package's values)
+DYNAMIC_SCALE_INIT = 2.0 ** 15
+DYNAMIC_GROWTH_INTERVAL = 2000
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: List[torch.Tensor]     # the model's own parameters, in place
+    opt_state: Any
+    # dynamic loss scaling only: the live scale and the count of
+    # consecutive finite steps; None under static scaling
+    loss_scale: Optional[float] = None
+    good_steps: Optional[int] = None
+
+
+def per_example_cross_entropy(logits, labels):
+    """Un-reduced CE with integer labels -- one value per position."""
+    return F.cross_entropy(logits.flatten(0, -2), labels.flatten().long(),
+                           reduction="none").view(labels.shape)
+
+
+def cross_entropy(logits, labels):
+    """Mean CE with integer labels, in float32."""
+    return F.cross_entropy(logits.flatten(0, -2).float(),
+                           labels.flatten().long())
+
+
+class Trainer:
+    """Runs the training and eval steps of one model on one device."""
+
+    def __init__(self, cfg, model, l2_weight: float, spec: DatasetSpec,
+                 schedule: Optional[Callable] = None):
+        self.cfg = cfg
+        self.model = model
+        self.l2_weight = l2_weight
+        self.spec = spec
+        self.global_batch = cfg.batch_size
+        self.grad_accum = max(int(cfg.grad_accum_steps or 1), 1)
+        if self.global_batch % self.grad_accum:
+            raise ValueError(
+                f"batch {self.global_batch} must be divisible by "
+                f"grad_accum_steps ({self.grad_accum})")
+        self.steps_per_epoch = spec.num_train // self.global_batch
+        if self.steps_per_epoch == 0:
+            raise ValueError(
+                f"batch_size {self.global_batch} exceeds the training set "
+                f"({spec.num_train} examples): zero steps per epoch")
+        self.train_epochs = cfg.train_epochs
+        if cfg.train_steps:
+            # the reference mains: train_steps caps to 1 epoch of that length
+            self.steps_per_epoch = min(cfg.train_steps, self.steps_per_epoch)
+            self.train_epochs = 1
+        self.schedule = schedule or sched_lib.for_dataset(
+            spec.name, self.global_batch, max(self.steps_per_epoch, 1),
+            spec.num_train, train_epochs=self.train_epochs)
+        self.tx = build_optimizer(cfg.optimizer, self.schedule)
+        self.dynamic_scale = cfg.loss_scale_value == "dynamic"
+        self.loss_scale = (1.0 if self.dynamic_scale
+                           else float(cfg.loss_scale_value))
+        self.report_acc = cfg.report_accuracy_metrics
+        # (step, loss) at every log boundary, and the synced per-step
+        # time of every log window that covered steps only
+        self.loss_log: list = []
+        self.window_step_s: list = []
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def init_state(self) -> TrainState:
+        params = list(self.model.parameters())
+        return TrainState(
+            step=0, params=params, opt_state=self.tx.init(params),
+            loss_scale=DYNAMIC_SCALE_INIT if self.dynamic_scale else None,
+            good_steps=0 if self.dynamic_scale else None)
+
+    # ------------------------------------------------------------------
+    def _clip(self, grads):
+        clip = self.cfg.clip_grad_norm
+        if not clip:
+            return grads
+        norm = torch.stack([g.float().square().sum() for g in grads]
+                           ).sum().sqrt()
+        factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+        return [g * factor for g in grads]
+
+    def train_step(self, state: TrainState, images, labels):
+        """One optimizer step on the batch (images, labels) -- device
+        tensors; returns (new state, metrics)."""
+        model = self.model
+        model.train()
+        scale = state.loss_scale if self.dynamic_scale else self.loss_scale
+        for p in state.params:
+            p.grad = None
+        loss_sum = acc_sum = 0.0
+        for imgs, lbls in zip(images.chunk(self.grad_accum),
+                              labels.chunk(self.grad_accum)):
+            logits = model(imgs)
+            loss = (cross_entropy(logits, lbls)
+                    + l2_weight_penalty(model, self.l2_weight))
+            (loss * scale).backward()
+            loss_sum = loss_sum + loss.detach()
+            if self.report_acc:
+                acc_sum = acc_sum + (logits.detach().argmax(-1)
+                                     == lbls).float().mean()
+            del logits, loss
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad for p in state.params]
+        if self.grad_accum > 1:
+            grads = [g / self.grad_accum for g in grads]
+        if self.dynamic_scale or scale != 1.0:
+            grads = [g / scale for g in grads]
+        grads = self._clip(grads)
+        for p in state.params:
+            p.grad = None
+
+        new_scale, new_good = state.loss_scale, state.good_steps
+        finite = True
+        if self.dynamic_scale:
+            # one host sync per step: the verdict decides the update
+            finite = bool(torch.stack([torch.isfinite(g).all()
+                                       for g in grads]).all())
+            grew = state.good_steps + 1 >= DYNAMIC_GROWTH_INTERVAL
+            if finite:
+                new_scale = scale * 2.0 if grew else scale
+                new_good = 0 if grew else state.good_steps + 1
+            else:
+                new_scale, new_good = max(scale * 0.5, 1.0), 0
+        opt_state = state.opt_state
+        if finite:
+            updates, opt_state = self.tx.update(grads, state.opt_state,
+                                                state.params,
+                                                step=state.step)
+            apply_updates(state.params, updates)
+        metrics = {"loss": loss_sum / self.grad_accum,
+                   "learning_rate": float(self.schedule(state.step))}
+        if self.report_acc:
+            metrics["accuracy"] = acc_sum / self.grad_accum
+        if self.dynamic_scale:
+            metrics["loss_scale"] = new_scale
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=opt_state, loss_scale=new_scale,
+                          good_steps=new_good), metrics
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, state: TrainState, eval_iter: Iterator):
+        """Weighted-exact eval over batches (images, labels[, mask]); a
+        missing mask means every example is real.  Returns (mean loss,
+        top-1) over exactly the unmasked examples (top-1 None under
+        --report_accuracy_metrics false), or None for an empty
+        iterator.  Units: tokens for sequence data, examples else."""
+        del state
+        model = self.model
+        model.eval()
+        dev = self.device
+        loss_sum = correct = count = 0.0
+        for batch in eval_iter:
+            images, labels = (torch.as_tensor(np.asarray(x), device=dev)
+                              for x in batch[:2])
+            mask = (torch.as_tensor(np.asarray(batch[2]), device=dev,
+                                    dtype=torch.float32)
+                    if len(batch) > 2 else
+                    torch.ones(labels.shape[0], device=dev))
+            logits = model(images)
+            per = per_example_cross_entropy(logits, labels)
+            w = (mask[:, None] * torch.ones_like(per) if per.dim() == 2
+                 else mask)
+            loss_sum += float((per * w).sum())
+            if self.report_acc:
+                correct += float(((logits.argmax(-1) == labels).float()
+                                  * w).sum())
+            count += float(w.sum())
+        if count == 0:
+            return None
+        return (loss_sum / count,
+                correct / count if self.report_acc else None)
+
+    # ------------------------------------------------------------------
+    def fit(self, state: TrainState, train_iter: Iterator,
+            eval_iter_fn: Optional[Callable[[], Iterator]] = None,
+            callbacks: Optional[list] = None):
+        """Runs training; returns (state, stats) with the stats dict
+        key-compatible with the reference's build_stats, plus
+        ``train_loss_log`` [(step, loss)] and ``window_step_s``."""
+        cfg = self.cfg
+        time_cb = TimeHistory(self.global_batch, cfg.log_steps,
+                              initial_global_step=state.step)
+        callbacks = [time_cb] + list(callbacks or [])
+        acc_key = ("categorical_accuracy" if self.spec.one_hot
+                   else "sparse_categorical_accuracy")
+        history: dict = {"loss": [], acc_key: []}
+        # the first window covers the kernels' build and first launches,
+        # and a window after an epoch boundary its eval: skipped
+        window_skewed = True
+        window_t0 = time.monotonic()
+        for cb in callbacks:
+            _call(cb, "on_train_begin", None)
+        eval_output = None
+        metrics = None
+        global_step = state.step
+        t0 = time.time()
+        for epoch in range(self.train_epochs):
+            for cb in callbacks:
+                _call(cb, "on_epoch_begin", epoch, None)
+            for batch_idx in range(self.steps_per_epoch):
+                for cb in callbacks:
+                    _call(cb, "on_batch_begin", batch_idx, None)
+                images, labels = next(train_iter)
+                state, metrics = self.train_step(state, images, labels)
+                global_step += 1
+                if global_step % cfg.log_steps == 0:
+                    # the sync: the host waits for the step's loss
+                    loss_val = float(metrics["loss"])
+                    self.loss_log.append((global_step, loss_val))
+                    log.info("step %d: loss %.6f lr %.6g", global_step,
+                             loss_val, metrics["learning_rate"])
+                    now = time.monotonic()
+                    if not window_skewed:
+                        self.window_step_s.append(
+                            (now - window_t0) / cfg.log_steps)
+                    window_t0 = now
+                    window_skewed = False
+                for cb in callbacks:
+                    _call(cb, "on_batch_end", batch_idx,
+                          {"state": state, "step": global_step})
+            history["loss"].append(float(metrics["loss"]))
+            if "accuracy" in metrics:
+                history[acc_key].append(float(metrics["accuracy"]))
+            for cb in callbacks:
+                _call(cb, "on_epoch_end", epoch,
+                      {"state": state, "history": history})
+            log.info("epoch %d/%d: loss=%.4f top1=%s lr=%.5f", epoch + 1,
+                     self.train_epochs, history["loss"][-1],
+                     ("%.4f" % history[acc_key][-1])
+                     if "accuracy" in metrics else "n/a",
+                     metrics["learning_rate"])
+            if (not cfg.skip_eval and eval_iter_fn is not None
+                    and ((epoch + 1) % cfg.epochs_between_evals == 0
+                         or epoch + 1 == self.train_epochs)):
+                eval_output = self.evaluate(state, eval_iter_fn())
+                if eval_output:
+                    log.info("eval: loss=%.4f top1=%s", eval_output[0],
+                             ("%.4f" % eval_output[1])
+                             if eval_output[1] is not None else "n/a")
+            window_t0 = time.monotonic()
+            window_skewed = True
+        for cb in callbacks:
+            _call(cb, "on_train_end", {"state": state, "history": history})
+        log.info("train wall time: %.1fs (%d steps)", time.time() - t0,
+                 global_step)
+        stats = build_stats(history, eval_output, time_cb)
+        stats["train_loss_log"] = list(self.loss_log)
+        stats["window_step_s"] = list(self.window_step_s)
+        return state, stats
+
+
+def _call(cb, name, *args):
+    fn = getattr(cb, name, None)
+    if fn is not None:
+        fn(*args)

@@ -2,7 +2,8 @@
 
 Inputs come from a numpy seed and go through both packages.  JAX
 functions that reach a Pallas kernel run as the JAX package's own tests
-run them on the CPU: ``_pallas_forward(..., interpret=True)`` and
+run them on the CPU: ``_pallas_forward(..., interpret=True)``,
+``_pallas_backward(..., interpret=True)`` and
 ``paged_flash_decode(..., interpret=True)``.  On the CPU the port's
 wrappers run their kernels' plain versions, which is what is held to
 the kernels' JAX oracles here; the CUDA kernels themselves are held to
@@ -10,11 +11,14 @@ the plain versions on the card (``chip_smoke.py`` and the ``cuda``
 tests below).
 
 Tolerances: float32 at 1e-5 (the sums run in another order than XLA's),
-plus argmax equality; the page writes and gathers are exact.
+plus argmax equality; against the plain-JAX backward oracle
+``_blockwise_bwd`` 1e-4, its own tolerance in the JAX tests; the page
+writes and gathers are exact.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,6 +164,160 @@ def test_flash_cross_attention_shapes_match_jax_reference():
     _close(port, jbw.mha_reference(q, k, v))
 
 
+# ---------------------------------------------------------------------------
+# flash backward (K2a, K2b, K3's plain versions) vs the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def _merge(x):                        # [B, S, H, D] -> [B*H, S, D]
+    b, s, h, d = x.shape
+    return np.swapaxes(x, 1, 2).reshape(b * h, s, d)
+
+
+def _split(x, b, h):                  # [B*H, S, D] -> [B, S, H, D]
+    x = np.asarray(x)
+    return np.swapaxes(x.reshape(b, h, *x.shape[1:]), 1, 2)
+
+
+def _bwd_case(shape, causal, seed, dtype=np.float32):
+    """Inputs, the JAX forward's residuals (o, lse) and the port's
+    delta for one backward case; q/k/v/dO in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_rand(rng, *shape).astype(dtype) for _ in range(4))
+    b, s, h, d = shape
+    jo, jlse = jfa._pallas_forward(*(_merge(x) for x in (q, k, v)),
+                                   d ** -0.5, causal, 8, 8, True)
+    o = _split(jo, b, h)
+    lse = np.asarray(jlse)
+    delta = (do.astype(np.float32) * o.astype(np.float32)).sum(-1)
+    delta = np.swapaxes(delta, 1, 2).reshape(b * h, s)
+    return q, k, v, do, o, lse, delta
+
+
+def _t(x):
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape,block", [((2, 16, 2, 32), 8),
+                                         ((1, 24, 3, 16), 16)])
+@pytest.mark.parametrize("fused", [True, False])
+def test_plain_backward_matches_pallas_interpret(shape, block, causal,
+                                                 fused):
+    """K3's plain version against ``_pallas_backward(fused=True)``, and
+    K2a's + K2b's against ``fused=False``, at the Pallas kernels' block 8
+    -- with the port's tiles of 16 ragged against S = 24."""
+    b, s, h, d = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, causal, s + int(fused))
+    scale = d ** -0.5
+    ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                               _merge(do), scale, causal, 8, 8, True,
+                               fused=fused)
+    args = [_t(x) for x in (q, k, v, do, lse, delta)]
+    if fused:
+        port = tfa.flash_bwd_fused_plain(*args, causal=causal, scale=scale,
+                                         block=block)
+    else:
+        port = (tfa.flash_bwd_dq_plain(*args, causal=causal, scale=scale,
+                                       block=block),
+                *tfa.flash_bwd_dkdv_plain(*args, causal=causal, scale=scale,
+                                          block=block))
+    for p, r in zip(port, ref):
+        assert p.dtype == torch.float32 and tuple(p.shape) == shape
+        _close(p, _split(r, b, h))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_blockwise_oracle(causal):
+    """The formulation the port runs by default at this shape (the auto
+    rule picks K3) against the plain-JAX oracle ``_blockwise_bwd``."""
+    shape = (2, 32, 2, 16)
+    b, s, h, d = shape
+    q, k, v, do, o, lse, _ = _bwd_case(shape, causal, 40)
+    scale = d ** -0.5
+    ref = jfa._blockwise_bwd(*(_merge(x) for x in (q, k, v, o)), lse,
+                             _merge(do), scale, causal, 8)
+    port = tfa.flash_backward(*(_t(x) for x in (q, k, v, o, lse, do)),
+                              causal=causal, scale=scale)
+    for p, r in zip(port, ref):
+        _close(p, _split(r, b, h), tol=1e-4)
+
+
+def test_plain_backward_bf16_matches_pallas_interpret():
+    """bf16 operands: dS rounded to q's dtype before both products, P to
+    dO's before the dv product, outputs in bf16 -- the Pallas kernels'
+    roundings.  Each output row (one position and head) within two bf16
+    steps at its own largest |ref| (the f32 sums run in another order, so
+    a rounding may land one step apart)."""
+    shape = (1, 16, 2, 32)
+    b, s, h, d = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, True, 41, jnp.bfloat16)
+    scale = d ** -0.5
+    for fused in (True, False):
+        ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                                   _merge(do), scale, True, 8, 8, True,
+                                   fused=fused)
+        port = tfa.flash_backward(*(_t(x) for x in (q, k, v, o, lse, do)),
+                                  causal=True, scale=scale, fused=fused)
+        for p, r in zip(port, ref):
+            assert p.dtype == torch.bfloat16
+            _assert_rows_close(p, torch.from_numpy(
+                np.asarray(_split(r, b, h), np.float32)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("fused_bwd", [None, True, False])
+def test_flash_attention_grad_matches_jax_grad(causal, fused_bwd):
+    """torch.autograd.grad through the port's autograd Function equals
+    jax.grad through the JAX flash attention run by the Pallas
+    interpreter, for a random linear loss."""
+    rng = np.random.default_rng(50)
+    shape = (2, 16, 2, 32)
+    q, k, v, w = (_rand(rng, *shape) for _ in range(4))
+
+    def jloss(q_, k_, v_):
+        o = jfa.flash_attention(q_, k_, v_, causal=causal,
+                                use_pallas="interpret", fused_bwd=fused_bwd)
+        return jnp.sum(o * w)
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, causal=causal, fused_bwd=fused_bwd)
+    _close(o.detach(), jfa.flash_attention(q, k, v, causal=causal,
+                                           use_pallas="interpret"))
+    port = torch.autograd.grad((o * torch.from_numpy(w)).sum(),
+                               (tq, tk, tv))
+    for p, r in zip(port, ref):
+        _close(p, r)
+
+
+def test_flash_attention_grad_takes_a_strided_output_gradient():
+    """The output gradient autograd hands the backward can be a strided
+    view; the Function makes it contiguous first."""
+    rng = np.random.default_rng(51)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 8, 2, 16)).requires_grad_()
+               for _ in range(3))
+    o = tfa.flash_attention(q, k, v, causal=True)
+    (o.transpose(1, 2) * torch.arange(8.0)[:, None]).sum().backward()
+    want = torch.autograd.grad(
+        (tfa.flash_attention(q, k, v, causal=True)
+         * torch.arange(8.0)[None, :, None, None]).sum(), q)[0]
+    _close(q.grad, want)
+
+
+def test_fused_backward_rule_is_the_jax_rule():
+    """K3 where Sq == Sk and the TPU kernel's [Sq, D] f32 scratch fits
+    2 MB; the split pair otherwise; an explicit choice wins."""
+    assert tfa.FUSED_DQ_SCRATCH_MAX == jfa._FUSED_DQ_SCRATCH_MAX
+    assert tfa.use_fused_backward(2048, 2048, 128)
+    assert tfa.use_fused_backward(4096, 4096, 128)
+    assert not tfa.use_fused_backward(8192, 8192, 128)
+    assert not tfa.use_fused_backward(2048, 1024, 128)
+    assert tfa.use_fused_backward(2048, 1024, 128, fused=True)
+    assert not tfa.use_fused_backward(64, 64, 64, fused=False)
+
+
 def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     """On the CPU a wrapper takes its plain version because the tensor
     lies on the CPU: it never builds, loads or counts a kernel."""
@@ -167,14 +325,23 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
         raise AssertionError(f"CPU call tried to load kernel {name}")
 
     monkeypatch.setattr(_build, "load", no_build)
-    before = (tfa.launches, tpa.launches)
+
+    def counts():
+        return (tfa.launches, tfa.launches_dq, tfa.launches_dkdv,
+                tfa.launches_fused, tpa.launches)
+
+    before = counts()
     x = torch.randn(1, 8, 2, 32)
     tfa.flash_forward(x, x, x, causal=True)
     pool = torch.randn(3, 4, 2, 32)
     tpa.paged_flash_decode(x[:, :1], pool, pool,
                            torch.tensor([[1, 2]], dtype=torch.int32),
                            torch.tensor([5], dtype=torch.int32))
-    assert (tfa.launches, tpa.launches) == before
+    for fused in (True, False):
+        y = x.clone().requires_grad_()
+        tfa.flash_attention(y, y, y, causal=True,
+                            fused_bwd=fused).sum().backward()
+    assert counts() == before
 
 
 def test_flash_kernel_argument_checks():
@@ -195,6 +362,12 @@ def test_flash_kernel_argument_checks():
                               torch.zeros(1, 8, 3, 64))
     with pytest.raises(ValueError, match="dtypes differ"):
         tfa.check_kernel_args(ok, ok.bfloat16(), ok)
+    # the backward's output gradient must match q
+    tfa.check_kernel_args(ok, ok, ok, ok)
+    with pytest.raises(ValueError, match="does not match"):
+        tfa.check_kernel_args(ok, ok, ok, torch.zeros(1, 7, 2, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.check_kernel_args(ok, ok, ok, t)
 
 
 def test_paged_kernel_argument_checks():
@@ -430,8 +603,90 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
         _assert_rows_close(o, ref)
 
 
+def _assert_grads_close(out, ref):
+    """float32: 1e-5 absolute, scaled by the output's largest |ref| where
+    that exceeds 1 (sums over up to S terms).  bfloat16: the per-row rule
+    of :func:`_assert_rows_close`."""
+    if out.dtype == torch.float32:
+        top = max(1.0, float(ref.abs().max()))
+        assert float((out - ref).abs().max()) <= 1e-5 * top
+    else:
+        _assert_rows_close(out, ref)
+
+
+def _card_bwd_inputs(device, dtype, b, s, h, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=gen).to(device, dtype)
+            for _ in range(4)]
+
+
 @pytest.mark.cuda
-def test_flash_kernel_refuses_grad_on_card(cuda_device):
-    x = torch.randn(1, 8, 2, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(x, x, x, causal=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(5, 64), (64, 128), (200, 64)])
+def test_backward_kernels_match_plain_on_card(cuda_device, dtype, s, d):
+    """K2a, K2b and K3 against their plain versions on the same inputs,
+    causal and full, ragged against the kernels' 32-row tiles; K3
+    against K2a + K2b; each launch counted once."""
+    q, k, v, do = _card_bwd_inputs(cuda_device, dtype, 2, s, 3, d, s + d)
+    scale = d ** -0.5
+    for causal in (True, False):
+        o, lse = tfa.flash_forward(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+            -1, s).contiguous()
+        args = (q, k, v, do, lse, delta)
+        n = (tfa.launches_dq, tfa.launches_dkdv, tfa.launches_fused)
+        dq = tfa.flash_bwd_dq(*args, causal=causal, scale=scale)
+        dk, dv = tfa.flash_bwd_dkdv(*args, causal=causal, scale=scale)
+        fq, fk, fv = tfa.flash_bwd_fused(*args, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        assert (tfa.launches_dq, tfa.launches_dkdv,
+                tfa.launches_fused) == (n[0] + 1, n[1] + 1, n[2] + 1)
+        plain = tfa.flash_bwd_fused_plain(*args, causal=causal, scale=scale)
+        for out, ref in zip((dq, dk, dv, fq, fk, fv), plain + plain):
+            assert out.dtype == dtype
+            _assert_grads_close(out, ref)
+        if dtype == torch.float32:
+            for a, b_ in ((fq, dq), (fk, dk), (fv, dv)):
+                _assert_grads_close(a, b_)
+
+
+@pytest.mark.cuda
+def test_fused_backward_kernel_is_deterministic_on_card(cuda_device):
+    """K3 sums its dq partial slots in a fixed order: two runs give the
+    same bits."""
+    q, k, v, do = _card_bwd_inputs(cuda_device, torch.bfloat16, 2, 256, 4,
+                                   128, 7)
+    o, lse = tfa.flash_forward(q, k, v, causal=True)
+    first = tfa.flash_backward(q, k, v, o, lse, do, causal=True,
+                               scale=128 ** -0.5, fused=True)
+    again = tfa.flash_backward(q, k, v, o, lse, do, causal=True,
+                               scale=128 ** -0.5, fused=True)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_bwd", [True, False])
+def test_flash_attention_grad_runs_kernels_on_card(cuda_device, fused_bwd):
+    """On CUDA tensors that require grad the autograd Function runs K1
+    forward and K3 (or K2a + K2b) backward, and its gradient equals the
+    plain versions'."""
+    q, k, v, w = _card_bwd_inputs(cuda_device, torch.float32, 1, 96, 2, 64,
+                                  3)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    n = (tfa.launches, tfa.launches_fused, tfa.launches_dq)
+    o = tfa.flash_attention(q, k, v, causal=True, fused_bwd=fused_bwd)
+    grads = torch.autograd.grad((o * w).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert tfa.launches == n[0] + 1
+    assert tfa.launches_fused == n[1] + int(fused_bwd)
+    assert tfa.launches_dq == n[2] + int(not fused_bwd)
+    with torch.no_grad():
+        po, plse = tfa.flash_forward_plain(q, k, v, causal=True,
+                                           scale=64 ** -0.5)
+        want = tfa.flash_backward(q.cpu(), k.cpu(), v.cpu(), po.cpu(),
+                                  plse.cpu(), w.cpu(), causal=True,
+                                  scale=64 ** -0.5)
+    for g, r in zip(grads, want):
+        _assert_grads_close(g.cpu(), r)

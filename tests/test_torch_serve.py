@@ -379,6 +379,7 @@ def test_port_imports_nothing_of_jax_ast():
 
 def test_port_import_loads_no_jax_module():
     code = ("import dtf_tpu_torch.cli.serve_main, sys; "
+            "import dtf_tpu_torch.cli.lm_main; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")
