@@ -16,14 +16,17 @@ Phases, each printing one JSON object per line (the card's
                  tolerance, then kernel, plain and library times (CUDA
                  events, warmed up, median of five, inputs rotated
                  through enough copies to defeat the 50 MB L2) and the
-                 least time the card could take.  K1 at serving and
-                 training shapes; the backward K2a, K2b and K3 at
-                 [2, 200, 6, 128], [1, 2048, 6, 128] and [2, 256, 8, 64],
-                 causal and full, f32 and bf16, K3 against K2a + K2b and
-                 K3 run twice bit for bit, then timed at the training
-                 shape [8, 2048, 6, 128] beside the backward of
-                 F.scaled_dot_product_attention; K4 at decode and chunk
-                 shapes.
+                 least time the card could take.  K1 and K3 have two
+                 routes, reported as separate cases: float32 on CUDA
+                 cores, bfloat16 on tensor cores (wgmma).  K1 at serving,
+                 ragged, D 64 and training shapes; the backward K2a, K2b
+                 and K3 at [2, 200, 6, 128], [1, 2048, 6, 128] and
+                 [2, 256, 8, 64], causal and full, f32 and bf16, K3
+                 against K2a + K2b and K3 run twice bit for bit, then
+                 timed at the training shape [8, 2048, 6, 128] beside the
+                 backward of F.scaled_dot_product_attention (K3 in both
+                 dtypes, with the device time of its two passes from
+                 torch.profiler); K4 at decode and chunk shapes.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -44,19 +47,26 @@ Phases, each printing one JSON object per line (the card's
                  launches per step counted for each binding and for
                  remat; three AdamW steps with K3 and with K2a/K2b give
                  the same losses (1e-5 relative).
+     train_bf16_parity -- the same model and batch in bf16 compute:
+                 gradients through K1 + K3 (tensor cores) within 1e-2 of
+                 each parameter's largest |value| of those through the
+                 plain versions; three AdamW steps' losses within 5e-3
+                 relative.
   6. train    -- ``cli.lm_main.main`` in bf16, batch 8 x 2048, 30 steps,
                  the counters zeroed just before and read just after:
                  finite falling losses, tokens/s, synced step-time p50,
                  peak memory, MFU against 989 TFLOP/s, 12 K1 and 12 K3
                  launches a step.  Then two more steps of a fresh
                  trainer under torch.profiler: device time by kernel
-                 kind and the device's idle share.
+                 kind and the device's idle share (a profiler that sees
+                 no device time for K1 or K3 fails the run).
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
-case is on its own phase-2 line) and its launches from the run of its
-path (K1 and K3 training, K2a/K2b the split-bound training steps of
-phase 5, K4 serving) -- and, last, the device line.  Any
-failure raises: the script exits non-zero and prints no result.
+case is on its own phase-2 line), its design and its launches from the
+run of its path (K1 and K3 training, their f32 routes and K2a/K2b the
+f32 training steps of phase 5, K4 serving) -- and, last, the device
+line.  Any failure raises: the script exits non-zero and prints no
+result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
 """
@@ -140,13 +150,14 @@ def rotated(tensors, nbytes: int):
                                for _ in range(n - 1)]
 
 
-def compare(torch, out, ref):
+def compare(torch, out, ref, floor: float = 0.0):
     """Kernel output against its plain version, row by row (a row is one
     query and head: the last dim).  float32: 1e-5.  bfloat16: o is
     rounded to 8 significant bits, and the kernel and the plain version
     add their f32 terms in different orders, so a value may round one
-    bf16 step apart: each row within two bf16 steps at its own largest
-    |ref|, 2^(e - 6) for that maximum in [2^e, 2^(e+1)).
+    bf16 step apart: each row within two bf16 steps at the larger of its
+    own largest |ref| and ``floor``, 2^(e - 6) for that maximum in
+    [2^e, 2^(e+1)).
 
     Returns (max abs error, the tolerance of the row nearest its limit,
     that row's error over its tolerance)."""
@@ -155,7 +166,7 @@ def compare(torch, out, ref):
     if out.dtype == torch.float32:
         tol = torch.full_like(err, 1e-5)
     else:
-        top = ref.abs().amax(-1).clamp_min(2.0 ** -126)
+        top = ref.abs().amax(-1).clamp_min(max(floor, 2.0 ** -126))
         tol = torch.ldexp(torch.ones_like(top),
                           torch.frexp(top).exponent - 7)
     ratio = (err / tol).flatten()
@@ -171,10 +182,16 @@ def bound(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+# the two routes of K1 and K3 (csrc/flash_fwd.cu, csrc/flash_bwd_fused.cu)
+ROUTE = {"float32": "cuda-core f32", "bfloat16": "wgmma+cp.async"}
+
+
 def check_flash(torch, timer, gen):
     """K1 against its plain version: [1, 64, 6, 128] (a first prefill
-    chunk), [1, 2048, 6, 128] (a whole-context chunk) and the training
-    shape [8, 2048, 6, 128], causal and full, float32 and bfloat16."""
+    chunk), [2, 200, 6, 128] (ragged against any tile), [2, 256, 8, 64]
+    (D 64), [1, 2048, 6, 128] (a whole-context chunk) and the training
+    shape [8, 2048, 6, 128], causal and full, float32 (the CUDA-core
+    route) and bfloat16 (the tensor-core route)."""
     import torch.nn.functional as F
 
     from dtf_tpu_torch.ops import flash_attention as fa
@@ -182,7 +199,8 @@ def check_flash(torch, timer, gen):
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for shape in ((1, 64, 6, 128), (1, 2048, 6, 128), TRAIN_SHAPE):
+        for shape in ((1, 64, 6, 128), (2, 200, 6, 128), (2, 256, 8, 64),
+                      (1, 2048, 6, 128), TRAIN_SHAPE):
             b, s, h, d = shape
             for causal in (True, False):
                 q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype)
@@ -210,6 +228,7 @@ def check_flash(torch, timer, gen):
                       for c in copies]
                 cases.append({
                     "shape": list(shape), "causal": causal, "dtype": dname,
+                    "design": ROUTE[dname],
                     "max_abs_err": err, "tol": tol, "err_over_tol": ratio,
                     "lse_err": lse_err,
                     "lse_tol": lse_tol,
@@ -230,26 +249,34 @@ def grad_tolerance(torch, out, ref):
     """Backward kernel output against its plain version: float32 within
     1e-5 absolute, scaled by the output's largest |ref| where that
     exceeds 1 (dk and dv sum up to S terms); bfloat16 by the per-row rule
-    of :func:`compare`.  Returns (max abs error, tolerance of the worst
-    row, its error over its tolerance)."""
+    of :func:`compare` with a floor of 2^-8 of the output's largest
+    |ref|: a row whose exact value is zero -- causal dq's first row,
+    where dS = p (dp - delta) and dp = delta -- comes out as f32 rounding
+    noise whose size follows the order of the sums, and is held to the
+    tolerance of a row at that floor (2^-14 of the largest |ref|).
+    Returns (max abs error, tolerance of the worst row, its error over
+    its tolerance)."""
     if out.dtype == torch.float32:
         err = float((out.float() - ref.float()).abs().max())
         tol = 1e-5 * max(1.0, float(ref.float().abs().max()))
         return err, tol, err / tol
-    return compare(torch, out, ref)
-
+    return compare(torch, out, ref,
+                   floor=2.0 ** -8 * float(ref.float().abs().max()))
 
 
 def check_backward(torch, timer, gen):
     """K2a, K2b and K3 against their plain versions on the same inputs:
     [2, 200, 6, 128] (ragged against any tile), [1, 2048, 6, 128] and
-    [2, 256, 8, 64], causal and full, float32 and bfloat16; K3 against
-    K2a + K2b in float32; K3 twice gives the same bits.  Then each at
-    the training shape, causal bf16: kernel, plain and library times
-    and bounds, the library yardstick being the backward of
-    F.scaled_dot_product_attention (autograd.grad of its output)."""
+    [2, 256, 8, 64], causal and full, float32 (K3's CUDA-core route) and
+    bfloat16 (its tensor-core route); K3 against K2a + K2b in float32;
+    K3 twice gives the same bits in both.  Then each at the training
+    shape, causal bf16, and K3's f32 route there too: kernel, plain and
+    library times and bounds, the library yardstick being the backward
+    of F.scaled_dot_product_attention (autograd.grad of its output), and
+    the device time of K3's two passes."""
     import torch.nn.functional as F
 
+    from dtf_tpu_torch.ops import _build
     from dtf_tpu_torch.ops import flash_attention as fa
 
     def inputs(shape, dtype, causal):
@@ -276,7 +303,7 @@ def check_backward(torch, timer, gen):
                 plain = fa.flash_bwd_fused_plain(*args, **kw)
                 torch.cuda.synchronize()
                 row = {"shape": list(shape), "causal": causal,
-                       "dtype": dname}
+                       "dtype": dname, "K3_design": ROUTE[dname]}
                 for kname, outs in (("K2a", (dq,)), ("K2b", (dk, dv)),
                                     ("K3", fused)):
                     refs = plain[:1] if kname == "K2a" else (
@@ -306,91 +333,107 @@ def check_backward(torch, timer, gen):
                 del q, k, v, do, o, lse, delta, args, dq, dk, dv, fused, \
                     again, plain
 
-    # times at the training shape, causal, bf16
+    # times at the training shape, causal: the three kernels in bf16,
+    # and K3's f32 route
     b, s, h, d = TRAIN_SHAPE
-    q, k, v, do, o, lse, delta = inputs(TRAIN_SHAPE, torch.bfloat16, True)
-    args = (q, k, v, do, lse, delta)
     kw = dict(causal=True, scale=d ** -0.5)
-    elem = q.element_size()
-    copies = rotated(args, 4 * q.numel() * elem)
     pairs = b * h * s * (s + 1) / 2
     rows = b * h * s * 8                 # lse and delta, f32
-    qkvo = q.numel() * elem
-    # tile products per (query, key) pair: S and dP, then dq (K2a), dk
-    # and dv (K2b), all three (K3); 2 D operations each
-    work = {"K2a": (3, 4 * qkvo + rows + qkvo),
-            "K2b": (4, 4 * qkvo + rows + 2 * qkvo),
-            "K3": (5, 4 * qkvo + rows + 3 * qkvo)}
     kernel = {"K2a": fa.flash_bwd_dq, "K2b": fa.flash_bwd_dkdv,
               "K3": fa.flash_bwd_fused}
     plain = {"K2a": fa.flash_bwd_dq_plain, "K2b": fa.flash_bwd_dkdv_plain,
              "K3": fa.flash_bwd_fused_plain}
-    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
-                       for t in (q, k, v, do))
-    ref_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    library_ms = timer.ms(
-        lambda: torch.autograd.grad(ref_o, (qt, kt, vt), dot,
-                                    retain_graph=True), [()])
-    outs = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
-            "K2b": fa.flash_bwd_dkdv(*args, **kw),
-            "K3": fa.flash_bwd_fused(*args, **kw)}
-    ref = fa.flash_bwd_fused_plain(*args, **kw)
-    refs = {"K2a": ref[:1], "K2b": ref[1:], "K3": ref}
-    torch.cuda.synchronize()
+    # the profiler's names of K3's two passes on each route
+    passes = {"bfloat16": ("bwd_fused_tc_kernel", "dq_reduce_tc_kernel"),
+              "float32": ("kv_block_kernel", "dq_reduce_kernel")}
     timings = {}
-    for name in ("K2a", "K2b", "K3"):
-        res = [grad_tolerance(torch, o_, r_)
-               for o_, r_ in zip(outs[name], refs[name])]
-        worst = max(res, key=lambda x: x[2])
-        if not worst[2] <= 1.0:
-            raise AssertionError(f"{name} at the training shape: {res}")
-        timings[name] = {"max_abs_err": max(x[0] for x in res),
-                         "tol": worst[1], "err_over_tol": worst[2]}
-    del outs, ref, refs
-    for name in ("K2a", "K2b", "K3"):
-        products, nbytes = work[name]
-        bound_ms, bound_by = bound(2 * d * products * pairs, nbytes,
-                                   "bfloat16")
-        timings[name].update({
-            "shape": list(TRAIN_SHAPE), "causal": True, "dtype": "bfloat16",
-            "ms": timer.ms(lambda *a, f=kernel[name]: f(*a, **kw), copies),
-            "plain_ms": timer.ms(lambda *a, f=plain[name]: f(*a, **kw),
-                                 copies[:1]),
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by})
-        emit({"phase": "backward_time", "kernel": name, **timings[name]})
-    timings["K3"]["partial_bytes"] = fa.fused_partial_bytes(q, k)
-    timings["K3"]["passes_ms"] = profile_passes(torch, fa, args, kw)
-    emit({"phase": "backward_time", "kernel": "K3",
-          "partial_bytes": timings["K3"]["partial_bytes"],
-          "passes_ms": timings["K3"]["passes_ms"]})
-    del q, k, v, do, o, lse, delta, args, copies, qt, kt, vt, dot, ref_o
-    torch.cuda.empty_cache()
+    for dtype, names in ((torch.bfloat16, ("K2a", "K2b", "K3")),
+                         (torch.float32, ("K3",))):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do, o, lse, delta = inputs(TRAIN_SHAPE, dtype, True)
+        args = (q, k, v, do, lse, delta)
+        elem = q.element_size()
+        copies = rotated(args, 4 * q.numel() * elem)
+        qkvo = q.numel() * elem
+        # tile products per (query, key) pair: S and dP, then dq (K2a),
+        # dk and dv (K2b), all three (K3); 2 D operations each
+        work = {"K2a": (3, 4 * qkvo + rows + qkvo),
+                "K2b": (4, 4 * qkvo + rows + 2 * qkvo),
+                "K3": (5, 4 * qkvo + rows + 3 * qkvo)}
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                           for t in (q, k, v, do))
+        ref_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        library_ms = timer.ms(
+            lambda: torch.autograd.grad(ref_o, (qt, kt, vt), dot,
+                                        retain_graph=True), [()])
+        ref = fa.flash_bwd_fused_plain(*args, **kw)
+        refs = {"K2a": ref[:1], "K2b": ref[1:], "K3": ref}
+        for name in names:
+            key = name if dtype == torch.bfloat16 else f"{name} {dname}"
+            outs = kernel[name](*args, **kw)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.cuda.synchronize()
+            res = [grad_tolerance(torch, o_, r_)
+                   for o_, r_ in zip(outs, refs[name])]
+            del outs
+            worst = max(res, key=lambda x: x[2])
+            if not worst[2] <= 1.0:
+                raise AssertionError(f"{key} at the training shape: {res}")
+            products, nbytes = work[name]
+            bound_ms, bound_by = bound(2 * d * products * pairs, nbytes,
+                                       dname)
+            timings[key] = {
+                "max_abs_err": max(x[0] for x in res), "tol": worst[1],
+                "err_over_tol": worst[2], "shape": list(TRAIN_SHAPE),
+                "causal": True, "dtype": dname,
+                "design": ROUTE[dname] if name == "K3" else "cuda-core",
+                "ms": timer.ms(lambda *a, f=kernel[name]: f(*a, **kw),
+                               copies),
+                "plain_ms": timer.ms(lambda *a, f=plain[name]: f(*a, **kw),
+                                     copies[:1]),
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            if name == "K3":
+                timings[key]["partial_bytes"] = fa.fused_partial_bytes(q, k)
+                # the C side's count agrees with the wrapper's allocation
+                c_floats = _build.load("flash_bwd_fused_partial_floats")
+                for sk in (s, 200):
+                    want = fa.fused_partial_floats(b, h, s, sk, d, dtype)
+                    got = c_floats(b, h, s, sk, d, fa.KERNEL_DTYPES[dtype])
+                    if got != want:
+                        raise AssertionError(f"K3 {dname} partial floats: C "
+                                             f"{got}, wrapper {want}")
+                timings[key]["passes_ms"] = profile_passes(
+                    torch, fa, args, kw, passes[dname])
+            emit({"phase": "backward_time", "kernel": key, **timings[key]})
+        del q, k, v, do, o, lse, delta, args, copies, qt, kt, vt, dot, \
+            ref_o, ref, refs
+        torch.cuda.empty_cache()
     return checks, timings
 
 
-def profile_passes(torch, fa, args, kw):
+def profile_passes(torch, fa, args, kw, names):
     """Device time of K3's two passes (the key-block walk and the dq
-    reduce) from torch.profiler, or "not measured" where the profiler
-    sees no device time."""
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        fa.flash_bwd_fused(*args, **kw)
+    reduce, the kernels ``names``) from torch.profiler; raises where the
+    profiler sees no device time for either."""
+    from torch.profiler import ProfilerActivity, profile
+    fa.flash_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fa.flash_bwd_fused(*args, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fa.flash_bwd_fused(*args, **kw)
-            torch.cuda.synchronize()
-        out = {}
-        for ev in prof.key_averages():
-            for tag in ("kv_block_kernel", "dq_reduce_kernel"):
-                if tag in ev.key:
-                    dev_us = getattr(ev, "device_time_total",
-                                     getattr(ev, "cuda_time_total", 0.0))
-                    out[tag] = dev_us / 1e3 / 3
-        return out or "not measured"
-    except Exception as e:  # noqa: BLE001 -- a report, never a failure
-        return f"not measured ({type(e).__name__}: {e})"
+    out = {}
+    for ev in prof.key_averages():
+        for tag in names:
+            if tag in ev.key:
+                dev_us = getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+                out[tag] = out.get(tag, 0.0) + dev_us / 1e3 / 3
+    if not all(out.get(tag, 0.0) > 0 for tag in names):
+        raise RuntimeError(f"profiler saw no device time for K3's passes "
+                           f"{names}: {out}")
+    return out
 
 
 def check_paged(torch, timer, gen):
@@ -593,16 +636,20 @@ def reset_counts(fa, pa):
     fa.launches_fused = pa.launches = 0
 
 
-def make_plain_attention(torch, fa):
+def make_plain_attention(torch, fa, block_k: int = 64,
+                         block: int = 128):
     """flash attention through the kernels' plain versions, forward and
-    backward, on any device: phase 5's reference binding."""
+    backward, on any device: phase 5's reference binding.  ``block_k``
+    and ``block`` are the forward's key blocks and the backward's tiles:
+    another size is the same function with the f32 sums in another
+    order."""
 
     class PlainFlash(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, causal):
             scale = q.shape[-1] ** -0.5
             o, lse = fa.flash_forward_plain(q, k, v, causal=causal,
-                                            scale=scale)
+                                            scale=scale, block_k=block_k)
             ctx.save_for_backward(q, k, v, o, lse)
             ctx.causal, ctx.scale = causal, scale
             return o
@@ -616,7 +663,8 @@ def make_plain_attention(torch, fa):
                 1, 2).reshape(b * h, s).contiguous()
             return (*fa.flash_bwd_fused_plain(q, k, v, do, lse, delta,
                                               causal=ctx.causal,
-                                              scale=ctx.scale), None)
+                                              scale=ctx.scale, block=block),
+                    None)
 
     def plain_attention(q, k, v, *, causal=False, **_):
         return PlainFlash.apply(q, k, v, causal)
@@ -624,17 +672,16 @@ def make_plain_attention(torch, fa):
     return plain_attention
 
 
-def check_training_f32(torch, seed: int):
-    """transformer_tpu at full width and depth in float32, batch 2 x
-    2048, random weights from ``seed``: one step's gradients through
-    K1 + K3 (the default) against the same step with attention bound to
-    K1 + K2a/K2b and to the plain versions, each gradient within 1e-4 of
-    its own largest |value|; the launches of each binding and of remat;
-    then three AdamW steps with K3 and with K2a/K2b, per-step losses
-    within 1e-5 relative.  The counters are zeroed just before each run
-    and read just after."""
-    import functools
-
+def training_runs(torch, seed: int, dtype, bindings, adamw,
+                  remat: bool = False):
+    """transformer_tpu at full width and depth, compute in ``dtype``,
+    batch 2 x 2048, random weights from ``seed``.  For each attention
+    binding (name -> function), one step's loss and parameter gradients;
+    with ``remat`` one default-bound step under remat; for the bindings
+    named in ``adamw``, three AdamW steps' losses.  The kernels'
+    launches of each run are counted between a reset just before and a
+    read just after.  Returns (parameter names, grads, losses,
+    launches)."""
     from dtf_tpu_torch.config import Config
     from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
     from dtf_tpu_torch.models import transformer
@@ -650,13 +697,9 @@ def check_training_f32(torch, seed: int):
                       next(synthetic_input_fn(spec, True, batch, seed)))
 
     def fresh(**kw):
-        model, _ = build_model("transformer_tpu", dtype=torch.float32, **kw)
+        model, _ = build_model("transformer_tpu", dtype=dtype, **kw)
         return random_init(model, seed).cuda()
 
-    bindings = {"K3": fa.flash_attention,
-                "K2a+K2b": functools.partial(fa.flash_attention,
-                                             fused_bwd=False),
-                "plain": make_plain_attention(torch, fa)}
     default = transformer.flash_attention
     grads, losses, launches = {}, {}, {}
     try:
@@ -672,15 +715,16 @@ def check_training_f32(torch, seed: int):
             losses[f"step_{name}"] = float(loss.detach())
             del model, loss, params
         transformer.flash_attention = default
-        model = fresh(remat=True)
-        reset_counts(fa, pa)
-        cross_entropy(model(tokens), labels).backward()
-        torch.cuda.synchronize()
-        launches["step_K3_remat"] = kernel_counts(fa, pa)
-        del model
+        if remat:
+            model = fresh(remat=True)
+            reset_counts(fa, pa)
+            cross_entropy(model(tokens), labels).backward()
+            torch.cuda.synchronize()
+            launches["step_K3_remat"] = kernel_counts(fa, pa)
+            del model
         cfg = Config(device="cuda", dataset="lm", batch_size=batch,
                      train_steps=3, optimizer="adamw", seed=seed)
-        for name in ("K3", "K2a+K2b"):
+        for name in adamw:
             transformer.flash_attention = bindings[name]
             trainer = Trainer(cfg, fresh(), 0.0, spec)
             state = trainer.init_state()
@@ -694,15 +738,48 @@ def check_training_f32(torch, seed: int):
             del trainer, state
     finally:
         transformer.flash_attention = default
+    return names, grads, losses, launches
 
+
+def grad_gap(names, grads, ref: str, other: str, tol: float):
+    """The worst parameter gradient of binding ``other`` against
+    ``ref``'s, each held within ``tol`` of its own largest |value|:
+    (error over tolerance, parameter name)."""
+    ratios = []
+    for name, a, b in zip(names, grads[other], grads[ref]):
+        top = float(b.float().abs().max())
+        ratios.append((float((a.float() - b.float()).abs().max())
+                       / (tol * max(top, 1e-30)), name))
+    return max(ratios)
+
+
+def check_launches(launches, want) -> None:
+    got = {k: tuple(v[n] for n in ("K1", "K2a", "K2b", "K3"))
+           for k, v in launches.items()}
+    if got != want:
+        raise AssertionError(f"launches per run {got}, expected {want}")
+
+
+def check_training_f32(torch, seed: int):
+    """float32 (the CUDA-core routes of K1 and K3): one step's gradients
+    through K1 + K3 (the default) against the same step with attention
+    bound to K1 + K2a/K2b and to the plain versions, each gradient
+    within 1e-4 of its own largest |value|; the launches of each binding
+    and of remat; then three AdamW steps with K3 and with K2a/K2b,
+    per-step losses within 1e-5 relative."""
+    import functools
+
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    bindings = {"K3": fa.flash_attention,
+                "K2a+K2b": functools.partial(fa.flash_attention,
+                                             fused_bwd=False),
+                "plain": make_plain_attention(torch, fa)}
+    names, grads, losses, launches = training_runs(
+        torch, seed, torch.float32, bindings, ("K3", "K2a+K2b"), remat=True)
     worst = {}
     for other in ("K2a+K2b", "plain"):
-        ratios = []
-        for name, a, b in zip(names, grads[other], grads["K3"]):
-            top = float(b.abs().max())
-            ratios.append((float((a - b).abs().max())
-                           / (1e-4 * max(top, 1e-30)), name))
-        worst[other] = max(ratios)
+        worst[other] = grad_gap(names, grads, "K3", other, 1e-4)
         if not worst[other][0] <= 1.0:
             raise AssertionError(f"{other} gradient of {worst[other][1]} "
                                  f"differs from K3's by {worst[other][0]} "
@@ -713,20 +790,76 @@ def check_training_f32(torch, seed: int):
                                 for x in losses["adamw_K3"])):
         raise AssertionError(f"AdamW losses K3 vs K2a/K2b: {losses}")
     layers = 12
-    want = {"step_K3": (layers, 0, 0, layers),
-            "step_K2a+K2b": (layers, layers, layers, 0),
-            "step_plain": (0, 0, 0, 0),
-            "step_K3_remat": (2 * layers, 0, 0, layers),
-            "adamw_K3": (3 * layers, 0, 0, 3 * layers),
-            "adamw_K2a+K2b": (3 * layers, 3 * layers, 3 * layers, 0)}
-    got = {k: tuple(v[n] for n in ("K1", "K2a", "K2b", "K3"))
-           for k, v in launches.items()}
-    if got != want:
-        raise AssertionError(f"launches per run {got}, expected {want}")
+    check_launches(launches, {
+        "step_K3": (layers, 0, 0, layers),
+        "step_K2a+K2b": (layers, layers, layers, 0),
+        "step_plain": (0, 0, 0, 0),
+        "step_K3_remat": (2 * layers, 0, 0, layers),
+        "adamw_K3": (3 * layers, 0, 0, 3 * layers),
+        "adamw_K2a+K2b": (3 * layers, 3 * layers, 3 * layers, 0)})
     out = {"phase": "train_f32", "model": "transformer_tpu",
-           "batch": batch, "seq": spec.seq_len, "losses": losses,
+           "batch": 2, "seq": 2048, "losses": losses,
            "grad_err_over_tol": {k: v[0] for k, v in worst.items()},
            "grad_worst_param": {k: v[1] for k, v in worst.items()},
+           "adamw_loss_rel_gap": rel, "launches": launches}
+    emit(out)
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_training_bf16(torch, seed: int):
+    """bfloat16 compute (the tensor-core routes of K1 and K3): one
+    step's gradients through K1 + K3 against the same step with
+    attention bound to the plain versions, and three AdamW steps with
+    each binding, losses within 5e-3 relative -- the port's bf16
+    Trainer tolerance against the JAX package.  Each parameter's
+    gradient within 1e-2 of its own largest |value|, or within twice
+    the gap between two plain bindings that differ only in the order of
+    their f32 sums (forward key blocks 128 for 64, backward tiles 64
+    for 128): the step rounds to bf16 at every matmul and attention of
+    12 layers, and a gradient that few terms feed -- ``pos_embed``, a
+    sum over the batch's two rows -- carries that rounding noise at
+    about 1e-2 of its largest value whichever binding computes it."""
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    bindings = {"K3": fa.flash_attention,
+                "plain": make_plain_attention(torch, fa),
+                "plain_reordered": make_plain_attention(torch, fa,
+                                                        block_k=128,
+                                                        block=64)}
+    names, grads, losses, launches = training_runs(
+        torch, seed, torch.bfloat16, bindings, ("K3", "plain"))
+    gaps = []
+    for name, a, b, c in zip(names, grads["K3"], grads["plain"],
+                             grads["plain_reordered"]):
+        top = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        noise = float((c.float() - b.float()).abs().max())
+        gaps.append((err / max(1e-2 * top, 2 * noise, 1e-30), name,
+                     err / max(top, 1e-30), noise / max(top, 1e-30)))
+    worst = max(gaps)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["adamw_K3"],
+                                                  losses["adamw_plain"]))
+    if not (worst[0] <= 1.0 and rel <= 5e-3
+            and all(math.isfinite(x) for x in losses["adamw_K3"])):
+        raise AssertionError(f"bf16 K1 + K3 against plain: gradient of "
+                             f"{worst[1]} at {worst[0]} of its tolerance "
+                             f"(gap {worst[2]}, reordered plain {worst[3]} "
+                             f"of its largest value), AdamW losses {losses}")
+    layers = 12
+    check_launches(launches, {
+        "step_K3": (layers, 0, 0, layers), "step_plain": (0, 0, 0, 0),
+        "step_plain_reordered": (0, 0, 0, 0),
+        "adamw_K3": (3 * layers, 0, 0, 3 * layers),
+        "adamw_plain": (0, 0, 0, 0)})
+    out = {"phase": "train_bf16_parity", "model": "transformer_tpu",
+           "batch": 2, "seq": 2048, "losses": losses,
+           "grad_err_over_tol": worst[0], "grad_worst_param": worst[1],
+           # the five parameters nearest their tolerance: (name, gap and
+           # reordered plain's gap, each over the largest |value|)
+           "grad_worst_five": [[n, g, r] for _, n, g, r in
+                               sorted(gaps, reverse=True)[:5]],
            "adamw_loss_rel_gap": rel, "launches": launches}
     emit(out)
     del grads
@@ -800,8 +933,8 @@ def profile_train_step(torch, seed: int):
     """Where one bf16 training step's device time goes: two steps of a
     fresh ``transformer_tpu`` trainer (after the counted run) under
     torch.profiler, kernel time summed by kind, and the device's idle
-    share of the steps' wall time.  "not measured" where the profiler
-    sees no device time."""
+    share of the steps' wall time.  Raises where the profiler sees no
+    device time, or none for K1 and K3's two passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -818,54 +951,52 @@ def profile_train_step(torch, seed: int):
     x, y = (torch.from_numpy(a).cuda() for a in next(train_fn()))
     state, m = trainer.train_step(state, x, y)
     float(m["loss"])
-    try:
-        steps = 2
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                state, m = trainer.train_step(state, x, y)
-            float(m["loss"])
-            wall = time.perf_counter() - t0
-        kinds = (("K1 flash_fwd", "flash_fwd_kernel"),
-                 ("K3 pass 1", "kv_block_kernel"),
-                 ("K3 pass 2 (dq reduce)", "dq_reduce_kernel"),
-                 ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
-                 ("cross-entropy / softmax", ("softmax", "nll", "cross")),
-                 ("layer norm", "layer_norm"),
-                 ("reductions", "reduce"),
-                 ("elementwise (incl. AdamW, casts)", ("elementwise",
-                                                       "vectorized")))
-        by_kind, by_name, busy = {}, {}, 0.0
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            us = ev.time_range.elapsed_us()
-            busy += us
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3 / steps
-            name = ev.name.lower()
-            kind = "other (copies, ...)"
-            for label, tags in kinds:
-                tags = (tags,) if isinstance(tags, str) else tags
-                if any(t.lower() in name for t in tags):
-                    kind = label
-                    break
-            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
-        if not busy:
-            out = {"phase": "train_profile", "breakdown": "not measured"}
-        else:
-            out = {"phase": "train_profile", "steps": steps,
-                   "wall_ms_per_step": wall * 1e3 / steps,
-                   "device_busy_ms_per_step": busy / 1e3 / steps,
-                   "device_idle_share": max(0.0, 1 - busy / 1e6 / wall),
-                   "device_ms_per_step_by_kind": dict(sorted(
-                       by_kind.items(), key=lambda kv: -kv[1])),
-                   "top_kernels_ms_per_step": [
-                       [n[:90], ms] for n, ms in sorted(
-                           by_name.items(), key=lambda kv: -kv[1])[:10]]}
-    except Exception as e:  # noqa: BLE001 -- a report, never a failure
-        out = {"phase": "train_profile",
-               "breakdown": f"not measured ({type(e).__name__}: {e})"}
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = trainer.train_step(state, x, y)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    kinds = (("K1 (flash_fwd_tc_kernel)", "flash_fwd_tc_kernel"),
+             ("K3 pass 1 (bwd_fused_tc_kernel)", "bwd_fused_tc_kernel"),
+             ("K3 pass 2 (dq_reduce_tc_kernel)", "dq_reduce_tc_kernel"),
+             ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
+             ("cross-entropy / softmax", ("softmax", "nll", "cross")),
+             ("layer norm", "layer_norm"),
+             ("reductions", "reduce"),
+             ("elementwise (incl. AdamW, casts)", ("elementwise",
+                                                   "vectorized")))
+    by_kind, by_name, busy = {}, {}, 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        busy += us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3 / steps
+        name = ev.name.lower()
+        kind = "other (copies, ...)"
+        for label, tags in kinds:
+            tags = (tags,) if isinstance(tags, str) else tags
+            if any(t.lower() in name for t in tags):
+                kind = label
+                break
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+    missing = [label for label, _ in kinds[:3] if not by_kind.get(label)]
+    if not busy or missing:
+        raise RuntimeError(f"profiler saw no device time for "
+                           f"{missing or 'any kernel'}; kernels seen: "
+                           f"{sorted(by_name)[:20]}")
+    out = {"phase": "train_profile", "steps": steps,
+           "wall_ms_per_step": wall * 1e3 / steps,
+           "device_busy_ms_per_step": busy / 1e3 / steps,
+           "device_idle_share": max(0.0, 1 - busy / 1e6 / wall),
+           "device_ms_per_step_by_kind": dict(sorted(
+               by_kind.items(), key=lambda kv: -kv[1])),
+           "top_kernels_ms_per_step": [
+               [n[:90], ms] for n, ms in sorted(
+                   by_name.items(), key=lambda kv: -kv[1])[:10]]}
     emit(out)
     del trainer, state, x, y
     torch.cuda.empty_cache()
@@ -918,6 +1049,7 @@ def main(argv=None) -> int:
 
     # phases 5 and 6: the training path
     train32 = check_training_f32(torch, args.seed)
+    check_training_bf16(torch, args.seed)
     train = train_bf16(torch, args.seed)
     profile_train_step(torch, args.seed)
 
@@ -926,38 +1058,52 @@ def main(argv=None) -> int:
 
     def entry(name, source, replaces, main_case, launches, run, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "launches_run": run,
+                "replaces": replaces, "design": main_case["design"],
+                "launches": launches, "launches_run": run,
                 "main_path_case": {k: main_case[k] for k in main_case
                                    if k in ("shape", "causal", "case",
                                             "dtype")},
                 **{k: main_case[k] for k in keys}, **extra}
 
     # the cases the runs launch most: K1 at the training shape (and a
-    # 64-token first chunk when serving), K4 at a decode step over 8 rows
-    k1_main = next(c for c in k1 if c["dtype"] == "bfloat16"
-                   and c["shape"] == list(TRAIN_SHAPE) and c["causal"])
+    # 64-token first chunk when serving), K4 at a decode step over 8 rows;
+    # K1 and K3 also on their f32 routes, which phases 3 and 5 launch
+    def k1_case(dname):
+        return next(c for c in k1 if c["dtype"] == dname
+                    and c["shape"] == list(TRAIN_SHAPE) and c["causal"])
+
     k4_main = next(c for c in k4 if c["dtype"] == "bfloat16"
                    and c["case"] == "decode")
+    k4_main = {**k4_main, "design": "cuda-core"}
     split = train32["launches"]["adamw_K2a+K2b"]
+    fused32 = train32["launches"]["adamw_K3"]
+    f32_run = "train f32, 3 AdamW steps bound to K3 (phase 5)"
     emit({"kernels": [
-        entry("K1", "dtf_tpu_torch/csrc/flash_fwd.cu",
-              "dtf_tpu/ops/flash_attention.py:98", k1_main,
+        entry("K1", "dtf_tpu_torch/csrc/flash_fwd_tc.cuh",
+              "dtf_tpu/ops/flash_attention.py:98", k1_case("bfloat16"),
               train["launches"]["K1"], "train (phase 6)",
               launches_serve=serve_launches["K1"],
               launches_per_serve_call={c: n["K1"]
                                        for c, n in per_call.items()}),
+        entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd.cu",
+              "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
+              fused32["K1"], f32_run),
         entry("K2a", "dtf_tpu_torch/csrc/flash_bwd.cu",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a"],
               split["K2a"], "train f32 bound to fused_bwd=False (phase 5)"),
         entry("K2b", "dtf_tpu_torch/csrc/flash_bwd.cu",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b"],
               split["K2b"], "train f32 bound to fused_bwd=False (phase 5)"),
-        entry("K3", "dtf_tpu_torch/csrc/flash_bwd_fused.cu",
+        entry("K3", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:367", bwd["K3"],
               train["launches"]["K3"], "train (phase 6)",
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
+        entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_fused.cu",
+              "dtf_tpu/ops/flash_attention.py:367", bwd["K3 float32"],
+              fused32["K3"], f32_run,
+              partial_bytes=bwd["K3 float32"]["partial_bytes"],
+              passes_ms=bwd["K3 float32"]["passes_ms"]),
         entry("K4", "dtf_tpu_torch/csrc/paged_decode.cu",
               "dtf_tpu/ops/paged_attention.py:170", k4_main,
               serve_launches["K4"], "serve (phase 4)",

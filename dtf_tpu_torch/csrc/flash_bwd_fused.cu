@@ -1,6 +1,13 @@
 // K3 -- the fused single-pass flash-attention backward for Hopper
 // (sm_90a).
 //
+// Two routes, by dtype, neither falling back to the other: bfloat16 runs
+// the tensor-core kernels of flash_bwd_tc.cuh (wgmma, 128-key blocks,
+// 16 dq slots at S 2048); float32 runs the CUDA-core passes below, whose
+// f32 products are exact (TF32 tensor cores would keep three digits, and
+// f32 gradients are held equal across K3, K2a/K2b and plain).  The rest
+// of this note is the f32 route's.
+//
 // Replaces the TPU kernel dtf_tpu/ops/flash_attention.py `_dfused_kernel`
 // (launched by `_pallas_backward(fused=True)`): dq, dk and dv from one
 // walk of the tile space, so S and dP are recomputed once per tile (5
@@ -32,6 +39,7 @@
 //
 // Layout as in flash_bwd.cu.
 #include "bwd_tile.cuh"
+#include "flash_bwd_tc.cuh"
 
 namespace {
 
@@ -93,32 +101,53 @@ cudaError_t launch_fused(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// f32 floats the caller allocates for `partial`: ceil(Sk / 32) slots of
-// [B*H, Sq, D].
+// f32 floats the caller allocates for `partial`: one [B*H, Sq, D] slot
+// per key tile -- 32 keys on the f32 route, 128 on the bf16 route (the
+// wrapper's ops/flash_attention.py fused_partial_floats computes the
+// same).
 extern "C" long long dtf_flash_bwd_fused_partial_floats(int B, int H, int Sq,
-                                                        int Sk, int D) {
-  return static_cast<long long>((Sk + dtf::BT - 1) / dtf::BT) * B * H * Sq * D;
+                                                        int Sk, int D,
+                                                        int dtype) {
+  const long long slots =
+      dtype == 1 ? dtf::tc::bwd_slots(Sk) : (Sk + dtf::BT - 1) / dtf::BT;
+  return slots * B * H * Sq * D;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.  Runs both passes on
-// `stream`; returns the first failing launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.  `partial_floats` is
+// the size of `partial` as allocated.  Runs both passes on `stream`;
+// returns the first failing launch's cudaError_t.
 extern "C" int dtf_flash_bwd_fused(const void* q, const void* k,
                                    const void* v, const void* dO,
                                    const float* lse2, const float* delta,
                                    void* dq, void* dk, void* dv,
-                                   float* partial, int B, int H, int Sq,
-                                   int Sk, int D, int dtype, int causal,
-                                   float scale, float scale_log2e,
-                                   void* stream) {
+                                   float* partial, long long partial_floats,
+                                   int B, int H, int Sq, int Sk, int D,
+                                   int dtype, int causal, float scale,
+                                   float scale_log2e, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DTF_FUSED(T, DD)                                                  \
-  return launch_fused<T, DD>(q, k, v, dO, lse2, delta, dq, dk, dv,       \
-                             partial, B, H, Sq, Sk, causal, scale,        \
-                             scale_log2e, s)
-  if (dtype == 0 && D == 64) DTF_FUSED(float, 64);
-  if (dtype == 0 && D == 128) DTF_FUSED(float, 128);
-  if (dtype == 1 && D == 64) DTF_FUSED(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) DTF_FUSED(__nv_bfloat16, 128);
-#undef DTF_FUSED
+  if (partial_floats <
+      dtf_flash_bwd_fused_partial_floats(B, H, Sq, Sk, D, dtype)) {
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 0 && D == 64) {
+    return launch_fused<float, 64>(q, k, v, dO, lse2, delta, dq, dk, dv,
+                                   partial, B, H, Sq, Sk, causal, scale,
+                                   scale_log2e, s);
+  }
+  if (dtype == 0 && D == 128) {
+    return launch_fused<float, 128>(q, k, v, dO, lse2, delta, dq, dk, dv,
+                                    partial, B, H, Sq, Sk, causal, scale,
+                                    scale_log2e, s);
+  }
+  if (dtype == 1 && D == 64) {
+    return dtf::tc::launch_bwd_fused_tc<64>(
+        q, k, v, dO, lse2, delta, dq, dk, dv, partial, B, H, Sq, Sk, causal,
+        scale, scale_log2e, s);
+  }
+  if (dtype == 1 && D == 128) {
+    return dtf::tc::launch_bwd_fused_tc<128>(
+        q, k, v, dO, lse2, delta, dq, dk, dv, partial, B, H, Sq, Sk, causal,
+        scale, scale_log2e, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,12 @@
 // K1 -- flash attention forward for Hopper (sm_90a).
 //
+// Two routes, by dtype, neither falling back to the other: bfloat16 runs
+// the tensor-core kernel of flash_fwd_tc.cuh (wgmma, cp.async ring);
+// float32 runs `flash_fwd_kernel` below, on CUDA cores, whose f32
+// products are exact (TF32 tensor cores would keep three digits, and
+// f32 serving is held token-exact).  The rest of this note is the f32
+// route's.
+//
 // Replaces the TPU kernel dtf_tpu/ops/flash_attention.py `_fwd_kernel`
 // (launched by `_pallas_forward`): causal or full softmax(Q K^T scale) V
 // with the online-softmax carry (o, m, l) kept in f32 on chip, dead
@@ -9,12 +16,9 @@
 //
 // What bounds it on the card: at the serving shapes (S <= 2048, D = 128)
 // attention is O(S^2 D) work over O(S D) bytes, so it is bound by
-// operations -- here the f32 FMA rate of the CUDA cores, since this
-// first version does its products on CUDA cores for f32 and bf16 alike
-// (bf16 inputs are widened to f32 in shared memory: products of bf16
-// values are exact in f32).  The design keeps the O(S^2) score matrix
-// out of device memory, which is what the TPU kernel was for; the
-// tensor-core version (wgmma, TMA) is later work.
+// operations -- here the f32 FMA rate of the CUDA cores.  The design
+// keeps the O(S^2) score matrix out of device memory, which is what the
+// TPU kernel was for.
 //
 // Layout: q, k, v, o are [B, S, H, D] contiguous; lse is [B*H, Sq].
 // Grid (ceil(Sq / BQ), B*H): one block per (q tile, batch-head); a loop
@@ -22,6 +26,7 @@
 // sequential grid dimension.  Every output element has one writer.
 // Ragged Sq/Sk are masked in the kernel, not rejected.
 #include "attn_tile.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -138,9 +143,13 @@ extern "C" int dtf_flash_fwd(const void* q, const void* k, const void* v,
     return dispatch_d<float>(q, k, v, o, lse, B, H, Sq, Sk, D, causal, scale,
                              s);
   }
-  if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D,
-                                     causal, scale, s);
+  if (dtype == 1 && D == 64) {
+    return dtf::tc::launch_fwd_tc<64>(q, k, v, o, lse, B, H, Sq, Sk, causal,
+                                      scale, s);
+  }
+  if (dtype == 1 && D == 128) {
+    return dtf::tc::launch_fwd_tc<128>(q, k, v, o, lse, B, H, Sq, Sk, causal,
+                                       scale, s);
   }
   return cudaErrorInvalidValue;
 }

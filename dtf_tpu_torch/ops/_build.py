@@ -53,10 +53,11 @@ SIGNATURES = {
     "flash_bwd_dkdv": ("flash_bwd", "dtf_flash_bwd_dkdv",
                        _BWD + [_P, _P] + _BWD_TAIL, _I),
     "flash_bwd_fused": ("flash_bwd_fused", "dtf_flash_bwd_fused",
-                        _BWD + [_P, _P, _P, _P] + _BWD_TAIL, _I),
+                        _BWD + [_P, _P, _P, _P, ctypes.c_longlong]
+                        + _BWD_TAIL, _I),
     "flash_bwd_fused_partial_floats": (
         "flash_bwd_fused", "dtf_flash_bwd_fused_partial_floats",
-        [_I] * 5, ctypes.c_longlong),
+        [_I] * 6, ctypes.c_longlong),
 }
 SOURCES = sorted({src for src, *_ in SIGNATURES.values()})
 

@@ -14,7 +14,11 @@ Dispatch is by device, never by fallback: a CUDA tensor goes to the
 hand-written kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
 ``csrc/flash_bwd_fused.cu``) or raises, a CPU tensor to the plain
 versions -- the same tile arithmetic in plain PyTorch.  No gradient is
-ever taken by autograd through the plain forward.
+ever taken by autograd through the plain forward.  Inside the C entry
+points of K1 and K3 the dtype picks the route: bfloat16 runs the
+tensor-core kernels (``csrc/flash_fwd_tc.cuh``,
+``csrc/flash_bwd_tc.cuh``: wgmma), float32 the CUDA-core kernels, exact
+in f32.
 
 The backward keeps the JAX formulation choice: ``fused_bwd=None`` picks
 the single-pass K3 when Sq == Sk and the TPU kernel's [Sq, D] f32 dq
@@ -59,6 +63,11 @@ FUSED_DQ_SCRATCH_MAX = 2 * 1024 * 1024
 # tile edge of the plain backward versions; any size gives the same
 # function, the sums only run in another order
 PLAIN_BWD_BLOCK = 128
+
+# keys per dq partial slot of K3: the float32 route's CUDA-core walk
+# takes 32-key tiles, the bfloat16 route's tensor-core walk 128-key
+# blocks (csrc/flash_bwd_fused.cu, csrc/flash_bwd_tc.cuh)
+FUSED_SLOT_KEYS = {torch.float32: 32, torch.bfloat16: 128}
 
 
 def check_kernel_args(q, k, v, *more) -> None:
@@ -323,13 +332,19 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     return dk, dv
 
 
+def fused_partial_floats(b: int, h: int, sq: int, sk: int, d: int,
+                         dtype) -> int:
+    """f32 floats of K3's dq partial buffer: one [B*H, Sq, D] slot per
+    key tile of ``FUSED_SLOT_KEYS[dtype]`` keys.  The C entry point
+    ``dtf_flash_bwd_fused_partial_floats`` computes the same, and the
+    kernel refuses a smaller buffer."""
+    return -(-sk // FUSED_SLOT_KEYS[dtype]) * b * h * sq * d
+
+
 def fused_partial_bytes(q, k) -> int:
-    """Bytes of K3's f32 dq partial buffer for these shapes: one
-    [B*H, Sq, D] slot per 32-key tile."""
+    """Bytes of K3's f32 dq partial buffer for these tensors."""
     b, sq, h, d = q.shape
-    n = _build.load("flash_bwd_fused_partial_floats")(b, h, sq, k.shape[1],
-                                                      d)
-    return 4 * int(n)
+    return 4 * fused_partial_floats(b, h, sq, k.shape[1], d, q.dtype)
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool, scale: float):
@@ -351,7 +366,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     fn = _build.load("flash_bwd_fused")
     with torch.cuda.device(q.device):
         err = fn(*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 partial.data_ptr(), *tail)
+                 partial.data_ptr(), partial.numel(), *tail)
     _raise_on(err, "flash_bwd_fused")
     launches_fused += 1
     return dq, dk, dv
