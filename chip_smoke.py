@@ -16,17 +16,20 @@ Phases, each printing one JSON object per line (the card's
                  tolerance, then kernel, plain and library times (CUDA
                  events, warmed up, median of five, inputs rotated
                  through enough copies to defeat the 50 MB L2) and the
-                 least time the card could take.  K1 and K3 have two
-                 routes, reported as separate cases: float32 on CUDA
-                 cores, bfloat16 on tensor cores (wgmma).  K1 at serving,
-                 ragged, D 64 and training shapes; the backward K2a, K2b
-                 and K3 at [2, 200, 6, 128], [1, 2048, 6, 128] and
-                 [2, 256, 8, 64], causal and full, f32 and bf16, K3
-                 against K2a + K2b and K3 run twice bit for bit, then
-                 timed at the training shape [8, 2048, 6, 128] beside the
-                 backward of F.scaled_dot_product_attention (K3 in both
-                 dtypes, with the device time of its two passes from
-                 torch.profiler); K4 at decode and chunk shapes.
+                 least time the card could take.  K1, K2a, K2b and K3
+                 have two routes, reported as separate cases: float32
+                 on CUDA cores, bfloat16 on tensor cores (wgmma).  K1 at
+                 serving, ragged, D 64 and training shapes; the backward
+                 K2a, K2b and K3 at [2, 200, 6, 128], [1, 2048, 6, 128]
+                 and [2, 256, 8, 64], causal and full, f32 and bf16, K3
+                 against K2a + K2b, each kernel run twice bit for bit,
+                 then all three timed in both dtypes at the training
+                 shape [8, 2048, 6, 128] beside the backward of
+                 F.scaled_dot_product_attention (K3 with the device time
+                 of its two passes from torch.profiler), then K2a and
+                 K2b at cross lengths (Sq != Sk: 200 / 320, 320 / 200 at
+                 D 128, 64 / 256 at D 64), causal and full, both dtypes,
+                 twice bit for bit; K4 at decode and chunk shapes.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -48,25 +51,30 @@ Phases, each printing one JSON object per line (the card's
                  remat; three AdamW steps with K3 and with K2a/K2b give
                  the same losses (1e-5 relative).
      train_bf16_parity -- the same model and batch in bf16 compute:
-                 gradients through K1 + K3 (tensor cores) within 1e-2 of
-                 each parameter's largest |value| of those through the
-                 plain versions; three AdamW steps' losses within 5e-3
-                 relative.
+                 gradients through K1 + K3 and through K1 + K2a/K2b
+                 (tensor cores) within 1e-2 of each parameter's largest
+                 |value| of those through the plain versions, or within
+                 twice the gap of a reordered plain binding; three
+                 AdamW steps' losses within 5e-3 relative of plain's.
   6. train    -- ``cli.lm_main.main`` in bf16, batch 8 x 2048, 30 steps,
                  the counters zeroed just before and read just after:
                  finite falling losses, tokens/s, synced step-time p50,
                  peak memory, MFU against 989 TFLOP/s, 12 K1 and 12 K3
-                 launches a step.  Then two more steps of a fresh
-                 trainer under torch.profiler: device time by kernel
-                 kind and the device's idle share (a profiler that sees
-                 no device time for K1 or K3 fails the run).
+                 launches a step.
+     train_split -- its companion: the same run, 20 steps, with
+                 attention bound to ``fused_bwd=False``: 12 K1, 12 K2a
+                 and 12 K2b launches a step, step time and tokens/s
+                 beside K3's.  Then two steps of a fresh default trainer
+                 under torch.profiler: device time by kernel kind and
+                 the device's idle share (a profiler that sees no device
+                 time for K1 or K3 fails the run).
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
-run of its path (K1 and K3 training, their f32 routes and K2a/K2b the
-f32 training steps of phase 5, K4 serving) -- and, last, the device
-line.  Any failure raises: the script exits non-zero and prints no
-result.
+run of its path: K1 and K3 phase 6, K2a and K2b phase 6's companion,
+the f32 routes phase 5's f32 AdamW steps, K4 serving -- and, last, the
+device line.  Any failure raises: the script exits non-zero and prints
+no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
 """
@@ -182,7 +190,8 @@ def bound(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-# the two routes of K1 and K3 (csrc/flash_fwd.cu, csrc/flash_bwd_fused.cu)
+# the two routes of K1, K2a, K2b and K3, by dtype, inside their C entry
+# points (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_bwd_fused.cu)
 ROUTE = {"float32": "cuda-core f32", "bfloat16": "wgmma+cp.async"}
 
 
@@ -267,26 +276,43 @@ def grad_tolerance(torch, out, ref):
 def check_backward(torch, timer, gen):
     """K2a, K2b and K3 against their plain versions on the same inputs:
     [2, 200, 6, 128] (ragged against any tile), [1, 2048, 6, 128] and
-    [2, 256, 8, 64], causal and full, float32 (K3's CUDA-core route) and
-    bfloat16 (its tensor-core route); K3 against K2a + K2b in float32;
-    K3 twice gives the same bits in both.  Then each at the training
-    shape, causal bf16, and K3's f32 route there too: kernel, plain and
-    library times and bounds, the library yardstick being the backward
-    of F.scaled_dot_product_attention (autograd.grad of its output), and
-    the device time of K3's two passes."""
+    [2, 256, 8, 64], causal and full, float32 (the CUDA-core routes) and
+    bfloat16 (the tensor-core routes); K3 against K2a + K2b in float32;
+    each kernel twice gives the same bits in both.  Then each at the
+    training shape, causal, in both dtypes: kernel, plain and library
+    times and bounds, the library yardstick being the backward of
+    F.scaled_dot_product_attention (autograd.grad of its output), and the
+    device time of K3's two passes.  Last, K2a and K2b at cross lengths
+    -- Sq 200 / Sk 320 and Sq 320 / Sk 200 at D 128, Sq 64 / Sk 256 at
+    D 64, causal and full, both dtypes, twice bit for bit."""
     import torch.nn.functional as F
 
     from dtf_tpu_torch.ops import _build
     from dtf_tpu_torch.ops import flash_attention as fa
 
-    def inputs(shape, dtype, causal):
-        q, k, v, do = (torch.randn(shape, generator=gen).to("cuda", dtype)
-                       for _ in range(4))
+    def inputs(shape, dtype, causal, sk=None):
+        b, s, h, d = shape
+        kv = (b, s if sk is None else sk, h, d)
+        q, k, v, do = (torch.randn(x, generator=gen).to("cuda", dtype)
+                       for x in (shape, kv, kv, shape))
         o, lse = fa.flash_forward(q, k, v, causal=causal)
-        b, s, h, _ = shape
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
             b * h, s).contiguous()
         return q, k, v, do, o, lse, delta
+
+    def held(row, kname, outs, refs):
+        res = [grad_tolerance(torch, o_, r_) for o_, r_ in zip(outs, refs)]
+        worst = max(res, key=lambda x: x[2])
+        row[kname] = {"max_abs_err": max(x[0] for x in res),
+                      "tol": worst[1], "err_over_tol": worst[2]}
+        if not worst[2] <= 1.0:
+            raise AssertionError(f"{kname}: {row}")
+
+    def same_bits(row, kname, first, again):
+        row[f"{kname}_bit_identical"] = all(
+            torch.equal(a, b_) for a, b_ in zip(first, again))
+        if not row[f"{kname}_bit_identical"]:
+            raise AssertionError(f"{kname} not deterministic: {row}")
 
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -296,45 +322,35 @@ def check_backward(torch, timer, gen):
                 q, k, v, do, o, lse, delta = inputs(shape, dtype, causal)
                 args = (q, k, v, do, lse, delta)
                 kw = dict(causal=causal, scale=shape[-1] ** -0.5)
-                dq = fa.flash_bwd_dq(*args, **kw)
-                dk, dv = fa.flash_bwd_dkdv(*args, **kw)
-                fused = fa.flash_bwd_fused(*args, **kw)
-                again = fa.flash_bwd_fused(*args, **kw)
+                outs = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
+                        "K2b": fa.flash_bwd_dkdv(*args, **kw),
+                        "K3": fa.flash_bwd_fused(*args, **kw)}
+                again = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
+                         "K2b": fa.flash_bwd_dkdv(*args, **kw),
+                         "K3": fa.flash_bwd_fused(*args, **kw)}
                 plain = fa.flash_bwd_fused_plain(*args, **kw)
                 torch.cuda.synchronize()
                 row = {"shape": list(shape), "causal": causal,
-                       "dtype": dname, "K3_design": ROUTE[dname]}
-                for kname, outs in (("K2a", (dq,)), ("K2b", (dk, dv)),
-                                    ("K3", fused)):
-                    refs = plain[:1] if kname == "K2a" else (
-                        plain[1:] if kname == "K2b" else plain)
-                    res = [grad_tolerance(torch, o_, r_)
-                           for o_, r_ in zip(outs, refs)]
-                    worst = max(res, key=lambda x: x[2])
-                    row[kname] = {"max_abs_err": max(x[0] for x in res),
-                                  "tol": worst[1], "err_over_tol": worst[2]}
-                    if not worst[2] <= 1.0:
-                        raise AssertionError(
-                            f"{kname} {dname} {shape} causal={causal}: "
-                            f"{row[kname]}")
+                       "dtype": dname, "design": ROUTE[dname]}
+                refs = {"K2a": plain[:1], "K2b": plain[1:], "K3": plain}
+                for kname in ("K2a", "K2b", "K3"):
+                    held(row, kname, outs[kname], refs[kname])
                 if dtype == torch.float32:
                     split_gap = max(
                         grad_tolerance(torch, a, b_)[2]
-                        for a, b_ in zip(fused, (dq, dk, dv)))
+                        for a, b_ in zip(outs["K3"],
+                                         outs["K2a"] + outs["K2b"]))
                     row["K3_vs_split_err_over_tol"] = split_gap
                     if not split_gap <= 1.0:
                         raise AssertionError(f"K3 != K2a + K2b: {row}")
-                row["K3_bit_identical"] = all(
-                    torch.equal(a, b_) for a, b_ in zip(fused, again))
-                if not row["K3_bit_identical"]:
-                    raise AssertionError(f"K3 not deterministic: {row}")
+                for kname in ("K2a", "K2b", "K3"):
+                    same_bits(row, kname, outs[kname], again[kname])
                 checks.append(row)
                 emit({"phase": "backward", **row})
-                del q, k, v, do, o, lse, delta, args, dq, dk, dv, fused, \
-                    again, plain
+                del q, k, v, do, o, lse, delta, args, outs, again, plain
 
-    # times at the training shape, causal: the three kernels in bf16,
-    # and K3's f32 route
+    # times at the training shape, causal: the three kernels on both
+    # routes
     b, s, h, d = TRAIN_SHAPE
     kw = dict(causal=True, scale=d ** -0.5)
     pairs = b * h * s * (s + 1) / 2
@@ -347,8 +363,7 @@ def check_backward(torch, timer, gen):
     passes = {"bfloat16": ("bwd_fused_tc_kernel", "dq_reduce_tc_kernel"),
               "float32": ("kv_block_kernel", "dq_reduce_kernel")}
     timings = {}
-    for dtype, names in ((torch.bfloat16, ("K2a", "K2b", "K3")),
-                         (torch.float32, ("K3",))):
+    for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         q, k, v, do, o, lse, delta = inputs(TRAIN_SHAPE, dtype, True)
         args = (q, k, v, do, lse, delta)
@@ -368,7 +383,7 @@ def check_backward(torch, timer, gen):
                                         retain_graph=True), [()])
         ref = fa.flash_bwd_fused_plain(*args, **kw)
         refs = {"K2a": ref[:1], "K2b": ref[1:], "K3": ref}
-        for name in names:
+        for name in ("K2a", "K2b", "K3"):
             key = name if dtype == torch.bfloat16 else f"{name} {dname}"
             outs = kernel[name](*args, **kw)
             outs = outs if isinstance(outs, tuple) else (outs,)
@@ -385,8 +400,7 @@ def check_backward(torch, timer, gen):
             timings[key] = {
                 "max_abs_err": max(x[0] for x in res), "tol": worst[1],
                 "err_over_tol": worst[2], "shape": list(TRAIN_SHAPE),
-                "causal": True, "dtype": dname,
-                "design": ROUTE[dname] if name == "K3" else "cuda-core",
+                "causal": True, "dtype": dname, "design": ROUTE[dname],
                 "ms": timer.ms(lambda *a, f=kernel[name]: f(*a, **kw),
                                copies),
                 "plain_ms": timer.ms(lambda *a, f=plain[name]: f(*a, **kw),
@@ -409,6 +423,34 @@ def check_backward(torch, timer, gen):
         del q, k, v, do, o, lse, delta, args, copies, qt, kt, vt, dot, \
             ref_o, ref, refs
         torch.cuda.empty_cache()
+
+    # cross-length attention, the split pair's own case under the auto
+    # rule: positions count from 0 for queries and keys alike
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for sq, sk, h, d in ((200, 320, 6, 128), (320, 200, 6, 128),
+                             (64, 256, 8, 64)):
+            for causal in (True, False):
+                q, k, v, do, o, lse, delta = inputs((2, sq, h, d), dtype,
+                                                    causal, sk)
+                args = (q, k, v, do, lse, delta)
+                kw = dict(causal=causal, scale=d ** -0.5)
+                outs = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
+                        "K2b": fa.flash_bwd_dkdv(*args, **kw)}
+                again = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
+                         "K2b": fa.flash_bwd_dkdv(*args, **kw)}
+                plain = fa.flash_bwd_fused_plain(*args, **kw)
+                torch.cuda.synchronize()
+                row = {"shape": [2, sq, h, d], "sk": sk, "causal": causal,
+                       "dtype": dname, "design": ROUTE[dname]}
+                held(row, "K2a", outs["K2a"], plain[:1])
+                held(row, "K2b", outs["K2b"], plain[1:])
+                for kname in ("K2a", "K2b"):
+                    same_bits(row, kname, outs[kname], again[kname])
+                checks.append(row)
+                emit({"phase": "backward_cross", **row})
+                del q, k, v, do, o, lse, delta, args, outs, again, plain
+
     return checks, timings
 
 
@@ -809,57 +851,71 @@ def check_training_f32(torch, seed: int):
 
 
 def check_training_bf16(torch, seed: int):
-    """bfloat16 compute (the tensor-core routes of K1 and K3): one
-    step's gradients through K1 + K3 against the same step with
-    attention bound to the plain versions, and three AdamW steps with
-    each binding, losses within 5e-3 relative -- the port's bf16
-    Trainer tolerance against the JAX package.  Each parameter's
-    gradient within 1e-2 of its own largest |value|, or within twice
-    the gap between two plain bindings that differ only in the order of
-    their f32 sums (forward key blocks 128 for 64, backward tiles 64
-    for 128): the step rounds to bf16 at every matmul and attention of
-    12 layers, and a gradient that few terms feed -- ``pos_embed``, a
-    sum over the batch's two rows -- carries that rounding noise at
-    about 1e-2 of its largest value whichever binding computes it."""
+    """bfloat16 compute (the tensor-core routes): one step's gradients
+    through K1 + K3 and through K1 + K2a/K2b (``fused_bwd=False``)
+    against the same step with attention bound to the plain versions,
+    and three AdamW steps with each binding, losses within 5e-3 relative
+    of plain's -- the port's bf16 Trainer tolerance against the JAX
+    package.  Each parameter's gradient within 1e-2 of its own largest
+    |value|, or within twice the gap between two plain bindings that
+    differ only in the order of their f32 sums (forward key blocks 128
+    for 64, backward tiles 64 for 128): the step rounds to bf16 at every
+    matmul and attention of 12 layers, and a gradient that few terms
+    feed -- ``pos_embed``, a sum over the batch's two rows -- carries
+    that rounding noise at about 1e-2 of its largest value whichever
+    binding computes it."""
+    import functools
+
     from dtf_tpu_torch.ops import flash_attention as fa
 
+    kernels = ("K3", "K2a+K2b")
     bindings = {"K3": fa.flash_attention,
+                "K2a+K2b": functools.partial(fa.flash_attention,
+                                             fused_bwd=False),
                 "plain": make_plain_attention(torch, fa),
                 "plain_reordered": make_plain_attention(torch, fa,
                                                         block_k=128,
                                                         block=64)}
     names, grads, losses, launches = training_runs(
-        torch, seed, torch.bfloat16, bindings, ("K3", "plain"))
-    gaps = []
-    for name, a, b, c in zip(names, grads["K3"], grads["plain"],
-                             grads["plain_reordered"]):
-        top = float(b.float().abs().max())
-        err = float((a.float() - b.float()).abs().max())
-        noise = float((c.float() - b.float()).abs().max())
-        gaps.append((err / max(1e-2 * top, 2 * noise, 1e-30), name,
-                     err / max(top, 1e-30), noise / max(top, 1e-30)))
-    worst = max(gaps)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["adamw_K3"],
-                                                  losses["adamw_plain"]))
-    if not (worst[0] <= 1.0 and rel <= 5e-3
-            and all(math.isfinite(x) for x in losses["adamw_K3"])):
-        raise AssertionError(f"bf16 K1 + K3 against plain: gradient of "
-                             f"{worst[1]} at {worst[0]} of its tolerance "
-                             f"(gap {worst[2]}, reordered plain {worst[3]} "
-                             f"of its largest value), AdamW losses {losses}")
+        torch, seed, torch.bfloat16, bindings, kernels + ("plain",))
+    worst, worst_five, rel = {}, {}, {}
+    for kname in kernels:
+        gaps = []
+        for name, a, b, c in zip(names, grads[kname], grads["plain"],
+                                 grads["plain_reordered"]):
+            top = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            noise = float((c.float() - b.float()).abs().max())
+            gaps.append((err / max(1e-2 * top, 2 * noise, 1e-30), name,
+                         err / max(top, 1e-30), noise / max(top, 1e-30)))
+        worst[kname] = max(gaps)
+        # the five parameters nearest their tolerance: (name, gap and
+        # reordered plain's gap, each over the largest |value|)
+        worst_five[kname] = [[n, g, r] for _, n, g, r in
+                             sorted(gaps, reverse=True)[:5]]
+        rel[kname] = max(abs(a - b) / abs(b) for a, b in zip(
+            losses[f"adamw_{kname}"], losses["adamw_plain"]))
+        if not (worst[kname][0] <= 1.0 and rel[kname] <= 5e-3
+                and all(math.isfinite(x) for x in losses[f"adamw_{kname}"])):
+            raise AssertionError(
+                f"bf16 K1 + {kname} against plain: gradient of "
+                f"{worst[kname][1]} at {worst[kname][0]} of its tolerance "
+                f"(gap {worst[kname][2]}, reordered plain "
+                f"{worst[kname][3]} of its largest value), AdamW losses "
+                f"{losses}")
     layers = 12
     check_launches(launches, {
-        "step_K3": (layers, 0, 0, layers), "step_plain": (0, 0, 0, 0),
-        "step_plain_reordered": (0, 0, 0, 0),
+        "step_K3": (layers, 0, 0, layers),
+        "step_K2a+K2b": (layers, layers, layers, 0),
+        "step_plain": (0, 0, 0, 0), "step_plain_reordered": (0, 0, 0, 0),
         "adamw_K3": (3 * layers, 0, 0, 3 * layers),
+        "adamw_K2a+K2b": (3 * layers, 3 * layers, 3 * layers, 0),
         "adamw_plain": (0, 0, 0, 0)})
     out = {"phase": "train_bf16_parity", "model": "transformer_tpu",
            "batch": 2, "seq": 2048, "losses": losses,
-           "grad_err_over_tol": worst[0], "grad_worst_param": worst[1],
-           # the five parameters nearest their tolerance: (name, gap and
-           # reordered plain's gap, each over the largest |value|)
-           "grad_worst_five": [[n, g, r] for _, n, g, r in
-                               sorted(gaps, reverse=True)[:5]],
+           "grad_err_over_tol": {k: v[0] for k, v in worst.items()},
+           "grad_worst_param": {k: v[1] for k, v in worst.items()},
+           "grad_worst_five": worst_five,
            "adamw_loss_rel_gap": rel, "launches": launches}
     emit(out)
     del grads
@@ -872,30 +928,43 @@ FLOPS_PER_TOKEN = ("6 * (L * (4 d^2 + 2 d d_ff) + d V) + 6 L S d: the "
                    "attention's QK^T and PV (S/2 keys a query on average)")
 
 
-def train_bf16(torch, seed: int):
+def train_bf16(torch, seed: int, split: bool = False, steps: int = 30):
     """The main path of the training slice: ``cli/lm_main.main`` trains
-    transformer_tpu in bf16, batch 8 x 2048, 30 steps, with the counters
-    zeroed just before and read just after.  Every logged loss finite,
-    the last below the first (the synthetic stream repeats one batch);
-    12 K1 and 12 K3 launches a step."""
+    transformer_tpu in bf16, batch 8 x 2048, ``steps`` steps, with the
+    counters zeroed just before and read just after.  Every logged loss
+    finite, the last below the first (the synthetic stream repeats one
+    batch); 12 K1 and 12 K3 launches a step.  With ``split`` the same
+    run has attention bound to ``fused_bwd=False`` -- the split pair's
+    path (cross-length attention, long sequences, or that choice) at
+    the training shape -- and 12 K2a and 12 K2b launches a step."""
+    import functools
+
     from dtf_tpu_torch.cli import lm_main
+    from dtf_tpu_torch.models import transformer
     from dtf_tpu_torch.ops import flash_attention as fa
     from dtf_tpu_torch.ops import paged_attention as pa
 
-    steps, log_steps = 30, 5
+    log_steps = 5
     b, s, h, dh = TRAIN_SHAPE
     argv = ["--use_synthetic_data", "--device", "cuda",
             "--model", "transformer_tpu", "--dtype", "bf16",
             "--batch_size", str(b), "--train_steps", str(steps),
             "--log_steps", str(log_steps), "--seed", str(seed)]
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa, pa)
-    t0 = time.perf_counter()
-    stats = lm_main.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel_counts(fa, pa)
+    default = transformer.flash_attention
+    if split:
+        transformer.flash_attention = functools.partial(fa.flash_attention,
+                                                        fused_bwd=False)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, pa)
+        t0 = time.perf_counter()
+        stats = lm_main.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts(fa, pa)
+    finally:
+        transformer.flash_attention = default
     peak = torch.cuda.max_memory_allocated()
     losses = [loss for _, loss in stats["train_loss_log"]]
     if not (len(losses) == steps // log_steps
@@ -903,8 +972,9 @@ def train_bf16(torch, seed: int):
             and losses[-1] < losses[0]):
         raise AssertionError(f"training losses {stats['train_loss_log']}")
     layers = 12
-    want = {"K1": layers * steps, "K2a": 0, "K2b": 0,
-            "K3": layers * steps, "K4": 0}
+    bwd = layers * steps
+    want = {"K1": layers * steps, "K2a": bwd if split else 0,
+            "K2b": bwd if split else 0, "K3": 0 if split else bwd, "K4": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     step_p50 = statistics.median(stats["window_step_s"])
@@ -912,7 +982,9 @@ def train_bf16(torch, seed: int):
     flops_per_token = (6 * (layers * (4 * d * d + 2 * d * d_ff) + d * vocab)
                        + 6 * layers * s * d)
     tokens_per_s = b * s / step_p50
-    out = {"phase": "train", "model": "transformer_tpu", "dtype": "bf16",
+    out = {"phase": "train_split" if split else "train",
+           "model": "transformer_tpu", "dtype": "bf16",
+           "backward": "K2a+K2b" if split else "K3",
            "batch": b, "seq": s, "steps": steps, "log_steps": log_steps,
            "losses": stats["train_loss_log"],
            "step_s_p50": step_p50, "window_step_s": stats["window_step_s"],
@@ -1051,6 +1123,8 @@ def main(argv=None) -> int:
     train32 = check_training_f32(torch, args.seed)
     check_training_bf16(torch, args.seed)
     train = train_bf16(torch, args.seed)
+    # the split pair's path at the training shape, beside K3's
+    train_split = train_bf16(torch, args.seed, split=True, steps=20)
     profile_train_step(torch, args.seed)
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1067,7 +1141,9 @@ def main(argv=None) -> int:
 
     # the cases the runs launch most: K1 at the training shape (and a
     # 64-token first chunk when serving), K4 at a decode step over 8 rows;
-    # K1 and K3 also on their f32 routes, which phases 3 and 5 launch
+    # each flash kernel on both routes, a bf16 case with the launches of
+    # a bf16 run (phase 6 and its split companion), an f32 case with
+    # those of phase 5's f32 AdamW steps
     def k1_case(dname):
         return next(c for c in k1 if c["dtype"] == dname
                     and c["shape"] == list(TRAIN_SHAPE) and c["causal"])
@@ -1075,9 +1151,12 @@ def main(argv=None) -> int:
     k4_main = next(c for c in k4 if c["dtype"] == "bfloat16"
                    and c["case"] == "decode")
     k4_main = {**k4_main, "design": "cuda-core"}
-    split = train32["launches"]["adamw_K2a+K2b"]
+    split32 = train32["launches"]["adamw_K2a+K2b"]
     fused32 = train32["launches"]["adamw_K3"]
     f32_run = "train f32, 3 AdamW steps bound to K3 (phase 5)"
+    split32_run = ("train f32, 3 AdamW steps bound to fused_bwd=False "
+                   "(phase 5)")
+    split_run = "train bound to fused_bwd=False (phase 6 companion)"
     emit({"kernels": [
         entry("K1", "dtf_tpu_torch/csrc/flash_fwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("bfloat16"),
@@ -1088,12 +1167,18 @@ def main(argv=None) -> int:
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd.cu",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run),
-        entry("K2a", "dtf_tpu_torch/csrc/flash_bwd.cu",
+        entry("K2a", "dtf_tpu_torch/csrc/flash_bwd_dq_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a"],
-              split["K2a"], "train f32 bound to fused_bwd=False (phase 5)"),
-        entry("K2b", "dtf_tpu_torch/csrc/flash_bwd.cu",
+              train_split["launches"]["K2a"], split_run),
+        entry("K2a f32", "dtf_tpu_torch/csrc/flash_bwd.cu",
+              "dtf_tpu/ops/flash_attention.py:258", bwd["K2a float32"],
+              split32["K2a"], split32_run),
+        entry("K2b", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b"],
-              split["K2b"], "train f32 bound to fused_bwd=False (phase 5)"),
+              train_split["launches"]["K2b"], split_run),
+        entry("K2b f32", "dtf_tpu_torch/csrc/bwd_tile.cuh",
+              "dtf_tpu/ops/flash_attention.py:317", bwd["K2b float32"],
+              split32["K2b"], split32_run),
         entry("K3", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:367", bwd["K3"],
               train["launches"]["K3"], "train (phase 6)",

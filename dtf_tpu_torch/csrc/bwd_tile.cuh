@@ -1,6 +1,9 @@
-// Tile math shared by the three flash-backward kernels: K2a (dq, in
-// flash_bwd.cu), K2b (dk and dv, flash_bwd.cu) and K3 (dq, dk and dv
-// from one walk, flash_bwd_fused.cu).
+// Tile math shared by the three flash-backward kernels' float32 routes:
+// K2a (dq, in flash_bwd.cu), K2b (dk and dv, flash_bwd.cu) and K3 (dq,
+// dk and dv from one walk, flash_bwd_fused.cu).  pair_grad is also the
+// per-pair step of their bfloat16 tensor-core routes
+// (flash_bwd_dq_tc.cuh, flash_bwd_tc.cuh), which round dS to bf16 as
+// they pack it into wgmma operands.
 //
 // The numerics are those of dtf_tpu/ops/flash_attention.py `_bwd_tile`,
 // per (query, key) pair:
@@ -11,8 +14,8 @@
 //   dS = p (dp - delta) scale, rounded to T before either product;
 // dq += dS K, dk += dS^T Q, dv += P~^T dO with P~ = p rounded to T, all
 // summed in f32.  Rows or keys past the sequence get p = 0 and so add
-// nothing.  Products run on CUDA cores in f32 (products of bf16 values
-// are exact in f32), as in the forward kernel.
+// nothing.  Products run on CUDA cores in f32, as in the forward
+// kernel's f32 route.
 //
 // Tiles are BT x BT with BT = 32 queries and 32 keys; a block has NT =
 // 128 threads, TPR = 4 consecutive lanes per query row (or per key in

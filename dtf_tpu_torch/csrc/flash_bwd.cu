@@ -7,26 +7,39 @@
 // base-2 log-sum-exp, dead causal tiles skipped, the mask applied only
 // on tiles the diagonal crosses, f32 sums, outputs in the inputs' dtype.
 //
+// Two routes inside each C entry point, by dtype, neither falling back
+// to the other:
+//   bfloat16 -- the tensor-core kernels (wgmma, cp.async ring):
+//     K2a bwd_dq_tc_kernel (flash_bwd_dq_tc.cuh), query-major, 128 rows a
+//     block; K2b bwd_dkdv_tc_kernel (flash_bwd_tc.cuh), K3's key-major
+//     walk without its dq product, 128 keys a block;
+//   float32 -- the CUDA-core kernels below and bwd_tile.cuh
+//     kv_block_kernel<float, D, false>, whose f32 products are exact
+//     (TF32 tensor cores would keep three digits, and f32 gradients are
+//     held equal across K3, K2a/K2b and plain).
+// Every output tile has one writer on both routes, so no atomics and the
+// same bits on every run.  The rest of this note is the f32 route's.
+//
 //   K2a: one block per (query tile, batch-head) walks the live key
 //        tiles and keeps its rows' dq in registers, as the forward
 //        kernel keeps o.
 //   K2b: one block per (key tile, batch-head) walks the live query
 //        tiles and keeps its keys' dk and dv (bwd_tile.cuh
 //        kv_block_kernel).
-// Every output tile has one writer, so no atomics and the same bits on
-// every run.
 //
 // What bounds them on the card: at the training shape (S 2048, D 128)
 // the backward is O(S^2 D) work over O(S D) bytes, so operations bound
-// it -- here the f32 FMA rate of the CUDA cores, since this first
-// version widens bf16 to f32 in shared memory and multiplies there, as
-// K1 does.  The split pair recomputes S and dP in both kernels (7 tile
-// products to K3's 5).  Tensor cores (wgmma) and TMA are later work.
+// it -- here the f32 FMA rate of the CUDA cores (67 TFLOP/s).  The split
+// pair recomputes S and dP in both kernels (7 tile products to K3's 5).
 //
-// Layout: q, k, v, dO, dq, dk, dv [B, S, H, D] contiguous; lse2 (the
-// forward's lse times log2 e) and delta = rowsum(dO * o) are [B*H, Sq]
-// f32.  Ragged Sq and Sk are masked in the kernels.
+// Layout: q, dO, dq [B, Sq, H, D] and k, v, dk, dv [B, Sk, H, D]
+// contiguous; lse2 (the forward's lse times log2 e) and delta =
+// rowsum(dO * o) are [B*H, Sq] f32.  Ragged Sq and Sk, and Sq != Sk, are
+// masked in the kernels; positions count from 0 for queries and keys
+// alike.
 #include "bwd_tile.cuh"
+#include "flash_bwd_dq_tc.cuh"
+#include "flash_bwd_tc.cuh"
 
 namespace {
 
@@ -169,9 +182,17 @@ extern "C" int dtf_flash_bwd_dq(const void* q, const void* k, const void* v,
                           causal, scale, scale_log2e, s)
   if (dtype == 0 && D == 64) DTF_DQ(float, 64);
   if (dtype == 0 && D == 128) DTF_DQ(float, 128);
-  if (dtype == 1 && D == 64) DTF_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) DTF_DQ(__nv_bfloat16, 128);
 #undef DTF_DQ
+  if (dtype == 1 && D == 64) {
+    return dtf::tc::launch_bwd_dq_tc<64>(q, k, v, dO, lse2, delta, dq, B, H,
+                                         Sq, Sk, causal, scale, scale_log2e,
+                                         s);
+  }
+  if (dtype == 1 && D == 128) {
+    return dtf::tc::launch_bwd_dq_tc<128>(q, k, v, dO, lse2, delta, dq, B,
+                                          H, Sq, Sk, causal, scale,
+                                          scale_log2e, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -188,8 +209,16 @@ extern "C" int dtf_flash_bwd_dkdv(const void* q, const void* k,
                             Sk, causal, scale, scale_log2e, s)
   if (dtype == 0 && D == 64) DTF_DKDV(float, 64);
   if (dtype == 0 && D == 128) DTF_DKDV(float, 128);
-  if (dtype == 1 && D == 64) DTF_DKDV(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) DTF_DKDV(__nv_bfloat16, 128);
 #undef DTF_DKDV
+  if (dtype == 1 && D == 64) {
+    return dtf::tc::launch_bwd_dkdv_tc<64>(q, k, v, dO, lse2, delta, dk, dv,
+                                           B, H, Sq, Sk, causal, scale,
+                                           scale_log2e, s);
+  }
+  if (dtype == 1 && D == 128) {
+    return dtf::tc::launch_bwd_dkdv_tc<128>(q, k, v, dO, lse2, delta, dk, dv,
+                                            B, H, Sq, Sk, causal, scale,
+                                            scale_log2e, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -1,44 +1,59 @@
-// K3, bf16 route -- the fused flash backward on Hopper's tensor cores.
+// K3 and K2b, bf16 route -- the key-major flash backward walk on
+// Hopper's tensor cores.
 //
-// Replaces, for bf16 inputs, the TPU kernel dtf_tpu/ops/flash_attention.py
-// `_dfused_kernel` (launched by `_pallas_backward(fused=True)`): dq, dk
-// and dv from one walk of the tile space.  Float32 inputs keep the
-// CUDA-core route (bwd_tile.cuh kv_block_kernel<float, D, true> and
-// dq_reduce_kernel, flash_bwd_fused.cu), exact in f32.  The numerics are
-// `_bwd_tile`'s (bwd_tile.cuh): p = exp2(q.k scale log2 e - lse log2 e),
+// One walk, two kernels:
+//   bwd_fused_tc_kernel (K3, with dq) replaces, for bf16 inputs, the TPU
+//     kernel dtf_tpu/ops/flash_attention.py `_dfused_kernel` (launched by
+//     `_pallas_backward(fused=True)`): dq, dk and dv from one walk of the
+//     tile space;
+//   bwd_dkdv_tc_kernel (K2b, without dq) replaces `_dkdv_kernel`
+//     (`_pallas_backward(fused=False)`): dk and dv only.
+// Both are bwd_kv_walk<D, DQ>, so they share one copy of the tile
+// numerics.  Float32 inputs keep the CUDA-core routes (bwd_tile.cuh
+// kv_block_kernel<float, D, DQ_PARTIAL>, flash_bwd.cu and
+// flash_bwd_fused.cu), exact in f32.  The numerics are `_bwd_tile`'s
+// (bwd_tile.cuh pair_grad): p = exp2(q.k scale log2 e - lse log2 e),
 // the mask as a replacement by NEG_INF on tiles the diagonal crosses,
-// dS = p (dp - delta) scale rounded to bf16 before both of its
-// products, P rounded to bf16 before the dv product, f32 sums.
+// dS = p (dp - delta) scale rounded to bf16 before its products, P
+// rounded to bf16 before the dv product, f32 sums.
 //
-// What bounds it on the card: operations.  Five tile products per live
-// (query, key) pair -- S, dP, dV, dK and dQ -- are 1.3e11 flop at the
-// training shape [8, 2048, 6, 128], causal: 0.13 ms at 989 TFLOP/s.
-// All five are wgmma with f32 accumulators:
+// What bounds them on the card: operations.  Five tile products per
+// live (query, key) pair for K3 -- S, dP, dV, dK and dQ -- four for K2b,
+// are 1.3e11 and 1.0e11 flop at the training shape [8, 2048, 6, 128],
+// causal: 0.13 and 0.10 ms at 989 TFLOP/s.  All are wgmma with f32
+// accumulators:
 //   S^T  = K Q^T      m64n64k16, K and Q K-major from shared memory;
 //   dP^T = V dO^T     likewise;
 //   dV  += P~^T dO    A = P~^T from registers (the S^T accumulator is
 //                     already in A-fragment layout), dO read MN-major;
 //   dK  += dS^T Q     A = dS^T from registers, Q read MN-major;
-//   dQ   = dS K       A = dS read MN-major from shared memory (dS^T is
-//                     stored there, queries contiguous), K MN-major.
+//   dQ   = dS K       (K3 only) A = dS read MN-major from shared memory
+//                     (dS^T is stored there, queries contiguous), K
+//                     MN-major.
 // Computing S and dP transposed -- keys as the rows of the product --
 // puts dV's and dK's A operands in registers with no shared-memory
-// round trip; only dS goes through shared memory, for dQ.
+// round trip; only K3's dS goes through shared memory, for dQ.
 //
 // Design.  A block of two warpgroups owns 128 keys of one batch-head
 // (64 a warpgroup: its dK and dV, [64, D] f32, stay in registers for
 // the whole walk) and walks the live 64-row query tiles; Q, dO and
 // their lse / delta rows flow through a two-stage cp.async ring in
-// 128-byte-swizzled shared memory (hopper.cuh).  Each query tile's dQ
-// over the block's 128 keys is split by columns between the warpgroups
-// (D = 128; at D = 64 the first warpgroup computes it alone) and
-// written to the block's own f32 slot of `dq_partial`
-// [ceil(Sk / 128), B*H, Sq, D]; a second kernel, dq_reduce_tc_kernel,
-// sums the slots that were written in slot order and stores dq in bf16.
-// One writer per slot and a fixed order: no atomics, the same bits on
-// every run.  At the training shape the slots hold 16 x 48 x 2048 x 128
-// f32 = 0.81 GB (the CUDA-core route's 32-key tiles: 3.2 GB), about half
-// of it written and read under causal masking.
+// 128-byte-swizzled shared memory (hopper.cuh).  A block whose first
+// key lies past every query under causal masking walks nothing and
+// writes zeros.
+//
+// K3's dq: each query tile's dQ over the block's 128 keys is split by
+// columns between the warpgroups (D = 128; at D = 64 the first
+// warpgroup computes it alone) and written to the block's own f32 slot
+// of `dq_partial` [ceil(Sk / 128), B*H, Sq, D]; a second kernel,
+// dq_reduce_tc_kernel, sums the slots that were written in slot order
+// and stores dq in bf16.  One writer per slot and a fixed order: no
+// atomics, the same bits on every run.  At the training shape the slots
+// hold 16 x 48 x 2048 x 128 f32 = 0.81 GB (the CUDA-core route's 32-key
+// tiles: 3.2 GB), about half of it written and read under causal
+// masking.  K2b has none of this: no dS^T tile in shared memory, no
+// block-wide barrier between the dK and dQ products, no slots, no
+// reduce pass (K2a, flash_bwd_dq_tc.cuh, computes dq query-major).
 //
 // Layout: q, k, v, dO, dk, dv [B, S, H, D] bf16, D 64 or 128; lse2 (lse
 // times log2 e) and delta [B*H, Sq] f32.  Positions count from 0 for
@@ -46,6 +61,7 @@
 #pragma once
 
 #include "attn_tile.cuh"
+#include "bwd_tile.cuh"
 #include "hopper.cuh"
 
 namespace dtf {
@@ -56,28 +72,29 @@ constexpr int BWD_BQ = 64;   // query rows per tile of the walk
 constexpr int BWD_NT = 256;  // two warpgroups
 constexpr int RED_NT = 256;  // threads per block of the reduce pass
 
-// dq partial slots: one per 128-key block
+// key blocks of the walk, and K3's dq partial slots: one per 128 keys
 __host__ __device__ constexpr int bwd_slots(int Sk) {
   return (Sk + BWD_BK - 1) / BWD_BK;
 }
 
-template <int D>
+template <int D, bool DQ>
 constexpr int bwd_smem_bytes() {
-  // K and V tiles, two stages of Q and dO tiles, dS^T, two stages of
-  // lse2 and delta rows, and slack to align to 1024
-  return 2 * BWD_BK * D * 2 + 2 * 2 * BWD_BQ * D * 2 + BWD_BK * BWD_BQ * 2 +
-         2 * 2 * BWD_BQ * 4 + 1024;
+  // K and V tiles, two stages of Q and dO tiles, K3's dS^T, two stages
+  // of lse2 and delta rows, and slack to align to 1024
+  return 2 * BWD_BK * D * 2 + 2 * 2 * BWD_BQ * D * 2 +
+         (DQ ? BWD_BK * BWD_BQ * 2 : 0) + 2 * 2 * BWD_BQ * 4 + 1024;
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_NT, 1)
-bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                    const float* __restrict__ lse2,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, float* __restrict__ dq_partial,
-                    int H, int Sq, int Sk, int causal, float scale,
-                    float scale_log2e) {
+// The walk of one 128-key block; DQ adds K3's dq product and slot write
+// (`dq_partial` is unused without it).
+template <int D, bool DQ>
+__device__ __forceinline__ void bwd_kv_walk(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ dq_partial, int H, int Sq, int Sk, int causal,
+    float scale, float scale_log2e) {
   constexpr int KV_BYTES = BWD_BK * D * 2;
   constexpr int QT_BYTES = BWD_BQ * D * 2;
   constexpr int DS_BYTES = BWD_BK * BWD_BQ * 2;
@@ -92,7 +109,7 @@ bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t ds_s = st_s + 4 * QT_BYTES;    // dS^T [128 keys][64 rows]
   uint8_t* ds_ptr = smem_raw + (ds_s - raw);
   // stage s: lse2 at rows + 128 s, delta at rows + 128 s + 64
-  float* rows = reinterpret_cast<float*>(ds_ptr + DS_BYTES);
+  float* rows = reinterpret_cast<float*>(ds_ptr + (DQ ? DS_BYTES : 0));
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -190,11 +207,9 @@ bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int qc = acc_col(i, lane);
       const int qi = q0 + qc;
       const int kj = wk0 + krow[acc_half(i)];
-      const float s2 = (diag && kj > qi) ? NEG_INF : s[i] * scale_log2e;
-      const float p =
-          (qi < Sq && kj < Sk) ? exp2f(s2 - lse_t[qc]) : 0.f;
-      dp[i] = p * (dp[i] - delta_t[qc]) * scale;
-      s[i] = p;
+      pair_grad<float>(s[i], dp[i], lse_t[qc], delta_t[qc],
+                       diag && kj > qi, qi < Sq && kj < Sk, scale,
+                       scale_log2e, s[i], dp[i]);
     }
     uint32_t pa[4][4];
     uint32_t dsa[4][4];
@@ -203,17 +218,20 @@ bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // dS^T to shared memory for the dQ product: row = key, queries
     // contiguous, one swizzled panel of 128 rows
+    if constexpr (DQ) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = 64 * wg + krow[r % 2];
-        const int col = 16 * kk + 8 * (r / 2) + 2 * (lane % 4);
-        *reinterpret_cast<uint32_t*>(ds_ptr + tile_offset<BWD_BK>(row, col)) =
-            dsa[kk][r];
+        for (int r = 0; r < 4; ++r) {
+          const int row = 64 * wg + krow[r % 2];
+          const int col = 16 * kk + 8 * (r / 2) + 2 * (lane % 4);
+          *reinterpret_cast<uint32_t*>(ds_ptr +
+                                       tile_offset<BWD_BK>(row, col)) =
+              dsa[kk][r];
+        }
       }
+      fence_async_smem();
     }
-    fence_async_smem();
 
     // dV += P~^T dO and dK += dS^T Q: k16 slices over the 64 rows
     pin(dv_acc);
@@ -230,11 +248,11 @@ bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    1);
     }
     wg_commit();
-    __syncthreads();  // both warpgroups' dS^T is stored
+    if constexpr (DQ) __syncthreads();  // both warpgroups' dS^T is stored
 
-    // dQ = dS K over the block's 128 keys, [64 rows, 64 columns]: the
-    // warpgroup's half of D (the first warpgroup alone at D = 64)
-    if (D == 128 || wg == 0) {
+    // K3's dQ = dS K over the block's 128 keys, [64 rows, 64 columns]:
+    // the warpgroup's half of D (the first warpgroup alone at D = 64)
+    if (DQ && (D == 128 || wg == 0)) {
       float dq[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dq[i] = 0.f;
@@ -291,6 +309,31 @@ bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(BWD_NT, 1)
+bwd_fused_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, float* __restrict__ dq_partial,
+                    int H, int Sq, int Sk, int causal, float scale,
+                    float scale_log2e) {
+  bwd_kv_walk<D, true>(q, k, v, dO, lse2, delta, dk, dv, dq_partial, H, Sq,
+                       Sk, causal, scale, scale_log2e);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_NT, 1)
+bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                   const float* __restrict__ lse2,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                   float scale, float scale_log2e) {
+  bwd_kv_walk<D, false>(q, k, v, dO, lse2, delta, dk, dv, nullptr, H, Sq,
+                        Sk, causal, scale, scale_log2e);
+}
+
 // Pass 2: dq[b, qi, h, :] = the sum, in slot order, of the slots that
 // wrote row qi -- under causal masking the 128-key blocks starting at or
 // before the row's 64-row tile, t <= qi / 128 -- stored in bf16.
@@ -335,7 +378,7 @@ cudaError_t launch_bwd_fused_tc(const void* q, const void* k, const void* v,
                                 int Sq, int Sk, int causal, float scale,
                                 float scale_log2e, cudaStream_t stream) {
   const int slots = bwd_slots(Sk);
-  constexpr int smem = bwd_smem_bytes<D>();
+  constexpr int smem = bwd_smem_bytes<D, true>();
   auto kernel = bwd_fused_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -351,6 +394,26 @@ cudaError_t launch_bwd_fused_tc(const void* q, const void* k, const void* v,
   dq_reduce_tc_kernel<D><<<static_cast<unsigned>((n + RED_NT - 1) / RED_NT),
                            RED_NT, 0, stream>>>(
       partial, static_cast<bf16*>(dq), B * H, H, Sq, slots, causal);
+  return cudaGetLastError();
+}
+
+// K2b on `stream`: one block per (batch-head, 128-key block).
+template <int D>
+cudaError_t launch_bwd_dkdv_tc(const void* q, const void* k, const void* v,
+                               const void* dO, const float* lse2,
+                               const float* delta, void* dk, void* dv, int B,
+                               int H, int Sq, int Sk, int causal, float scale,
+                               float scale_log2e, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_bytes<D, false>();
+  auto kernel = bwd_dkdv_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, bwd_slots(Sk)), BWD_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dO), lse2, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, causal,
+      scale, scale_log2e);
   return cudaGetLastError();
 }
 

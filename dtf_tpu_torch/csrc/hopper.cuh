@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_fwd_tc.cuh: K1 in bf16; flash_bwd_tc.cuh: K3 in bf16).
+// (flash_fwd_tc.cuh: K1 in bf16; flash_bwd_tc.cuh: K3 and K2b in bf16;
+// flash_bwd_dq_tc.cuh: K2a in bf16).
 //
 // Shared-memory tiles.  A tile of ROWS rows x COLS bf16 columns (COLS a
 // multiple of 64) is stored as COLS / 64 "panels" of [ROWS][64]: each

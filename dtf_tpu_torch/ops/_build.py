@@ -135,13 +135,15 @@ def build_all() -> None:
 
 
 def ptxas_report(source: str) -> List[str]:
-    """The compiler's per-kernel resource lines (registers, spills)."""
+    """The compiler's per-kernel resource lines: each kernel's (mangled)
+    name, then its registers and spills."""
     path = _library_path(source)[:-3] + ".log"
     if not os.path.exists(path):
         return []
     with open(path) as f:
         return [ln.strip() for ln in f
-                if "registers" in ln or "spill" in ln]
+                if "entry function" in ln or "registers" in ln
+                or "spill" in ln]
 
 
 def load(name: str):

@@ -15,10 +15,11 @@ hand-written kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
 ``csrc/flash_bwd_fused.cu``) or raises, a CPU tensor to the plain
 versions -- the same tile arithmetic in plain PyTorch.  No gradient is
 ever taken by autograd through the plain forward.  Inside the C entry
-points of K1 and K3 the dtype picks the route: bfloat16 runs the
-tensor-core kernels (``csrc/flash_fwd_tc.cuh``,
-``csrc/flash_bwd_tc.cuh``: wgmma), float32 the CUDA-core kernels, exact
-in f32.
+points of every flash kernel -- K1, K2a, K2b and K3 -- the dtype picks
+the route, and neither route stands in for the other: bfloat16 runs
+the tensor-core kernels (wgmma: ``csrc/flash_fwd_tc.cuh`` K1,
+``csrc/flash_bwd_dq_tc.cuh`` K2a, ``csrc/flash_bwd_tc.cuh`` K2b and K3),
+float32 the CUDA-core kernels, exact in f32.
 
 The backward keeps the JAX formulation choice: ``fused_bwd=None`` picks
 the single-pass K3 when Sq == Sk and the TPU kernel's [Sq, D] f32 dq

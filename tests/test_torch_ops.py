@@ -178,12 +178,15 @@ def _split(x, b, h):                  # [B*H, S, D] -> [B, S, H, D]
     return np.swapaxes(x.reshape(b, h, *x.shape[1:]), 1, 2)
 
 
-def _bwd_case(shape, causal, seed, dtype=np.float32):
+def _bwd_case(shape, causal, seed, dtype=np.float32, sk=None):
     """Inputs, the JAX forward's residuals (o, lse) and the port's
-    delta for one backward case; q/k/v/dO in ``dtype``."""
+    delta for one backward case; q/k/v/dO in ``dtype``; k and v hold
+    ``sk`` keys where given (cross-length attention)."""
     rng = np.random.default_rng(seed)
-    q, k, v, do = (_rand(rng, *shape).astype(dtype) for _ in range(4))
     b, s, h, d = shape
+    kv = (b, s if sk is None else sk, h, d)
+    q, k, v, do = (_rand(rng, *x).astype(dtype)
+                   for x in (shape, kv, kv, shape))
     jo, jlse = jfa._pallas_forward(*(_merge(x) for x in (q, k, v)),
                                    d ** -0.5, causal, 8, 8, True)
     o = _split(jo, b, h)
@@ -229,6 +232,36 @@ def test_plain_backward_matches_pallas_interpret(shape, block, causal,
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(16, 24), (24, 16)])
+def test_plain_split_backward_cross_length_matches_pallas_interpret(
+        sq, sk, causal):
+    """Cross-length attention, the split pair's own case under the auto
+    rule: K2a's and K2b's plain versions against
+    ``_pallas_backward(fused=False)`` at block 8, Sq < Sk and Sq > Sk,
+    with the port's tiles of 16 ragged against 24.  Positions count from
+    0 for queries and keys alike: under causal masking keys past the
+    last query get zero dk and dv, and queries past the last key see
+    every key."""
+    shape = (2, sq, 2, 16)
+    b, _, h, d = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, causal, sq + 2 * sk, sk=sk)
+    scale = d ** -0.5
+    ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                               _merge(do), scale, causal, 8, 8, True,
+                               fused=False)
+    args = [_t(x) for x in (q, k, v, do, lse, delta)]
+    port = (tfa.flash_bwd_dq_plain(*args, causal=causal, scale=scale,
+                                   block=16),
+            *tfa.flash_bwd_dkdv_plain(*args, causal=causal, scale=scale,
+                                      block=16))
+    for p, r, want in zip(port, ref, (q.shape, k.shape, v.shape)):
+        assert p.dtype == torch.float32 and tuple(p.shape) == want
+        _close(p, _split(r, b, h))
+    if causal and sk > sq:
+        assert not port[1][:, sq:].any() and not port[2][:, sq:].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_blockwise_oracle(causal):
     """The formulation the port runs by default at this shape (the auto
     rule picks K3) against the plain-JAX oracle ``_blockwise_bwd``."""
@@ -266,6 +299,29 @@ def test_plain_backward_bf16_matches_pallas_interpret():
                 np.asarray(_split(r, b, h), np.float32)))
 
 
+def test_plain_split_backward_bf16_cross_length_matches_pallas_interpret():
+    """bf16 at Sq 16 / Sk 24, causal, through ``flash_backward``'s auto
+    rule (the split pair) against ``_pallas_backward(fused=False)``
+    under the backward's row rule (:func:`_assert_grads_close`): each
+    output row within two bf16 steps at its own largest |ref|, floored
+    at 2^-8 of the output's largest |ref| -- causal dq's first row is
+    exactly zero and comes out as f32 rounding noise."""
+    shape = (1, 16, 2, 32)
+    b, s, h, d = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, True, 43, jnp.bfloat16,
+                                           sk=24)
+    scale = d ** -0.5
+    ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                               _merge(do), scale, True, 8, 8, True,
+                               fused=False)
+    port = tfa.flash_backward(*(_t(x) for x in (q, k, v, o, lse, do)),
+                              causal=True, scale=scale)
+    for p, r in zip(port, ref):
+        assert p.dtype == torch.bfloat16
+        _assert_grads_close(p, torch.from_numpy(
+            np.asarray(_split(r, b, h), np.float32)))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("fused_bwd", [None, True, False])
 def test_flash_attention_grad_matches_jax_grad(causal, fused_bwd):
@@ -286,6 +342,36 @@ def test_flash_attention_grad_matches_jax_grad(causal, fused_bwd):
     o = tfa.flash_attention(tq, tk, tv, causal=causal, fused_bwd=fused_bwd)
     _close(o.detach(), jfa.flash_attention(q, k, v, causal=causal,
                                            use_pallas="interpret"))
+    port = torch.autograd.grad((o * torch.from_numpy(w)).sum(),
+                               (tq, tk, tv))
+    for p, r in zip(port, ref):
+        _close(p, r)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(16, 24), (24, 8)])
+def test_flash_attention_cross_length_grad_matches_jax_grad(sq, sk, causal,
+                                                            monkeypatch):
+    """At Sq != Sk the auto rule picks the split pair (K2a + K2b) -- K3
+    is never called -- and the port's gradient equals jax.grad through
+    the JAX flash attention run by the Pallas interpreter."""
+    rng = np.random.default_rng(52 + sq + sk)
+    q, w = (_rand(rng, 1, sq, 2, 32) for _ in range(2))
+    k, v = (_rand(rng, 1, sk, 2, 32) for _ in range(2))
+
+    def jloss(q_, k_, v_):
+        o = jfa.flash_attention(q_, k_, v_, causal=causal,
+                                use_pallas="interpret")
+        return jnp.sum(o * w)
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+
+    def no_fused(*a, **kw):
+        raise AssertionError("the auto rule took K3 at Sq != Sk")
+
+    monkeypatch.setattr(tfa, "flash_bwd_fused", no_fused)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, causal=causal)
     port = torch.autograd.grad((o * torch.from_numpy(w)).sum(),
                                (tq, tk, tv))
     for p, r in zip(port, ref):
@@ -645,41 +731,53 @@ def _assert_grads_close(out, ref):
                            floor=2.0 ** -8 * float(ref.float().abs().max()))
 
 
-def _card_bwd_inputs(device, dtype, b, s, h, d, seed):
+def _card_bwd_inputs(device, dtype, b, s, h, d, seed, sk=None):
+    """q, k, v, dO on the card; k and v hold ``sk`` keys where given."""
     gen = torch.Generator().manual_seed(seed)
-    return [torch.randn(b, s, h, d, generator=gen).to(device, dtype)
-            for _ in range(4)]
+    kv = (b, s if sk is None else sk, h, d)
+    return [torch.randn(x, generator=gen).to(device, dtype)
+            for x in ((b, s, h, d), kv, kv, (b, s, h, d))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,d", [(5, 64), (64, 128), (200, 64),
-                                 (200, 128), (320, 64), (320, 128)])
-def test_backward_kernels_match_plain_on_card(cuda_device, dtype, s, d):
-    """K2a, K2b and K3 against their plain versions on the same inputs,
-    causal and full, ragged against the kernels' tiles (32 rows on the
-    CUDA-core routes; 64 query rows and 128 keys on K3's bf16 tensor-core
-    route); K3 against K2a + K2b; each launch counted once."""
-    q, k, v, do = _card_bwd_inputs(cuda_device, dtype, 2, s, 3, d, s + d)
+@pytest.mark.parametrize("sq,sk,d", [(5, 5, 64), (64, 64, 128),
+                                     (200, 200, 64), (200, 200, 128),
+                                     (320, 320, 64), (320, 320, 128),
+                                     (200, 320, 128), (320, 200, 128),
+                                     (64, 256, 64), (130, 70, 64)])
+def test_backward_kernels_match_plain_on_card(cuda_device, dtype, sq, sk,
+                                              d):
+    """K2a and K2b -- and K3 where Sq == Sk -- against their plain
+    versions on the same inputs, causal and full, ragged against the
+    kernels' tiles (32 rows on the CUDA-core routes; 128 query rows and
+    64 keys for K2a, 128 keys and 64 query rows for K2b and K3 on the
+    bf16 tensor-core routes) and at cross lengths, Sq < Sk and Sq > Sk;
+    K3 against K2a + K2b; each launch counted once."""
+    q, k, v, do = _card_bwd_inputs(cuda_device, dtype, 2, sq, 3, d,
+                                   sq + sk + d, sk)
     scale = d ** -0.5
     for causal in (True, False):
         o, lse = tfa.flash_forward(q, k, v, causal=causal)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-            -1, s).contiguous()
+            -1, sq).contiguous()
         args = (q, k, v, do, lse, delta)
         n = (tfa.launches_dq, tfa.launches_dkdv, tfa.launches_fused)
         dq = tfa.flash_bwd_dq(*args, causal=causal, scale=scale)
         dk, dv = tfa.flash_bwd_dkdv(*args, causal=causal, scale=scale)
-        fq, fk, fv = tfa.flash_bwd_fused(*args, causal=causal, scale=scale)
+        outs = [dq, dk, dv]
+        if sq == sk:
+            outs += tfa.flash_bwd_fused(*args, causal=causal, scale=scale)
         torch.cuda.synchronize()
         assert (tfa.launches_dq, tfa.launches_dkdv,
-                tfa.launches_fused) == (n[0] + 1, n[1] + 1, n[2] + 1)
+                tfa.launches_fused) == (n[0] + 1, n[1] + 1,
+                                        n[2] + int(sq == sk))
         plain = tfa.flash_bwd_fused_plain(*args, causal=causal, scale=scale)
-        for out, ref in zip((dq, dk, dv, fq, fk, fv), plain + plain):
+        for out, ref in zip(outs, plain + plain):
             assert out.dtype == dtype
             _assert_grads_close(out, ref)
-        if dtype == torch.float32:
-            for a, b_ in ((fq, dq), (fk, dk), (fv, dv)):
+        if dtype == torch.float32 and sq == sk:
+            for a, b_ in zip(outs[3:], outs[:3]):
                 _assert_grads_close(a, b_)
 
 
@@ -695,6 +793,25 @@ def test_fused_backward_kernel_is_deterministic_on_card(cuda_device, dtype):
                                scale=128 ** -0.5, fused=True)
     again = tfa.flash_backward(q, k, v, o, lse, do, causal=True,
                                scale=128 ** -0.5, fused=True)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", [384, 200])
+def test_split_backward_kernels_are_deterministic_on_card(cuda_device,
+                                                          dtype, sk):
+    """K2a and K2b have one writer per output tile: two runs give the
+    same bits, on both routes, at equal and at cross lengths."""
+    q, k, v, do = _card_bwd_inputs(cuda_device, dtype, 2, 384, 4, 128, 8,
+                                   sk)
+    o, lse = tfa.flash_forward(q, k, v, causal=True)
+    first = tfa.flash_backward(q, k, v, o, lse, do, causal=True,
+                               scale=128 ** -0.5, fused=False)
+    again = tfa.flash_backward(q, k, v, o, lse, do, causal=True,
+                               scale=128 ** -0.5, fused=False)
     torch.cuda.synchronize()
     for a, b_ in zip(first, again):
         assert torch.equal(a, b_)
