@@ -16,9 +16,13 @@ Phases, each printing one JSON object per line (the card's
                  tolerance, then kernel, plain and library times (CUDA
                  events, warmed up, median of five, inputs rotated
                  through enough copies to defeat the 50 MB L2) and the
-                 least time the card could take.  K1, K2a, K2b and K3
-                 have two routes, reported as separate cases: float32
-                 on CUDA cores, bfloat16 on tensor cores (wgmma).  K1 at
+                 least time the card could take (for float32 at the
+                 tensor cores' 165 TFLOP/s of f32-accurate work, with
+                 the CUDA cores' 67 TFLOP/s beside it).  K1, K2a, K2b
+                 and K3 have two routes, reported as separate cases:
+                 bfloat16 on tensor cores (wgmma); float32 in split
+                 TF32 products on tensor cores (K1, K3) or on CUDA cores
+                 (K2a, K2b).  K1 at
                  serving, ragged, D 64 and training shapes; the backward
                  K2a, K2b and K3 at [2, 200, 6, 128], [1, 2048, 6, 128]
                  and [2, 256, 8, 64], causal and full, f32 and bf16, K3
@@ -48,8 +52,9 @@ Phases, each printing one JSON object per line (the card's
                  attention bound to K1 + K2a/K2b and to the plain
                  versions (each within 1e-4 of its largest |value|);
                  launches per step counted for each binding and for
-                 remat; three AdamW steps with K3 and with K2a/K2b give
-                 the same losses (1e-5 relative).
+                 remat; each binding's synced step time (forward and
+                 backward); three AdamW steps with K3 and with K2a/K2b
+                 give the same losses (1e-5 relative).
      train_bf16_parity -- the same model and batch in bf16 compute:
                  gradients through K1 + K3 and through K1 + K2a/K2b
                  (tensor cores) within 1e-2 of each parameter's largest
@@ -93,8 +98,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
-              "bfloat16": 989e12}    # dense tensor cores
+# f32-accurate work on the tensor cores: 495 TFLOP/s of TF32 over the
+# three products of a split product; bf16 dense tensor cores
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+CUDA_CORE_F32_FLOPS = 67e12          # f32 FMA on the CUDA cores
 L2_BYTES = 50e6
 TRAIN_SHAPE = (8, 2048, 6, 128)      # transformer_tpu at batch 8
 
@@ -190,17 +197,36 @@ def bound(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-# the two routes of K1, K2a, K2b and K3, by dtype, inside their C entry
-# points (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_bwd_fused.cu)
-ROUTE = {"float32": "cuda-core f32", "bfloat16": "wgmma+cp.async"}
+def bounds(flops: float, nbytes: float, dtype: str):
+    """``bound_ms`` and ``bound_by`` at the dtype's tensor-core peak;
+    for float32 also ``bound_cuda_core_ms``, the same work at the CUDA
+    cores' f32 rate."""
+    ms, by = bound(flops, nbytes, dtype)
+    out = {"bound_ms": ms, "bound_by": by}
+    if dtype == "float32":
+        out["bound_cuda_core_ms"] = max(flops / CUDA_CORE_F32_FLOPS,
+                                        nbytes / HBM_BYTES_PER_S) * 1e3
+    return out
+
+
+# the routes of K1, K2a, K2b and K3 inside their C entry points
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_bwd_fused.cu), by
+# kernel and dtype
+SPLIT_TF32 = "3xtf32 mma.sync+cp.async"
+
+
+def route(kernel: str, dtype: str) -> str:
+    if dtype == "bfloat16":
+        return "wgmma+cp.async"
+    return SPLIT_TF32 if kernel in ("K1", "K3") else "cuda-core f32"
 
 
 def check_flash(torch, timer, gen):
     """K1 against its plain version: [1, 64, 6, 128] (a first prefill
     chunk), [2, 200, 6, 128] (ragged against any tile), [2, 256, 8, 64]
     (D 64), [1, 2048, 6, 128] (a whole-context chunk) and the training
-    shape [8, 2048, 6, 128], causal and full, float32 (the CUDA-core
-    route) and bfloat16 (the tensor-core route)."""
+    shape [8, 2048, 6, 128], causal and full, float32 (split TF32
+    products) and bfloat16 (wgmma)."""
     import torch.nn.functional as F
 
     from dtf_tpu_torch.ops import flash_attention as fa
@@ -230,14 +256,12 @@ def check_flash(torch, timer, gen):
                 elem = q.element_size()
                 nbytes = 4 * q.numel() * elem + lse.numel() * 4
                 pairs = s * (s + 1) / 2 if causal else s * s
-                bound_ms, bound_by = bound(4 * b * h * d * pairs, nbytes,
-                                           dname)
                 copies = rotated((q, k, v), 3 * q.numel() * elem)
                 tq = [tuple(t.transpose(1, 2).contiguous() for t in c)
                       for c in copies]
                 cases.append({
                     "shape": list(shape), "causal": causal, "dtype": dname,
-                    "design": ROUTE[dname],
+                    "design": route("K1", dname),
                     "max_abs_err": err, "tol": tol, "err_over_tol": ratio,
                     "lse_err": lse_err,
                     "lse_tol": lse_tol,
@@ -249,7 +273,7 @@ def check_flash(torch, timer, gen):
                     "library_ms": timer.ms(
                         lambda q_, k_, v_: F.scaled_dot_product_attention(
                             q_, k_, v_, is_causal=causal), tq),
-                    "bound_ms": bound_ms, "bound_by": bound_by})
+                    **bounds(4 * b * h * d * pairs, nbytes, dname)})
                 emit({"phase": "kernels", "kernel": "K1", **cases[-1]})
     return cases
 
@@ -276,8 +300,9 @@ def grad_tolerance(torch, out, ref):
 def check_backward(torch, timer, gen):
     """K2a, K2b and K3 against their plain versions on the same inputs:
     [2, 200, 6, 128] (ragged against any tile), [1, 2048, 6, 128] and
-    [2, 256, 8, 64], causal and full, float32 (the CUDA-core routes) and
-    bfloat16 (the tensor-core routes); K3 against K2a + K2b in float32;
+    [2, 256, 8, 64], causal and full, float32 (K3 in split TF32
+    products, K2a and K2b on CUDA cores) and bfloat16 (wgmma); K3
+    against K2a + K2b in float32;
     each kernel twice gives the same bits in both.  Then each at the
     training shape, causal, in both dtypes: kernel, plain and library
     times and bounds, the library yardstick being the backward of
@@ -331,7 +356,9 @@ def check_backward(torch, timer, gen):
                 plain = fa.flash_bwd_fused_plain(*args, **kw)
                 torch.cuda.synchronize()
                 row = {"shape": list(shape), "causal": causal,
-                       "dtype": dname, "design": ROUTE[dname]}
+                       "dtype": dname,
+                       "design": {n: route(n, dname)
+                                  for n in ("K2a", "K2b", "K3")}}
                 refs = {"K2a": plain[:1], "K2b": plain[1:], "K3": plain}
                 for kname in ("K2a", "K2b", "K3"):
                     held(row, kname, outs[kname], refs[kname])
@@ -361,7 +388,7 @@ def check_backward(torch, timer, gen):
              "K3": fa.flash_bwd_fused_plain}
     # the profiler's names of K3's two passes on each route
     passes = {"bfloat16": ("bwd_fused_tc_kernel", "dq_reduce_tc_kernel"),
-              "float32": ("kv_block_kernel", "dq_reduce_kernel")}
+              "float32": ("bwd_fused_x3_kernel", "dq_reduce_x3_kernel")}
     timings = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
@@ -395,18 +422,17 @@ def check_backward(torch, timer, gen):
             if not worst[2] <= 1.0:
                 raise AssertionError(f"{key} at the training shape: {res}")
             products, nbytes = work[name]
-            bound_ms, bound_by = bound(2 * d * products * pairs, nbytes,
-                                       dname)
             timings[key] = {
                 "max_abs_err": max(x[0] for x in res), "tol": worst[1],
                 "err_over_tol": worst[2], "shape": list(TRAIN_SHAPE),
-                "causal": True, "dtype": dname, "design": ROUTE[dname],
+                "causal": True, "dtype": dname,
+                "design": route(name, dname),
                 "ms": timer.ms(lambda *a, f=kernel[name]: f(*a, **kw),
                                copies),
                 "plain_ms": timer.ms(lambda *a, f=plain[name]: f(*a, **kw),
                                      copies[:1]),
-                "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+                "library_ms": library_ms,
+                **bounds(2 * d * products * pairs, nbytes, dname)}
             if name == "K3":
                 timings[key]["partial_bytes"] = fa.fused_partial_bytes(q, k)
                 # the C side's count agrees with the wrapper's allocation
@@ -442,7 +468,8 @@ def check_backward(torch, timer, gen):
                 plain = fa.flash_bwd_fused_plain(*args, **kw)
                 torch.cuda.synchronize()
                 row = {"shape": [2, sq, h, d], "sk": sk, "causal": causal,
-                       "dtype": dname, "design": ROUTE[dname]}
+                       "dtype": dname,
+                       "design": {n: route(n, dname) for n in ("K2a", "K2b")}}
                 held(row, "K2a", outs["K2a"], plain[:1])
                 held(row, "K2b", outs["K2b"], plain[1:])
                 for kname in ("K2a", "K2b"):
@@ -529,7 +556,6 @@ def check_paged(torch, timer, gen):
                       + tab.numel() * 4 + idx.numel() * 4)
             pairs = sum(min(int(i) + j + 1, m * page)
                         for i in idx.tolist() for j in range(s))
-            bound_ms, bound_by = bound(4 * h * d * pairs, nbytes, dname)
             copies = rotated((q, pool_k, pool_v, tab_c, idx_c),
                              2 * sum(keys) * h * d * elem)
             cases.append({
@@ -540,7 +566,7 @@ def check_paged(torch, timer, gen):
                 "plain_ms": timer.ms(pa.paged_flash_decode_reference,
                                      copies[:1]),
                 "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by})
+                **bounds(4 * h * d * pairs, nbytes, dname)})
             emit({"phase": "kernels", "kernel": "K4", **cases[-1]})
         del pool_k, pool_v
     return cases
@@ -715,15 +741,16 @@ def make_plain_attention(torch, fa, block_k: int = 64,
 
 
 def training_runs(torch, seed: int, dtype, bindings, adamw,
-                  remat: bool = False):
+                  remat: bool = False, timed: bool = False):
     """transformer_tpu at full width and depth, compute in ``dtype``,
     batch 2 x 2048, random weights from ``seed``.  For each attention
     binding (name -> function), one step's loss and parameter gradients;
-    with ``remat`` one default-bound step under remat; for the bindings
-    named in ``adamw``, three AdamW steps' losses.  The kernels'
-    launches of each run are counted between a reset just before and a
-    read just after.  Returns (parameter names, grads, losses,
-    launches)."""
+    with ``timed``, then the median of three more such steps' synced
+    host time (forward and backward, ms); with ``remat`` one
+    default-bound step under remat; for the bindings named in
+    ``adamw``, three AdamW steps' losses.  The kernels' launches of each
+    run are counted between a reset just before and a read just after.
+    Returns (parameter names, grads, losses, launches, step ms)."""
     from dtf_tpu_torch.config import Config
     from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
     from dtf_tpu_torch.models import transformer
@@ -743,7 +770,7 @@ def training_runs(torch, seed: int, dtype, bindings, adamw,
         return random_init(model, seed).cuda()
 
     default = transformer.flash_attention
-    grads, losses, launches = {}, {}, {}
+    grads, losses, launches, step_ms = {}, {}, {}, {}
     try:
         for name, attn in bindings.items():
             transformer.flash_attention = attn
@@ -755,6 +782,16 @@ def training_runs(torch, seed: int, dtype, bindings, adamw,
             torch.cuda.synchronize()
             launches[f"step_{name}"] = kernel_counts(fa, pa)
             losses[f"step_{name}"] = float(loss.detach())
+            if timed:
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    torch.autograd.grad(cross_entropy(model(tokens), labels),
+                                        params)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                step_ms[name] = statistics.median(times)
             del model, loss, params
         transformer.flash_attention = default
         if remat:
@@ -780,7 +817,7 @@ def training_runs(torch, seed: int, dtype, bindings, adamw,
             del trainer, state
     finally:
         transformer.flash_attention = default
-    return names, grads, losses, launches
+    return names, grads, losses, launches, step_ms
 
 
 def grad_gap(names, grads, ref: str, other: str, tol: float):
@@ -803,12 +840,13 @@ def check_launches(launches, want) -> None:
 
 
 def check_training_f32(torch, seed: int):
-    """float32 (the CUDA-core routes of K1 and K3): one step's gradients
-    through K1 + K3 (the default) against the same step with attention
-    bound to K1 + K2a/K2b and to the plain versions, each gradient
-    within 1e-4 of its own largest |value|; the launches of each binding
-    and of remat; then three AdamW steps with K3 and with K2a/K2b,
-    per-step losses within 1e-5 relative."""
+    """float32 (the split-product routes of K1 and K3, the exact
+    CUDA-core K2a and K2b): one step's gradients through K1 + K3 (the
+    default) against the same step with attention bound to K1 + K2a/K2b
+    and to the plain versions, each gradient within 1e-4 of its own
+    largest |value|; each binding's synced step time; the launches of
+    each binding and of remat; then three AdamW steps with K3 and with
+    K2a/K2b, per-step losses within 1e-5 relative."""
     import functools
 
     from dtf_tpu_torch.ops import flash_attention as fa
@@ -817,8 +855,9 @@ def check_training_f32(torch, seed: int):
                 "K2a+K2b": functools.partial(fa.flash_attention,
                                              fused_bwd=False),
                 "plain": make_plain_attention(torch, fa)}
-    names, grads, losses, launches = training_runs(
-        torch, seed, torch.float32, bindings, ("K3", "K2a+K2b"), remat=True)
+    names, grads, losses, launches, step_ms = training_runs(
+        torch, seed, torch.float32, bindings, ("K3", "K2a+K2b"), remat=True,
+        timed=True)
     worst = {}
     for other in ("K2a+K2b", "plain"):
         worst[other] = grad_gap(names, grads, "K3", other, 1e-4)
@@ -843,7 +882,8 @@ def check_training_f32(torch, seed: int):
            "batch": 2, "seq": 2048, "losses": losses,
            "grad_err_over_tol": {k: v[0] for k, v in worst.items()},
            "grad_worst_param": {k: v[1] for k, v in worst.items()},
-           "adamw_loss_rel_gap": rel, "launches": launches}
+           "adamw_loss_rel_gap": rel, "step_ms": step_ms,
+           "launches": launches}
     emit(out)
     del grads
     torch.cuda.empty_cache()
@@ -876,7 +916,7 @@ def check_training_bf16(torch, seed: int):
                 "plain_reordered": make_plain_attention(torch, fa,
                                                         block_k=128,
                                                         block=64)}
-    names, grads, losses, launches = training_runs(
+    names, grads, losses, launches, _ = training_runs(
         torch, seed, torch.bfloat16, bindings, kernels + ("plain",))
     worst, worst_five, rel = {}, {}, {}
     for kname in kernels:
@@ -1129,6 +1169,7 @@ def main(argv=None) -> int:
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    f32_keys = ("bound_cuda_core_ms",)
 
     def entry(name, source, replaces, main_case, launches, run, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1137,7 +1178,9 @@ def main(argv=None) -> int:
                 "main_path_case": {k: main_case[k] for k in main_case
                                    if k in ("shape", "causal", "case",
                                             "dtype")},
-                **{k: main_case[k] for k in keys}, **extra}
+                **{k: main_case[k] for k in keys},
+                **{k: main_case[k] for k in f32_keys if k in main_case},
+                **extra}
 
     # the cases the runs launch most: K1 at the training shape (and a
     # 64-token first chunk when serving), K4 at a decode step over 8 rows;
@@ -1164,9 +1207,13 @@ def main(argv=None) -> int:
               launches_serve=serve_launches["K1"],
               launches_per_serve_call={c: n["K1"]
                                        for c, n in per_call.items()}),
-        entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd.cu",
+        entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
-              fused32["K1"], f32_run),
+              fused32["K1"], f32_run,
+              serving_chunk_ms=next(
+                  c["ms"] for c in k1 if c["dtype"] == "float32"
+                  and c["shape"] == [1, 64, 6, 128] and c["causal"]),
+              step_ms_f32=train32["step_ms"]),
         entry("K2a", "dtf_tpu_torch/csrc/flash_bwd_dq_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a"],
               train_split["launches"]["K2a"], split_run),
@@ -1184,11 +1231,12 @@ def main(argv=None) -> int:
               train["launches"]["K3"], "train (phase 6)",
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
-        entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_fused.cu",
+        entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:367", bwd["K3 float32"],
               fused32["K3"], f32_run,
               partial_bytes=bwd["K3 float32"]["partial_bytes"],
-              passes_ms=bwd["K3 float32"]["passes_ms"]),
+              passes_ms=bwd["K3 float32"]["passes_ms"],
+              step_ms_f32=train32["step_ms"]),
         entry("K4", "dtf_tpu_torch/csrc/paged_decode.cu",
               "dtf_tpu/ops/paged_attention.py:170", k4_main,
               serve_launches["K4"], "serve (phase 4)",

@@ -1,6 +1,7 @@
-// Tile math shared by the two attention kernels (flash_fwd.cu,
-// paged_decode.cu): loading [rows, D] tiles into shared memory as f32,
-// and folding one key tile into a row's online-softmax carry.
+// Tile math of the paged decode kernel (paged_decode.cu): loading
+// [rows, D] tiles into shared memory as f32, and folding one key tile
+// into a row's online-softmax carry.  NEG_INF, round_as and store serve
+// every attention kernel.
 //
 // The carry rule is dtf_tpu_torch/ops/blockwise.py block_accumulate:
 // scores in f32, an additive NEG_INF bias for masked keys (finite, so a

@@ -1,9 +1,9 @@
-// Tile math shared by the three flash-backward kernels' float32 routes:
-// K2a (dq, in flash_bwd.cu), K2b (dk and dv, flash_bwd.cu) and K3 (dq,
-// dk and dv from one walk, flash_bwd_fused.cu).  pair_grad is also the
-// per-pair step of their bfloat16 tensor-core routes
-// (flash_bwd_dq_tc.cuh, flash_bwd_tc.cuh), which round dS to bf16 as
-// they pack it into wgmma operands.
+// Tile math shared by the flash-backward kernels.  pair_grad is the
+// per-pair step of every backward route: the float32 CUDA-core kernels
+// K2a (flash_bwd.cu) and K2b (kv_block_kernel below), the float32
+// split-product K3 (flash_bwd_x3.cuh), and the bfloat16 tensor-core
+// routes (flash_bwd_dq_tc.cuh, flash_bwd_tc.cuh), which round dS to
+// bf16 as they pack it into wgmma operands.
 //
 // The numerics are those of dtf_tpu/ops/flash_attention.py `_bwd_tile`,
 // per (query, key) pair:
@@ -14,13 +14,14 @@
 //   dS = p (dp - delta) scale, rounded to T before either product;
 // dq += dS K, dk += dS^T Q, dv += P~^T dO with P~ = p rounded to T, all
 // summed in f32.  Rows or keys past the sequence get p = 0 and so add
-// nothing.  Products run on CUDA cores in f32, as in the forward
-// kernel's f32 route.
+// nothing.  K2a's and K2b's float32 products run on CUDA cores in exact
+// f32.
 //
-// Tiles are BT x BT with BT = 32 queries and 32 keys; a block has NT =
-// 128 threads, TPR = 4 consecutive lanes per query row (or per key in
-// the key-major kernels), so a row's lanes share a warp.  Every output
-// element has one writer: no atomics, the same bits on every run.
+// Tiles of the CUDA-core kernels are BT x BT with BT = 32 queries and
+// 32 keys; a block has NT = 128 threads, TPR = 4 consecutive lanes per
+// query row (or per key in the key-major kernel), so a row's lanes
+// share a warp.  Every output element has one writer: no atomics, the
+// same bits on every run.
 #pragma once
 
 #include "attn_tile.cuh"
@@ -51,34 +52,25 @@ constexpr int kv_smem_floats() {
   return 4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT;
 }
 
-// One block per (key tile, batch-head): K2b, and with DQ_PARTIAL the
-// fused K3.  The block's BT keys stay in shared memory while it walks
-// the live query tiles (under causal masking, those whose rows reach
-// the block's first key); dk and dv accumulate in registers, lane `sub`
-// of key j owning columns sub + c * TPR.
-//
-// With DQ_PARTIAL, each query tile's dq contribution from this block's
-// keys, dS[:, block] K[block], is written to the block's own f32 slot
-// dq_partial[blockIdx.x][bh][q][:] -- the TPU kernel's whole-sequence
-// VMEM dq scratch has no counterpart in 227 KB of shared memory, and one
-// writer per slot keeps the sum (flash_bwd_fused.cu dq_reduce) free of
-// atomics and the same on every run.
+// One block per (key tile, batch-head): K2b's float32 route.  The
+// block's BT keys stay in shared memory while it walks the live query
+// tiles (under causal masking, those whose rows reach the block's first
+// key); dk and dv accumulate in registers, lane `sub` of key j owning
+// columns sub + c * TPR.
 //
 // Layout: q, k, v, dO, dk, dv [B, S, H, D]; lse2, delta [B*H, Sq] f32.
-template <typename T, int D, bool DQ_PARTIAL>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 kv_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dO,
                 const float* __restrict__ lse2,
                 const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, float* __restrict__ dq_partial, int H,
-                int Sq, int Sk, int causal, float scale, float scale_log2e) {
+                T* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                float scale, float scale_log2e) {
   constexpr int LD = D + 1;
   constexpr int LDP = BT + 1;
   constexpr int RPT = BT / TPR;   // query rows per lane
   constexpr int CPT = D / TPR;    // output columns per lane
-  constexpr int CG = 16;          // dq columns summed per pass
-  static_assert(CPT % CG == 0, "dq columns split into passes of 16");
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + BT * LD;
@@ -152,7 +144,7 @@ kv_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       p_s[j * LDP + r] = round_as<T>(p);
       ds_s[j * LDP + r] = ds;
     }
-    __syncthreads();  // the dq pass reads every key's dS
+    __syncthreads();  // every row's p~ and dS of the tile are stored
 
     for (int r = 0; r < BT; ++r) {
       const float pj = p_s[j * LDP + r];
@@ -163,32 +155,6 @@ kv_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < CPT; ++c) {
         dv_acc[c] = fmaf(pj, dor[c * TPR], dv_acc[c]);
         dk_acc[c] = fmaf(dsj, qr[c * TPR], dk_acc[c]);
-      }
-    }
-
-    if constexpr (DQ_PARTIAL) {
-      // row-major now: lane (row r, sub) sums dS[r, :] K over the keys
-      const int r = threadIdx.x / TPR;
-      const int qi = q0 + r;
-      if (qi < Sq) {
-        float* out = dq_partial +
-            ((static_cast<size_t>(blockIdx.x) * gridDim.y + bh) * Sq + qi) *
-                D + sub;
-        for (int c0 = 0; c0 < CPT; c0 += CG) {
-          float acc[CG];
-#pragma unroll
-          for (int c = 0; c < CG; ++c) acc[c] = 0.f;
-          for (int jj = 0; jj < BT; ++jj) {
-            const float dsr = ds_s[jj * LDP + r];
-            const float* kk = k_s + jj * LD + sub;
-#pragma unroll
-            for (int c = 0; c < CG; ++c) {
-              acc[c] = fmaf(dsr, kk[(c0 + c) * TPR], acc[c]);
-            }
-          }
-#pragma unroll
-          for (int c = 0; c < CG; ++c) out[(c0 + c) * TPR] = acc[c];
-        }
       }
     }
   }
@@ -205,15 +171,14 @@ kv_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Launch kv_block_kernel on grid (ceil(Sk / BT), B*H).
-template <typename T, int D, bool DQ_PARTIAL>
+template <typename T, int D>
 cudaError_t launch_kv_blocks(const void* q, const void* k, const void* v,
                              const void* dO, const float* lse2,
-                             const float* delta, void* dk, void* dv,
-                             float* dq_partial, int B, int H, int Sq, int Sk,
-                             int causal, float scale, float scale_log2e,
-                             cudaStream_t stream) {
+                             const float* delta, void* dk, void* dv, int B,
+                             int H, int Sq, int Sk, int causal, float scale,
+                             float scale_log2e, cudaStream_t stream) {
   const int smem = kv_smem_floats<D>() * sizeof(float);
-  auto kernel = kv_block_kernel<T, D, DQ_PARTIAL>;
+  auto kernel = kv_block_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -221,8 +186,8 @@ cudaError_t launch_kv_blocks(const void* q, const void* k, const void* v,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dO), lse2, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), dq_partial, H, Sq, Sk,
-      causal, scale, scale_log2e);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, causal, scale,
+      scale_log2e);
   return cudaGetLastError();
 }
 

@@ -14,9 +14,8 @@
 //     block; K2b bwd_dkdv_tc_kernel (flash_bwd_tc.cuh), K3's key-major
 //     walk without its dq product, 128 keys a block;
 //   float32 -- the CUDA-core kernels below and bwd_tile.cuh
-//     kv_block_kernel<float, D, false>, whose f32 products are exact
-//     (TF32 tensor cores would keep three digits, and f32 gradients are
-//     held equal across K3, K2a/K2b and plain).
+//     kv_block_kernel<float, D>, whose f32 products are exact: the
+//     reference the f32 split-product K3 (flash_bwd_x3.cuh) is held to.
 // Every output tile has one writer on both routes, so no atomics and the
 // same bits on every run.  The rest of this note is the f32 route's.
 //
@@ -161,9 +160,8 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const float* delta, void* dk, void* dv, int B, int H,
                         int Sq, int Sk, int causal, float scale,
                         float scale_log2e, cudaStream_t stream) {
-  return launch_kv_blocks<T, D, false>(q, k, v, dO, lse2, delta, dk, dv,
-                                       nullptr, B, H, Sq, Sk, causal, scale,
-                                       scale_log2e, stream);
+  return launch_kv_blocks<T, D>(q, k, v, dO, lse2, delta, dk, dv, B, H, Sq,
+                                Sk, causal, scale, scale_log2e, stream);
 }
 
 }  // namespace

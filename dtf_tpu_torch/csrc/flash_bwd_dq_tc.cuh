@@ -3,7 +3,7 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel dtf_tpu/ops/flash_attention.py
 // `_dq_kernel` (launched by `_pallas_backward(fused=False)`); float32
-// inputs keep the CUDA-core flash_bwd_dq_kernel (flash_bwd.cu), exact in
+// inputs take the CUDA-core flash_bwd_dq_kernel (flash_bwd.cu), exact in
 // f32.  The numerics are `_bwd_tile`'s (bwd_tile.cuh pair_grad, as in
 // K3 and K2b, flash_bwd_tc.cuh): p = exp2(q.k scale log2 e - lse log2 e),
 // the mask as a replacement by NEG_INF, dS = p (dp - delta) scale

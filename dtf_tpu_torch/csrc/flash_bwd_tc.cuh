@@ -9,9 +9,9 @@
 //   bwd_dkdv_tc_kernel (K2b, without dq) replaces `_dkdv_kernel`
 //     (`_pallas_backward(fused=False)`): dk and dv only.
 // Both are bwd_kv_walk<D, DQ>, so they share one copy of the tile
-// numerics.  Float32 inputs keep the CUDA-core routes (bwd_tile.cuh
-// kv_block_kernel<float, D, DQ_PARTIAL>, flash_bwd.cu and
-// flash_bwd_fused.cu), exact in f32.  The numerics are `_bwd_tile`'s
+// numerics.  Float32 inputs take K3's split-product kernel
+// (flash_bwd_x3.cuh) and K2b's CUDA-core kernel (bwd_tile.cuh
+// kv_block_kernel<float, D>).  The numerics are `_bwd_tile`'s
 // (bwd_tile.cuh pair_grad): p = exp2(q.k scale log2 e - lse log2 e),
 // the mask as a replacement by NEG_INF on tiles the diagonal crosses,
 // dS = p (dp - delta) scale rounded to bf16 before its products, P
@@ -49,11 +49,11 @@
 // dq_reduce_tc_kernel, sums the slots that were written in slot order
 // and stores dq in bf16.  One writer per slot and a fixed order: no
 // atomics, the same bits on every run.  At the training shape the slots
-// hold 16 x 48 x 2048 x 128 f32 = 0.81 GB (the CUDA-core route's 32-key
-// tiles: 3.2 GB), about half of it written and read under causal
-// masking.  K2b has none of this: no dS^T tile in shared memory, no
-// block-wide barrier between the dK and dQ products, no slots, no
-// reduce pass (K2a, flash_bwd_dq_tc.cuh, computes dq query-major).
+// hold 16 x 48 x 2048 x 128 f32 = 0.81 GB, as on the f32 route, about
+// half of it written and read under causal masking.  K2b has none of
+// this: no dS^T tile in shared memory, no block-wide barrier between
+// the dK and dQ products, no slots, no reduce pass (K2a,
+// flash_bwd_dq_tc.cuh, computes dq query-major).
 //
 // Layout: q, k, v, dO, dk, dv [B, S, H, D] bf16, D 64 or 128; lse2 (lse
 // times log2 e) and delta [B*H, Sq] f32.  Positions count from 0 for

@@ -1,9 +1,9 @@
 // K1, bf16 route -- the flash attention forward on Hopper's tensor cores.
 //
 // Replaces, for bf16 inputs, the TPU kernel dtf_tpu/ops/flash_attention.py
-// `_fwd_kernel` (launched by `_pallas_forward`); float32 inputs keep the
-// CUDA-core `flash_fwd_kernel` (flash_fwd.cu), whose f32 products are
-// exact where TF32 tensor cores would keep three digits.  The function
+// `_fwd_kernel` (launched by `_pallas_forward`); float32 inputs take
+// `flash_fwd_x3_kernel` (flash_fwd_x3.cuh), whose products are
+// f32-accurate split TF32 products.  The function
 // is the one of blockwise.py block_accumulate: scores in f32, the
 // additive NEG_INF bias on masked keys (only on tiles the causal
 // diagonal or the ragged key end crosses), the running max clamped to

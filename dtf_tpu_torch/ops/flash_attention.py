@@ -18,8 +18,17 @@ ever taken by autograd through the plain forward.  Inside the C entry
 points of every flash kernel -- K1, K2a, K2b and K3 -- the dtype picks
 the route, and neither route stands in for the other: bfloat16 runs
 the tensor-core kernels (wgmma: ``csrc/flash_fwd_tc.cuh`` K1,
-``csrc/flash_bwd_dq_tc.cuh`` K2a, ``csrc/flash_bwd_tc.cuh`` K2b and K3),
-float32 the CUDA-core kernels, exact in f32.
+``csrc/flash_bwd_dq_tc.cuh`` K2a, ``csrc/flash_bwd_tc.cuh`` K2b and K3).
+float32 runs K1 and K3 on the tensor cores too, in split products
+(``csrc/flash_fwd_x3.cuh``, ``csrc/flash_bwd_x3.cuh``): each operand
+is the sum of two TF32 halves and each product three TF32 products
+(``csrc/tf32x3.cuh``), about 7e-7 from exact per term, summed in short
+chains folded into f32 sums (the tensor core truncates its own sums),
+so the f32 route stays inside 1e-5 of the exact plain versions -- a
+single TF32 product would keep three digits, and is used nowhere.
+Their bound is the tensor cores' 165 TFLOP/s of such f32-accurate work
+(495 TFLOP/s of TF32 over three products).  K2a and K2b keep exact f32 CUDA-core
+kernels in float32 (``csrc/flash_bwd.cu``, ``csrc/bwd_tile.cuh``).
 
 The backward keeps the JAX formulation choice: ``fused_bwd=None`` picks
 the single-pass K3 when Sq == Sk and the TPU kernel's [Sq, D] f32 dq
@@ -65,10 +74,10 @@ FUSED_DQ_SCRATCH_MAX = 2 * 1024 * 1024
 # function, the sums only run in another order
 PLAIN_BWD_BLOCK = 128
 
-# keys per dq partial slot of K3: the float32 route's CUDA-core walk
-# takes 32-key tiles, the bfloat16 route's tensor-core walk 128-key
-# blocks (csrc/flash_bwd_fused.cu, csrc/flash_bwd_tc.cuh)
-FUSED_SLOT_KEYS = {torch.float32: 32, torch.bfloat16: 128}
+# keys per dq partial slot of K3: both routes walk 128-key blocks
+# (csrc/flash_bwd_x3.cuh, csrc/flash_bwd_tc.cuh), and the C entry point
+# dtf_flash_bwd_fused_partial_floats counts the same slots
+FUSED_SLOT_KEYS = {torch.float32: 128, torch.bfloat16: 128}
 
 
 def check_kernel_args(q, k, v, *more) -> None:

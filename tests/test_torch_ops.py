@@ -17,6 +17,7 @@ writes and gathers are exact.
 """
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -405,26 +406,219 @@ def test_fused_backward_rule_is_the_jax_rule():
 
 
 def test_fused_partial_buffer_size_is_pinned():
-    """K3's f32 dq partial buffer is a pure function of the shapes and
-    the dtype: one [B*H, Sq, D] slot per 32-key tile on the float32
-    route, per 128-key block on the bfloat16 route -- 16 slots, 0.81 GB
-    at the training shape [8, 2048, 6, 128] (the float32 route: 64
-    slots, 3.22 GB)."""
+    """K3's f32 dq partial buffer is a pure function of the shapes: one
+    [B*H, Sq, D] slot per 128-key block on both routes (the float32
+    split-product walk and the bfloat16 wgmma walk) -- 16 slots, 0.81 GB
+    at the training shape [8, 2048, 6, 128]; the C entry point
+    ``dtf_flash_bwd_fused_partial_floats`` counts the same (checked on
+    the card by chip_smoke.py)."""
     per_slot = 8 * 6 * 2048 * 128
-    assert tfa.fused_partial_floats(8, 6, 2048, 2048, 128,
-                                    torch.bfloat16) == 16 * per_slot
-    assert tfa.fused_partial_floats(8, 6, 2048, 2048, 128,
-                                    torch.float32) == 64 * per_slot
-    q = torch.empty(8, 2048, 6, 128, dtype=torch.bfloat16, device="meta")
-    assert tfa.fused_partial_bytes(q, q) == 805_306_368
-    assert tfa.fused_partial_bytes(q.float(), q.float()) == 3_221_225_472
-    # ragged keys round up to a whole slot; Sq counts rows, not slots
-    assert tfa.fused_partial_floats(2, 3, 200, 200, 64,
-                                    torch.bfloat16) == 2 * 6 * 200 * 64
-    assert tfa.fused_partial_floats(2, 3, 200, 200, 64,
-                                    torch.float32) == 7 * 6 * 200 * 64
-    assert tfa.fused_partial_floats(1, 1, 64, 129, 128,
-                                    torch.bfloat16) == 2 * 64 * 128
+    assert tfa.FUSED_SLOT_KEYS == {torch.float32: 128, torch.bfloat16: 128}
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tfa.fused_partial_floats(8, 6, 2048, 2048, 128,
+                                        dtype) == 16 * per_slot
+        q = torch.empty(8, 2048, 6, 128, dtype=dtype, device="meta")
+        assert tfa.fused_partial_bytes(q, q) == 805_306_368
+        # ragged keys round up to a whole slot; Sq counts rows, not slots
+        assert tfa.fused_partial_floats(2, 3, 200, 200, 64,
+                                        dtype) == 2 * 6 * 200 * 64
+        assert tfa.fused_partial_floats(1, 1, 64, 129, 128,
+                                        dtype) == 2 * 64 * 128
+        assert tfa.fused_partial_floats(1, 1, 64, 128, 128,
+                                        dtype) == 64 * 128
+
+
+# ---------------------------------------------------------------------------
+# the float32 routes of K1 and K3: the split product, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, the low 13 bits of the f32 pattern cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tc_einsum(eq, a, b, terms):
+    """``torch.einsum(eq, a, b)`` of f32 operands as the f32 kernels'
+    tensor cores form it: ``terms`` 3 is the split product a_lo b_hi +
+    a_hi b_lo + a_hi b_hi (hi = TF32 of x, lo = TF32 of x - hi), the
+    kernels' design; 1 a single TF32 product, which they never use."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return torch.einsum(eq, a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _tc_forward(q, k, v, causal, terms):
+    """K1's float32 route with its products emulated: base-2 softmax of
+    S = Q K^T, o = P V / l, lse = m ln 2 + log l; [B, S, H, D] in,
+    (o [B, Sq, H, D], lse [B*H, Sq]) out."""
+    b, sq, h, d = q.shape
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    s = _tc_einsum("bhqd,bhkd->bhqk", qt, kt, terms) * (d ** -0.5
+                                                       * tfa.LOG2E)
+    if causal:
+        s = s + tbw.causal_bias(torch.arange(sq), torch.arange(k.shape[1]))
+    m = s.amax(-1).clamp_min(tbw.NEG_INF)
+    p = torch.exp2(s - m[..., None])
+    l = p.sum(-1)
+    o = _tc_einsum("bhqk,bhkd->bhqd", p, vt, terms) / l[..., None]
+    lse = m * math.log(2.0) + torch.log(l)
+    return o.transpose(1, 2), lse.reshape(b * h, sq)
+
+
+def _tc_backward(q, k, v, do, lse, delta, causal, terms):
+    """K3's float32 route with its five products emulated, the
+    numerics of ``_bwd_tile``: p = exp2(s2 - lse log2 e), the mask a
+    replacement by NEG_INF, dS = p (dp - delta) scale."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    s2 = _tc_einsum("bhqd,bhkd->bhqk", qt, kt, terms) * (scale * tfa.LOG2E)
+    if causal:
+        keep = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        s2 = torch.where(keep, s2, tbw.NEG_INF)
+    p = torch.exp2(s2 - (lse * tfa.LOG2E).reshape(b, h, sq, 1))
+    dp = _tc_einsum("bhqd,bhkd->bhqk", dot, vt, terms)
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
+    grads = (_tc_einsum("bhqk,bhkd->bhqd", ds, kt, terms),
+             _tc_einsum("bhqk,bhqd->bhkd", ds, qt, terms),
+             _tc_einsum("bhqk,bhqd->bhkd", p, dot, terms))
+    return [g.transpose(1, 2) for g in grads]
+
+
+def _pallas_fwd_ref(q, k, v, causal):
+    b, sq, h, d = q.shape
+    jo, jlse = jfa._pallas_forward(*(_merge(x) for x in (q, k, v)),
+                                   d ** -0.5, causal, 8, 8, True)
+    return torch.from_numpy(_split(jo, b, h).copy()), torch.from_numpy(
+        np.array(jlse))
+
+
+def _forward_gap(o, lse, ref_o, ref_lse):
+    """The f32 gate of K1 (chip_smoke.py): o within 1e-5 absolute, lse
+    within 1e-5 of max(1, max |lse|); returns the worse error over its
+    tolerance."""
+    lse_tol = 1e-5 * max(1.0, float(ref_lse.abs().max()))
+    return max(float((o - ref_o).abs().max()) / 1e-5,
+               float((lse - ref_lse).abs().max()) / lse_tol)
+
+
+def _grad_gap(outs, refs):
+    """The f32 gate of K3 (chip_smoke.py grad_tolerance): each output
+    within 1e-5 of max(1, its largest |ref|); the worst error over its
+    tolerance."""
+    return max(float((o - r).abs().max())
+               / (1e-5 * max(1.0, float(r.abs().max())))
+               for o, r in zip(outs, refs))
+
+
+TC_SHAPES = [(24, 24), (16, 40), (40, 24)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", TC_SHAPES)
+def test_split_product_forward_matches_pallas_interpret(sq, sk, d, causal):
+    """K1's float32 route -- every product a 3xTF32 split product --
+    against ``_pallas_forward(interpret=True)`` within the 1e-5 gate,
+    at lengths ragged against the kernel's 128-row and 32-key tiles and
+    at cross lengths."""
+    rng = np.random.default_rng(200 + sq + sk + d)
+    q = _rand(rng, 2, sq, 2, d)
+    k, v = (_rand(rng, 2, sk, 2, d) for _ in range(2))
+    o, lse = _tc_forward(*map(torch.from_numpy, (q, k, v)), causal, terms=3)
+    assert _forward_gap(o, lse, *_pallas_fwd_ref(q, k, v, causal)) <= 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", TC_SHAPES)
+def test_split_product_backward_matches_pallas_interpret(sq, sk, d, causal):
+    """K3's float32 route with its five split products against
+    ``_pallas_backward(fused=True, interpret=True)`` within the f32
+    scaled gate, ragged against the kernel's 128-key blocks and 32-row
+    tiles and at cross lengths."""
+    shape = (2, sq, 2, d)
+    b, _, h, _ = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, causal, 300 + sq + sk + d,
+                                           sk=sk)
+    ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                               _merge(do), d ** -0.5, causal, 8, 8, True,
+                               fused=True)
+    refs = [torch.from_numpy(_split(r, b, h).copy()) for r in ref]
+    outs = _tc_backward(*(_t(x) for x in (q, k, v, do, lse, delta)), causal,
+                        terms=3)
+    assert _grad_gap(outs, refs) <= 1.0
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_single_tf32_product_fails_the_f32_gate(which):
+    """The gate tells the designs apart: the same computation with one
+    TF32 product per tile product, not three, misses the f32 gate the
+    split product passes, on the same inputs."""
+    shape = (2, 24, 2, 128)
+    b, s, h, d = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, True, 400)
+    if which == "forward":
+        args = [torch.from_numpy(x) for x in (q, k, v)]
+        ref = _pallas_fwd_ref(q, k, v, True)
+        gaps = [_forward_gap(*_tc_forward(*args, True, terms), *ref)
+                for terms in (3, 1)]
+    else:
+        jref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                                    _merge(do), d ** -0.5, True, 8, 8, True,
+                                    fused=True)
+        refs = [torch.from_numpy(_split(r, b, h).copy()) for r in jref]
+        args = [_t(x) for x in (q, k, v, do, lse, delta)]
+        gaps = [_grad_gap(_tc_backward(*args, True, terms), refs)
+                for terms in (3, 1)]
+    assert gaps[0] <= 1.0 < gaps[1], gaps
+
+
+def _rz32(x):
+    """f64 values rounded to f32 toward zero: the tensor core's own sum
+    inside one mma, as the kernels' notes model it (csrc/tf32x3.cuh)."""
+    y = x.to(torch.float32)
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)),
+                       y).double()
+
+
+def test_truncating_chain_drifts_past_the_gate_and_the_fold_does_not():
+    """K3's dV over a 2048-row walk, its split products summed as the
+    tensor core sums them (each mma's result truncated to f32): carried
+    in one accumulator through the whole walk (768 mmas) it drifts past
+    the f32 gate; as fresh chains of one k8 slice folded into an f32 sum
+    with rounded adds -- the kernels' design -- it stays well inside."""
+    rng = np.random.default_rng(500)
+    rows, keys, d = 2048, 64, 16
+    s = torch.from_numpy(rng.standard_normal((rows, rows)))
+    s = s.masked_fill(torch.ones(rows, rows, dtype=torch.bool).triu(1),
+                      -math.inf)
+    p = torch.softmax(s, -1)[:, :keys].float().double()
+    do = torch.from_numpy(_rand(rng, rows, d)).double()
+    exact = p.T @ do
+    tol = 1e-5 * max(1.0, float(exact.abs().max()))
+    pairs = [(_tf32(x.float()).double(), x) for x in (p.T.contiguous(), do)]
+    (p_hi, pt), (do_hi, _) = pairs
+    p_lo = _tf32((pt - p_hi).float()).double()
+    do_lo = _tf32((do - do_hi).float()).double()
+    gaps = []
+    for fold in (False, True):
+        acc = torch.zeros(keys, d, dtype=torch.float64)
+        for r0 in range(0, rows, 8):
+            sl = slice(r0, r0 + 8)
+            t = torch.zeros_like(acc) if fold else acc
+            for a, b in ((p_lo, do_hi), (p_hi, do_lo), (p_hi, do_hi)):
+                t = _rz32(t + a[:, sl] @ b[sl])
+            acc = (acc + t).float().double() if fold else t
+        gaps.append(float((acc - exact).abs().max()) / tol)
+    assert gaps[1] <= 0.5 < 1.0 < gaps[0], gaps
 
 
 def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
@@ -682,8 +876,9 @@ def _assert_rows_close(out, ref, floor=0.0):
 @pytest.mark.parametrize("s", [5, 64, 200, 320])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, s, d):
-    """K1 -- the CUDA-core route in float32, the tensor-core route in
-    bfloat16 -- at lengths ragged against its 64- and 128-row tiles."""
+    """K1 -- split TF32 products in float32 (128-row, 32-key tiles),
+    wgmma in bfloat16 (128-row, 64-key tiles) -- at lengths ragged
+    against its tiles."""
     gen = torch.Generator().manual_seed(s + d)
     q, k, v = (torch.randn(2, s, 3, d, generator=gen).to(cuda_device,
                                                           dtype)
@@ -750,7 +945,8 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, sq, sk,
                                               d):
     """K2a and K2b -- and K3 where Sq == Sk -- against their plain
     versions on the same inputs, causal and full, ragged against the
-    kernels' tiles (32 rows on the CUDA-core routes; 128 query rows and
+    kernels' tiles (32 rows for K2a and K2b in float32, 128 keys and 32
+    query rows for K3's float32 split-product route; 128 query rows and
     64 keys for K2a, 128 keys and 64 query rows for K2b and K3 on the
     bf16 tensor-core routes) and at cross lengths, Sq < Sk and Sq > Sk;
     K3 against K2a + K2b; each launch counted once."""
