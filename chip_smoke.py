@@ -21,8 +21,7 @@ Phases, each printing one JSON object per line (the card's
                  the CUDA cores' 67 TFLOP/s beside it).  K1, K2a, K2b
                  and K3 have two routes, reported as separate cases:
                  bfloat16 on tensor cores (wgmma); float32 in split
-                 TF32 products on tensor cores (K1, K3) or on CUDA cores
-                 (K2a, K2b).  K1 at
+                 TF32 products on tensor cores (mma.sync).  K1 at
                  serving, ragged, D 64 and training shapes; the backward
                  K2a, K2b and K3 at [2, 200, 6, 128], [1, 2048, 6, 128]
                  and [2, 256, 8, 64], causal and full, f32 and bf16, K3
@@ -33,7 +32,12 @@ Phases, each printing one JSON object per line (the card's
                  of its two passes from torch.profiler), then K2a and
                  K2b at cross lengths (Sq != Sk: 200 / 320, 320 / 200 at
                  D 128, 64 / 256 at D 64), causal and full, both dtypes,
-                 twice bit for bit; K4 at decode and chunk shapes.
+                 twice bit for bit; K4 at decode and chunk shapes; last,
+                 peaked attention in float32 (q scaled by 4,
+                 [1, 2048, 6, 128], causal and full): K1, K2a, K2b and
+                 K3 and their plain versions against the plain versions
+                 run in float64, each kernel within its f32 gate of
+                 float64.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -211,14 +215,12 @@ def bounds(flops: float, nbytes: float, dtype: str):
 
 # the routes of K1, K2a, K2b and K3 inside their C entry points
 # (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_bwd_fused.cu), by
-# kernel and dtype
+# dtype: the same for all four
 SPLIT_TF32 = "3xtf32 mma.sync+cp.async"
 
 
-def route(kernel: str, dtype: str) -> str:
-    if dtype == "bfloat16":
-        return "wgmma+cp.async"
-    return SPLIT_TF32 if kernel in ("K1", "K3") else "cuda-core f32"
+def route(dtype: str) -> str:
+    return "wgmma+cp.async" if dtype == "bfloat16" else SPLIT_TF32
 
 
 def check_flash(torch, timer, gen):
@@ -261,7 +263,7 @@ def check_flash(torch, timer, gen):
                       for c in copies]
                 cases.append({
                     "shape": list(shape), "causal": causal, "dtype": dname,
-                    "design": route("K1", dname),
+                    "design": route(dname),
                     "max_abs_err": err, "tol": tol, "err_over_tol": ratio,
                     "lse_err": lse_err,
                     "lse_tol": lse_tol,
@@ -300,9 +302,8 @@ def grad_tolerance(torch, out, ref):
 def check_backward(torch, timer, gen):
     """K2a, K2b and K3 against their plain versions on the same inputs:
     [2, 200, 6, 128] (ragged against any tile), [1, 2048, 6, 128] and
-    [2, 256, 8, 64], causal and full, float32 (K3 in split TF32
-    products, K2a and K2b on CUDA cores) and bfloat16 (wgmma); K3
-    against K2a + K2b in float32;
+    [2, 256, 8, 64], causal and full, float32 (split TF32 products)
+    and bfloat16 (wgmma); K3 against K2a + K2b in float32;
     each kernel twice gives the same bits in both.  Then each at the
     training shape, causal, in both dtypes: kernel, plain and library
     times and bounds, the library yardstick being the backward of
@@ -357,7 +358,7 @@ def check_backward(torch, timer, gen):
                 torch.cuda.synchronize()
                 row = {"shape": list(shape), "causal": causal,
                        "dtype": dname,
-                       "design": {n: route(n, dname)
+                       "design": {n: route(dname)
                                   for n in ("K2a", "K2b", "K3")}}
                 refs = {"K2a": plain[:1], "K2b": plain[1:], "K3": plain}
                 for kname in ("K2a", "K2b", "K3"):
@@ -426,7 +427,7 @@ def check_backward(torch, timer, gen):
                 "max_abs_err": max(x[0] for x in res), "tol": worst[1],
                 "err_over_tol": worst[2], "shape": list(TRAIN_SHAPE),
                 "causal": True, "dtype": dname,
-                "design": route(name, dname),
+                "design": route(dname),
                 "ms": timer.ms(lambda *a, f=kernel[name]: f(*a, **kw),
                                copies),
                 "plain_ms": timer.ms(lambda *a, f=plain[name]: f(*a, **kw),
@@ -469,7 +470,7 @@ def check_backward(torch, timer, gen):
                 torch.cuda.synchronize()
                 row = {"shape": [2, sq, h, d], "sk": sk, "causal": causal,
                        "dtype": dname,
-                       "design": {n: route(n, dname) for n in ("K2a", "K2b")}}
+                       "design": {n: route(dname) for n in ("K2a", "K2b")}}
                 held(row, "K2a", outs["K2a"], plain[:1])
                 held(row, "K2b", outs["K2b"], plain[1:])
                 for kname in ("K2a", "K2b"):
@@ -481,9 +482,79 @@ def check_backward(torch, timer, gen):
     return checks, timings
 
 
+def check_peaked(torch, gen):
+    """Peaked attention in float32: q scaled by 4 at [1, 2048, 6, 128],
+    causal and full, where a row's weight falls on a few keys and |o|
+    nears the largest |v|.  There the f32 gates are a few ulps of the
+    outputs, close to the plain version's own rounding, so the reference
+    is the plain versions run on float64 copies of the same inputs: each
+    kernel's error against it and, beside it, the float32 plain
+    version's.  A kernel fails where it is further from float64 than
+    its f32 gate allows (o 1e-5; lse 1e-5 of max(1, max |lse|); each
+    gradient 1e-5 of max(1, its max |ref|)); the plain version's error
+    is reported, not gated.  The backward's inputs are the kernel
+    forward's residuals, so each backward kernel is held to the exact
+    function of what it was given."""
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    def gap64(outs, refs, tol=None):
+        """(max abs error, the worst error over its tolerance)."""
+        res = []
+        for out, ref in zip(outs, refs):
+            err = float((out.double() - ref).abs().max())
+            t = tol if tol is not None else 1e-5 * max(
+                1.0, float(ref.abs().max()))
+            res.append((err, err / t))
+        return max(e for e, _ in res), max(r for _, r in res)
+
+    shape = (1, 2048, 6, 128)
+    b, s, h, d = shape
+    for causal in (True, False):
+        q, k, v, do = (torch.randn(shape, generator=gen).to("cuda")
+                       for _ in range(4))
+        q = q * 4
+        kw = dict(causal=causal, scale=d ** -0.5)
+        o, lse = fa.flash_forward(q, k, v, causal=causal)
+        delta = (do * o).sum(-1).transpose(1, 2).reshape(b * h,
+                                                         s).contiguous()
+        args = (q, k, v, do, lse, delta)
+        grads = {"K2a": (fa.flash_bwd_dq(*args, **kw),),
+                 "K2b": fa.flash_bwd_dkdv(*args, **kw),
+                 "K3": fa.flash_bwd_fused(*args, **kw)}
+        po, plse = fa.flash_forward_plain(q, k, v, **kw)
+        plain = fa.flash_bwd_fused_plain(*args, **kw)
+        o64, lse64 = fa.flash_forward_plain(
+            *(x.double() for x in (q, k, v)), **kw)
+        ref = fa.flash_bwd_fused_plain(*(x.double() for x in args), **kw)
+        torch.cuda.synchronize()
+        lse_tol = 1e-5 * max(1.0, float(lse64.abs().max()))
+        row = {"shape": list(shape), "causal": causal, "q_scale": 4,
+               "dtype": "float32", "design": route("float32")}
+        # name: (kernel outputs, plain f32 outputs, float64 reference,
+        # tolerance -- None: the scaled gradient gate)
+        held = {"K1": ([o], [po], [o64], 1e-5),
+                "K1 lse": ([lse], [plse], [lse64], lse_tol),
+                "K2a": (grads["K2a"], plain[:1], ref[:1], None),
+                "K2b": (grads["K2b"], plain[1:], ref[1:], None),
+                "K3": (grads["K3"], plain, ref, None)}
+        for name, (outs, pls, refs, tol) in held.items():
+            err, ratio = gap64(outs, refs, tol)
+            perr, pratio = gap64(pls, refs, tol)
+            row[name] = {"max_abs_err": err, "err_over_tol": ratio,
+                         "plain_max_abs_err": perr,
+                         "plain_err_over_tol": pratio}
+        emit({"phase": "peaked", **row})
+        bad = [n for n in held if not row[n]["err_over_tol"] <= 1.0]
+        if bad:
+            raise AssertionError(f"{bad} further from float64 than the f32 "
+                                 f"gate at q x 4: {row}")
+        del q, k, v, do, o, lse, delta, args, grads, plain, ref, o64, held
+
+
 def profile_passes(torch, fa, args, kw, names):
-    """Device time of K3's two passes (the key-block walk and the dq
-    reduce, the kernels ``names``) from torch.profiler; raises where the
+    """Device time a launch of K3's two passes (the key-block walk and
+    the dq reduce, the kernels ``names``) from torch.profiler, over the
+    launches the profiler recorded (it may drop some); raises where the
     profiler sees no device time for either."""
     from torch.profiler import ProfilerActivity, profile
     fa.flash_bwd_fused(*args, **kw)
@@ -492,13 +563,15 @@ def profile_passes(torch, fa, args, kw, names):
         for _ in range(3):
             fa.flash_bwd_fused(*args, **kw)
         torch.cuda.synchronize()
-    out = {}
+    total, count = {}, {}
     for ev in prof.key_averages():
         for tag in names:
             if tag in ev.key:
                 dev_us = getattr(ev, "device_time_total",
                                  getattr(ev, "cuda_time_total", 0.0))
-                out[tag] = out.get(tag, 0.0) + dev_us / 1e3 / 3
+                total[tag] = total.get(tag, 0.0) + dev_us / 1e3
+                count[tag] = count.get(tag, 0) + ev.count
+    out = {tag: total[tag] / count[tag] for tag in total if count[tag]}
     if not all(out.get(tag, 0.0) > 0 for tag in names):
         raise RuntimeError(f"profiler saw no device time for K3's passes "
                            f"{names}: {out}")
@@ -840,8 +913,8 @@ def check_launches(launches, want) -> None:
 
 
 def check_training_f32(torch, seed: int):
-    """float32 (the split-product routes of K1 and K3, the exact
-    CUDA-core K2a and K2b): one step's gradients through K1 + K3 (the
+    """float32 (the split-product routes of K1, K2a, K2b and K3): one
+    step's gradients through K1 + K3 (the
     default) against the same step with attention bound to K1 + K2a/K2b
     and to the plain versions, each gradient within 1e-4 of its own
     largest |value|; each binding's synced step time; the launches of
@@ -1154,6 +1227,7 @@ def main(argv=None) -> int:
     k1 = check_flash(torch, timer, gen)
     _, bwd = check_backward(torch, timer, gen)
     k4 = check_paged(torch, timer, gen)
+    check_peaked(torch, gen)
 
     # phases 3 and 4: the serving path
     per_call = check_serving_f32(torch, args.seed)
@@ -1217,13 +1291,13 @@ def main(argv=None) -> int:
         entry("K2a", "dtf_tpu_torch/csrc/flash_bwd_dq_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a"],
               train_split["launches"]["K2a"], split_run),
-        entry("K2a f32", "dtf_tpu_torch/csrc/flash_bwd.cu",
+        entry("K2a f32", "dtf_tpu_torch/csrc/flash_bwd_dq_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a float32"],
               split32["K2a"], split32_run),
         entry("K2b", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b"],
               train_split["launches"]["K2b"], split_run),
-        entry("K2b f32", "dtf_tpu_torch/csrc/bwd_tile.cuh",
+        entry("K2b f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b float32"],
               split32["K2b"], split32_run),
         entry("K3", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",

@@ -3,8 +3,8 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel dtf_tpu/ops/flash_attention.py
 // `_dq_kernel` (launched by `_pallas_backward(fused=False)`); float32
-// inputs take the CUDA-core flash_bwd_dq_kernel (flash_bwd.cu), exact in
-// f32.  The numerics are `_bwd_tile`'s (bwd_tile.cuh pair_grad, as in
+// inputs take the split-product bwd_dq_x3_kernel (flash_bwd_dq_x3.cuh),
+// of the same shape.  The numerics are `_bwd_tile`'s (bwd_tile.cuh pair_grad, as in
 // K3 and K2b, flash_bwd_tc.cuh): p = exp2(q.k scale log2 e - lse log2 e),
 // the mask as a replacement by NEG_INF, dS = p (dp - delta) scale
 // rounded to bf16 before the dq product, f32 sums, dq stored in bf16.

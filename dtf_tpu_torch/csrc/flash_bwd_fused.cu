@@ -19,9 +19,9 @@
 //     of at most four k8 slices, each folded into an f32 sum with
 //     rounded adds, so dk and dv -- sums over up to S rows -- drift no
 //     more than f32 sums do: the route stays inside the 1e-5 (scaled)
-//     gate against the exact plain version and against the exact
-//     CUDA-core split pair K2a/K2b.  A single TF32 product would keep
-//     three digits and is never used here.
+//     gate against the exact plain version and against the split pair
+//     K2a/K2b, whose f32 route is split TF32 too.  A single TF32 product
+//     would keep three digits and is never used here.
 //
 // The TPU kernel sums dq across the outer key dimension in a
 // whole-sequence [Sq, D] f32 VMEM scratch (1 MB at S 2048, D 128).

@@ -9,9 +9,8 @@
 //   bwd_dkdv_tc_kernel (K2b, without dq) replaces `_dkdv_kernel`
 //     (`_pallas_backward(fused=False)`): dk and dv only.
 // Both are bwd_kv_walk<D, DQ>, so they share one copy of the tile
-// numerics.  Float32 inputs take K3's split-product kernel
-// (flash_bwd_x3.cuh) and K2b's CUDA-core kernel (bwd_tile.cuh
-// kv_block_kernel<float, D>).  The numerics are `_bwd_tile`'s
+// numerics.  Float32 inputs take the split-product walk of K3 and K2b
+// (flash_bwd_x3.cuh).  The numerics are `_bwd_tile`'s
 // (bwd_tile.cuh pair_grad): p = exp2(q.k scale log2 e - lse log2 e),
 // the mask as a replacement by NEG_INF on tiles the diagonal crosses,
 // dS = p (dp - delta) scale rounded to bf16 before its products, P

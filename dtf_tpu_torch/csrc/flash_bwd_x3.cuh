@@ -1,20 +1,25 @@
-// K3, float32 route -- the fused flash backward on Hopper's tensor cores
-// with the f32-accurate split product (tf32x3.cuh).
+// K3 and K2b, float32 route -- the key-major flash backward walk on
+// Hopper's tensor cores with the f32-accurate split product
+// (tf32x3.cuh).
 //
-// Replaces, for float32 inputs, the TPU kernel
-// dtf_tpu/ops/flash_attention.py `_dfused_kernel` (launched by
-// `_pallas_backward(fused=True)`): dq, dk and dv from one walk of the
-// tile space, with the numerics of `_bwd_tile` (bwd_tile.cuh
-// pair_grad): p = exp2(q.k scale log2 e - lse log2 e), the mask as a
-// replacement by NEG_INF on tiles the diagonal crosses, dS = p (dp -
-// delta) scale, f32 sums.
+// One walk, two kernels, as on the bf16 route (flash_bwd_tc.cuh):
+//   bwd_fused_x3_kernel (K3, with dq) replaces, for float32 inputs, the
+//     TPU kernel dtf_tpu/ops/flash_attention.py `_dfused_kernel`
+//     (launched by `_pallas_backward(fused=True)`): dq, dk and dv from
+//     one walk of the tile space;
+//   bwd_dkdv_x3_kernel (K2b, without dq) replaces `_dkdv_kernel`
+//     (`_pallas_backward(fused=False)`): dk and dv only.
+// Both are bwd_kv_walk_x3<D, DQ>, with the numerics of `_bwd_tile`
+// (bwd_tile.cuh pair_grad): p = exp2(q.k scale log2 e - lse log2 e), the
+// mask as a replacement by NEG_INF on tiles the diagonal crosses, dS =
+// p (dp - delta) scale, f32 sums.
 //
-// What bounds it on the card: operations.  Five tile products per live
-// (query, key) pair -- S, dP, dV, dK and dQ -- are 1.3e11 flop of
-// f32-accurate work at the training shape [8, 2048, 6, 128], causal:
-// 0.78 ms at 165 TFLOP/s (495 TFLOP/s of TF32 over the split's three
-// products), 1.92 ms at the CUDA cores' 67.  All five are split TF32
-// mma.sync:
+// What bounds them on the card: operations.  Five tile products per live
+// (query, key) pair for K3 -- S, dP, dV, dK and dQ -- four for K2b, are
+// 1.3e11 and 1.0e11 flop of f32-accurate work at the training shape
+// [8, 2048, 6, 128], causal: 0.78 and 0.63 ms at 165 TFLOP/s (495
+// TFLOP/s of TF32 over the split's three products), 1.92 and 1.54 ms at
+// the CUDA cores' 67.  All are split TF32 mma.sync:
 //   S^T  = K Q^T     A = K (the warp's 16 keys), B = Q, both from shared
 //                    memory, contracted over D;
 //   dP^T = V dO^T    likewise;
@@ -23,8 +28,8 @@
 //                    2t, slot t + 4 the row 2t + 1), B = dO read under
 //                    the same relabelling;
 //   dK  += dS^T Q    likewise from the dS^T tile;
-//   dQ   = dS K      A = dS read from the dS^T tile, B = K, over the
-//                    block's 128 keys.
+//   dQ   = dS K      (K3 only) A = dS read from the dS^T tile, B = K,
+//                    over the block's 128 keys.
 // Computing S and dP transposed -- keys as the rows of the product --
 // gives dV's and dK's A operands the layout of the S^T and dP^T
 // accumulators.  As in K1, what costs is the work around each mma.sync:
@@ -41,23 +46,32 @@
 // and dP^T run one after the other, P^T and dS^T wait in shared memory
 // rather than registers, and the dV and dK loops step over the k8
 // slices without unrolling them.  Tiles are unpadded and swizzled
-// (tf32x3.cuh), the dS^T rows padded to 36 floats; 226.5 KB of shared
-// memory at D 128, one block an SM.  A warp whose keys all lie past the
-// tile's last row (causal) or past Sk skips its products and stores
-// zeros for dS.  The blocks of the first key blocks, the longest walks
-// under causal masking, start first.
+// (tf32x3.cuh); 226.5 KB of shared memory at D 128 for K3, 224.5 KB for
+// K2b, one block an SM.  A warp whose keys all lie past the tile's last
+// row (causal) or past Sk skips its products.  The blocks of the first
+// key blocks, the longest walks under causal masking, start first; a
+// block whose first key lies past every query under causal masking
+// walks nothing and writes zeros.
 //
-// dq: each query tile's dQ over the block's 128 keys ([32, D], split
-// by columns over the eight warps) goes to the block's own f32 slot of
-// `dq_partial` [ceil(Sk / 128), B*H, Sq, D], and dq_reduce_x3_kernel
-// sums the slots that were written in slot order.  One writer per slot
-// and a fixed order: no atomics, the same bits on every run.  At the
-// training shape the slots hold 16 x 48 x 2048 x 128 f32 = 0.81 GB,
-// about half of it written and read under causal masking.
+// K3's dq: each query tile's dQ over the block's 128 keys ([32, D],
+// split by columns over the eight warps) reads every warp's dS^T rows,
+// so K3 stores dS^T with rows padded to 36 floats (read down its
+// columns), a dead warp stores zeros there, and a block-wide barrier
+// sits between the dK and dQ products.  The dQ goes to the block's own
+// f32 slot of `dq_partial` [ceil(Sk / 128), B*H, Sq, D], and
+// dq_reduce_x3_kernel sums the slots that were written in slot order.
+// One writer per slot and a fixed order: no atomics, the same bits on
+// every run.  At the training shape the slots hold 16 x 48 x 2048 x 128
+// f32 = 0.81 GB, about half of it written and read under causal
+// masking.  K2b has none of this: a warp's dK reads only its own 16
+// keys' dS^T rows, so its dS^T tile is laid out as P^T's (pair_at), and
+// no barrier, slot or reduce pass follows (K2a, flash_bwd_dq_x3.cuh,
+// computes dq query-major).
 //
 // Layout: q, k, v, dO, dk, dv [B, S, H, D] f32, D 64 or 128; lse2 (lse
 // times log2 e) and delta [B*H, Sq] f32.  Positions count from 0 for
-// queries and keys alike; ragged Sq and Sk are masked here.
+// queries and keys alike; ragged Sq and Sk, and Sq != Sk, are masked
+// here.
 #pragma once
 
 #include "bwd_tile.cuh"
@@ -73,12 +87,13 @@ constexpr int BWD_NT = 256;         // eight warps, 16 keys each
 constexpr int DS_LD = BWD_BQ + 4;   // padded row of the dS^T tile
 constexpr int RED_NT = 256;         // threads per block of the reduce
 
-template <int D>
+template <int D, bool DQ>
 constexpr int bwd_smem_bytes() {
-  // K and V tiles, two stages of Q and dO tiles, dS^T, P^T, two stages
-  // of lse2 and delta rows
-  return (2 * BWD_BK * D + 2 * 2 * BWD_BQ * D + BWD_BK * DS_LD +
-          BWD_BK * BWD_BQ + 2 * 2 * BWD_BQ) * 4;
+  // K and V tiles, two stages of Q and dO tiles, dS^T (K3: padded rows),
+  // P^T, two stages of lse2 and delta rows
+  return (2 * BWD_BK * D + 2 * 2 * BWD_BQ * D +
+          BWD_BK * (DQ ? DS_LD : BWD_BQ) + BWD_BK * BWD_BQ +
+          2 * 2 * BWD_BQ) * 4;
 }
 
 // dQ's output columns: a warp owns D / 4 of them, NPW = D / 32 n8
@@ -95,15 +110,16 @@ __device__ __forceinline__ int dq_perm(int j) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_NT, 1)
-bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
-                    const float* __restrict__ lse2,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, float* __restrict__ dq_partial,
-                    int H, int Sq, int Sk, int causal, float scale,
-                    float scale_log2e) {
+// The walk of one 128-key block; DQ adds K3's dq product and slot write
+// (`dq_partial` is unused without it).
+template <int D, bool DQ>
+__device__ __forceinline__ void bwd_kv_walk_x3(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dO,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dq_partial, int H, int Sq, int Sk, int causal,
+    float scale, float scale_log2e) {
   constexpr int NT = D / 8;     // n8 tiles of dK and dV
   constexpr int NC = NT / 4;    // chunks of a lane's B values in a row
   constexpr int QT = BWD_BQ * D;  // floats of one Q or dO tile
@@ -113,8 +129,9 @@ bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_s = k_s + BWD_BK * D;
   // stage s of the ring: Q at st_s + 2 s QT, dO right after it
   float* st_s = v_s + BWD_BK * D;
-  float* ds_s = st_s + 4 * QT;         // dS^T [128 keys][36]
-  float* pt_s = ds_s + BWD_BK * DS_LD;  // P^T [128 keys][32], pair_at
+  // dS^T [128 keys][36] (K3) or [128 keys][32], pair_at (K2b)
+  float* ds_s = st_s + 4 * QT;
+  float* pt_s = ds_s + BWD_BK * (DQ ? DS_LD : BWD_BQ);  // P^T, pair_at
   // stage s: lse2 at rows + 2 s BQ, delta at rows + 2 s BQ + BQ
   float* rows = pt_s + BWD_BK * BWD_BQ;
 
@@ -253,14 +270,18 @@ bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 
       // P^T and dS^T to shared memory: A fragments of dV's and dK's
-      // products, and dS^T also of the dQ product
+      // products, and in K3 dS^T also of the dQ product
       store_pairs(pt_s, s, kr0 + g, t4);
+      if constexpr (DQ) {
 #pragma unroll
-      for (int n = 0; n < BWD_BQ / 8; ++n) {
-        float* d0 = ds_s + (kr0 + g) * DS_LD + 8 * n + 2 * t4;
-        *reinterpret_cast<float2*>(d0) = make_float2(dp[n][0], dp[n][1]);
-        *reinterpret_cast<float2*>(d0 + 8 * DS_LD) =
-            make_float2(dp[n][2], dp[n][3]);
+        for (int n = 0; n < BWD_BQ / 8; ++n) {
+          float* d0 = ds_s + (kr0 + g) * DS_LD + 8 * n + 2 * t4;
+          *reinterpret_cast<float2*>(d0) = make_float2(dp[n][0], dp[n][1]);
+          *reinterpret_cast<float2*>(d0 + 8 * DS_LD) =
+              make_float2(dp[n][2], dp[n][3]);
+        }
+      } else {
+        store_pairs(ds_s, dp, kr0 + g, t4);
       }
       __syncwarp();  // this warp's rows of both tiles are stored
 
@@ -273,8 +294,8 @@ bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 1
         for (int j = 0; j < BWD_BQ / 8; ++j) {
           FragA pa;
-          if (pass == 0) {
-            split_pairs(pa, pt_s, kr0 + g, j, t4);
+          if (pass == 0 || !DQ) {
+            split_pairs(pa, pass == 0 ? pt_s : ds_s, kr0 + g, j, t4);
           } else {
             const float* d0 = ds_s + (kr0 + g) * DS_LD + 8 * j + 2 * t4;
             const float2 a0 = *reinterpret_cast<const float2*>(d0);
@@ -303,7 +324,7 @@ bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
         }
       }
-    } else {
+    } else if constexpr (DQ) {
 #pragma unroll
       for (int n = 0; n < BWD_BQ / 8; ++n) {
         float* d0 = ds_s + (kr0 + g) * DS_LD + 8 * n + 2 * t4;
@@ -311,6 +332,7 @@ bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float2*>(d0 + 8 * DS_LD) = make_float2(0.f, 0.f);
       }
     }
+    if constexpr (!DQ) continue;  // K2b: no dQ, so no barrier for it
     __syncthreads();  // every warp's dS^T is stored
 
     // dQ = dS K over the block's live keys, [16 rows, D / 4 columns] a
@@ -405,6 +427,31 @@ bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(BWD_NT, 1)
+bwd_fused_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, float* __restrict__ dq_partial,
+                    int H, int Sq, int Sk, int causal, float scale,
+                    float scale_log2e) {
+  bwd_kv_walk_x3<D, true>(q, k, v, dO, lse2, delta, dk, dv, dq_partial, H,
+                          Sq, Sk, causal, scale, scale_log2e);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_NT, 1)
+bwd_dkdv_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dO,
+                   const float* __restrict__ lse2,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                   float scale, float scale_log2e) {
+  bwd_kv_walk_x3<D, false>(q, k, v, dO, lse2, delta, dk, dv, nullptr, H, Sq,
+                           Sk, causal, scale, scale_log2e);
+}
+
 // Pass 2: dq[b, qi, h, :] = the sum, in slot order, of the slots that
 // wrote row qi -- under causal masking the 128-key blocks starting at or
 // before the row, t <= qi / 128.
@@ -446,7 +493,7 @@ cudaError_t launch_bwd_fused_x3(const void* q, const void* k, const void* v,
                                 int Sq, int Sk, int causal, float scale,
                                 float scale_log2e, cudaStream_t stream) {
   const int slots = tc::bwd_slots(Sk);
-  constexpr int smem = bwd_smem_bytes<D>();
+  constexpr int smem = bwd_smem_bytes<D, true>();
   auto kernel = bwd_fused_x3_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -462,6 +509,26 @@ cudaError_t launch_bwd_fused_x3(const void* q, const void* k, const void* v,
   dq_reduce_x3_kernel<D><<<static_cast<unsigned>((n + RED_NT - 1) / RED_NT),
                            RED_NT, 0, stream>>>(
       partial, static_cast<float*>(dq), B * H, H, Sq, slots, causal);
+  return cudaGetLastError();
+}
+
+// K2b on `stream`: one block per (batch-head, 128-key block).
+template <int D>
+cudaError_t launch_bwd_dkdv_x3(const void* q, const void* k, const void* v,
+                               const void* dO, const float* lse2,
+                               const float* delta, void* dk, void* dv, int B,
+                               int H, int Sq, int Sk, int causal, float scale,
+                               float scale_log2e, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_bytes<D, false>();
+  auto kernel = bwd_dkdv_x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, tc::bwd_slots(Sk)), BWD_NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO), lse2,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
+      causal, scale, scale_log2e);
   return cudaGetLastError();
 }
 

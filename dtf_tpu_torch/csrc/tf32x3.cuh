@@ -1,6 +1,6 @@
 // The f32-accurate split product on Hopper's tensor cores (sm_90a):
-// building blocks of the float32 routes of K1 (flash_fwd_x3.cuh) and K3
-// (flash_bwd_x3.cuh).
+// building blocks of the float32 routes of K1 (flash_fwd_x3.cuh), K2a
+// (flash_bwd_dq_x3.cuh), K2b and K3 (flash_bwd_x3.cuh).
 //
 // The split ("3xTF32").  Each f32 operand x is written as hi + lo with
 // hi = rna_tf32(x) and lo = rna_tf32(x - hi): TF32 keeps 10 stored

@@ -15,7 +15,9 @@ bias, never a post-hoc where -- so fully masked blocks are inert.
 Internal layout is [batch, heads, seq, head_dim] ("BHSD").  Scores and
 the carry are float32 whatever the inputs' dtype: products of bf16
 values are exact in float32, which is what the JAX code's
-``preferred_element_type=float32`` einsums compute.
+``preferred_element_type=float32`` einsums compute.  Float64 inputs are
+the one exception (:func:`acc_dtype`): they keep float64 throughout, an
+exact reference to hold the float32 kernels to.
 """
 
 from __future__ import annotations
@@ -30,6 +32,12 @@ import torch
 NEG_INF = -1e30
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of scores and sums for inputs of ``dtype``: float64 for
+    float64, float32 for everything else."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def block_accumulate(o, m, l, q, k, v, scale: float, bias=None):
     """Fold one K/V block into the (o, m, l) carry.
 
@@ -37,7 +45,8 @@ def block_accumulate(o, m, l, q, k, v, scale: float, bias=None):
     m/l [.., Sq]; ``bias`` broadcastable to [.., Sq, Sk] (additive,
     NEG_INF = masked).  Returns the updated (o, m, l); ``o`` stays
     un-normalized until :func:`finalize`."""
-    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+    acc = acc_dtype(q.dtype)
+    s = torch.einsum("...qd,...kd->...qk", q.to(acc), k.to(acc)) * scale
     if bias is not None:
         s = s + bias
     m_new = torch.maximum(m, s.amax(dim=-1))
@@ -51,7 +60,7 @@ def block_accumulate(o, m, l, q, k, v, scale: float, bias=None):
     # values p is rounded to bf16 first, the flash-attention trade the
     # kernels make; f32 callers are unchanged
     o_new = o * corr[..., None] + torch.einsum(
-        "...qk,...kd->...qd", p.to(v.dtype).float(), v.float())
+        "...qk,...kd->...qd", p.to(v.dtype).to(acc), v.to(acc))
     return o_new, m_new, l_new
 
 

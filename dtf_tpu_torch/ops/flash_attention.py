@@ -19,16 +19,17 @@ points of every flash kernel -- K1, K2a, K2b and K3 -- the dtype picks
 the route, and neither route stands in for the other: bfloat16 runs
 the tensor-core kernels (wgmma: ``csrc/flash_fwd_tc.cuh`` K1,
 ``csrc/flash_bwd_dq_tc.cuh`` K2a, ``csrc/flash_bwd_tc.cuh`` K2b and K3).
-float32 runs K1 and K3 on the tensor cores too, in split products
-(``csrc/flash_fwd_x3.cuh``, ``csrc/flash_bwd_x3.cuh``): each operand
-is the sum of two TF32 halves and each product three TF32 products
-(``csrc/tf32x3.cuh``), about 7e-7 from exact per term, summed in short
-chains folded into f32 sums (the tensor core truncates its own sums),
-so the f32 route stays inside 1e-5 of the exact plain versions -- a
-single TF32 product would keep three digits, and is used nowhere.
-Their bound is the tensor cores' 165 TFLOP/s of such f32-accurate work
-(495 TFLOP/s of TF32 over three products).  K2a and K2b keep exact f32 CUDA-core
-kernels in float32 (``csrc/flash_bwd.cu``, ``csrc/bwd_tile.cuh``).
+float32 runs all four on the tensor cores too, in split products
+(``csrc/flash_fwd_x3.cuh`` K1, ``csrc/flash_bwd_dq_x3.cuh`` K2a,
+``csrc/flash_bwd_x3.cuh`` K2b and K3): each operand is the sum of two
+TF32 halves and each product three TF32 products (``csrc/tf32x3.cuh``),
+about 7e-7 from exact per term, summed in short chains folded into f32
+sums (the tensor core truncates its own sums), so the f32 route stays
+inside 1e-5 of the exact plain versions -- a single TF32 product would
+keep three digits, and is used nowhere.  Their bound is the tensor
+cores' 165 TFLOP/s of such f32-accurate work (495 TFLOP/s of TF32 over
+three products).  On the card the exact reference is the plain
+versions, run with TF32 off (``runtime/device.py``).
 
 The backward keeps the JAX formulation choice: ``fused_bwd=None`` picks
 the single-pass K3 when Sq == Sk and the TPU kernel's [Sq, D] f32 dq
@@ -133,14 +134,16 @@ def flash_forward_plain(q, k, v, *, causal: bool, scale: float,
     the f32 carry by ``bw.block_accumulate`` (operands in their own
     dtype, P rounded to v's dtype before P.V), the causal mask from
     positions counted from 0 for both q and k, a ragged last block.
-    Returns (o [B, Sq, H, D] in q's dtype, lse float32 [B*H, Sq])."""
+    Returns (o [B, Sq, H, D] in q's dtype, lse float32 [B*H, Sq]); for
+    float64 inputs everything is float64 (``bw.acc_dtype``)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
+    acc = bw.acc_dtype(q.dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
-    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
-    m = torch.full((b, h, sq), bw.NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, h, sq, d), dtype=acc, device=dev)
+    m = torch.full((b, h, sq), bw.NEG_INF, dtype=acc, device=dev)
+    l = torch.zeros((b, h, sq), dtype=acc, device=dev)
     q_pos = torch.arange(sq, device=dev)
     for k0 in range(0, sk, block_k):
         k1 = min(k0 + block_k, sk)
@@ -215,28 +218,30 @@ def _bwd_plain(q, k, v, do, lse, delta, causal, scale, want_dq,
     crosses, probabilities recomputed in base 2 from lse * LOG2E with
     exp2, dS = p (dp - delta) scale rounded to q's dtype before both its
     products, p rounded to dO's dtype before the dv product, f32 sums,
-    outputs in the inputs' dtypes.  Rows and keys of a ragged last tile
-    are simply absent."""
+    outputs in the inputs' dtypes (float64 inputs keep float64 sums,
+    ``bw.acc_dtype``).  Rows and keys of a ragged last tile are simply
+    absent."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
+    acc = bw.acc_dtype(q.dtype)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     lse2 = (lse * LOG2E).reshape(b, h, sq)
     delta = delta.reshape(b, h, sq)
-    dq = (torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    dq = (torch.zeros((b, h, sq, d), dtype=acc, device=dev)
           if want_dq else None)
     dk = dv = None
     if want_dkdv:
-        dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=dev)
+        dk = torch.zeros((b, h, sk, d), dtype=acc, device=dev)
         dv = torch.zeros_like(dk)
     for q0 in range(0, sq, block):
         q1 = min(q0 + block, sq)
-        q_t, do_t = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
+        q_t, do_t = qt[:, :, q0:q1].to(acc), dot[:, :, q0:q1].to(acc)
         for k0 in range(0, sk, block):
             if causal and k0 > q1 - 1:
                 break                              # dead: past the diagonal
             k1 = min(k0 + block, sk)
-            k_t, v_t = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
+            k_t, v_t = kt[:, :, k0:k1].to(acc), vt[:, :, k0:k1].to(acc)
             s2 = torch.einsum("bhqd,bhkd->bhqk", q_t, k_t) * (scale * LOG2E)
             if causal and k1 - 1 > q0:             # the diagonal crosses
                 keep = (torch.arange(q0, q1, device=dev)[:, None]
@@ -245,11 +250,11 @@ def _bwd_plain(q, k, v, do, lse, delta, causal, scale, want_dq,
             p = torch.exp2(s2 - lse2[:, :, q0:q1, None])
             dp = torch.einsum("bhqd,bhkd->bhqk", do_t, v_t)
             ds = (p * (dp - delta[:, :, q0:q1, None]) * scale).to(
-                q.dtype).float()
+                q.dtype).to(acc)
             if want_dq:
                 dq[:, :, q0:q1] += torch.einsum("bhqk,bhkd->bhqd", ds, k_t)
             if want_dkdv:
-                p_r = p.to(do.dtype).float()
+                p_r = p.to(do.dtype).to(acc)
                 dv[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", p_r, do_t)
                 dk[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", ds, q_t)
 

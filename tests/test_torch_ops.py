@@ -278,6 +278,36 @@ def test_plain_backward_matches_blockwise_oracle(causal):
         _close(p, _split(r, b, h), tol=1e-4)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_versions_in_float64_match_pallas_interpret(causal):
+    """Float64 inputs keep float64 through the plain versions -- the
+    exact reference chip_smoke.py holds the f32 kernels to on peaked
+    attention -- and land within the f32 gate of the Pallas kernels'
+    f32 results, here with q scaled by 4 as there."""
+    shape = (1, 40, 2, 32)
+    b, s, h, d = shape
+    q, k, v, do, o, lse, delta = _bwd_case(shape, causal, 70)
+    q = q * 4
+    jo, jlse = jfa._pallas_forward(*(_merge(x) for x in (q, k, v)),
+                                   d ** -0.5, causal, 8, 8, True)
+    o64, lse64 = tfa.flash_forward_plain(
+        *(torch.from_numpy(x).double() for x in (q, k, v)), causal=causal,
+        scale=d ** -0.5)
+    assert o64.dtype == lse64.dtype == torch.float64
+    _close(o64, _split(jo, b, h))
+    _close(lse64, jlse)
+    o = _split(jo, b, h)
+    lse = np.array(jlse)
+    delta = np.swapaxes((do * o).sum(-1), 1, 2).reshape(b * h, s)
+    refs = _pallas_bwd_ref(q, k, v, do, o, lse, causal, fused=True)
+    port = tfa.flash_bwd_fused_plain(
+        *(torch.from_numpy(np.array(x)).double()
+          for x in (q, k, v, do, lse, delta)),
+        causal=causal, scale=d ** -0.5)
+    assert all(p.dtype == torch.float64 for p in port)
+    assert _grad_gap(port, refs) <= 1.0
+
+
 def test_plain_backward_bf16_matches_pallas_interpret():
     """bf16 operands: dS rounded to q's dtype before both products, P to
     dO's before the dv product, outputs in bf16 -- the Pallas kernels'
@@ -429,7 +459,8 @@ def test_fused_partial_buffer_size_is_pinned():
 
 
 # ---------------------------------------------------------------------------
-# the float32 routes of K1 and K3: the split product, emulated on the CPU
+# the float32 routes of K1, K2a, K2b and K3: the split product, emulated
+# on the CPU
 # ---------------------------------------------------------------------------
 
 def _tf32(x):
@@ -470,10 +501,13 @@ def _tc_forward(q, k, v, causal, terms):
     return o.transpose(1, 2), lse.reshape(b * h, sq)
 
 
-def _tc_backward(q, k, v, do, lse, delta, causal, terms):
-    """K3's float32 route with its five products emulated, the
+def _tc_backward(q, k, v, do, lse, delta, causal, terms,
+                 grads=("dq", "dk", "dv")):
+    """The float32 backward routes with their products emulated, the
     numerics of ``_bwd_tile``: p = exp2(s2 - lse log2 e), the mask a
-    replacement by NEG_INF, dS = p (dp - delta) scale."""
+    replacement by NEG_INF, dS = p (dp - delta) scale.  All three
+    ``grads`` are K3's five products; ("dq",) K2a's three (S, dP, dQ),
+    ("dk", "dv") K2b's four (S, dP, dK, dV)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = d ** -0.5
@@ -485,10 +519,10 @@ def _tc_backward(q, k, v, do, lse, delta, causal, terms):
     p = torch.exp2(s2 - (lse * tfa.LOG2E).reshape(b, h, sq, 1))
     dp = _tc_einsum("bhqd,bhkd->bhqk", dot, vt, terms)
     ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
-    grads = (_tc_einsum("bhqk,bhkd->bhqd", ds, kt, terms),
-             _tc_einsum("bhqk,bhqd->bhkd", ds, qt, terms),
-             _tc_einsum("bhqk,bhqd->bhkd", p, dot, terms))
-    return [g.transpose(1, 2) for g in grads]
+    products = {"dq": lambda: _tc_einsum("bhqk,bhkd->bhqd", ds, kt, terms),
+                "dk": lambda: _tc_einsum("bhqk,bhqd->bhkd", ds, qt, terms),
+                "dv": lambda: _tc_einsum("bhqk,bhqd->bhkd", p, dot, terms)}
+    return [products[g]().transpose(1, 2) for g in grads]
 
 
 def _pallas_fwd_ref(q, k, v, causal):
@@ -517,6 +551,14 @@ def _grad_gap(outs, refs):
                for o, r in zip(outs, refs))
 
 
+def _pallas_bwd_ref(q, k, v, do, o, lse, causal, fused):
+    b, _, h, d = q.shape
+    ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
+                               _merge(do), d ** -0.5, causal, 8, 8, True,
+                               fused=fused)
+    return [torch.from_numpy(_split(r, b, h).copy()) for r in ref]
+
+
 TC_SHAPES = [(24, 24), (16, 40), (40, 24)]
 
 
@@ -543,39 +585,59 @@ def test_split_product_backward_matches_pallas_interpret(sq, sk, d, causal):
     ``_pallas_backward(fused=True, interpret=True)`` within the f32
     scaled gate, ragged against the kernel's 128-key blocks and 32-row
     tiles and at cross lengths."""
-    shape = (2, sq, 2, d)
-    b, _, h, _ = shape
-    q, k, v, do, o, lse, delta = _bwd_case(shape, causal, 300 + sq + sk + d,
-                                           sk=sk)
-    ref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
-                               _merge(do), d ** -0.5, causal, 8, 8, True,
-                               fused=True)
-    refs = [torch.from_numpy(_split(r, b, h).copy()) for r in ref]
+    q, k, v, do, o, lse, delta = _bwd_case((2, sq, 2, d), causal,
+                                           300 + sq + sk + d, sk=sk)
+    refs = _pallas_bwd_ref(q, k, v, do, o, lse, causal, fused=True)
     outs = _tc_backward(*(_t(x) for x in (q, k, v, do, lse, delta)), causal,
                         terms=3)
     assert _grad_gap(outs, refs) <= 1.0
 
 
-@pytest.mark.parametrize("which", ["forward", "backward"])
+def _tc_split_pair(args, causal, terms):
+    """K2a (dq) and K2b (dk, dv) on the float32 route, each with its own
+    S and dP, emulated."""
+    return (_tc_backward(*args, causal, terms, grads=("dq",))
+            + _tc_backward(*args, causal, terms, grads=("dk", "dv")))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", TC_SHAPES)
+def test_split_product_split_pair_matches_pallas_interpret(sq, sk, d,
+                                                           causal):
+    """K2a's float32 route (three split products) and K2b's (four)
+    against ``_pallas_backward(fused=False, interpret=True)`` within the
+    f32 scaled gate, ragged against the kernels' tiles (K2a: 128 query
+    rows, 32-key tiles; K2b: 128-key blocks, 32-row tiles) and at cross
+    lengths in both directions."""
+    q, k, v, do, o, lse, delta = _bwd_case((2, sq, 2, d), causal,
+                                           600 + sq + sk + d, sk=sk)
+    refs = _pallas_bwd_ref(q, k, v, do, o, lse, causal, fused=False)
+    args = [_t(x) for x in (q, k, v, do, lse, delta)]
+    assert _grad_gap(_tc_split_pair(args, causal, 3), refs) <= 1.0
+
+
+@pytest.mark.parametrize("which", ["forward", "backward", "split_pair"])
 def test_single_tf32_product_fails_the_f32_gate(which):
     """The gate tells the designs apart: the same computation with one
     TF32 product per tile product, not three, misses the f32 gate the
-    split product passes, on the same inputs."""
-    shape = (2, 24, 2, 128)
-    b, s, h, d = shape
-    q, k, v, do, o, lse, delta = _bwd_case(shape, True, 400)
+    split product passes, on the same inputs -- K1, K3 and the split
+    pair K2a + K2b."""
+    q, k, v, do, o, lse, delta = _bwd_case((2, 24, 2, 128), True, 400)
     if which == "forward":
         args = [torch.from_numpy(x) for x in (q, k, v)]
         ref = _pallas_fwd_ref(q, k, v, True)
         gaps = [_forward_gap(*_tc_forward(*args, True, terms), *ref)
                 for terms in (3, 1)]
-    else:
-        jref = jfa._pallas_backward(*(_merge(x) for x in (q, k, v, o)), lse,
-                                    _merge(do), d ** -0.5, True, 8, 8, True,
-                                    fused=True)
-        refs = [torch.from_numpy(_split(r, b, h).copy()) for r in jref]
+    elif which == "backward":
+        refs = _pallas_bwd_ref(q, k, v, do, o, lse, True, fused=True)
         args = [_t(x) for x in (q, k, v, do, lse, delta)]
         gaps = [_grad_gap(_tc_backward(*args, True, terms), refs)
+                for terms in (3, 1)]
+    else:
+        refs = _pallas_bwd_ref(q, k, v, do, o, lse, True, fused=False)
+        args = [_t(x) for x in (q, k, v, do, lse, delta)]
+        gaps = [_grad_gap(_tc_split_pair(args, True, terms), refs)
                 for terms in (3, 1)]
     assert gaps[0] <= 1.0 < gaps[1], gaps
 
@@ -940,16 +1002,17 @@ def _card_bwd_inputs(device, dtype, b, s, h, d, seed, sk=None):
                                      (200, 200, 64), (200, 200, 128),
                                      (320, 320, 64), (320, 320, 128),
                                      (200, 320, 128), (320, 200, 128),
-                                     (64, 256, 64), (130, 70, 64)])
+                                     (64, 256, 64), (130, 70, 64),
+                                     (33, 97, 64), (97, 33, 128)])
 def test_backward_kernels_match_plain_on_card(cuda_device, dtype, sq, sk,
                                               d):
     """K2a and K2b -- and K3 where Sq == Sk -- against their plain
     versions on the same inputs, causal and full, ragged against the
-    kernels' tiles (32 rows for K2a and K2b in float32, 128 keys and 32
-    query rows for K3's float32 split-product route; 128 query rows and
-    64 keys for K2a, 128 keys and 64 query rows for K2b and K3 on the
-    bf16 tensor-core routes) and at cross lengths, Sq < Sk and Sq > Sk;
-    K3 against K2a + K2b; each launch counted once."""
+    kernels' tiles (float32, split TF32: K2a 128 query rows and 32-key
+    tiles, K2b and K3 128 keys and 32-row query tiles; bf16, wgmma: K2a
+    128 query rows and 64-key tiles, K2b and K3 128 keys and 64-row
+    query tiles) and at cross lengths, Sq < Sk and Sq > Sk; K3 against
+    K2a + K2b; each launch counted once."""
     q, k, v, do = _card_bwd_inputs(cuda_device, dtype, 2, sq, 3, d,
                                    sq + sk + d, sk)
     scale = d ** -0.5

@@ -11,6 +11,7 @@ threefry bits.
 import ast
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -27,6 +28,7 @@ from dtf_tpu_torch import convert
 from dtf_tpu_torch.cli import serve_main
 from dtf_tpu_torch.config import Config, parse_flags
 from dtf_tpu_torch.models.transformer import TransformerLM
+from dtf_tpu_torch.ops import _build
 from dtf_tpu_torch.runtime.device import resolve_device
 from dtf_tpu_torch.serve import (Backpressure, PagePool, ServeEngine,
                                  collect_stats)
@@ -347,10 +349,15 @@ def test_serve_main_needs_weights():
 # guards: the port and the smoke script import nothing of JAX
 # ---------------------------------------------------------------------------
 
-def _port_files():
-    pkg = os.path.join(REPO, "dtf_tpu_torch")
-    out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(pkg):
+def _port_files(repo=REPO):
+    """chip_smoke.py and the package's .py files, less the kernels'
+    build directory: nvcc output and whatever else lands there is no
+    part of the checkout (.gitignore)."""
+    pkg = os.path.join(repo, "dtf_tpu_torch")
+    build = os.path.join(pkg, os.path.basename(_build.BUILD_DIR))
+    out = [os.path.join(repo, "chip_smoke.py")]
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if os.path.join(root, d) != build]
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return out
 
@@ -360,9 +367,9 @@ def _forbidden(mod: str) -> bool:
     return top in ("jax", "jaxlib", "flax", "optax", "orbax", "dtf_tpu")
 
 
-def test_port_imports_nothing_of_jax_ast():
-    files = _port_files()
-    assert len(files) > 20
+def _jax_imports(files, repo=REPO):
+    """{path relative to ``repo``: the forbidden modules it imports}."""
+    found = {}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -374,7 +381,32 @@ def test_port_imports_nothing_of_jax_ast():
             else:
                 continue
             bad = [m for m in mods if _forbidden(m)]
-            assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+            if bad:
+                found.setdefault(os.path.relpath(path, repo), []).extend(bad)
+    return found
+
+
+def test_port_imports_nothing_of_jax_ast():
+    files = _port_files()
+    assert len(files) > 20
+    assert not _jax_imports(files)
+
+
+def test_jax_scan_skips_the_build_directory(tmp_path):
+    """A .py file importing jax under the kernels' build directory of a
+    copy of the package is not scanned; the same file elsewhere in the
+    package is."""
+    pkg = tmp_path / "dtf_tpu_torch"
+    shutil.copytree(os.path.join(REPO, "dtf_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    build = pkg / os.path.basename(_build.BUILD_DIR)
+    build.mkdir()
+    for where in (build, pkg / "ops"):
+        (where / "probe_with_jax.py").write_text("import jax\n")
+    found = _jax_imports(_port_files(str(tmp_path)), str(tmp_path))
+    assert found == {os.path.join("dtf_tpu_torch", "ops",
+                                  "probe_with_jax.py"): ["jax"]}
 
 
 def test_port_import_loads_no_jax_module():
