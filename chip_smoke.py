@@ -32,12 +32,17 @@ Phases, each printing one JSON object per line (the card's
                  of its two passes from torch.profiler), then K2a and
                  K2b at cross lengths (Sq != Sk: 200 / 320, 320 / 200 at
                  D 128, 64 / 256 at D 64), causal and full, both dtypes,
-                 twice bit for bit; K4 at decode and chunk shapes; last,
-                 peaked attention in float32 (q scaled by 4,
-                 [1, 2048, 6, 128], causal and full): K1, K2a, K2b and
-                 K3 and their plain versions against the plain versions
-                 run in float64, each kernel within its f32 gate of
-                 float64.
+                 twice bit for bit; K4 (a split pass and a combine: S
+                 below 16 decodes on CUDA cores, chunks run on the
+                 tensor cores) at decode [8, 1, 6, 128] and [8, 1, 6, 64]
+                 and chunks [1, 64, 6, 128] at start 0, 64, 1984 and
+                 [1, 16, 6, 128] at 1984, both dtypes, each twice bit
+                 for bit, then its keys per split swept, and its f32
+                 chunk route at q x 4 against float64; last, peaked
+                 attention in float32 (q scaled by 4, [1, 2048, 6, 128],
+                 causal and full): K1, K2a, K2b and K3 and their plain
+                 versions against the plain versions run in float64,
+                 each kernel within its f32 gate of float64.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -51,6 +56,12 @@ Phases, each printing one JSON object per line (the card's
                  read just after; K1 and K4 must have run, as many
                  times per first prefill chunk (K1) and per decode step
                  and continuation chunk (K4) as phase 3 counted.
+     decode_profile -- ``Decoder.decode_step`` in bf16 on a full batch
+                 of 8 rows holding 300-576 tokens: the synced host time
+                 of a step, then five steps under torch.profiler --
+                 device time by kernel kind, K4's two passes and share,
+                 the idle share (a profiler that sees no device time for
+                 either of K4's passes fails the run).
   5. train_f32 -- ``transformer_tpu`` in float32, batch 2 x 2048: one
                  step's gradients through K1 + K3 equal those with
                  attention bound to K1 + K2a/K2b and to the plain
@@ -578,15 +589,68 @@ def profile_passes(torch, fa, args, kw, names):
     return out
 
 
+# K4's routes inside its C entry point (csrc/paged_decode.cu), by S and
+# dtype: S below CHUNK_MIN_S there (16) decodes on CUDA cores, chunks run
+# on the tensor cores; every route is a split pass and a combine
+K4_CHUNK_MIN_S = 16
+
+
+def k4_route(dtype: str, s: int) -> str:
+    if s < K4_CHUNK_MIN_S:
+        return "split-kv cuda-core cp.async"
+    return ("split-kv wgmma cp.async" if dtype == "bfloat16"
+            else "split-kv 3xtf32 mma.sync cp.async")
+
+
+def paged_oracle64(torch, pa, q, pool_k, pool_v, table, index):
+    """K4's function in float64: the gather, the positional mask, a dense
+    softmax."""
+    s, d = q.shape[1], q.shape[-1]
+    k = pa.gather_pages(pool_k, table).double()
+    v = pa.gather_pages(pool_v, table).double()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.double(), k) * d ** -0.5
+    jpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    qpos = (index.long()[:, None, None, None]
+            + torch.arange(s, device=q.device)[None, None, :, None])
+    scores = torch.where(jpos <= qpos, scores,
+                         torch.full_like(scores, -1e300))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+
+
+# K4's keys per split, swept on the main cases (the constant,
+# ops/paged_attention.py KEYS_PER_SPLIT, is one of them)
+K4_SPLIT_SWEEP = (64, 128, 256, 512)
+
+
+def sweep_splits(pa, timer, copies):
+    """K4's time at each keys-per-split of the sweep, the constant put
+    back after."""
+    chosen = pa.KEYS_PER_SPLIT
+    out = {}
+    try:
+        for kps in K4_SPLIT_SWEEP:
+            pa.KEYS_PER_SPLIT = kps
+            out[kps] = timer.ms(pa.paged_flash_decode, copies)
+    finally:
+        pa.KEYS_PER_SPLIT = chosen
+    return out
+
+
 def check_paged(torch, timer, gen):
     """K4 against its plain version: a decode step [8, 1, 6, 128] over
     rows holding {1, 15, 16, 17, 1000, 2047} tokens plus two idle rows
-    (all-zero tables), and a continuation chunk [1, 64, 6, 128] at
-    start 0, 64 and 1984; pools of 1025 pages of 16, 128 pages a row --
-    the serving engine's layout at max_batch 8."""
+    (all-zero tables), the same at D 64, continuation chunks
+    [1, 64, 6, 128] at start 0, 64 and 1984 and [1, 16, 6, 128] at 1984;
+    pools of 1025 pages of 16, 128 pages a row -- the serving engine's
+    layout at max_batch 8.  float32 and bfloat16; each case run twice
+    bit for bit; the decode and the chunk at 1984 also timed at each
+    keys per split of K4_SPLIT_SWEEP.  Then the f32 chunk route at peaked
+    attention (q x 4,
+    start 1984) against K4's function in float64, within the f32 gate;
+    the plain version's distance beside it."""
     from dtf_tpu_torch.ops import paged_attention as pa
 
-    pages, page, m, h, d = 1025, 16, 128, 6, 128
+    pages, page, m, h = 1025, 16, 128, 6
     lengths = [1, 15, 16, 17, 1000, 2047, 0, 0]
     table = torch.zeros(len(lengths), m, dtype=torch.int32)
     perm = torch.randperm(pages - 1, generator=gen) + 1
@@ -596,31 +660,39 @@ def check_paged(torch, timer, gen):
         table[row, :n] = perm[used:used + n]
         used += n
     index = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
-    setups = [("decode", table, index, 1)]
     full_row = table[5:6].clone()            # 128 pages: 2048 positions
+    # (name, table, index, S, D)
+    setups = [("decode", table, index, 1, 128),
+              ("decode d64", table, index, 1, 64)]
     for start in (0, 64, 1984):
         setups.append((f"chunk@{start}", full_row,
-                       torch.tensor([start], dtype=torch.int32), 64))
+                       torch.tensor([start], dtype=torch.int32), 64, 128))
+    setups.append(("chunk16@1984", full_row,
+                   torch.tensor([1984], dtype=torch.int32), 16, 128))
 
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        pool_k, pool_v = (torch.randn(pages, page, h, d,
+        pools = {d: tuple(torch.randn(pages, page, h, d,
                                       generator=gen).to("cuda", dtype)
-                          for _ in range(2))
-        elem = pool_k.element_size()
-        for name, tab, idx, s in setups:
+                          for _ in range(2)) for d in (64, 128)}
+        for name, tab, idx, s, d in setups:
+            pool_k, pool_v = pools[d]
+            elem = pool_k.element_size()
             tab_c, idx_c = tab.cuda(), idx.cuda()
             q = torch.randn(tab.shape[0], s, h, d,
                             generator=gen).to("cuda", dtype)
             o = pa.paged_flash_decode(q, pool_k, pool_v, tab_c, idx_c)
+            again = pa.paged_flash_decode(q, pool_k, pool_v, tab_c, idx_c)
             po = pa.paged_flash_decode_reference(q, pool_k, pool_v, tab_c,
                                                  idx_c)
             torch.cuda.synchronize()
             err, tol, ratio = compare(torch, o, po)
-            if not ratio <= 1.0:
+            same = torch.equal(o, again)
+            if not (ratio <= 1.0 and same):
                 raise AssertionError(f"K4 {dname} {name}: err {err}, worst "
-                                     f"row at {ratio} of its tol {tol}")
+                                     f"row at {ratio} of its tol {tol}; "
+                                     f"bit-identical twice: {same}")
             # what this run's data needs: each row's live keys (index +
             # S, within the table) read once from K and V, q read, o
             # written, the table and index read
@@ -633,15 +705,45 @@ def check_paged(torch, timer, gen):
                              2 * sum(keys) * h * d * elem)
             cases.append({
                 "case": name, "shape": list(q.shape), "dtype": dname,
+                "design": k4_route(dname, s),
+                "keys_per_split": pa.KEYS_PER_SPLIT,
                 "row_keys": keys, "max_abs_err": err, "tol": tol,
-                "err_over_tol": ratio,
+                "err_over_tol": ratio, "bit_identical": same,
                 "ms": timer.ms(pa.paged_flash_decode, copies),
                 "plain_ms": timer.ms(pa.paged_flash_decode_reference,
                                      copies[:1]),
                 "library_ms": None,
                 **bounds(4 * h * d * pairs, nbytes, dname)})
+            if name in ("decode", "chunk@1984"):
+                cases[-1]["ms_by_keys_per_split"] = sweep_splits(
+                    pa, timer, copies)
             emit({"phase": "kernels", "kernel": "K4", **cases[-1]})
-        del pool_k, pool_v
+            del copies
+        del pools
+
+    # the f32 chunk route where a row's weight falls on a few keys
+    pool_k, pool_v = (torch.randn(pages, page, h, 128,
+                                  generator=gen).to("cuda")
+                      for _ in range(2))
+    tab_c = full_row.cuda()
+    idx_c = torch.tensor([1984], dtype=torch.int32).cuda()
+    q = 4 * torch.randn(1, 64, h, 128, generator=gen).to("cuda")
+    args = (q, pool_k, pool_v, tab_c, idx_c)
+    o = pa.paged_flash_decode(*args)
+    po = pa.paged_flash_decode_reference(*args)
+    o64 = paged_oracle64(torch, pa, *args)
+    torch.cuda.synchronize()
+    err = float((o.double() - o64).abs().max())
+    row = {"phase": "peaked", "kernel": "K4", "case": "chunk@1984",
+           "shape": list(q.shape), "q_scale": 4, "dtype": "float32",
+           "design": k4_route("float32", 64), "max_abs_err": err,
+           "err_over_tol": err / 1e-5,
+           "plain_max_abs_err": float((po.double() - o64).abs().max())}
+    emit(row)
+    if not err <= 1e-5:
+        raise AssertionError(f"K4 f32 chunk further from float64 than the "
+                             f"f32 gate at q x 4: {row}")
+    del pool_k, pool_v, args
     return cases
 
 
@@ -1114,13 +1216,44 @@ def train_bf16(torch, seed: int, split: bool = False, steps: int = 30):
     return out
 
 
+def device_time(prof, kinds, steps: int, wall: float):
+    """A profiled window's device time per step: summed by kind (the
+    first ``kinds`` entry, (label, tag or tags), whose tag a kernel's name
+    holds), by kernel name, busy in all, and the device's idle share of
+    the window's wall time (s)."""
+    from torch.autograd import DeviceType
+
+    by_kind, by_name, busy = {}, {}, 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        busy += us
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3 / steps
+        name = ev.name.lower()
+        kind = "other (copies, ...)"
+        for label, tags in kinds:
+            tags = (tags,) if isinstance(tags, str) else tags
+            if any(t.lower() in name for t in tags):
+                kind = label
+                break
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_idle_share": max(0.0, 1 - busy / 1e6 / wall),
+            "device_ms_per_step_by_kind": dict(sorted(
+                by_kind.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms_per_step": [
+                [n[:90], ms] for n, ms in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:10]]}
+
+
 def profile_train_step(torch, seed: int):
     """Where one bf16 training step's device time goes: two steps of a
     fresh ``transformer_tpu`` trainer (after the counted run) under
     torch.profiler, kernel time summed by kind, and the device's idle
     share of the steps' wall time.  Raises where the profiler sees no
     device time, or none for K1 and K3's two passes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dtf_tpu_torch.cli.lm_main import LM_DEFAULTS
@@ -1153,37 +1286,105 @@ def profile_train_step(torch, seed: int):
              ("reductions", "reduce"),
              ("elementwise (incl. AdamW, casts)", ("elementwise",
                                                    "vectorized")))
-    by_kind, by_name, busy = {}, {}, 0.0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        busy += us
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3 / steps
-        name = ev.name.lower()
-        kind = "other (copies, ...)"
-        for label, tags in kinds:
-            tags = (tags,) if isinstance(tags, str) else tags
-            if any(t.lower() in name for t in tags):
-                kind = label
-                break
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+    out = device_time(prof, kinds, steps, wall)
+    by_kind = out["device_ms_per_step_by_kind"]
     missing = [label for label, _ in kinds[:3] if not by_kind.get(label)]
-    if not busy or missing:
+    if not out["device_busy_ms_per_step"] or missing:
         raise RuntimeError(f"profiler saw no device time for "
                            f"{missing or 'any kernel'}; kernels seen: "
-                           f"{sorted(by_name)[:20]}")
-    out = {"phase": "train_profile", "steps": steps,
-           "wall_ms_per_step": wall * 1e3 / steps,
-           "device_busy_ms_per_step": busy / 1e3 / steps,
-           "device_idle_share": max(0.0, 1 - busy / 1e6 / wall),
-           "device_ms_per_step_by_kind": dict(sorted(
-               by_kind.items(), key=lambda kv: -kv[1])),
-           "top_kernels_ms_per_step": [
-               [n[:90], ms] for n, ms in sorted(
-                   by_name.items(), key=lambda kv: -kv[1])[:10]]}
-    emit(out)
+                           f"{out['top_kernels_ms_per_step']}")
+    emit({"phase": "train_profile", **out})
     del trainer, state, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_decode_step(torch, seed: int):
+    """Where a serving decode step's device time goes: ``Decoder.
+    decode_step`` on ``transformer_tpu`` in bf16 at full width, a full
+    batch of 8 rows holding 300-576 tokens (phase 4's lengths: prompts
+    up to 512 plus up to 64 new tokens), pages shuffled over the full
+    pool.  The synced host time of ten steps (median), then five steps
+    under torch.profiler: device time by kernel kind, K4's two passes,
+    K4's share of the device time and the idle share.  Raises where the
+    profiler sees no device time for either of K4's passes, or K4 did
+    not launch 12 times a step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtf_tpu_torch.models.registry import build_model
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+    from dtf_tpu_torch.serve.bridge import random_init
+    from dtf_tpu_torch.serve.decode import Decoder
+
+    model, _ = build_model("transformer_tpu", dtype=torch.bfloat16)
+    model = random_init(model, seed).cuda().eval()
+    rows, page = 8, 16
+    dec = Decoder(model, num_slots=rows, max_seq_len=model.max_seq_len,
+                  kv_page_size=page)
+    cache = dec.fresh_cache()
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(300, 577, rows)
+    perm = rng.permutation(np.arange(1, dec.pool_pages)).astype(np.int32)
+    pps = dec.pages_per_slot
+    tables = perm[:rows * pps].reshape(rows, pps)
+    tokens = rng.integers(0, model.vocab_size, rows)
+    temps = np.zeros(rows, np.float32)
+
+    def step():
+        toks, _, _ = dec.decode_step(cache, tokens, lengths, temps, tables)
+        return toks
+
+    for _ in range(3):
+        step().cpu()
+    host_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step().cpu()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    steps = 5
+    reset_counts(fa, pa)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            toks = step()
+        toks.cpu()
+        wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, pa)
+    kinds = (("K4 split pass (paged_split_*)", "paged_split"),
+             ("K4 combine (paged_combine_kernel)", "paged_combine"),
+             ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
+             ("layer norm", "layer_norm"),
+             ("softmax / sampling", ("softmax", "argmax", "topk", "sort")),
+             ("reductions", "reduce"),
+             ("page writes (index_put / scatter)", ("index", "scatter")),
+             ("elementwise (casts, GELU, residuals)", ("elementwise",
+                                                       "vectorized")))
+    out = device_time(prof, kinds, steps, wall)
+    by_kind = out["device_ms_per_step_by_kind"]
+    k4_ms = sum(by_kind.get(label, 0.0) for label, _ in kinds[:2])
+    missing = [label for label, _ in kinds[:2] if not by_kind.get(label)]
+    if missing:
+        raise RuntimeError(f"profiler saw no device time for {missing}; "
+                           f"kernels seen: {out['top_kernels_ms_per_step']}")
+    layers = model.num_layers
+    if launches["K4"] != layers * steps:
+        raise AssertionError(f"K4 launched {launches['K4']} times in "
+                             f"{steps} decode steps, expected "
+                             f"{layers * steps}")
+    out = {"phase": "decode_profile", "model": "transformer_tpu",
+           "dtype": "bf16", "rows": rows, "row_lengths": lengths.tolist(),
+           "host_step_ms_p50": statistics.median(host_ms),
+           "host_step_ms": host_ms, **out,
+           "k4_ms_per_step": k4_ms,
+           "k4_share_of_busy": k4_ms / out["device_busy_ms_per_step"],
+           "k4_passes_ms_per_call": {
+               label: by_kind[label] / layers for label, _ in kinds[:2]},
+           "launches": launches}
+    emit(out)
+    del model, dec, cache
     torch.cuda.empty_cache()
     return out
 
@@ -1232,6 +1433,7 @@ def main(argv=None) -> int:
     # phases 3 and 4: the serving path
     per_call = check_serving_f32(torch, args.seed)
     serve_launches = serve_bf16(torch, args.seed, per_call)
+    decode_profile = profile_decode_step(torch, args.seed)
 
     # phases 5 and 6: the training path
     train32 = check_training_f32(torch, args.seed)
@@ -1265,9 +1467,15 @@ def main(argv=None) -> int:
         return next(c for c in k1 if c["dtype"] == dname
                     and c["shape"] == list(TRAIN_SHAPE) and c["causal"])
 
-    k4_main = next(c for c in k4 if c["dtype"] == "bfloat16"
-                   and c["case"] == "decode")
-    k4_main = {**k4_main, "design": "cuda-core"}
+    def k4_case(dname, case):
+        return next(c for c in k4 if c["dtype"] == dname
+                    and c["case"] == case)
+
+    def k4_brief(c):
+        return {k: c[k] for k in ("case", "shape", "dtype", "design",
+                                  "max_abs_err", "tol", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}
+
     split32 = train32["launches"]["adamw_K2a+K2b"]
     fused32 = train32["launches"]["adamw_K3"]
     f32_run = "train f32, 3 AdamW steps bound to K3 (phase 5)"
@@ -1312,10 +1520,16 @@ def main(argv=None) -> int:
               passes_ms=bwd["K3 float32"]["passes_ms"],
               step_ms_f32=train32["step_ms"]),
         entry("K4", "dtf_tpu_torch/csrc/paged_decode.cu",
-              "dtf_tpu/ops/paged_attention.py:170", k4_main,
-              serve_launches["K4"], "serve (phase 4)",
+              "dtf_tpu/ops/paged_attention.py:170",
+              k4_case("bfloat16", "decode"), serve_launches["K4"],
+              "serve (phase 4)",
               launches_per_serve_call={c: n["K4"]
-                                       for c, n in per_call.items()})]})
+                                       for c, n in per_call.items()},
+              keys_per_split=k4[0]["keys_per_split"],
+              chunk_case=k4_brief(k4_case("bfloat16", "chunk@1984")),
+              f32_decode_case=k4_brief(k4_case("float32", "decode")),
+              passes_ms_per_call=decode_profile["k4_passes_ms_per_call"],
+              decode_step_share=decode_profile["k4_share_of_busy"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -45,9 +45,10 @@ SIGNATURES = {
     "flash_fwd": ("flash_fwd", "dtf_flash_fwd",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
                   _I),
+    # q, pools, table, index, o, o_part, ml_part; B, S, H, D, P, page,
+    # M, keys per split, dtype; scale, stream
     "paged_decode": ("paged_decode", "dtf_paged_decode",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _F, _P], _I),
+                     [_P] * 8 + [_I] * 9 + [_F, _P], _I),
     "flash_bwd_dq": ("flash_bwd", "dtf_flash_bwd_dq",
                      _BWD + [_P] + _BWD_TAIL, _I),
     "flash_bwd_dkdv": ("flash_bwd", "dtf_flash_bwd_dkdv",

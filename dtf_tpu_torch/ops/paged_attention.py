@@ -28,7 +28,10 @@ Two formulations of attention over pages:
   kernel (``paged_flash_decode``) -- on CUDA, ``csrc/paged_decode.cu``
       reads the pages through the block table inside the kernel, with no
       gathered window and dead pages never read; on the CPU its plain
-      version, :func:`paged_flash_decode_reference`.
+      version, :func:`paged_flash_decode_reference`.  The kernel splits
+      each row's keys into runs of ``KEYS_PER_SPLIT``, one block each,
+      and folds the runs' partial results in a second pass: two device
+      kernels a call, one count on ``launches``.
 
 ``paged_attention_auto`` picks by device: the kernel for CUDA tensors,
 the gather (with its ``window_pages`` trim) for CPU tensors.
@@ -44,8 +47,23 @@ from dtf_tpu_torch.ops import _build
 from dtf_tpu_torch.ops import blockwise as bw
 from dtf_tpu_torch.ops.flash_attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS
 
-# launches of the CUDA kernel in this process
+# launches of the CUDA kernel in this process (calls: each runs the
+# split pass and the combine)
 launches = 0
+
+# keys of a row that one block of the kernel's split pass walks: a
+# multiple of 64, the chunk routes' key tile.  Chosen on the card from
+# chip_smoke.py's sweep (PERF.md): 64 is the fastest or within 5% of it
+# on every case swept, and the f32 chunk route, whose tiles cost the
+# most, gains most from the shorter walks
+KEYS_PER_SPLIT = 64
+
+
+def num_splits(m_pages: int, page_size: int, keys_per_split: int) -> int:
+    """Blocks a row's keys are split over: sized from the table's width
+    (M * page), not from ``index``, which would need the host to read
+    the device."""
+    return -(-m_pages * page_size // keys_per_split)
 
 
 def cached_attention(q, k, v, mask):
@@ -184,16 +202,23 @@ def _paged_flash_decode_cuda(q, pool_k, pool_v, block_table, index, scale):
     check_kernel_args(q, pool_k, pool_v, block_table, index)
     b, s, h, d = q.shape
     num_pages, page_size = pool_k.shape[:2]
+    m_pages = block_table.shape[1]
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    kps = KEYS_PER_SPLIT
+    # each split's un-normalized f32 o and its (m, l), per query row
+    rows = b * h * num_splits(m_pages, page_size, kps) * s
+    o_part = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+    ml_part = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     fn = _build.load("paged_decode")
     # the stream of the tensors' device, taken in the calling thread
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                  block_table.data_ptr(), index.data_ptr(), o.data_ptr(),
-                 b, s, h, d, num_pages, page_size, block_table.shape[1],
+                 o_part.data_ptr(), ml_part.data_ptr(), b, s, h, d,
+                 num_pages, page_size, m_pages, kps,
                  KERNEL_DTYPES[q.dtype], ctypes.c_float(scale), stream)
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "

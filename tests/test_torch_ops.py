@@ -763,20 +763,20 @@ PAGE = 8
 M = 4                                    # pages per row: 32 positions
 
 
-def _paged_setup(rng, lengths, s=1, h=2, d=16):
+def _paged_setup(rng, lengths, s=1, h=2, d=16, page=PAGE, m=M):
     """Pools, block table and index for rows holding ``lengths`` tokens
     (0 = an idle row: all-zeros table, index 0), pages shuffled."""
-    n_pages = 1 + sum(-(-n // PAGE) for n in lengths)
+    n_pages = 1 + sum(-(-n // page) for n in lengths)
     perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
-    table = np.zeros((len(lengths), M), np.int32)
+    table = np.zeros((len(lengths), m), np.int32)
     used = 0
     for r, n in enumerate(lengths):
-        k = -(-n // PAGE)
+        k = -(-n // page)
         table[r, :k] = perm[used:used + k]
         used += k
     index = np.array([max(n - s, 0) for n in lengths], np.int32)
-    pool_k = _rand(rng, n_pages, PAGE, h, d)
-    pool_v = _rand(rng, n_pages, PAGE, h, d)
+    pool_k = _rand(rng, n_pages, page, h, d)
+    pool_v = _rand(rng, n_pages, page, h, d)
     q = _rand(rng, len(lengths), s, h, d)
     return q, pool_k, pool_v, table, index
 
@@ -830,6 +830,117 @@ def test_paged_reference_gather_and_auto_agree():
     _close(tpa.paged_attention_auto(*t, window_pages=M), ref)
     _close(np.asarray(jpa.paged_flash_decode_reference(q, pk, pv, table,
                                                        index)), ref)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _split_kv(q, pool_k, pool_v, table, index, kps, tile):
+    """The CUDA kernel's split arithmetic (csrc/paged_decode.cu,
+    csrc/paged_split.cuh) in f32 on the CPU: the row's keys cut at
+    multiples of ``kps``; each split an online softmax over its keys in
+    order, ``tile`` keys a step, scores carried times log2 e, writing an
+    un-normalized o with its m and l -- a split past the row's live
+    length (index + S) marked empty, m = NEG_INF and l = 0; then the
+    splits folded in order, o = sum 2^(m_s - M) o_s / sum 2^(m_s - M)
+    l_s with M = max m_s, empty splits skipped."""
+    b, s, h, d = q.shape
+    page = pool_k.shape[1]
+    cap = table.shape[1] * page
+    k = tpa.gather_pages(pool_k, table).transpose(1, 2)        # [B, H, L, D]
+    v = tpa.gather_pages(pool_v, table).transpose(1, 2)
+    qh = q.transpose(1, 2)                                     # [B, H, S, D]
+    qpos = index.long()[:, None] + torch.arange(s)             # [B, S]
+    k_end = torch.clamp(index.long() + s, max=cap)             # [B]
+    neg = tbw.NEG_INF
+    parts = []
+    for sp in range(tpa.num_splits(table.shape[1], page, kps)):
+        lo, hi = sp * kps, min((sp + 1) * kps, cap)
+        o = torch.zeros(b, h, s, d)
+        m = torch.full((b, h, s), neg)
+        l = torch.zeros(b, h, s)
+        for k0 in range(lo, hi, tile):
+            k1 = min(k0 + tile, hi)
+            kpos = torch.arange(k0, k1)
+            sc = torch.einsum("bhsd,bhkd->bhsk", qh, k[:, :, k0:k1]) * (
+                LOG2E / d ** 0.5)
+            masked = ((kpos[None, None] > qpos[:, :, None])
+                      | (kpos[None, None] >= k_end[:, None, None]))
+            sc = sc + torch.where(masked, neg, 0.0)[:, None]
+            m_new = torch.maximum(m, sc.amax(-1))
+            m_safe = torch.clamp(m_new, min=neg)
+            corr = torch.exp2(m - m_safe)
+            p = torch.exp2(sc - m_safe[..., None])
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + p @ v[:, :, k0:k1]
+            m = m_new
+        empty = (lo >= k_end)[:, None, None]
+        parts.append((o, torch.where(empty, neg, m),
+                      torch.where(empty, 0.0, l)))
+    mx = torch.stack([m for _, m, _ in parts]).amax(0)
+    acc = torch.zeros(b, h, s, d)
+    lsum = torch.zeros(b, h, s)
+    for o, m, l in parts:
+        live = l > 0
+        w = torch.where(live, torch.exp2(m - mx), 0.0)
+        acc = acc + w[..., None] * torch.where(live[..., None], o, 0.0)
+        lsum = lsum + w * l
+    return (acc / torch.where(lsum == 0, 1.0, lsum)[..., None]).transpose(
+        1, 2)
+
+
+# name: (row lengths incl. the queries -- 0 an idle row --, S, page, pages
+# a row, D, keys per split, keys a step); H = 1 keeps the interpret-mode
+# grid small
+SPLIT_CASES = {
+    # splits of 64 keys end inside pages of 24
+    "decode_splits_end_mid_page": ([1, 70, 150, 0], 1, 24, 7, 16, 64, 32),
+    # the kernel's own split size: a row longer than one split
+    "decode_row_longer_than_a_split": ([300, 0, 5], 1, 32, 10, 64,
+                                       tpa.KEYS_PER_SPLIT, 32),
+    # queries 0..7 of the chunk (positions 56..63) see none of split 1
+    "chunk_early_queries_see_none_of_a_split": ([72, 20, 0], 16, 8, 10, 16,
+                                                64, 64),
+    "chunk_pages_of_24": ([100, 0], 16, 24, 5, 64, 64, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_kv_arithmetic_matches_pallas_interpret(case):
+    """The kernel's split-KV pass and combine, emulated in f32 with its
+    split boundaries, against the TPU kernel in interpret mode and the
+    port's plain version: 1e-5 (the existing paged tests' tolerance: the
+    sums run in another order) plus argmax equality, on every row -- an
+    idle row reads the scratch page 0 as the plain version does."""
+    lengths, s, page, m, d, kps, tile = SPLIT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, pk, pv, table, index = _paged_setup(rng, lengths, s=s, h=1, d=d,
+                                           page=page, m=m)
+    t = [torch.from_numpy(x) for x in (q, pk, pv, table, index)]
+    out = _split_kv(*t, kps=kps, tile=tile).numpy()
+    ref = np.asarray(jpa.paged_flash_decode(q, pk, pv, table, index,
+                                            interpret=True))
+    plain = tpa.paged_flash_decode_reference(*t).numpy()
+    assert np.isfinite(out).all()
+    for want in (ref, plain):
+        _close(out, want)
+        np.testing.assert_array_equal(out.argmax(-1), want.argmax(-1))
+
+
+def test_split_kv_masked_split_gets_weight_zero():
+    """A query that sees none of a live split's keys carries m = NEG_INF
+    there and l > 0 (every score biased alike): the combine's weight
+    2^(NEG_INF - M) is exactly 0, so such a split changes no bit of the
+    row -- the same output with the split cut at 64 or not at all."""
+    rng = np.random.default_rng(11)
+    q, pk, pv, table, index = _paged_setup(rng, [72], s=16, h=1, d=16,
+                                           page=8, m=10)
+    t = [torch.from_numpy(x) for x in (q, pk, pv, table, index)]
+    split = _split_kv(*t, kps=64, tile=64)
+    whole = _split_kv(*t, kps=128, tile=64)
+    # queries 0..7 sit at positions 56..63: split 1 holds none of theirs
+    assert torch.equal(split[:, :8], whole[:, :8])
+    _close(split[:, 8:], whole[:, 8:])
 
 
 def test_cached_attention_matches_jax():
@@ -958,19 +1069,31 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, s, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
-    rng = np.random.default_rng(10)
-    for s, lengths in ((1, [1, 7, 8, 31, 0]), (8, [32, 16])):
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_matches_plain_on_card(cuda_device, dtype, d):
+    """K4 on both routes -- decode (S 1 and 8, CUDA cores) and chunks (S
+    16 and 64, tensor cores) -- against its plain version, at page 8 and
+    at page 24 (splits end inside pages), rows longer than a split, idle
+    rows; one count a call, and a second call gives the same bits."""
+    rng = np.random.default_rng(10 + d)
+    for s, lengths, page, m in ((1, [1, 7, 8, 31, 0], PAGE, M),
+                                (8, [32, 16], PAGE, M),
+                                (1, [600, 0, 300], 24, 30),
+                                (16, [40, 300, 0], PAGE, 40),
+                                (64, [600, 64, 0], 24, 30)):
         q, pk, pv, table, index = (
             torch.from_numpy(x).to(cuda_device)
-            for x in _paged_setup(rng, lengths, s=s, d=64))
+            for x in _paged_setup(rng, lengths, s=s, d=d, page=page, m=m))
         q, pk, pv = (x.to(dtype) for x in (q, pk, pv))
         n = tpa.launches
         o = tpa.paged_flash_decode(q, pk, pv, table, index)
+        again = tpa.paged_flash_decode(q, pk, pv, table, index)
         ref = tpa.paged_flash_decode_reference(q, pk, pv, table, index)
         torch.cuda.synchronize()
-        assert tpa.launches == n + 1
+        assert tpa.launches == n + 2
         _assert_rows_close(o, ref)
+        assert torch.isfinite(o.float()).all()
+        assert torch.equal(o, again)
 
 
 def _assert_grads_close(out, ref):
