@@ -88,6 +88,31 @@ Phases, each printing one JSON object per line (the card's
                  under torch.profiler: device time by kernel kind and
                  the device's idle share (a profiler that sees no device
                  time for K1 or K3 fails the run).
+  7. train_resnet -- the ResNet path, which runs no hand kernel
+                 (cuDNN convolutions, BatchNorm in plain torch ops):
+     resnet_f32 -- resnet56 in float32, batch 32: one step's loss,
+                 logits, gradients and BN buffers on the card against
+                 float64 on the CPU (the whole gradient held to three
+                 times the CPU float32 step's distance; see
+                 ``check_resnet_f32``);
+     resnet_determinism -- two fresh resnet56 bf16 runs of 3 steps,
+                 bit-identical; step time with cudnn.deterministic on
+                 and off (resnet56 b128, resnet50 b256);
+     train_cifar / train_imagenet -- ``cli.cifar_main.main`` (resnet56,
+                 bf16, batch 128, 50 steps) and ``cli.imagenet_main
+                 .main`` (resnet50, bf16, batch 256, 30 steps), then 20
+                 steps of ``--use_trivial_model``: finite falling
+                 losses, images/s, step-time p50, peak memory, MFU from
+                 FlopCounterMode's FLOPs an image;
+     resnet_profile -- two steps of each under torch.profiler: device
+                 time by kind (convolutions, BatchNorm, optimizer,
+                 elementwise, reductions, copies) and idle share (no
+                 convolution kernel seen fails the run);
+     resnet_stem -- the space-to-depth stem against the plain 7x7/2,
+                 forward and backward at [256, 224, 224, 3] bf16;
+     train_cifar_files -- ``cifar_main --data_dir`` on CIFAR-10 binary
+                 files it writes (uint8 wire), 10 steps and an eval that
+                 must count each of the 1000 test examples once.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -1389,6 +1414,563 @@ def profile_decode_step(torch, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: ResNet training (cli.cifar_main, cli.imagenet_main)
+# ---------------------------------------------------------------------------
+
+VISION_FLOPS = ("torch.utils.flop_counter.FlopCounterMode over one "
+                "forward and backward on the card (convolutions and "
+                "matmuls, 2 per multiply-add), divided by the batch")
+
+
+def vision_flops_per_image(torch, name: str, image: int,
+                           batch: int = 8) -> float:
+    """FLOPs of one image's forward and backward through ``name`` in
+    bf16, counted by FlopCounterMode on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from dtf_tpu_torch.models.registry import build_model
+    from dtf_tpu_torch.train.loop import cross_entropy
+
+    model, _ = build_model(name, dtype=torch.bfloat16)
+    model = model.init_weights(0).cuda().to(memory_format=torch.channels_last)
+    x = torch.randn(batch, image, image, 3, device="cuda")
+    y = torch.zeros(batch, dtype=torch.long, device="cuda")
+    with FlopCounterMode(display=False) as counter:
+        cross_entropy(model(x), y).backward()
+    del model
+    return counter.get_total_flops() / batch
+
+
+def resnet_step_tensors(torch, model, images, labels, l2):
+    """One training forward and backward (cross-entropy + L2): the loss,
+    the logits, the parameter gradients and the BN buffers after it."""
+    from dtf_tpu_torch.models.registry import l2_weight_penalty
+    from dtf_tpu_torch.train.loop import cross_entropy
+
+    model.train()
+    logits = model(images)
+    loss = cross_entropy(logits, labels) + l2_weight_penalty(model, l2)
+    loss.backward()
+    return ({"loss": loss.detach(), "logits": logits.detach()},
+            {n: p.grad for n, p in model.named_parameters()},
+            dict(model.named_buffers()))
+
+
+def check_resnet_f32(torch, seed: int, card: str):
+    """``resnet56`` in float32 (TF32 off), weights from ``seed``, batch
+    32 of synthetic CIFAR: one training step's loss, logits, gradients
+    and BN buffers on the card against the same model run in float64 on
+    the CPU.  Gates: the loss 1e-5 relative; the logits and every
+    buffer within 1e-4 of their largest |value|; the whole gradient
+    (every parameter's, as one vector) within a relative L2 distance of
+    three times that of the same step run in float32 on the CPU.
+
+    A gradient tensor's own largest gap is no gate here: ReLU units
+    whose input lies within float32 rounding of 0 switch between any
+    float32 evaluation and float64, and a weight gradient that sums a
+    few thousand terms of either sign moves by a per cent with each
+    such switch.  The CPU's float32 step lands past 1e-4 of the largest
+    value on nearly every tensor and at about 4e-3 relative L2 on the
+    whole gradient, as does float64 with its input perturbed by 1e-7;
+    a TF32 product (1e-3 perturbation) lands near 0.3."""
+    from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
+    from dtf_tpu_torch.models.registry import build_model
+
+    images, labels = next(synthetic_input_fn(get_dataset_spec("cifar10"),
+                                             True, 32, seed))
+    model, l2 = build_model("resnet56", dtype=torch.float32)
+    model = model.init_weights(seed)
+    runs = {}
+    for where, dtype in (("float64", torch.float64),
+                         ("cpu_float32", torch.float32), ("card", None)):
+        if dtype is None:
+            m, device, dtype = model.cuda().to(
+                memory_format=torch.channels_last), "cuda", torch.float32
+        else:
+            m, _ = build_model("resnet56", dtype=dtype)
+            m.load_state_dict(model.state_dict())
+            m, device = m.to(dtype), "cpu"
+        runs[where] = resnet_step_tensors(
+            torch, m, torch.from_numpy(images).to(device, dtype),
+            torch.from_numpy(labels).to(device), l2)
+
+    def gap(got, ref):
+        return float((got.cpu().double() - ref.double()).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+
+    ref_out, ref_grads, ref_bufs = runs["float64"]
+    out, grads, bufs = runs["card"]
+    loss_rel = abs(float(out["loss"]) - float(ref_out["loss"])) / abs(
+        float(ref_out["loss"]))
+    logits_gap = gap(out["logits"], ref_out["logits"])
+    buf_gap = max((gap(bufs[n], r), n) for n, r in ref_bufs.items())
+    def flat(gs):
+        return torch.cat([gs[n].detach().cpu().double().flatten()
+                          for n in ref_grads])
+
+    ref_flat = flat(ref_grads)
+    grad_rel = {where: float((flat(runs[where][1]) - ref_flat).norm()
+                             / ref_flat.norm())
+                for where in ("card", "cpu_float32")}
+    grad_gate = 3 * grad_rel["cpu_float32"]
+    per_tensor = [(gap(grads[n], r), gap(runs["cpu_float32"][1][n], r), n)
+                  for n, r in ref_grads.items()]
+    line = {"phase": "resnet_f32", "card": card, "model": "resnet56",
+            "dtype": "float32", "batch": 32, "loss": float(out["loss"]),
+            "loss_float64": float(ref_out["loss"]), "loss_rel_err": loss_rel,
+            "loss_gate": 1e-5, "logits_gap_over_max": logits_gap,
+            "buffer_gap_over_max": buf_gap[0], "buffer_worst": buf_gap[1],
+            "gate_over_max": 1e-4,
+            "grad_rel_l2": grad_rel["card"],
+            "grad_rel_l2_cpu_float32": grad_rel["cpu_float32"],
+            "grad_gate": grad_gate,
+            "grad_max_gap_over_max": max(per_tensor)[0],
+            "grad_max_gap_tensor": max(per_tensor)[2],
+            "grad_max_gap_over_max_cpu_float32": max(
+                g[1] for g in per_tensor),
+            "grads_past_1e-4": sum(g[0] > 1e-4 for g in per_tensor),
+            "grads_past_1e-4_cpu_float32": sum(g[1] > 1e-4
+                                               for g in per_tensor),
+            "grads": len(per_tensor)}
+    emit(line)
+    if not (loss_rel <= 1e-5 and logits_gap <= 1e-4 and buf_gap[0] <= 1e-4
+            and grad_rel["card"] <= grad_gate):
+        raise AssertionError(f"resnet56 float32 on the card against "
+                             f"float64: {line}")
+    del model, runs
+    torch.cuda.empty_cache()
+    return line
+
+
+def vision_trainer(torch, seed: int, name: str, batch: int,
+                   steps: int = 3):
+    """A fresh bf16 Trainer of ``name`` (resnet56 on CIFAR or resnet50
+    on ImageNet, the mains' defaults) from ``seed``, built by the runner
+    (which sets cudnn.deterministic), and its synthetic batch on the
+    card."""
+    from dtf_tpu_torch.cli.cifar_main import CIFAR_DEFAULTS
+    from dtf_tpu_torch.cli.imagenet_main import IMAGENET_DEFAULTS
+    from dtf_tpu_torch.cli.runner import build_training
+    from dtf_tpu_torch.config import parse_flags
+
+    defaults = CIFAR_DEFAULTS if name == "resnet56" else IMAGENET_DEFAULTS
+    cfg = parse_flags(["--use_synthetic_data", "--device", "cuda",
+                       "--model", name, "--dtype", "bf16",
+                       "--batch_size", str(batch), "--train_steps",
+                       str(steps), "--seed", str(seed)], defaults=defaults)
+    trainer, state, train_fn, _ = build_training(cfg)
+    x, y = (torch.from_numpy(a).cuda() for a in next(train_fn()))
+    return trainer, state, x, y
+
+
+def synced_step_ms(torch, trainer, state, x, y, steps: int = 10):
+    """Median synced host time of ``steps`` training steps (ms), after
+    two untimed ones."""
+    times = []
+    for i in range(steps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, x, y)
+        float(m["loss"])
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), state
+
+
+def deterministic_cost(torch, trainer, state, x, y, steps: int):
+    """Synced step times (ms) with cudnn.deterministic on and off, in
+    turns on, off, off, on: the median of each setting's two."""
+    ms = {True: [], False: []}
+    for det in (True, False, False, True):
+        torch.backends.cudnn.deterministic = det
+        t, state = synced_step_ms(torch, trainer, state, x, y, steps)
+        ms[det].append(t)
+    torch.backends.cudnn.deterministic = True
+    return {"on": statistics.median(ms[True]),
+            "off": statistics.median(ms[False]),
+            "on_runs": ms[True], "off_runs": ms[False]}
+
+
+def check_resnet_determinism(torch, seed: int, card: str):
+    """Two fresh ``resnet56`` bf16 runs of three steps from ``seed``
+    (batch 128): losses and parameters bit-identical.  Then the synced
+    step time with ``torch.backends.cudnn.deterministic`` on (the
+    runner's setting) and off, in turns, for resnet56 at batch 128 and
+    resnet50 at batch 256."""
+    runs = []
+    for _ in range(2):
+        trainer, state, x, y = vision_trainer(torch, seed, "resnet56", 128)
+        losses = []
+        for _ in range(3):
+            state, m = trainer.train_step(state, x, y)
+            losses.append(float(m["loss"]))
+        runs.append((losses, [t.detach().clone() for t in
+                              trainer.model.state_dict().values()]))
+    identical = (runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])))
+    cost = {"resnet56_b128": deterministic_cost(torch, trainer, state, x, y,
+                                                10)}
+    del trainer, state, x, y, runs[1:]
+    trainer, state, x, y = vision_trainer(torch, seed, "resnet50", 256)
+    cost["resnet50_b256"] = deterministic_cost(torch, trainer, state, x, y,
+                                               4)
+    line = {"phase": "resnet_determinism", "card": card, "model": "resnet56",
+            "dtype": "bf16", "batch": 128, "losses": runs[0][0],
+            "bit_identical": identical,
+            "step_ms_cudnn_deterministic": cost}
+    emit(line)
+    if not identical:
+        raise AssertionError(f"two resnet56 runs from one seed differ: "
+                             f"{line}")
+    del trainer, state, runs
+    torch.cuda.empty_cache()
+    return line
+
+
+def vision_run(torch, main, argv, phase: str, card: str, batch: int,
+               flops_per_image=None, log_steps: int = 5,
+               falling: bool = True, **extra):
+    """``main(argv)`` on the card: images/s from the synced step-time
+    p50 (the first log window dropped), peak memory, and MFU at 989
+    TFLOP/s when ``flops_per_image`` is given; with ``falling``, finite
+    losses whose last is below the first."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = main(argv + ["--batch_size", str(batch),
+                         "--log_steps", str(log_steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [loss for _, loss in stats["train_loss_log"]]
+    step_p50 = statistics.median(stats["window_step_s"])
+    line = {"phase": phase, "card": card, "batch": batch, **extra,
+            "losses": stats["train_loss_log"], "step_s_p50": step_p50,
+            "window_step_s": stats["window_step_s"],
+            "images_per_s": batch / step_p50,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "wall_s": wall}
+    if flops_per_image is not None:
+        line.update(flops_per_image=flops_per_image,
+                    flops_per_image_by=VISION_FLOPS,
+                    mfu=batch / step_p50 * flops_per_image
+                    / PEAK_FLOPS["bfloat16"])
+    emit(line)
+    if falling and not (losses and all(math.isfinite(v) for v in losses)
+                        and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase} losses {stats['train_loss_log']}")
+    torch.cuda.empty_cache()
+    return line, stats
+
+
+def train_cifar(torch, seed: int, card: str):
+    """``cli.cifar_main.main``: resnet56, bf16, batch 128, synthetic
+    data, 50 steps."""
+    from dtf_tpu_torch.cli import cifar_main
+
+    argv = ["--use_synthetic_data", "--device", "cuda", "--model",
+            "resnet56", "--dtype", "bf16", "--train_steps", "50",
+            "--skip_eval", "--seed", str(seed)]
+    return vision_run(torch, cifar_main.main, argv, "train_cifar", card,
+                      128, vision_flops_per_image(torch, "resnet56", 32),
+                      model="resnet56", dtype="bf16", steps=50)[0]
+
+
+def train_imagenet(torch, seed: int, card: str):
+    """``cli.imagenet_main.main``: resnet50, bf16, the JAX main's batch
+    of 256 (halved while it does not fit), synthetic 224x224, 30 steps;
+    then 20 steps of ``--use_trivial_model`` at the same batch, whose
+    images/s is the input path's."""
+    from dtf_tpu_torch.cli import imagenet_main
+
+    argv = ["--use_synthetic_data", "--device", "cuda", "--dtype", "bf16",
+            "--skip_eval", "--seed", str(seed)]
+    flops = vision_flops_per_image(torch, "resnet50", 224)
+    batch, note = 256, "the JAX main's default batch"
+    while True:
+        try:
+            line, _ = vision_run(
+                torch, imagenet_main.main, argv + ["--train_steps", "30"],
+                "train_imagenet", card, batch, flops, model="resnet50",
+                dtype="bf16", steps=30, batch_note=note)
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            batch //= 2
+            note = f"batch halved to {batch}: 2x did not fit"
+            if batch < 32:
+                raise
+    trivial, _ = vision_run(
+        torch, imagenet_main.main,
+        argv + ["--use_trivial_model", "--train_steps", "20"],
+        "train_imagenet_trivial", card, batch, falling=False,
+        model="trivial", dtype="bf16", steps=20,
+        note="the input probe: images/s of synthetic float32 224x224 "
+             "batches through the prefetcher")
+    return line, trivial
+
+
+class VisionProfile:
+    """torch.profiler over training steps, the device time of each
+    kernel put in a kind by the CPU op that launched it: a range around
+    each BatchNorm forward (module hooks) and around the optimizer's
+    update and apply, and for the backward the autograd node's sequence
+    number, which is its forward op's."""
+
+    KINDS = ("convolution (cuDNN)", "BatchNorm", "optimizer",
+             "elementwise", "reductions", "copies")
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def _bn_hooks(self):
+        from dtf_tpu_torch.models.resnet import BatchNorm
+        from torch.autograd.profiler import record_function
+
+        handles, open_ranges = [], []
+
+        def enter(mod, args):
+            rf = record_function("batch_norm")
+            rf.__enter__()
+            open_ranges.append(rf)
+
+        def leave(mod, args, out):
+            open_ranges.pop().__exit__(None, None, None)
+
+        for mod in self.trainer.model.modules():
+            if isinstance(mod, BatchNorm):
+                handles.append(mod.register_forward_pre_hook(enter))
+                handles.append(mod.register_forward_hook(leave))
+        return handles
+
+    def run(self, state, x, y, steps: int = 2):
+        import functools
+
+        from torch.autograd.profiler import record_function
+        from torch.profiler import ProfilerActivity, profile
+
+        from dtf_tpu_torch.train import loop
+
+        def ranged(fn):
+            @functools.wraps(fn)
+            def wrapped(*a, **kw):
+                with record_function("optimizer"):
+                    return fn(*a, **kw)
+            return wrapped
+
+        tx, apply = self.trainer.tx, loop.apply_updates
+        self.trainer.tx = tx._replace(update=ranged(tx.update))
+        loop.apply_updates = ranged(apply)
+        handles = self._bn_hooks()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    state, m = self.trainer.train_step(state, x, y)
+                float(m["loss"])
+                wall = time.perf_counter() - t0
+        finally:
+            self.trainer.tx, loop.apply_updates = tx, apply
+            for h in handles:
+                h.remove()
+        return self.summarize(prof, steps, wall), state
+
+    @staticmethod
+    def ancestors(ev):
+        while ev is not None:
+            yield ev
+            ev = ev.cpu_parent
+
+    def bn_sequence(self, events):
+        """Sequence numbers of the forward ops inside a BN range: their
+        autograd nodes' evaluate_function events carry the same."""
+        return {ev.sequence_nr for ev in events
+                if ev.sequence_nr >= 0
+                and any(a.name == "batch_norm" for a in self.ancestors(ev))}
+
+    def kind_of(self, ev, kernel_name: str, bn_seq) -> str:
+        """The kind of a kernel that the CPU op ``ev`` launched."""
+        chain = list(self.ancestors(ev))
+        names = [a.name for a in chain]
+        if "optimizer" in names:
+            return "optimizer"
+        if "batch_norm" in names or any(
+                a.name.startswith("autograd::engine::evaluate_function")
+                and a.sequence_nr in bn_seq for a in chain):
+            return "BatchNorm"
+        if any("convolution" in n for n in names):
+            return "convolution (cuDNN)"
+        k = kernel_name.lower()
+        if "reduce" in k:
+            return "reductions"
+        if any(t in k for t in ("memcpy", "memset", "copy", "fill")):
+            return "copies"
+        return "elementwise"
+
+    def summarize(self, prof, steps: int, wall: float):
+        from torch.autograd import DeviceType
+
+        events = prof.events()
+        # the ranges' own spans on the device timeline are no work
+        busy = sum(ev.time_range.elapsed_us() for ev in events
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
+                   and ev.name not in ("batch_norm", "optimizer"))
+        cpu = [ev for ev in events if ev.device_type == DeviceType.CPU]
+        bn_seq = self.bn_sequence(cpu)
+        by_kind = dict.fromkeys(self.KINDS, 0.0)
+        by_name = {}
+        for ev in cpu:
+            for k in getattr(ev, "kernels", ()):
+                ms = k.duration / 1e3 / steps
+                by_kind[self.kind_of(ev, k.name, bn_seq)] += ms
+                by_name[k.name] = by_name.get(k.name, 0.0) + ms
+        attributed = sum(by_kind.values())
+        return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+                "device_busy_ms_per_step": busy / 1e3 / steps,
+                "device_idle_share": max(0.0, 1 - busy / 1e6 / wall),
+                "device_ms_per_step_by_kind": by_kind,
+                "unattributed_ms_per_step": busy / 1e3 / steps - attributed,
+                "top_kernels_ms_per_step": [
+                    [n[:90], ms] for n, ms in sorted(
+                        by_name.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def profile_resnets(torch, seed: int, card: str, step_s: dict):
+    """Two training steps each of resnet56 at batch 128 and resnet50 at
+    batch 256 (bf16) under torch.profiler: device time per step by kind,
+    the device's idle share of the profiled steps (the profiler and its
+    ranges slow the host) and of the unprofiled step-time p50 in
+    ``step_s`` (the main's run).  Raises where the profiler sees no
+    convolution kernel."""
+    out = {}
+    for name, batch in (("resnet56", 128), ("resnet50", 256)):
+        trainer, state, x, y = vision_trainer(torch, seed, name, batch)
+        state, m = trainer.train_step(state, x, y)
+        float(m["loss"])
+        summary, state = VisionProfile(trainer).run(state, x, y)
+        busy_s = summary["device_busy_ms_per_step"] / 1e3
+        line = {"phase": "resnet_profile", "card": card, "model": name,
+                "dtype": "bf16", "batch": batch, **summary,
+                "step_s_p50_unprofiled": step_s.get(name),
+                "device_idle_share_at_p50": (
+                    max(0.0, 1 - busy_s / step_s[name]) if name in step_s
+                    else None)}
+        emit(line)
+        if not summary["device_ms_per_step_by_kind"]["convolution (cuDNN)"]:
+            raise RuntimeError(f"profiler saw no convolution kernel for "
+                               f"{name}: {line}")
+        out[name] = line
+        del trainer, state, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_resnet_stem(torch, timer, seed: int, card: str):
+    """ResNet-50's stem, forward and backward (the weight's gradient) at
+    [256, 224, 224, 3] bf16: space-to-depth (the default) against the
+    plain 7x7/2 on the same weight.  Outputs within two bf16 steps of
+    each row's largest value (``compare``)."""
+    from dtf_tpu_torch.models.resnet import Stem
+
+    gen = torch.Generator().manual_seed(seed)
+    stems = {}
+    for s2d in (True, False):
+        stem = Stem(64, space_to_depth=s2d, dtype=torch.bfloat16)
+        stems["space_to_depth" if s2d else "plain"] = stem
+    w = torch.randn(stems["plain"].weight.shape, generator=gen) * 0.05
+    for stem in stems.values():
+        with torch.no_grad():
+            stem.weight.copy_(w)
+        stem.cuda()
+    x = torch.randn(256, 224, 224, 3, generator=gen).cuda().bfloat16()
+    outs, ms = {}, {}
+    for name, stem in stems.items():
+        with torch.no_grad():
+            outs[name] = stem(x)
+        cot = torch.ones_like(outs[name])
+
+        def step(xx, stem=stem, cot=cot):
+            stem(xx).backward(cot)
+
+        ms[name] = timer.ms(step, rotated([x], x.numel() * x.element_size()))
+    err, tol, ratio = compare(torch, outs["space_to_depth"], outs["plain"])
+    line = {"phase": "resnet_stem", "card": card,
+            "shape": [256, 224, 224, 3], "dtype": "bf16",
+            "fwd_bwd_ms": ms, "max_abs_diff": err,
+            "tol_nearest_row": tol, "worst_err_over_tol": ratio}
+    emit(line)
+    if not ratio <= 1.0:
+        raise AssertionError(f"space-to-depth stem against the plain "
+                             f"conv: {line}")
+    del stems, outs, x
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_cifar_files(torch, seed: int, card: str):
+    """``cli.cifar_main.main --data_dir`` on the uint8 wire: five train
+    files of 256 images and a test file of 1000, written with the port's
+    ``write_binary_file`` into a temporary directory; 10 steps of
+    resnet56 bf16 at batch 128, then the eval, which must count each of
+    the 1000 test examples once (the last of its 8 batches is masked)."""
+    import tempfile
+
+    import numpy as np
+
+    from dtf_tpu_torch.cli import cifar_main
+    from dtf_tpu_torch.data.cifar import write_binary_file
+
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory() as root:
+        d = os.path.join(root, "cifar-10-batches-bin")
+        os.makedirs(d)
+        for i in range(1, 6):
+            write_binary_file(os.path.join(d, f"data_batch_{i}.bin"),
+                              rng.integers(0, 256, (256, 32, 32, 3)),
+                              rng.integers(0, 10, 256))
+        test_n = 1000
+        write_binary_file(os.path.join(d, "test_batch.bin"),
+                          rng.integers(0, 256, (test_n, 32, 32, 3)),
+                          rng.integers(0, 10, test_n))
+        t0 = time.perf_counter()
+        stats = cifar_main.main(["--data_dir", root, "--device", "cuda",
+                                 "--model", "resnet56", "--dtype", "bf16",
+                                 "--batch_size", "128", "--train_steps",
+                                 "10", "--log_steps", "5", "--seed",
+                                 str(seed)])
+        wall = time.perf_counter() - t0
+    losses = [v for _, v in stats["train_loss_log"]]
+    line = {"phase": "train_cifar_files", "card": card, "model": "resnet56",
+            "dtype": "bf16", "wire": "uint8", "batch": 128, "steps": 10,
+            "losses": stats["train_loss_log"],
+            "eval_loss": stats.get("eval_loss"),
+            "eval_top1": stats.get("accuracy_top_1"),
+            "eval_count": stats.get("eval_count"), "test_examples": test_n,
+            "wall_s": wall}
+    emit(line)
+    if not (losses and all(math.isfinite(v) for v in losses)
+            and math.isfinite(stats["eval_loss"])
+            and stats.get("eval_count") == test_n):
+        raise AssertionError(f"cifar_main on written files: {line}")
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_resnet(torch, timer, seed: int, card: str):
+    """Phase 7, in order: the f32 check, determinism, the two mains,
+    the profile (at the mains' step times), the stem, the record
+    files."""
+    check_resnet_f32(torch, seed, card)
+    check_resnet_determinism(torch, seed, card)
+    step_s = {"resnet56": train_cifar(torch, seed, card)["step_s_p50"],
+              "resnet50": train_imagenet(torch, seed, card)[0]["step_s_p50"]}
+    profile_resnets(torch, seed, card, step_s)
+    check_resnet_stem(torch, timer, seed, card)
+    train_cifar_files(torch, seed, card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1442,6 +2024,9 @@ def main(argv=None) -> int:
     # the split pair's path at the training shape, beside K3's
     train_split = train_bf16(torch, args.seed, split=True, steps=20)
     profile_train_step(torch, args.seed)
+
+    # phase 7: ResNet training (no TPU kernel lies on this path)
+    train_resnet(torch, timer, args.seed, card)
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

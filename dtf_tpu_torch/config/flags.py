@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``dtf_tpu/config/flags.py``, cut to the
 fields the ported paths read: the model and its dtype, the seed, the
-device, the training fields of ``cli/lm_main.py`` (dataset, batch,
+device, the training fields of ``cli/lm_main.py``, ``cli/cifar_main.py``
+and ``cli/imagenet_main.py`` (dataset, input wire and layout, batch,
 steps, optimizer, loss scaling, accumulation, clipping, logging, remat),
 the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py`` and the
 benchmark log.  Names and defaults are the JAX package's.  Parsing is
@@ -41,7 +42,7 @@ NOT_PORTED = {
     "remat_policy": "selective remat (use --remat)",
     "profile_steps": "the profiler", "trace_dir": "tracing",
     "fault": "chaos injection", "preemption_poll_s": "preemption",
-    "plan": "the planner", "use_trivial_model": "the trivial model",
+    "plan": "the planner", "sync_bn": "sync BN (data parallelism)",
 }
 
 
@@ -59,8 +60,15 @@ class Config:
 
     # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
     dataset: str = ""                   # lm | cifar10 | imagenet
-    data_dir: str = ""                  # real pipelines not ported: raises
+    data_dir: str = ""                  # CIFAR-10 binary files (else raises)
     use_synthetic_data: bool = False    # one random batch, repeated
+    use_trivial_model: bool = False     # the input probe in place of --model
+    # uint8: raw pixels over the wire, normalized on the device first
+    # thing in the step (data/normalize.py); float32: host-normalized
+    input_wire: str = "uint8"
+    # channels_first: NCHW batches, transposed to NHWC in the step
+    data_format: str = "channels_last"
+    drop_remainder: bool = False        # eval: False = masked full coverage
     batch_size: int = 128               # global batch size
     train_epochs: int = 182
     train_steps: Optional[int] = None   # caps training to one epoch of N
@@ -119,6 +127,12 @@ class Config:
                 f"serve_prefill_chunk ({self.serve_prefill_chunk}) must be "
                 f"a multiple of kv_page_size ({self.kv_page_size})")
 
+        if self.input_wire not in ("uint8", "float32"):
+            raise ValueError(f"unknown input_wire {self.input_wire!r}; "
+                             f"choose uint8 or float32")
+        if self.data_format not in ("channels_last", "channels_first"):
+            raise ValueError(f"unknown data_format {self.data_format!r}; "
+                             f"choose channels_last or channels_first")
         if self.optimizer not in ("sgd", "momentum", "adamw"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
         if self.batch_size < 1 or self.log_steps < 1:

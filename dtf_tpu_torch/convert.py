@@ -1,4 +1,5 @@
-"""flax parameter tree -> PyTorch state dict, for the transformer LM.
+"""flax trees <-> PyTorch state dicts, for the transformer LM and the
+vision models.
 
 ``from_flax_params`` takes the ``params`` collection of a
 ``dtf_tpu`` TransformerLM as a nested dict of numpy arrays (never JAX
@@ -14,14 +15,25 @@ Layout rules:
   ``qkv/bias`` [3, H, Dh]          -> ``qkv.bias`` [3*H*Dh]
   Dense ``kernel`` [in, out]       -> Linear ``weight`` [out, in]
   LayerNorm ``scale``/``bias``     -> ``weight``/``bias``
+
+``from_flax_vision`` / ``to_flax_vision`` carry a ResNet's or the
+trivial model's ``params`` and ``batch_stats`` both ways; the flax path
+of a leaf is the torch module path with "/" for ".":
+  Conv ``kernel`` HWIO             -> ``weight`` OIHW (transpose 3, 2, 0, 1)
+  Dense ``kernel`` [in, out]       -> ``weight`` [out, in]; ``bias`` as is
+  BatchNorm ``scale``/``bias``     -> ``weight``/``bias``
+  batch_stats ``mean``/``var``     -> ``running_mean``/``running_var``
+Both directions raise KeyError on a missing leaf and ValueError on a
+shape that does not fit or a leaf the model has no place for.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _leaf(tree, path: str) -> np.ndarray:
@@ -79,3 +91,82 @@ def from_flax_params(params, model) -> Dict[str, torch.Tensor]:
         sd[name] = torch.from_numpy(np.array(
             arr, dtype=np.float32, order="C")).to(want[name].dtype)
     return sd
+
+
+# flax leaf -> torch layout, and back, by the kind of module
+_FROM_FLAX = {"conv": lambda a: a.transpose(3, 2, 0, 1),   # HWIO -> OIHW
+              "dense": lambda a: a.T, None: lambda a: a}
+_TO_FLAX = {"conv": lambda a: a.transpose(2, 3, 1, 0),     # OIHW -> HWIO
+            "dense": lambda a: a.T, None: lambda a: a}
+
+
+def _vision_leaves(model):
+    """(state-dict key, flax collection, flax path, layout kind) for
+    each leaf of a vision model."""
+    from dtf_tpu_torch.models.resnet import BatchNorm
+
+    out = []
+    for name, mod in model.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(mod, nn.Conv2d):
+            out.append((f"{name}.weight", "params", f"{path}/kernel", "conv"))
+        elif isinstance(mod, nn.Linear):
+            out += [(f"{name}.weight", "params", f"{path}/kernel", "dense"),
+                    (f"{name}.bias", "params", f"{path}/bias", None)]
+        elif isinstance(mod, BatchNorm):
+            out += [(f"{name}.{t}", coll, f"{path}/{f}", None)
+                    for t, coll, f in (
+                        ("weight", "params", "scale"),
+                        ("bias", "params", "bias"),
+                        ("running_mean", "batch_stats", "mean"),
+                        ("running_var", "batch_stats", "var"))]
+    return out
+
+
+def _flat_paths(tree, prefix=""):
+    out = set()
+    for key, node in tree.items():
+        path = f"{prefix}{key}"
+        out |= (_flat_paths(node, path + "/") if isinstance(node, dict)
+                else {path})
+    return out
+
+
+def from_flax_vision(params, batch_stats, model) -> Dict[str, torch.Tensor]:
+    """The state dict (parameters and BN buffers) of a vision ``model``
+    holding the flax ``params`` and ``batch_stats`` (nested dicts of
+    numpy arrays), in float32."""
+    trees = {"params": params, "batch_stats": batch_stats or {}}
+    want = model.state_dict()
+    sd, used = {}, {"params": set(), "batch_stats": set()}
+    for key, coll, path, kind in _vision_leaves(model):
+        arr = _FROM_FLAX[kind](_leaf(trees[coll], path))
+        used[coll].add(path)
+        if tuple(arr.shape) != tuple(want[key].shape):
+            raise ValueError(f"{key}: flax {coll} {path!r} of shape "
+                             f"{tuple(arr.shape)} does not fit "
+                             f"{tuple(want[key].shape)}")
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32,
+                                            order="C"))
+    for coll, tree in trees.items():
+        extra = _flat_paths(tree) - used[coll]
+        if extra:
+            raise ValueError(f"flax {coll} leaves the model has no place "
+                             f"for: {sorted(extra)}")
+    return sd
+
+
+def to_flax_vision(model) -> Tuple[dict, dict]:
+    """(params, batch_stats) of a vision ``model`` as the flax trees, as
+    nested dicts of float32 numpy arrays."""
+    trees: dict = {"params": {}, "batch_stats": {}}
+    sd = model.state_dict()
+    for key, coll, path, kind in _vision_leaves(model):
+        arr = _TO_FLAX[kind](sd[key].detach().to("cpu", torch.float32)
+                             .numpy())
+        node = trees[coll]
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return trees["params"], trees["batch_stats"]

@@ -1,5 +1,6 @@
 """Host-to-device pipeline: double-buffered prefetch -- the PyTorch
-counterpart of ``dtf_tpu/data/pipeline.py`` ``DevicePrefetcher``.
+counterpart of ``dtf_tpu/data/pipeline.py`` ``DevicePrefetcher``, and
+its ``shard_for_process``.
 
 A background thread keeps ``buffer_size`` batches already on the device
 while the device computes.  On CUDA each batch is copied from pinned
@@ -18,6 +19,12 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+
+def shard_for_process(items, process_id: int, process_count: int):
+    """Disjoint 1/N split by position -- the reference's shard-by-file
+    rule."""
+    return items[process_id::process_count]
 
 
 class DevicePrefetcher:

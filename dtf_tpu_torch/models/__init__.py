@@ -1,1 +1,2 @@
-"""Model families: the transformer LM and its registry."""
+"""Model families: ResNet-50, the CIFAR ResNets, the trivial probe, the
+transformer LM, and their registry."""

@@ -1,7 +1,9 @@
-"""Model registry + the L2-as-loss-term rule -- the transformer LM
-entries of ``dtf_tpu/models/registry.py``, with the same names, widths,
-default vocabulary and L2 weights.  The ResNet, MoE and pipeline
-families are not ported yet.
+"""Model registry + the L2-as-loss-term rule -- the vision and
+transformer LM entries of ``dtf_tpu/models/registry.py``, with the same
+names, default class counts and L2 weights: ResNet-50 v1.5, the CIFAR
+ResNet-(6n+2) family, the trivial input probe and the transformer LMs.
+The MoE and pipeline families are not ported yet, nor is sync BN (the
+JAX package's ``bn_axis``, which is data parallelism).
 
 The reference applies L2 through Keras kernel_regularizers, which fold
 into the loss: every conv/dense kernel is penalized, plus the final
@@ -18,13 +20,20 @@ import functools
 import torch
 from torch import nn
 
-from dtf_tpu_torch.models import transformer
+from dtf_tpu_torch.models import resnet, resnet_cifar, transformer, trivial
 
 # reference weight-decay constants
 L2_IMAGENET = 1e-4
 L2_CIFAR = 2e-4
 
 _REGISTRY = {
+    "resnet50": (resnet.ResNet50, 1001, L2_IMAGENET),
+    "resnet20": (resnet_cifar.resnet20, 10, L2_CIFAR),
+    "resnet32": (resnet_cifar.resnet32, 10, L2_CIFAR),
+    "resnet56": (resnet_cifar.resnet56, 10, L2_CIFAR),
+    "resnet110": (resnet_cifar.resnet110, 10, L2_CIFAR),
+    "resnet662": (resnet_cifar.resnet662, 10, L2_CIFAR),
+    "trivial": (trivial.TrivialModel, 1001, 0.0),
     # LM family (no L2: the reference's weight-decay rule is ResNet-only)
     "transformer": (transformer.TransformerLM, 32_768, 0.0),
     "transformer_small": (
@@ -42,16 +51,25 @@ _REGISTRY = {
 _KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
 
 
+def is_vision(name: str) -> bool:
+    """True for the image-classifier entries (ResNets, trivial)."""
+    return not name.startswith("transformer")
+
+
 def build_model(name: str, num_classes: int | None = None,
                 dtype=torch.float32, **model_kw):
     """Returns (module, l2_weight).  Parameters are float32 and left as
-    constructed (``serve.bridge.random_init`` draws them for serving;
-    training draws them from the seed in ``cli/runner.py``)."""
+    constructed: a vision model draws them with its ``init_weights(seed)``
+    and a transformer with ``serve.bridge.random_init``, both called by
+    ``cli/runner.py``."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     ctor, default_classes, l2 = _REGISTRY[name]
-    module = ctor(vocab_size=num_classes or default_classes, dtype=dtype,
-                  **model_kw)
+    classes = num_classes or default_classes
+    if is_vision(name):
+        module = ctor(num_classes=classes, dtype=dtype, **model_kw)
+    else:
+        module = ctor(vocab_size=classes, dtype=dtype, **model_kw)
     return module, l2
 
 

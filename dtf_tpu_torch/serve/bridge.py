@@ -29,16 +29,9 @@ import torch
 from torch import nn
 
 from dtf_tpu_torch import convert
+from dtf_tpu_torch.models.initializers import variance_scaling_
 
 log = logging.getLogger("dtf_tpu_torch")
-
-
-def _lecun_trunc_normal_(w: torch.Tensor, fan_in: int,
-                         gen: torch.Generator) -> None:
-    # flax lecun_normal: truncated to +-2 std, std corrected so the
-    # truncated distribution has variance 1 / fan_in
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
 @torch.no_grad()
@@ -61,7 +54,7 @@ def random_init(model, seed: int):
         elif leaf == "bias":
             w.zero_()
         else:                                   # Linear weight [out, in]
-            _lecun_trunc_normal_(w, p.shape[1], gen)
+            variance_scaling_(w, 1.0, p.shape[1], gen)   # lecun_normal
         p.copy_(w)
     return model
 

@@ -2,29 +2,36 @@
 ``dtf_tpu/train/loop.py`` ``Trainer``, one GPU (or the CPU) and no mesh.
 
 ``train_step`` is the JAX step's arithmetic in eager PyTorch:
+  - the inputs first: an NCHW batch (``--data_format channels_first``)
+    transposed to NHWC, then the uint8 wire's normalization
+    (``normalize_fn``, ``data/normalize.py``) on the device;
   - cross-entropy (the mean over positions, on float32 logits) plus the
     model's L2 term;
   - ``grad_accum_steps`` sequential micro-batches, their gradients
     summed into the float32 ``.grad`` of the float32 parameters and
-    divided by the count;
+    divided by the count; a BatchNorm model's running statistics are
+    module buffers, moved by each micro-batch in order in train mode,
+    as the JAX scan threads ``batch_stats``;
   - static loss scaling (``--loss_scale N``) or dynamic scaling with TF2
     LossScaleOptimizer semantics: a step whose gradients are not all
-    finite is skipped (parameters and optimizer state kept) and the
-    scale halved (not below 1); the scale doubles after
+    finite is skipped (parameters, optimizer state and BN buffers kept)
+    and the scale halved (not below 1); the scale doubles after
     ``DYNAMIC_GROWTH_INTERVAL`` finite steps in a row;
   - global-norm clipping (``--clip_grad_norm``);
   - the optimizer update at ``schedule(state.step)``; the metrics
     ``loss``, ``learning_rate`` and ``accuracy`` (0-d device tensors,
     read only at log cadence).
-``evaluate`` takes masked sums, so a padded last batch counts each real
-example once.  ``fit`` runs the reference's ``TimeHistory`` cadence: it
-reads the loss from the device at every log boundary -- a sync, so the
-logged time is the device's and not the enqueue's -- before the
-BenchmarkMetric line is written.
+``evaluate`` runs the model in eval mode (BN on its running statistics)
+and takes masked sums, so a padded last batch counts each real example
+once.  ``fit`` runs the reference's ``TimeHistory`` cadence: it reads
+the loss from the device at every log boundary -- a sync, so the logged
+time is the device's and not the enqueue's -- before the BenchmarkMetric
+line is written.
 
-Not ported yet: the mesh and data parallelism, ZeRO, TP/EP/PP, the MFU
-ledger, the profiler, watchdogs, chaos, preemption and checkpoints; the
-flags that ask for them raise (``config/flags.py``).
+Not ported yet: the mesh and data parallelism (and with it sync BN),
+ZeRO, TP/EP/PP, the MFU ledger, the profiler, watchdogs, chaos,
+preemption and checkpoints; the flags that ask for them raise
+(``config/flags.py``).
 """
 
 from __future__ import annotations
@@ -78,11 +85,16 @@ class Trainer:
     """Runs the training and eval steps of one model on one device."""
 
     def __init__(self, cfg, model, l2_weight: float, spec: DatasetSpec,
-                 schedule: Optional[Callable] = None):
+                 schedule: Optional[Callable] = None,
+                 normalize_fn: Optional[Callable] = None):
         self.cfg = cfg
         self.model = model
         self.l2_weight = l2_weight
         self.spec = spec
+        # the uint8 wire's normalization (None: host-normalized batches)
+        self.normalize_fn = normalize_fn
+        self.channels_first = (cfg.data_format == "channels_first"
+                               and not spec.is_sequence)
         self.global_batch = cfg.batch_size
         self.grad_accum = max(int(cfg.grad_accum_steps or 1), 1)
         if self.global_batch % self.grad_accum:
@@ -111,6 +123,8 @@ class Trainer:
         # time of every log window that covered steps only
         self.loss_log: list = []
         self.window_step_s: list = []
+        # unmasked examples (tokens for sequence data) of the last eval
+        self.eval_count = 0.0
 
     @property
     def device(self) -> torch.device:
@@ -133,12 +147,24 @@ class Trainer:
         factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
         return [g * factor for g in grads]
 
+    def _inputs(self, images):
+        """The batch as the model takes it: NHWC, normalized."""
+        if self.channels_first:
+            images = images.permute(0, 2, 3, 1)
+        if self.normalize_fn is not None:
+            images = self.normalize_fn(images)
+        return images
+
     def train_step(self, state: TrainState, images, labels):
         """One optimizer step on the batch (images, labels) -- device
         tensors; returns (new state, metrics)."""
         model = self.model
         model.train()
+        images = self._inputs(images)
         scale = state.loss_scale if self.dynamic_scale else self.loss_scale
+        # a skipped step keeps the BN running statistics too
+        buffers = list(model.buffers()) if self.dynamic_scale else []
+        kept = [b.clone() for b in buffers]
         for p in state.params:
             p.grad = None
         loss_sum = acc_sum = 0.0
@@ -181,6 +207,10 @@ class Trainer:
                                                 state.params,
                                                 step=state.step)
             apply_updates(state.params, updates)
+        else:
+            with torch.no_grad():
+                for b, k in zip(buffers, kept):
+                    b.copy_(k)
         metrics = {"loss": loss_sum / self.grad_accum,
                    "learning_rate": float(self.schedule(state.step))}
         if self.report_acc:
@@ -207,6 +237,7 @@ class Trainer:
         for batch in eval_iter:
             images, labels = (torch.as_tensor(np.asarray(x), device=dev)
                               for x in batch[:2])
+            images = self._inputs(images)
             mask = (torch.as_tensor(np.asarray(batch[2]), device=dev,
                                     dtype=torch.float32)
                     if len(batch) > 2 else
@@ -220,6 +251,7 @@ class Trainer:
                 correct += float(((logits.argmax(-1) == labels).float()
                                   * w).sum())
             count += float(w.sum())
+        self.eval_count = count
         if count == 0:
             return None
         return (loss_sum / count,
@@ -301,6 +333,8 @@ class Trainer:
         stats = build_stats(history, eval_output, time_cb)
         stats["train_loss_log"] = list(self.loss_log)
         stats["window_step_s"] = list(self.window_step_s)
+        if eval_output is not None:
+            stats["eval_count"] = self.eval_count
         return state, stats
 
 

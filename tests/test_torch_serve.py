@@ -412,6 +412,10 @@ def test_jax_scan_skips_the_build_directory(tmp_path):
 def test_port_import_loads_no_jax_module():
     code = ("import dtf_tpu_torch.cli.serve_main, sys; "
             "import dtf_tpu_torch.cli.lm_main; "
+            "import dtf_tpu_torch.cli.cifar_main; "
+            "import dtf_tpu_torch.cli.imagenet_main; "
+            "import dtf_tpu_torch.data.cifar, dtf_tpu_torch.convert; "
+            "import dtf_tpu_torch.testing.integration; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")

@@ -268,7 +268,7 @@ def test_registry_matches_jax_widths():
     assert (tpu.num_layers, tpu.d_model, tpu.num_heads, tpu.d_ff,
             tpu.vocab_size) == (12, 768, 6, 3072, 32768)
     with pytest.raises(ValueError, match="unknown model"):
-        registry.build_model("resnet50")
+        registry.build_model("resnet9000")
 
 
 def test_bf16_model_runs_paged_on_cpu():
