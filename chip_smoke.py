@@ -113,13 +113,36 @@ Phases, each printing one JSON object per line (the card's
      train_cifar_files -- ``cifar_main --data_dir`` on CIFAR-10 binary
                  files it writes (uint8 wire), 10 steps and an eval that
                  must count each of the 1000 test examples once.
+  8. data parallelism -- each run in processes of its own, every rank
+                 printing its per-step losses, step times, kernel
+                 launches (counters zeroed just before its run) and a
+                 digest of its trained weights:
+     dp_world1_cifar / dp_world1_lm -- ``cli.cifar_main`` (resnet56,
+                 bf16, batch 128) and ``cli.lm_main`` (transformer_tpu,
+                 bf16, batch 8 x 2048), 20 steps each, with
+                 ``--distribution_strategy off`` in a plain process and
+                 ``multi_worker_mirrored`` through ``cli/launch.py`` with
+                 one rank, so an NCCL group exists and the gradient
+                 all-reduce runs, in turns (off, NCCL, NCCL, off):
+                 losses and weights bit for bit, both step times (the
+                 per-step cost of data parallelism), 12 K1 and 12 K3
+                 launches a step on the LM's path;
+     dp_two_ranks -- resnet20, float32, global batch 32, 3 steps on
+                 CIFAR files it writes (each rank its file shard), sync
+                 BN off and on: two ranks sharing the card over gloo
+                 (``initialize(cfg, backend="gloo")``: CUDA tensors
+                 reduced through the host) and the same two ranks on the
+                 CPU; the ranks end bit-identical and the card's losses
+                 are within ``DP_LOSS_RTOL`` of the CPU's;
+     dp_nccl_multi_card -- with two cards, the same runs over NCCL one
+                 card a rank; with one, a line saying it is unmeasured.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
-run of its path: K1 and K3 phase 6, K2a and K2b phase 6's companion,
-the f32 routes phase 5's f32 AdamW steps, K4 serving -- and, last, the
-device line.  Any failure raises: the script exits non-zero and prints
-no result.
+run of its path: K1 and K3 phase 6 (and, as ``launches_dp``, phase 8's
+data-parallel LM run), K2a and K2b phase 6's companion, the f32 routes
+phase 5's f32 AdamW steps, K4 serving -- and, last, the device line.
+Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
 """
@@ -1971,6 +1994,253 @@ def train_resnet(torch, timer, seed: int, card: str):
     train_cifar_files(torch, seed, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: data parallelism (runtime/mesh.py, cli/launch.py)
+# ---------------------------------------------------------------------------
+
+# one rank of a phase-8 run: an entry point's main (or, with a backend
+# named, the runner on initialize(cfg, backend=...)), the kernels'
+# counters zeroed just before and read just after, then one line of
+# results: the per-step losses, the synced step times, the launches and
+# a digest of the trained parameters and buffers
+DP_RANK = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, @ROOT@)
+import torch
+from dtf_tpu_torch.cli import runner
+from dtf_tpu_torch.config import parse_flags
+from dtf_tpu_torch.ops import flash_attention as fa
+from dtf_tpu_torch.runtime.mesh import initialize
+
+spec = json.loads(sys.argv[1])
+kept = {}
+build = runner.build_training
+def keep(cfg, rt=None):
+    out = build(cfg, rt)
+    kept["trainer"] = out[0]
+    return out
+runner.build_training = keep
+main = __import__("dtf_tpu_torch.cli." + spec["main"], fromlist=["main"])
+if spec["backend"]:
+    cfg = parse_flags(spec["argv"], defaults=getattr(main, spec["defaults"]))
+    run = lambda: runner.run(cfg, initialize(cfg, backend=spec["backend"]))
+else:
+    run = lambda: main.main(spec["argv"])
+fa.launches = fa.launches_dq = fa.launches_dkdv = fa.launches_fused = 0
+t0 = time.perf_counter()
+stats = run()
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+trainer = kept["trainer"]
+digest = hashlib.sha256()
+for t in trainer.model.state_dict().values():
+    digest.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+print("DP_RESULT=" + json.dumps({
+    "rank": trainer.rt.rank, "replicas": trainer.rt.num_replicas,
+    "backend": trainer.rt.backend, "device": str(trainer.rt.device),
+    "threads": torch.get_num_threads(),
+    "losses": [v for _, v in stats["train_loss_log"]],
+    "window_step_s": stats["window_step_s"], "wall_s": wall,
+    "launches": {"K1": fa.launches, "K2a": fa.launches_dq,
+                 "K2b": fa.launches_dkdv, "K3": fa.launches_fused},
+    "digest": digest.hexdigest()}))
+""".replace("@ROOT@", repr(ROOT))
+DP_TIMEOUT_S = 300
+
+
+def dp_results(texts, what: str):
+    out = []
+    for text in texts:
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("DP_RESULT=")]
+        if not lines:
+            raise AssertionError(f"{what}: a rank printed no result:\n"
+                                 f"{text[-3000:]}")
+        out.append(json.loads(lines[-1][len("DP_RESULT="):]))
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def dp_run(spec: dict, world, root: str, what: str):
+    """The rank script under ``spec``: through the port's launcher with
+    ``world`` ranks (a file rendezvous under ``root``), or, for None,
+    one plain process with no topology.  A rank that fails, or a run
+    past ``DP_TIMEOUT_S``, fails the phase."""
+    from dtf_tpu_torch.cli.launch import launch_local
+
+    cmd = [sys.executable, "-c", DP_RANK, json.dumps(spec)]
+    if world is None:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=DP_TIMEOUT_S, cwd=ROOT)
+        if proc.returncode:
+            raise AssertionError(f"{what}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}")
+        return dp_results([proc.stdout], what)
+    log_dir = os.path.join(root, what.replace(" ", "_"))
+    rdv = os.path.join(root, what.replace(" ", "_") + ".rendezvous")
+    rc = launch_local(cmd, world, f"file://{rdv}", log_dir,
+                      timeout_s=DP_TIMEOUT_S)
+    texts = []
+    for rank in range(world):
+        with open(os.path.join(log_dir, f"log{rank}.log")) as f:
+            texts.append(f.read())
+    if rc:
+        raise AssertionError(f"{what}: launcher exit {rc}\n" + "\n".join(
+            t[-3000:] for t in texts))
+    return dp_results(texts, what)
+
+
+def dp_world_one(torch, card: str, root: str, main: str, defaults: str,
+                 argv, phase: str, **extra):
+    """``main`` with ``--distribution_strategy off`` in a plain process
+    and with ``multi_worker_mirrored`` through the launcher with one
+    rank (a real NCCL group), in turns: off, NCCL, NCCL, off.  Every
+    run's per-step losses and weights bit for bit the first's; each
+    arm's step-time p50 over its two runs' windows."""
+    arms = {"off": None, "multi_worker_mirrored": 1}
+    runs = []
+    for turn, strategy in enumerate(("off", "multi_worker_mirrored",
+                                     "multi_worker_mirrored", "off")):
+        spec = {"main": main, "defaults": defaults, "backend": None,
+                "argv": argv + ["--distribution_strategy", strategy]}
+        torch.cuda.empty_cache()
+        runs.append((strategy, dp_run(spec, arms[strategy], root,
+                                      f"{phase} {strategy} {turn}")[0]))
+    windows = {s: [w for name, r in runs if name == s
+                   for w in r["window_step_s"]] for s in arms}
+    one = runs[1][1]
+    line = {"phase": phase, "card": card, **extra,
+            "backend": one["backend"], "replicas": one["replicas"],
+            "turns": [name for name, _ in runs],
+            "step_s_p50_off": statistics.median(windows["off"]),
+            "step_s_p50_nccl_world1": statistics.median(
+                windows["multi_worker_mirrored"]),
+            "step_s_p50_by_turn": [statistics.median(r["window_step_s"])
+                                   for _, r in runs],
+            "losses": one["losses"],
+            "losses_bit_identical": all(r["losses"] == one["losses"]
+                                        for _, r in runs),
+            "params_bit_identical": all(r["digest"] == one["digest"]
+                                        for _, r in runs),
+            "launches_off": runs[0][1]["launches"],
+            "launches_nccl_world1": one["launches"],
+            "torch_threads": {name: r["threads"] for name, r in runs}}
+    line["dp_cost_ms"] = 1e3 * (line["step_s_p50_nccl_world1"]
+                                - line["step_s_p50_off"])
+    emit(line)
+    if not (one["backend"] == "nccl" and one["replicas"] == 1
+            and line["losses_bit_identical"]
+            and line["params_bit_identical"]
+            and all(math.isfinite(v) for v in one["losses"])):
+        raise AssertionError(f"{phase}: {line}")
+    return line
+
+
+DP_LOSS_RTOL = 1e-4   # resnet20 f32, 3 steps: the card against the CPU
+
+
+def dp_two_ranks(torch, card: str, root: str, data_dir: str, seed: int):
+    """resnet20 in float32 on the CIFAR files under ``data_dir`` (each
+    rank its file shard), 3 steps at a global batch of 32, sync BN off
+    and on: two ranks sharing the card over gloo (CUDA tensors), and
+    the same two ranks on the CPU.  The ranks end bit-identical; the
+    card's losses are within ``DP_LOSS_RTOL`` of the CPU's.  With two
+    cards, the same runs over NCCL, one card a rank."""
+    lines = []
+    for sync_bn in (False, True):
+        argv = ["--data_dir", data_dir, "--model", "resnet20", "--dtype",
+                "fp32", "--batch_size", "32", "--train_steps", "3",
+                "--log_steps", "1", "--skip_eval", "--seed", str(seed),
+                "--distribution_strategy", "multi_worker_mirrored",
+                "--sync_bn", str(sync_bn).lower()]
+        runs = {}
+        cases = [("gloo_cuda", "cuda", "gloo"), ("gloo_cpu", "cpu", None)]
+        if torch.cuda.device_count() >= 2:
+            cases.append(("nccl_two_cards", "cuda", None))
+        for name, device, backend in cases:
+            spec = {"main": "cifar_main", "defaults": "CIFAR_DEFAULTS",
+                    "backend": backend, "argv": argv + ["--device", device]}
+            torch.cuda.empty_cache()
+            runs[name] = dp_run(spec, 2, root,
+                                f"dp two ranks {name} sync_bn {sync_bn}")
+        cpu = runs["gloo_cpu"][0]["losses"]
+        for name, ranks in runs.items():
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(ranks[0]["losses"], cpu))
+            line = {"phase": "dp_two_ranks", "card": card, "run": name,
+                    "sync_bn": sync_bn, "model": "resnet20",
+                    "dtype": "fp32", "global_batch": 32, "steps": 3,
+                    "backend": ranks[0]["backend"],
+                    "devices": [r["device"] for r in ranks],
+                    "losses": ranks[0]["losses"],
+                    "ranks_bit_identical": (
+                        ranks[0]["digest"] == ranks[1]["digest"]
+                        and ranks[0]["losses"] == ranks[1]["losses"]),
+                    "loss_rel_gap_to_cpu": gap, "tol": DP_LOSS_RTOL,
+                    "step_s_p50": statistics.median(
+                        ranks[0]["window_step_s"])}
+            emit(line)
+            lines.append(line)
+            if not (line["ranks_bit_identical"] and gap <= DP_LOSS_RTOL
+                    and [r["replicas"] for r in ranks] == [2, 2]):
+                raise AssertionError(f"dp_two_ranks: {line}")
+    if torch.cuda.device_count() < 2:
+        emit({"phase": "dp_nccl_multi_card", "measured": False,
+              "reason": f"{torch.cuda.device_count()} card on this "
+                        f"machine; NCCL across cards is unmeasured"})
+    return lines
+
+
+def train_data_parallel(torch, seed: int, card: str):
+    """Phase 8: (a) ``cifar_main`` resnet56 and ``lm_main``
+    transformer_tpu, bf16, ``multi_worker_mirrored`` at world 1 through
+    the launcher (NCCL) against ``off``: losses and parameters bit for
+    bit, both step times, K1 and K3 launches on the LM's data-parallel
+    path; (b) two ranks sharing the card over gloo, sync BN off and on,
+    against the same ranks on the CPU; (c) NCCL across two cards where
+    there are two, else a line saying it is unmeasured."""
+    import tempfile
+
+    import numpy as np
+
+    from dtf_tpu_torch.data.cifar import write_binary_file
+
+    steps = 20
+    with tempfile.TemporaryDirectory() as root:
+        cifar = dp_world_one(
+            torch, card, root, "cifar_main", "CIFAR_DEFAULTS",
+            ["--use_synthetic_data", "--device", "cuda", "--model",
+             "resnet56", "--dtype", "bf16", "--batch_size", "128",
+             "--train_steps", str(steps), "--log_steps", "1",
+             "--skip_eval", "--seed", str(seed)],
+            "dp_world1_cifar", model="resnet56", dtype="bf16", batch=128,
+            steps=steps)
+        b = TRAIN_SHAPE[0]
+        lm = dp_world_one(
+            torch, card, root, "lm_main", "LM_DEFAULTS",
+            ["--use_synthetic_data", "--device", "cuda", "--model",
+             "transformer_tpu", "--dtype", "bf16", "--batch_size", str(b),
+             "--train_steps", str(steps), "--log_steps", "1", "--seed",
+             str(seed)],
+            "dp_world1_lm", model="transformer_tpu", dtype="bf16", batch=b,
+            seq=TRAIN_SHAPE[1], steps=steps)
+        want = {"K1": 12 * steps, "K2a": 0, "K2b": 0, "K3": 12 * steps}
+        if lm["launches_nccl_world1"] != want:
+            raise AssertionError(f"dp_world1_lm launches "
+                                 f"{lm['launches_nccl_world1']}, expected "
+                                 f"{want}")
+        rng = np.random.default_rng(seed)
+        d = os.path.join(root, "cifar-10-batches-bin")
+        os.makedirs(d)
+        for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
+                "test_batch.bin"]:
+            write_binary_file(os.path.join(d, name),
+                              rng.integers(0, 256, (64, 32, 32, 3)),
+                              rng.integers(0, 10, 64))
+        two = dp_two_ranks(torch, card, root, root, seed)
+    return {"cifar": cifar, "lm": lm, "two_ranks": two}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2028,6 +2298,11 @@ def main(argv=None) -> int:
     # phase 7: ResNet training (no TPU kernel lies on this path)
     train_resnet(torch, timer, args.seed, card)
 
+    # phase 8: data parallelism (K1 and K3 on the LM's path)
+    dp = train_data_parallel(torch, args.seed, card)
+    dp_run_name = ("lm_main multi_worker_mirrored, one rank on NCCL, "
+                   "20 steps (phase 8)")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -2071,6 +2346,8 @@ def main(argv=None) -> int:
         entry("K1", "dtf_tpu_torch/csrc/flash_fwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("bfloat16"),
               train["launches"]["K1"], "train (phase 6)",
+              launches_dp=dp["lm"]["launches_nccl_world1"]["K1"],
+              launches_dp_run=dp_run_name,
               launches_serve=serve_launches["K1"],
               launches_per_serve_call={c: n["K1"]
                                        for c, n in per_call.items()}),
@@ -2096,6 +2373,8 @@ def main(argv=None) -> int:
         entry("K3", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:367", bwd["K3"],
               train["launches"]["K3"], "train (phase 6)",
+              launches_dp=dp["lm"]["launches_nccl_world1"]["K3"],
+              launches_dp_run=dp_run_name,
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

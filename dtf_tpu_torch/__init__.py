@@ -3,9 +3,11 @@
 The package mirrors dtf_tpu's module layout, so each module's
 counterpart is found by its path.  It imports torch, numpy and the
 standard library, never jax or dtf_tpu.  Ported: the serving path
-(paged TransformerLM decode behind ServeEngine), single-device LM
-training (``cli/lm_main``) and ResNet training (``cli/cifar_main``,
-``cli/imagenet_main``).  The attention kernels are hand-written CUDA
+(paged TransformerLM decode behind ServeEngine), LM training
+(``cli/lm_main``) and ResNet training (``cli/cifar_main``,
+``cli/imagenet_main``), on one device or under synchronous data
+parallelism over ``torch.distributed`` (``runtime/mesh.py``,
+``cli/launch.py``).  The attention kernels are hand-written CUDA
 under csrc/, built with nvcc at first use; the ResNets run cuDNN
 convolutions through plain torch ops.
 """

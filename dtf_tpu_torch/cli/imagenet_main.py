@@ -1,5 +1,6 @@
 """ImageNet ResNet-50 entry point -- the PyTorch counterpart of
-``dtf_tpu/cli/imagenet_main.py``, on one device.
+``dtf_tpu/cli/imagenet_main.py``, on one device or data-parallel over
+many (``--distribution_strategy``, ``runtime/mesh.py``).
 
 It trains ResNet-50 v1.5 (or, with ``--use_trivial_model``, the input
 probe) on ``--device`` (default ``cuda``; with no CUDA it raises unless
@@ -23,8 +24,7 @@ from __future__ import annotations
 import logging
 import sys
 
-from dtf_tpu_torch.cli.runner import run
-from dtf_tpu_torch.config import parse_flags
+from dtf_tpu_torch.cli.runner import main_run
 
 # the JAX main's defaults (the reference's 90 epochs)
 IMAGENET_DEFAULTS = dict(
@@ -40,9 +40,8 @@ def main(argv=None) -> dict:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    cfg = parse_flags(argv if argv is not None else sys.argv[1:],
-                      defaults=IMAGENET_DEFAULTS)
-    return run(cfg)
+    return main_run("dtf_tpu_torch.cli.imagenet_main",
+                    argv if argv is not None else sys.argv[1:], IMAGENET_DEFAULTS)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Language-model training entry point -- the PyTorch counterpart of
-``dtf_tpu/cli/lm_main.py``, on one device.
+``dtf_tpu/cli/lm_main.py``, on one device or data-parallel over many
+(``--distribution_strategy``, ``runtime/mesh.py``).
 
 It trains a registry transformer on ``--device`` (default ``cuda``;
 with no CUDA it raises unless ``--device cpu`` is given) through the
@@ -16,6 +17,11 @@ Examples:
   python -m dtf_tpu_torch.cli.lm_main --use_synthetic_data --device cpu \\
       --model transformer_small --seq_len 32 --num_classes 256 \\
       --batch_size 4 --train_steps 3 --log_steps 1
+
+  # eight H100s of one host, one rank each over NCCL:
+  python -m dtf_tpu_torch.cli.launch --num_processes 8 -- \\
+      python -m dtf_tpu_torch.cli.lm_main --use_synthetic_data \\
+      --model transformer_tpu --distribution_strategy multi_worker_mirrored
 """
 
 from __future__ import annotations
@@ -23,8 +29,7 @@ from __future__ import annotations
 import logging
 import sys
 
-from dtf_tpu_torch.cli.runner import run
-from dtf_tpu_torch.config import parse_flags
+from dtf_tpu_torch.cli.runner import main_run
 
 LM_DEFAULTS = dict(
     model="transformer",
@@ -41,9 +46,8 @@ def main(argv=None) -> dict:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    cfg = parse_flags(argv if argv is not None else sys.argv[1:],
-                      defaults=LM_DEFAULTS)
-    return run(cfg)
+    return main_run("dtf_tpu_torch.cli.lm_main",
+                    argv if argv is not None else sys.argv[1:], LM_DEFAULTS)
 
 
 if __name__ == "__main__":

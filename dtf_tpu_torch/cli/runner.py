@@ -1,6 +1,17 @@
-"""``run(cfg) -> stats`` -- the single-device body of the JAX package's
-``cli/runner.py`` ``_run``: spec -> model -> Trainer -> input ->
-prefetcher -> fit -> "Run stats".
+"""``run(cfg) -> stats`` -- the body of the JAX package's
+``cli/runner.py`` ``_run``: runtime -> spec -> model -> Trainer ->
+input -> prefetcher -> fit -> "Run stats".
+
+The runtime (``runtime/mesh.py initialize``) comes first, before
+anything touches CUDA: it joins the process group of a data-parallel
+run and picks the rank's card.  ``--batch_size`` is global, except
+under ``horovod`` and ``parameter_server``, where it is per replica
+(:func:`effective_global_batch`); each process feeds its share, the
+global batch over the process count.  The synthetic stream is the JAX
+package's: every rank draws the same batch from ``--seed``.  CIFAR
+files are read by file shard, and the eval stride-sharded and masked.
+The benchmark log and "Run stats" come from the coordinator only, and
+the process group is destroyed at the end.
 
 Both families are ported.  The vision models (ResNet-50, the CIFAR
 ResNets, ``--use_trivial_model``'s probe) draw their float32 parameters
@@ -19,33 +30,57 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
+from dtf_tpu_torch.config import parse_flags
 from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
 from dtf_tpu_torch.data.normalize import for_config
 from dtf_tpu_torch.data.pipeline import DevicePrefetcher
 from dtf_tpu_torch.models.registry import build_model, is_vision
-from dtf_tpu_torch.runtime.device import resolve_device
+from dtf_tpu_torch.runtime.mesh import (LOCAL_STRATEGIES, MeshRuntime,
+                                        initialize, mirrored_world)
 from dtf_tpu_torch.serve.bridge import random_init
 from dtf_tpu_torch.train import Trainer
 
 log = logging.getLogger("dtf_tpu_torch")
 
 
-def make_input_fns(cfg, spec, global_batch: int):
-    """(train_iter_factory, eval_iter_factory) of host numpy batches."""
+def effective_global_batch(cfg, runtime: MeshRuntime) -> int:
+    """``--batch_size`` as the global batch: as given under mirrored
+    and multi_worker_mirrored (Keras-fit semantics); times the replicas
+    under horovod and parameter_server, where each reference rank drove
+    one GPU with its own ``--batch_size``."""
+    if cfg.distribution_strategy in ("horovod", "parameter_server"):
+        return cfg.batch_size * runtime.num_replicas
+    return cfg.batch_size
+
+
+def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
+    """(train_iter_factory, eval_iter_factory) of this process's numpy
+    batches: its 1/process-count share of the global batch."""
+    rank, count = runtime.rank, runtime.num_replicas
+    if global_batch % count:
+        raise ValueError(
+            f"global batch_size {global_batch} must be divisible by the "
+            f"process count ({count})")
+    host_batch = global_batch // count
     if cfg.use_synthetic_data or not cfg.data_dir:
-        fns = (lambda: synthetic_input_fn(spec, True, global_batch,
+        fns = (lambda: synthetic_input_fn(spec, True, host_batch,
                                           cfg.seed),
-               lambda: synthetic_input_fn(spec, False, global_batch,
+               lambda: synthetic_input_fn(spec, False, host_batch,
                                           cfg.seed + 1))
     elif spec.name == "cifar10":
         from dtf_tpu_torch.data.cifar import cifar_input_fn
-        fns = (lambda: cifar_input_fn(cfg.data_dir, True, global_batch,
-                                      seed=cfg.seed, wire=cfg.input_wire),
-               lambda: cifar_input_fn(cfg.data_dir, False, global_batch,
+        fns = (lambda: cifar_input_fn(cfg.data_dir, True, host_batch,
+                                      seed=cfg.seed, process_id=rank,
+                                      process_count=count,
+                                      wire=cfg.input_wire),
+               lambda: cifar_input_fn(cfg.data_dir, False, host_batch,
+                                      process_id=rank, process_count=count,
                                       drop_remainder=cfg.drop_remainder,
                                       wire=cfg.input_wire))
     else:
@@ -68,8 +103,9 @@ def _channels_first_factory(fn):
     return wrapped
 
 
-def build_model_for(cfg, spec, device):
-    """(model on ``device`` with its seeded weights, l2 weight)."""
+def build_model_for(cfg, spec, device, bn_group=None):
+    """(model on ``device`` with its seeded weights, l2 weight);
+    ``bn_group`` makes a vision model's BatchNorms sync BN."""
     name = "trivial" if cfg.use_trivial_model else cfg.model
     model_kw = {}
     if is_vision(name):
@@ -85,7 +121,8 @@ def build_model_for(cfg, spec, device):
     else:
         model_kw["remat"] = cfg.remat
     model, l2 = build_model(name, num_classes=spec.num_classes,
-                            dtype=cfg.compute_dtype, **model_kw)
+                            dtype=cfg.compute_dtype, bn_group=bn_group,
+                            **model_kw)
     if not is_vision(name):
         return random_init(model, cfg.seed).to(device), l2
     if device.type == "cuda":
@@ -96,25 +133,40 @@ def build_model_for(cfg, spec, device):
     return model.to(device, memory_format=torch.channels_last), l2
 
 
-def build_training(cfg):
-    """(trainer, state, train_fn, eval_fn) for a Config, on its device."""
-    device = resolve_device(cfg.device)
+def build_training(cfg, runtime: Optional[MeshRuntime] = None):
+    """(trainer, state, train_fn, eval_fn) for a Config: on the
+    runtime's device and data axis (``initialize(cfg)`` when None)."""
+    rt = runtime or initialize(cfg)
     spec = get_dataset_spec(cfg.dataset)
     if cfg.num_classes:
         spec = dataclasses.replace(spec, num_classes=cfg.num_classes)
     if cfg.seq_len and spec.is_sequence:
         spec = dataclasses.replace(spec, seq_len=cfg.seq_len)
-    model, l2 = build_model_for(cfg, spec, device)
+    global_batch = effective_global_batch(cfg, rt)
+    cfg = cfg.replace(batch_size=global_batch)
+    model, l2 = build_model_for(cfg, spec, rt.device,
+                                bn_group=rt.group if cfg.sync_bn else None)
     trainer = Trainer(cfg, model, l2, spec,
-                      normalize_fn=for_config(cfg, spec))
-    train_fn, eval_fn = make_input_fns(cfg, spec, cfg.batch_size)
+                      normalize_fn=for_config(cfg, spec), runtime=rt)
+    train_fn, eval_fn = make_input_fns(cfg, spec, global_batch, rt)
     return trainer, trainer.init_state(), train_fn, eval_fn
 
 
-def run(cfg) -> dict:
+def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
     """Train per ``cfg`` and return the stats dict (logged as "Run
-    stats")."""
-    trainer, state, train_fn, eval_fn = build_training(cfg)
+    stats" by the coordinator).  ``runtime``: an initialized one
+    (``initialize(cfg, backend=...)``), else ``initialize(cfg)``; its
+    process group is destroyed at the end either way."""
+    rt = runtime or initialize(cfg)
+    try:
+        return _run(cfg, rt)
+    finally:
+        rt.shutdown()
+
+
+def _run(cfg, rt: MeshRuntime) -> dict:
+    trainer, state, train_fn, eval_fn = build_training(cfg, rt)
+    cfg = trainer.cfg
     prefetched = DevicePrefetcher(train_fn(), trainer.device, buffer_size=2)
     try:
         state, stats = trainer.fit(
@@ -122,6 +174,8 @@ def run(cfg) -> dict:
             eval_iter_fn=None if cfg.skip_eval else eval_fn)
     finally:
         prefetched.close()
+    if not rt.is_coordinator:
+        return stats
     if cfg.benchmark_log_dir:
         from dtf_tpu_torch.utils.benchmark_logger import BenchmarkFileLogger
         blog = BenchmarkFileLogger(cfg.benchmark_log_dir)
@@ -134,3 +188,21 @@ def run(cfg) -> dict:
     log.info("Run stats: %s",
              {k: v for k, v in stats.items() if k != "step_timestamp_log"})
     return stats
+
+
+def main_run(module: str, argv, defaults: dict) -> dict:
+    """An entry point's body: parse ``argv`` over ``defaults`` and run.
+    A ``mirrored`` (or ``tpu``) command with no named topology over more
+    than one local device starts one rank a device through
+    ``cli/launch.py`` (``python -m module argv`` each, logs under
+    ``./ranklogs``) and returns {} once they all succeed."""
+    cfg = parse_flags(argv, defaults=defaults)
+    if (cfg.distribution_strategy in LOCAL_STRATEGIES
+            and cfg.process_count is None and mirrored_world(cfg) > 1):
+        from dtf_tpu_torch.cli.launch import free_address, launch_local
+        rc = launch_local([sys.executable, "-m", module] + list(argv),
+                          mirrored_world(cfg), free_address(), "./ranklogs")
+        if rc:
+            raise SystemExit(rc)
+        return {}
+    return run(cfg)

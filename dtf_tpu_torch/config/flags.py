@@ -5,22 +5,28 @@ fields the ported paths read: the model and its dtype, the seed, the
 device, the training fields of ``cli/lm_main.py``, ``cli/cifar_main.py``
 and ``cli/imagenet_main.py`` (dataset, input wire and layout, batch,
 steps, optimizer, loss scaling, accumulation, clipping, logging, remat),
-the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py`` and the
-benchmark log.  Names and defaults are the JAX package's.  Parsing is
+the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py``, the
+benchmark log, and the topology of a data-parallel run
+(``distribution_strategy``, ``num_devices``, ``ps_mode``, the
+coordinator, process id and count, ``worker_hosts``/``task_index`` and
+``sync_bn``), filled from the ``DTF_*`` environment or the reference's
+``TF_CONFIG`` by :func:`apply_env_topology`.  Names and defaults are
+the JAX package's.  Parsing is
 the same absl style: ``--name value``, ``--name=value``, ``-name value``
 and bare boolean flags (``--use_synthetic_data``).
 
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (checkpoints, meshes and model parallelism, the profiler, chaos,
-...) raise with a message that says so; any other unknown flag raises
-too.
+yet (checkpoints, model parallelism, the profiler, chaos, ...) raise
+with a message that says so; any other unknown flag raises too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Optional
 
 import torch
@@ -34,16 +40,19 @@ DTYPES = {"fp32": torch.float32, "float32": torch.float32,
 NOT_PORTED = {
     "model_dir": "checkpointing", "resume": "checkpointing",
     "checkpoint_steps": "checkpointing", "export_dir": "checkpointing",
-    "distribution_strategy": "data parallelism (the mesh)",
-    "num_devices": "data parallelism (the mesh)",
     "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
     "model_parallelism": "tensor/pipeline/expert parallelism",
     "seq_parallelism": "ring attention",
     "remat_policy": "selective remat (use --remat)",
     "profile_steps": "the profiler", "trace_dir": "tracing",
     "fault": "chaos injection", "preemption_poll_s": "preemption",
-    "plan": "the planner", "sync_bn": "sync BN (data parallelism)",
+    "plan": "the planner",
 }
+
+# --distribution_strategy names, the JAX package's (cli/runner.py and
+# runtime/mesh.py say what each means here)
+STRATEGIES = ("off", "one_device", "mirrored", "multi_worker_mirrored",
+              "horovod", "parameter_server", "tpu")
 
 
 @dataclasses.dataclass
@@ -57,6 +66,18 @@ class Config:
     device: str = "cuda"                # cuda | cpu; never a silent fallback
     benchmark_log_dir: str = ""         # writes metric.log when set
     benchmark_test_id: str = ""
+
+    # --- distribution / topology (runtime/mesh.py: one process a device) ---
+    distribution_strategy: str = "mirrored"
+    ps_mode: str = "sync"               # parameter_server: sync | async
+    num_devices: Optional[int] = None   # mirrored: local devices to use
+    worker_hosts: Optional[str] = None  # "h1:p,h2:p" (with task_index)
+    task_index: int = -1
+    # the rendezvous: "host:port" (tcp) or a URL such as file:///path
+    coordinator_address: Optional[str] = None
+    process_id: Optional[int] = None
+    process_count: Optional[int] = None
+    sync_bn: bool = False               # cross-replica BatchNorm statistics
 
     # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
     dataset: str = ""                   # lm | cifar10 | imagenet
@@ -137,6 +158,13 @@ class Config:
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
         if self.batch_size < 1 or self.log_steps < 1:
             raise ValueError("batch_size and log_steps must be >= 1")
+        if self.distribution_strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown distribution_strategy "
+                f"{self.distribution_strategy!r}; choose from {STRATEGIES}")
+        if self.ps_mode not in ("sync", "async"):
+            raise ValueError(
+                f"unknown ps_mode {self.ps_mode!r}; choose sync or async")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -207,4 +235,59 @@ def parse_flags(argv=None, defaults: Optional[dict] = None) -> Config:
                 val = nxt
         kw[name] = _coerce(names[name], val)
         i += 1
-    return Config(**kw)
+    return apply_env_topology(Config(**kw))
+
+
+def topology_from_env() -> dict:
+    """Per-process identity from the environment, the JAX package's
+    two sources in its order:
+      1. ``DTF_COORDINATOR`` / ``DTF_PROCESS_ID`` / ``DTF_PROCESS_COUNT``
+         (what ``cli/launch.py`` sets);
+      2. the reference's ``TF_CONFIG`` JSON, ``{"cluster": {"ps": [...],
+         "worker": [...]}, "task": {"type", "index"}}``: ps ranks are
+         numbered first, then the workers, and the first process is the
+         coordinator.
+    """
+    out: dict = {}
+    if os.environ.get("DTF_COORDINATOR"):
+        out["coordinator_address"] = os.environ["DTF_COORDINATOR"]
+    if os.environ.get("DTF_PROCESS_ID"):
+        out["process_id"] = int(os.environ["DTF_PROCESS_ID"])
+    if os.environ.get("DTF_PROCESS_COUNT"):
+        out["process_count"] = int(os.environ["DTF_PROCESS_COUNT"])
+    if out:
+        return out
+    tf_config = os.environ.get("TF_CONFIG")
+    if tf_config:
+        try:
+            spec = json.loads(tf_config)
+        except json.JSONDecodeError:
+            return out
+        cluster = spec.get("cluster", {})
+        task = spec.get("task", {})
+        workers = list(cluster.get("worker", []))
+        ps = list(cluster.get("ps", []))
+        all_procs = ps + workers
+        if all_procs:
+            out["coordinator_address"] = all_procs[0]
+            out["process_count"] = len(all_procs)
+            ttype, tidx = task.get("type"), int(task.get("index", 0))
+            out["process_id"] = tidx if ttype == "ps" else len(ps) + tidx
+    return out
+
+
+def apply_env_topology(cfg: Config) -> Config:
+    """Fill unset topology fields from the environment; explicit flags
+    win.  ``--worker_hosts`` (with ``--task_index``) names the
+    coordinator and the process count when nothing else did."""
+    env = topology_from_env()
+    kw = {k: v for k, v in env.items() if getattr(cfg, k) is None}
+    if (cfg.worker_hosts and cfg.coordinator_address is None
+            and "coordinator_address" not in kw):
+        hosts = [h.strip() for h in cfg.worker_hosts.split(",")
+                 if h.strip()]
+        kw["coordinator_address"] = hosts[0]
+        kw["process_count"] = len(hosts)
+        if cfg.task_index >= 0:
+            kw["process_id"] = cfg.task_index
+    return cfg.replace(**kw) if kw else cfg

@@ -2,8 +2,9 @@
 transformer LM entries of ``dtf_tpu/models/registry.py``, with the same
 names, default class counts and L2 weights: ResNet-50 v1.5, the CIFAR
 ResNet-(6n+2) family, the trivial input probe and the transformer LMs.
-The MoE and pipeline families are not ported yet, nor is sync BN (the
-JAX package's ``bn_axis``, which is data parallelism).
+The MoE and pipeline families are not ported yet.  Sync BN, the JAX
+package's ``bn_axis``, is ``bn_group``: a process group for the BNs of
+every vision model but the trivial probe.
 
 The reference applies L2 through Keras kernel_regularizers, which fold
 into the loss: every conv/dense kernel is penalized, plus the final
@@ -57,16 +58,19 @@ def is_vision(name: str) -> bool:
 
 
 def build_model(name: str, num_classes: int | None = None,
-                dtype=torch.float32, **model_kw):
+                dtype=torch.float32, bn_group=None, **model_kw):
     """Returns (module, l2_weight).  Parameters are float32 and left as
     constructed: a vision model draws them with its ``init_weights(seed)``
     and a transformer with ``serve.bridge.random_init``, both called by
-    ``cli/runner.py``."""
+    ``cli/runner.py``.  ``bn_group`` (a process group, or None for
+    per-replica statistics) makes the BatchNorms sync BN."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     ctor, default_classes, l2 = _REGISTRY[name]
     classes = num_classes or default_classes
     if is_vision(name):
+        if name != "trivial":
+            model_kw["bn_group"] = bn_group
         module = ctor(num_classes=classes, dtype=dtype, **model_kw)
     else:
         module = ctor(vocab_size=classes, dtype=dtype, **model_kw)

@@ -31,8 +31,11 @@ float32, logits cast to float32.  Parameters are drawn by
 :func:`init_vision_weights` from flax's initializers (``he_normal``
 convolutions, N(0, 0.01) classifier).
 
-Not ported: the selective remat policy (``RESNET_REMAT_POLICY``), the
-fp8-residual probe (``Fp8ResidConv``) and sync BN (``bn_axis``).
+Sync BN (the JAX package's ``bn_axis``) is ``bn_group``: a process
+group over which each BatchNorm averages its batch statistics
+(``parallel/collectives.py``).  Not ported: the selective remat policy
+(``RESNET_REMAT_POLICY``) and the fp8-residual probe
+(``Fp8ResidConv``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dtf_tpu_torch.models.initializers import variance_scaling_
+from dtf_tpu_torch.parallel.collectives import all_reduce_mean_grad
 
 BATCH_NORM_DECAY = 0.9
 BATCH_NORM_EPSILON = 1e-5
@@ -126,15 +130,19 @@ class BatchNorm(nn.Module):
     running buffers; eval mode normalizes with the buffers.  ``dtype``
     is the output dtype; None returns the promoted type of the math
     (float32 for bfloat16 or float32 input), as the CIFAR ResNets'
-    ``dtype=jnp.float32`` does."""
+    ``dtype=jnp.float32`` does.  With a process ``group`` (sync BN,
+    flax's ``axis_name``) the stacked ``[mean, E[x^2]]`` is averaged
+    over the group in one all-reduce, differentiably, before the
+    variance is formed."""
 
     def __init__(self, num_features: int, momentum: float,
                  epsilon: float = BATCH_NORM_EPSILON,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group=None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
         self.out_dtype = dtype
+        self.group = group
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -146,8 +154,11 @@ class BatchNorm(nn.Module):
             # fast variance with its negative-roundoff clamp
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xs.mean((0, 2, 3))
-            var = torch.clamp_min(xs.square().mean((0, 2, 3))
-                                  - mean.square(), 0.0)
+            mean2 = xs.square().mean((0, 2, 3))
+            if self.group is not None:
+                mean, mean2 = all_reduce_mean_grad(
+                    torch.stack([mean, mean2]), self.group)
+            var = torch.clamp_min(mean2 - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -201,13 +212,13 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_channels: int, filters: Sequence[int],
                  strides: int = 1, projection: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_group=None):
         super().__init__()
         f1, f2, f3 = filters
 
         def bn(n):
             return BatchNorm(n, BATCH_NORM_DECAY, BATCH_NORM_EPSILON,
-                             dtype=dtype)
+                             dtype=dtype, group=bn_group)
 
         self.conv_a = Conv2d(in_channels, f1, 1, dtype=dtype)
         self.bn_a = bn(f1)
@@ -237,13 +248,13 @@ class ResNet50(nn.Module):
               ((256, 256, 1024), 6, 2), ((512, 512, 2048), 3, 2))
 
     def __init__(self, num_classes: int = 1001, dtype=torch.float32,
-                 stem_space_to_depth: bool = True):
+                 stem_space_to_depth: bool = True, bn_group=None):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
         self.conv1 = Stem(64, stem_space_to_depth, dtype=dtype)
         self.bn_conv1 = BatchNorm(64, BATCH_NORM_DECAY, BATCH_NORM_EPSILON,
-                                  dtype=dtype)
+                                  dtype=dtype, group=bn_group)
         self.block_names = []
         cin = 64
         for s, (filters, blocks, stride) in enumerate(self.STAGES, start=2):
@@ -251,7 +262,7 @@ class ResNet50(nn.Module):
                 name = f"stage{s}_block{b}"
                 self.add_module(name, BottleneckBlock(
                     cin, filters, strides=stride if b == 0 else 1,
-                    projection=b == 0, dtype=dtype))
+                    projection=b == 0, dtype=dtype, bn_group=bn_group))
                 self.block_names.append(name)
                 cin = filters[-1]
         self.fc = Dense(cin, num_classes, dtype=dtype)

@@ -5,7 +5,8 @@ Basic blocks of two 3x3 convs, stages of 16/32/64 filters at strides
 1/2/2, each stage's first block with a 1x1 + BN projection shortcut; a
 3x3/1 stem with an explicit (1, 1) pad; BatchNorm momentum 0.997 and
 epsilon 1e-5.  The layers, their names and their numerics are those of
-``models/resnet.py`` with one difference the JAX package has too: this
+``models/resnet.py`` (``bn_group`` for sync BN included) with one
+difference the JAX package has too: this
 family's BatchNorm returns float32 (flax ``dtype=jnp.float32``), so
 under bf16 compute the residual adds run in float32 and each conv casts
 its input back to bf16.  ``resnet662`` keeps the reference's misnamed
@@ -28,27 +29,29 @@ BATCH_NORM_DECAY = 0.997
 BATCH_NORM_EPSILON = 1e-5
 
 
-def _bn(n: int) -> BatchNorm:
+def _bn(n: int, group) -> BatchNorm:
     # dtype None: the float32 result of the normalize math
-    return BatchNorm(n, BATCH_NORM_DECAY, BATCH_NORM_EPSILON, dtype=None)
+    return BatchNorm(n, BATCH_NORM_DECAY, BATCH_NORM_EPSILON, dtype=None,
+                     group=group)
 
 
 class BasicBlock(nn.Module):
     """identity_building_block / conv_building_block of the reference."""
 
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
-                 projection: bool = False, dtype=torch.float32):
+                 projection: bool = False, dtype=torch.float32,
+                 bn_group=None):
         super().__init__()
         self.conv_a = Conv2d(in_channels, filters, 3, stride=strides,
                              dtype=dtype)
-        self.bn_a = _bn(filters)
+        self.bn_a = _bn(filters, bn_group)
         self.conv_b = Conv2d(filters, filters, 3, dtype=dtype)
-        self.bn_b = _bn(filters)
+        self.bn_b = _bn(filters, bn_group)
         self.projection = projection
         if projection:
             self.conv_proj = Conv2d(in_channels, filters, 1, stride=strides,
                                     dtype=dtype)
-            self.bn_proj = _bn(filters)
+            self.bn_proj = _bn(filters, bn_group)
 
     def forward(self, x):
         y = F.relu(self.bn_a(self.conv_a(x)))
@@ -62,13 +65,13 @@ class CifarResNet(nn.Module):
     """NHWC images -> float32 logits [batch, num_classes]."""
 
     def __init__(self, num_blocks: int = 9, num_classes: int = 10,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_group=None):
         super().__init__()
         self.num_blocks = num_blocks
         self.num_classes = num_classes
         self.dtype = dtype
         self.conv1 = Conv2d(3, 16, 3, padding=1, dtype=dtype)
-        self.bn_conv1 = _bn(16)
+        self.bn_conv1 = _bn(16, bn_group)
         self.block_names = []
         cin = 16
         for s, (filters, stride) in enumerate(((16, 1), (32, 2), (64, 2)),
@@ -77,7 +80,7 @@ class CifarResNet(nn.Module):
                 name = f"stage{s}_block{b}"
                 self.add_module(name, BasicBlock(
                     cin, filters, strides=stride if b == 0 else 1,
-                    projection=b == 0, dtype=dtype))
+                    projection=b == 0, dtype=dtype, bn_group=bn_group))
                 self.block_names.append(name)
                 cin = filters
         self.fc = Dense(cin, num_classes, dtype=dtype)

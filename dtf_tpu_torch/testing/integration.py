@@ -4,8 +4,10 @@ PyTorch counterpart of ``dtf_tpu/testing/integration.py``.
 The reference's end-to-end tests funnel through
 ``run_synthetic(main, extra_flags)``: parse the extra flags, force the
 synthetic data backend, call the real ``run()``, and count "did not
-crash" as the assertion.  The same contract over the port's flags.  The
-port has no checkpoints, so there is nothing to turn off for them.
+crash" as the assertion.  The same contract over the port's flags,
+strategy flags and the ``DTF_*`` topology included (``parse_flags``
+applies them), so a rank started by ``cli/launch.py`` joins its group.
+The port has no checkpoints, so there is nothing to turn off for them.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
-"""The single-device training and eval loop -- the PyTorch counterpart of
-``dtf_tpu/train/loop.py`` ``Trainer``, one GPU (or the CPU) and no mesh.
+"""The training and eval loop -- the PyTorch counterpart of
+``dtf_tpu/train/loop.py`` ``Trainer``, on one device a process, the
+replicas of a data-parallel run being processes
+(``runtime/mesh.py``).
 
-``train_step`` is the JAX step's arithmetic in eager PyTorch:
+``train_step`` is the JAX step's arithmetic in eager PyTorch, on this
+replica's share of the global batch:
   - the inputs first: an NCHW batch (``--data_format channels_first``)
     transposed to NHWC, then the uint8 wire's normalization
     (``normalize_fn``, ``data/normalize.py``) on the device;
@@ -17,20 +20,29 @@
     finite is skipped (parameters, optimizer state and BN buffers kept)
     and the scale halved (not below 1); the scale doubles after
     ``DYNAMIC_GROWTH_INTERVAL`` finite steps in a row;
+  - data parallelism, in the JAX step's order: the unscaled gradients,
+    the BN running statistics and the step's loss and accuracy are
+    averaged over the replicas in one all-reduce of a flat float32
+    buffer (one writer, a fixed order: every rank ends the step with
+    the same bits); the global norm is clipped after it; a dynamic
+    scale's finite verdict is the replicas' minimum;
   - global-norm clipping (``--clip_grad_norm``);
   - the optimizer update at ``schedule(state.step)``; the metrics
     ``loss``, ``learning_rate`` and ``accuracy`` (0-d device tensors,
     read only at log cadence).
 ``evaluate`` runs the model in eval mode (BN on its running statistics)
 and takes masked sums, so a padded last batch counts each real example
-once.  ``fit`` runs the reference's ``TimeHistory`` cadence: it reads
-the loss from the device at every log boundary -- a sync, so the logged
-time is the device's and not the enqueue's -- before the BenchmarkMetric
-line is written.
+once; the replicas' sums are added.  ``fit`` runs the reference's
+``TimeHistory`` cadence: it reads the loss from the device at every log
+boundary -- a sync, so the logged time is the device's and not the
+enqueue's -- before the BenchmarkMetric line is written.
 
-Not ported yet: the mesh and data parallelism (and with it sync BN),
-ZeRO, TP/EP/PP, the MFU ledger, the profiler, watchdogs, chaos,
-preemption and checkpoints; the flags that ask for them raise
+Initialization is seed-synced: every replica draws the same weights from
+``--seed`` (horovod's broadcast, as the JAX package does it).  Logs come
+from the coordinator (rank 0) only.
+
+Not ported yet: ZeRO, TP/EP/PP, the MFU ledger, the profiler, watchdogs,
+chaos, preemption and checkpoints; the flags that ask for them raise
 (``config/flags.py``).
 """
 
@@ -47,6 +59,9 @@ import torch.nn.functional as F
 
 from dtf_tpu_torch.data.base import DatasetSpec
 from dtf_tpu_torch.models.registry import l2_weight_penalty
+from dtf_tpu_torch.parallel.collectives import (all_reduce_mean,
+                                                all_reduce_sum)
+from dtf_tpu_torch.runtime.mesh import MeshRuntime
 from dtf_tpu_torch.train import schedules as sched_lib
 from dtf_tpu_torch.train.optimizer import apply_updates, build_optimizer
 from dtf_tpu_torch.utils.logs import TimeHistory, build_stats
@@ -82,25 +97,41 @@ def cross_entropy(logits, labels):
 
 
 class Trainer:
-    """Runs the training and eval steps of one model on one device."""
+    """Runs the training and eval steps of one model replica.
+
+    ``runtime`` is the replica's place on the data axis (``runtime/
+    mesh.py initialize``); None is world 1 on the model's device."""
 
     def __init__(self, cfg, model, l2_weight: float, spec: DatasetSpec,
                  schedule: Optional[Callable] = None,
-                 normalize_fn: Optional[Callable] = None):
+                 normalize_fn: Optional[Callable] = None,
+                 runtime: Optional[MeshRuntime] = None):
         self.cfg = cfg
         self.model = model
+        self.rt = runtime or MeshRuntime(
+            strategy=cfg.distribution_strategy,
+            device=next(model.parameters()).device)
         self.l2_weight = l2_weight
         self.spec = spec
         # the uint8 wire's normalization (None: host-normalized batches)
         self.normalize_fn = normalize_fn
         self.channels_first = (cfg.data_format == "channels_first"
                                and not spec.is_sequence)
+        # the global batch: the runner has already scaled a per-replica
+        # --batch_size (horovod, parameter_server) by the replicas
         self.global_batch = cfg.batch_size
-        self.grad_accum = max(int(cfg.grad_accum_steps or 1), 1)
-        if self.global_batch % self.grad_accum:
+        replicas = self.rt.num_replicas
+        if self.global_batch % replicas:
             raise ValueError(
-                f"batch {self.global_batch} must be divisible by "
-                f"grad_accum_steps ({self.grad_accum})")
+                f"global batch_size {self.global_batch} must be divisible "
+                f"by the number of data-parallel replicas ({replicas}); "
+                f"pick a batch size that is a multiple, or reduce "
+                f"--num_devices")
+        self.grad_accum = max(int(cfg.grad_accum_steps or 1), 1)
+        if (self.global_batch // replicas) % self.grad_accum:
+            raise ValueError(
+                f"per-replica batch {self.global_batch // replicas} must "
+                f"be divisible by grad_accum_steps ({self.grad_accum})")
         self.steps_per_epoch = spec.num_train // self.global_batch
         if self.steps_per_epoch == 0:
             raise ValueError(
@@ -111,9 +142,16 @@ class Trainer:
             # the reference mains: train_steps caps to 1 epoch of that length
             self.steps_per_epoch = min(cfg.train_steps, self.steps_per_epoch)
             self.train_epochs = 1
-        self.schedule = schedule or sched_lib.for_dataset(
-            spec.name, self.global_batch, max(self.steps_per_epoch, 1),
-            spec.num_train, train_epochs=self.train_epochs)
+        if schedule is not None:
+            self.schedule = schedule
+        elif cfg.distribution_strategy == "horovod":
+            # horovod's constant replica-scaled LR after a 3-epoch ramp
+            self.schedule = sched_lib.horovod_schedule(
+                replicas, max(self.steps_per_epoch, 1))
+        else:
+            self.schedule = sched_lib.for_dataset(
+                spec.name, self.global_batch, max(self.steps_per_epoch, 1),
+                spec.num_train, train_epochs=self.train_epochs)
         self.tx = build_optimizer(cfg.optimizer, self.schedule)
         self.dynamic_scale = cfg.loss_scale_value == "dynamic"
         self.loss_scale = (1.0 if self.dynamic_scale
@@ -125,6 +163,9 @@ class Trainer:
         self.window_step_s: list = []
         # unmasked examples (tokens for sequence data) of the last eval
         self.eval_count = 0.0
+        # the BN running statistics (the models' only buffers), which
+        # the replicas average after each step
+        self.bn_buffers = list(model.buffers())
 
     @property
     def device(self) -> torch.device:
@@ -146,6 +187,26 @@ class Trainer:
                            ).sum().sqrt()
         factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
         return [g * factor for g in grads]
+
+    def _all_reduce_step(self, grads, loss, acc):
+        """The replicas' mean of the gradients, the BN running
+        statistics (written back into the buffers) and the step's loss
+        and accuracy, through one all-reduce of a flat float32 buffer.
+        Returns (grads, loss, acc)."""
+        tail = torch.stack([torch.as_tensor(loss, dtype=torch.float32,
+                                            device=self.device),
+                            torch.as_tensor(acc, dtype=torch.float32,
+                                            device=self.device)])
+        parts = grads + self.bn_buffers + [tail]
+        flat = all_reduce_mean(
+            torch.cat([t.reshape(-1).float() for t in parts]), self.rt.group)
+        views = [v.view(t.shape) for v, t in zip(
+            flat.split([t.numel() for t in parts]), parts)]
+        n = len(grads)
+        with torch.no_grad():
+            for b, v in zip(self.bn_buffers, views[n:-1]):
+                b.copy_(v)
+        return views[:n], views[-1][0], views[-1][1]
 
     def _inputs(self, images):
         """The batch as the model takes it: NHWC, normalized."""
@@ -179,12 +240,17 @@ class Trainer:
                 acc_sum = acc_sum + (logits.detach().argmax(-1)
                                      == lbls).float().mean()
             del logits, loss
+        step_loss = loss_sum / self.grad_accum
+        step_acc = acc_sum / self.grad_accum
         grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
                  else p.grad for p in state.params]
         if self.grad_accum > 1:
             grads = [g / self.grad_accum for g in grads]
         if self.dynamic_scale or scale != 1.0:
             grads = [g / scale for g in grads]
+        if self.rt.group is not None:
+            grads, step_loss, step_acc = self._all_reduce_step(
+                grads, step_loss, step_acc)
         grads = self._clip(grads)
         for p in state.params:
             p.grad = None
@@ -192,9 +258,11 @@ class Trainer:
         new_scale, new_good = state.loss_scale, state.good_steps
         finite = True
         if self.dynamic_scale:
-            # one host sync per step: the verdict decides the update
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            # one host sync per step: the verdict decides the update;
+            # every replica must reach the same one
+            bad = (~torch.stack([torch.isfinite(g).all()
+                                 for g in grads])).sum().float()
+            finite = not bool(all_reduce_sum(bad, self.rt.group))
             grew = state.good_steps + 1 >= DYNAMIC_GROWTH_INTERVAL
             if finite:
                 new_scale = scale * 2.0 if grew else scale
@@ -211,10 +279,10 @@ class Trainer:
             with torch.no_grad():
                 for b, k in zip(buffers, kept):
                     b.copy_(k)
-        metrics = {"loss": loss_sum / self.grad_accum,
+        metrics = {"loss": step_loss,
                    "learning_rate": float(self.schedule(state.step))}
         if self.report_acc:
-            metrics["accuracy"] = acc_sum / self.grad_accum
+            metrics["accuracy"] = step_acc
         if self.dynamic_scale:
             metrics["loss_scale"] = new_scale
         return TrainState(step=state.step + 1, params=state.params,
@@ -251,6 +319,10 @@ class Trainer:
                 correct += float(((logits.argmax(-1) == labels).float()
                                   * w).sum())
             count += float(w.sum())
+        if self.rt.group is not None:
+            loss_sum, correct, count = all_reduce_sum(torch.tensor(
+                [loss_sum, correct, count], dtype=torch.float64,
+                device=dev), self.rt.group).tolist()
         self.eval_count = count
         if count == 0:
             return None
@@ -294,8 +366,9 @@ class Trainer:
                     # the sync: the host waits for the step's loss
                     loss_val = float(metrics["loss"])
                     self.loss_log.append((global_step, loss_val))
-                    log.info("step %d: loss %.6f lr %.6g", global_step,
-                             loss_val, metrics["learning_rate"])
+                    if self.rt.is_coordinator:
+                        log.info("step %d: loss %.6f lr %.6g", global_step,
+                                 loss_val, metrics["learning_rate"])
                     now = time.monotonic()
                     if not window_skewed:
                         self.window_step_s.append(
@@ -311,16 +384,17 @@ class Trainer:
             for cb in callbacks:
                 _call(cb, "on_epoch_end", epoch,
                       {"state": state, "history": history})
-            log.info("epoch %d/%d: loss=%.4f top1=%s lr=%.5f", epoch + 1,
-                     self.train_epochs, history["loss"][-1],
-                     ("%.4f" % history[acc_key][-1])
-                     if "accuracy" in metrics else "n/a",
-                     metrics["learning_rate"])
+            if self.rt.is_coordinator:
+                log.info("epoch %d/%d: loss=%.4f top1=%s lr=%.5f",
+                         epoch + 1, self.train_epochs, history["loss"][-1],
+                         ("%.4f" % history[acc_key][-1])
+                         if "accuracy" in metrics else "n/a",
+                         metrics["learning_rate"])
             if (not cfg.skip_eval and eval_iter_fn is not None
                     and ((epoch + 1) % cfg.epochs_between_evals == 0
                          or epoch + 1 == self.train_epochs)):
                 eval_output = self.evaluate(state, eval_iter_fn())
-                if eval_output:
+                if eval_output and self.rt.is_coordinator:
                     log.info("eval: loss=%.4f top1=%s", eval_output[0],
                              ("%.4f" % eval_output[1])
                              if eval_output[1] is not None else "n/a")

@@ -249,7 +249,8 @@ def test_vision_mains_raise_without_cuda(main):
 @pytest.mark.parametrize("argv,error,match", [
     (["--data_dir", "/nonexistent"], NotImplementedError, "data_dir"),
     (["--use_synthetic_data", "--remat"], NotImplementedError, "remat"),
-    (["--use_synthetic_data", "--sync_bn"], ValueError, "not ported"),
+    (["--use_synthetic_data", "--model_parallelism", "2"], ValueError,
+     "not ported"),
 ])
 def test_imagenet_main_refuses_what_is_not_ported(argv, error, match):
     with pytest.raises(error, match=match):

@@ -416,6 +416,8 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.cli.imagenet_main; "
             "import dtf_tpu_torch.data.cifar, dtf_tpu_torch.convert; "
             "import dtf_tpu_torch.testing.integration; "
+            "import dtf_tpu_torch.runtime.mesh, dtf_tpu_torch.cli.launch; "
+            "import dtf_tpu_torch.parallel.collectives; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")
