@@ -136,12 +136,43 @@ Phases, each printing one JSON object per line (the card's
                  are within ``DP_LOSS_RTOL`` of the CPU's;
      dp_nccl_multi_card -- with two cards, the same runs over NCCL one
                  card a rank; with one, a line saying it is unmeasured.
+  9. recovery -- crash-exact resume through the entry points, each run
+                 under ``cli/launch.py`` with sealed checkpoints every 2
+                 steps (``--checkpoint_keep 2``) and a trace, its
+                 processes printing their losses, launches, a digest of
+                 the trained state dict and the checkpoint times:
+     recovery_disk -- the free space of the temporary directory;
+     recovery_lm -- ``cli.lm_main`` transformer_tpu bf16, batch 8 x
+                 2048, one ``multi_worker_mirrored`` rank on NCCL, 8
+                 steps; then, from an empty model dir, the same with
+                 ``--resume --fault crash@step:4`` and one restart: exit
+                 0 after a crash exit 77, resumed at step 4, every
+                 step's loss equal as a float, the state dicts' and the
+                 final checkpoints' sha256 equal, ``trace_main --check
+                 --allow injected_fault`` green, 48 K1 and 48 K3
+                 launches in the resumed process (steps 5-8);
+     recovery_serve -- ``cli.serve_main.main --model_dir`` on that run's
+                 checkpoint (4 requests; K1 and K4 launched), and its
+                 engine's greedy tokens equal to those the trained
+                 parameters held in memory give;
+     recovery_resnet_crash / recovery_resnet_preempt -- ``cli.cifar_main``
+                 resnet56 bf16 at batch 128 on CIFAR files it writes,
+                 the same way with ``crash@step:4``, and with
+                 ``sigterm@step:3``: exit 75 with an emergency checkpoint
+                 at step 3, restarted outside the crash budget, the same
+                 trajectory (BN buffers, Keras SGD momentum, cuDNN);
+     recovery_measure -- save ms (state to host, payload, fsync, sha256),
+                 restore ms, bytes a step, the barrier behind a save and
+                 the time from the supervisor's restart to the resumed
+                 process's first step.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
 run of its path: K1 and K3 phase 6 (and, as ``launches_dp``, phase 8's
-data-parallel LM run), K2a and K2b phase 6's companion, the f32 routes
-phase 5's f32 AdamW steps, K4 serving -- and, last, the device line.
+data-parallel LM run; as ``launches_recovery``, phase 9's resumed
+process), K2a and K2b phase 6's companion, the f32 routes phase 5's f32
+AdamW steps, K4 serving (and, as ``launches_recovery_serve``, with K1,
+serving phase 9's checkpoint) -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -1212,7 +1243,8 @@ def train_bf16(torch, seed: int, split: bool = False, steps: int = 30):
     argv = ["--use_synthetic_data", "--device", "cuda",
             "--model", "transformer_tpu", "--dtype", "bf16",
             "--batch_size", str(b), "--train_steps", str(steps),
-            "--log_steps", str(log_steps), "--seed", str(seed)]
+            "--log_steps", str(log_steps), "--seed", str(seed),
+            "--skip_checkpoint"]
     default = transformer.flash_attention
     if split:
         transformer.flash_attention = functools.partial(fa.flash_attention,
@@ -1662,7 +1694,7 @@ def vision_run(torch, main, argv, phase: str, card: str, batch: int,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = main(argv + ["--batch_size", str(batch),
-                         "--log_steps", str(log_steps)])
+                         "--log_steps", str(log_steps), "--skip_checkpoint"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses = [loss for _, loss in stats["train_loss_log"]]
@@ -1723,9 +1755,12 @@ def train_imagenet(torch, seed: int, card: str):
             note = f"batch halved to {batch}: 2x did not fit"
             if batch < 32:
                 raise
+    # the probe's loss runs off to inf/NaN on raw 0-255 pixels, as the
+    # JAX model's does: the NaN guard would end the run it times
     trivial, _ = vision_run(
         torch, imagenet_main.main,
-        argv + ["--use_trivial_model", "--train_steps", "20"],
+        argv + ["--use_trivial_model", "--train_steps", "20",
+                "--nan_guard", "false"],
         "train_imagenet_trivial", card, batch, falling=False,
         model="trivial", dtype="bf16", steps=20,
         note="the input probe: images/s of synthetic float32 224x224 "
@@ -1962,7 +1997,7 @@ def train_cifar_files(torch, seed: int, card: str):
                                  "--model", "resnet56", "--dtype", "bf16",
                                  "--batch_size", "128", "--train_steps",
                                  "10", "--log_steps", "5", "--seed",
-                                 str(seed)])
+                                 str(seed), "--skip_checkpoint"])
         wall = time.perf_counter() - t0
     losses = [v for _, v in stats["train_loss_log"]]
     line = {"phase": "train_cifar_files", "card": card, "model": "resnet56",
@@ -2151,6 +2186,7 @@ def dp_two_ranks(torch, card: str, root: str, data_dir: str, seed: int):
         argv = ["--data_dir", data_dir, "--model", "resnet20", "--dtype",
                 "fp32", "--batch_size", "32", "--train_steps", "3",
                 "--log_steps", "1", "--skip_eval", "--seed", str(seed),
+                "--skip_checkpoint",
                 "--distribution_strategy", "multi_worker_mirrored",
                 "--sync_bn", str(sync_bn).lower()]
         runs = {}
@@ -2212,7 +2248,7 @@ def train_data_parallel(torch, seed: int, card: str):
             ["--use_synthetic_data", "--device", "cuda", "--model",
              "resnet56", "--dtype", "bf16", "--batch_size", "128",
              "--train_steps", str(steps), "--log_steps", "1",
-             "--skip_eval", "--seed", str(seed)],
+             "--skip_eval", "--seed", str(seed), "--skip_checkpoint"],
             "dp_world1_cifar", model="resnet56", dtype="bf16", batch=128,
             steps=steps)
         b = TRAIN_SHAPE[0]
@@ -2221,7 +2257,7 @@ def train_data_parallel(torch, seed: int, card: str):
             ["--use_synthetic_data", "--device", "cuda", "--model",
              "transformer_tpu", "--dtype", "bf16", "--batch_size", str(b),
              "--train_steps", str(steps), "--log_steps", "1", "--seed",
-             str(seed)],
+             str(seed), "--skip_checkpoint"],
             "dp_world1_lm", model="transformer_tpu", dtype="bf16", batch=b,
             seq=TRAIN_SHAPE[1], steps=steps)
         want = {"K1": 12 * steps, "K2a": 0, "K2b": 0, "K3": 12 * steps}
@@ -2239,6 +2275,376 @@ def train_data_parallel(torch, seed: int, card: str):
                               rng.integers(0, 10, 64))
         two = dp_two_ranks(torch, card, root, root, seed)
     return {"cifar": cifar, "lm": lm, "two_ranks": two}
+
+
+# phase 9: recovery (train/checkpoint.py, chaos/, cli/launch.py supervision)
+# ---------------------------------------------------------------------------
+
+# one process of a phase-9 run under the launcher: the main with the
+# kernels' counters zeroed just before, then one line of results -- the
+# step it resumed at, its per-step losses, its launches, a digest of the
+# trained state dict, its checkpoint save and restore times, and (when
+# asked) greedy tokens served from the trained parameters as they are
+# held in memory, through serve_main's engine
+RECOVERY_RANK = r"""
+import hashlib, json, sys, time
+T0 = time.time()
+sys.path.insert(0, @ROOT@)
+import numpy as np
+import torch
+from dtf_tpu_torch.cli import runner
+from dtf_tpu_torch.ops import flash_attention as fa
+from dtf_tpu_torch.ops import paged_attention as pa
+
+spec = json.loads(sys.argv[1])
+kept = {}
+build, checkpointing = runner.build_training, runner._checkpointing
+def keep_build(cfg, rt=None):
+    out = build(cfg, rt)
+    kept["trainer"] = out[0]
+    return out
+def keep_checkpointing(cfg, trainer, rt, state):
+    t = time.perf_counter()
+    out = checkpointing(cfg, trainer, rt, state)
+    kept.update(cb=out[0], resumed_step=out[2],
+                restore_total_s=time.perf_counter() - t)
+    return out
+runner.build_training, runner._checkpointing = keep_build, keep_checkpointing
+main = __import__("dtf_tpu_torch.cli." + spec["main"], fromlist=["main"])
+fa.launches = fa.launches_dq = fa.launches_dkdv = fa.launches_fused = 0
+pa.launches = 0
+stats = main.main(spec["argv"])
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+launches = {"K1": fa.launches, "K2a": fa.launches_dq,
+            "K2b": fa.launches_dkdv, "K3": fa.launches_fused,
+            "K4": pa.launches}
+trainer = kept["trainer"]
+digest = hashlib.sha256()
+for t in trainer.model.state_dict().values():
+    digest.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+out = {"process_start": T0, "resumed_step": kept["resumed_step"],
+       "losses": stats["train_loss_log"], "launches": launches,
+       "digest": digest.hexdigest(), "timings": kept["cb"].ckpt.timings,
+       "restore_total_s": kept["restore_total_s"]}
+if spec.get("serve_argv"):
+    from dtf_tpu_torch.cli.serve_main import build_serving_engine
+    from dtf_tpu_torch.config import parse_flags
+    model, engine = build_serving_engine(parse_flags(spec["serve_argv"]),
+                                         random_init=True)
+    # the trained parameters as they are held in memory
+    model.load_state_dict(trainer.model.state_dict())
+    try:
+        handles = [engine.submit(np.asarray(p, np.int32),
+                                 max_new_tokens=spec["serve_new"])
+                   for p in spec["serve_prompts"]]
+        out["served_tokens"] = [h.result(timeout=600).tokens
+                                for h in handles]
+    finally:
+        engine.stop(drain=False)
+print("RECOVERY_RESULT=" + json.dumps(out))
+""".replace("@ROOT@", repr(ROOT))
+RECOVERY_TIMEOUT_S = 400
+RECOVERY_STEPS = 8
+
+
+def trace_losses(trace_dir: str) -> dict:
+    """{step: [the distinct losses logged at it]} over every attempt's
+    ``train_loss`` events (``obs/trace.py``)."""
+    from dtf_tpu_torch.obs.trace import read_records
+
+    out: dict = {}
+    for rec in read_records(os.path.join(trace_dir, "trace_rank0.jsonl")):
+        if rec.get("name") == "train_loss":
+            out.setdefault(int(rec["step"]), set()).add(rec["loss"])
+    return {k: sorted(v) for k, v in sorted(out.items())}
+
+
+def recovery_run(root: str, what: str, main: str, argv, fault=None,
+                 serve=None, strategy: str = "off") -> dict:
+    """``main`` under the port's launcher, one rank of ``strategy``,
+    with sealed checkpoints every 2 steps into a fresh model dir and a
+    trace; with ``fault``, ``--resume --fault <fault>`` and one restart.
+    Returns the last attempt's result line, the losses of the trace,
+    the supervisor's events and the run's directories."""
+    from dtf_tpu_torch.cli.launch import launch_local
+
+    base = os.path.join(root, what)
+    model_dir, trace_dir = base + "_model", base + "_trace"
+    log_dir = base + "_logs"
+    flags = ["--model_dir", model_dir, "--trace_dir", trace_dir,
+             "--checkpoint_steps", "2", "--checkpoint_keep", "2",
+             "--step_time_guard_factor", "0", "--log_steps", "1",
+             "--train_steps", str(RECOVERY_STEPS),
+             "--distribution_strategy", strategy]
+    if fault:
+        flags += ["--resume", "--fault", fault]
+    spec = {"main": main, "argv": argv + flags}
+    if serve:
+        spec.update(serve)
+    t0 = time.time()
+    rc = launch_local([sys.executable, "-c", RECOVERY_RANK,
+                       json.dumps(spec)], 1,
+                      f"file://{base}.rendezvous", log_dir,
+                      timeout_s=RECOVERY_TIMEOUT_S,
+                      max_restarts=1 if fault else 0,
+                      restart_backoff_s=0.1, teardown_grace=30)
+    wall = time.time() - t0
+    logs = sorted(n for n in os.listdir(log_dir) if n.startswith("log0"))
+    with open(os.path.join(log_dir, logs[-1])) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("RECOVERY_RESULT=")]
+    if rc or not lines:
+        raise AssertionError(f"{what}: launcher exit {rc}, "
+                             f"{len(lines)} result line(s):\n"
+                             f"{text[-3000:]}")
+    with open(os.path.join(log_dir, "supervisor_events.jsonl")) as f:
+        events = [json.loads(ln) for ln in f if ln.strip()]
+    return {"result": json.loads(lines[-1][len("RECOVERY_RESULT="):]),
+            "losses": trace_losses(trace_dir), "events": events,
+            "model_dir": model_dir, "trace_dir": trace_dir, "wall_s": wall}
+
+
+def final_payload_sha(model_dir: str) -> str:
+    """The sealed manifest's sha256 of the newest step's payload (the
+    bytes of ``torch.save``, which writes the same bytes for the same
+    tensors)."""
+    from dtf_tpu_torch.train.checkpoint import (PAYLOAD, read_manifest,
+                                                step_dirs)
+
+    ckpt = os.path.join(model_dir, "checkpoints")
+    return read_manifest(ckpt, step_dirs(ckpt)[-1])["files"][PAYLOAD][
+        "sha256"]
+
+
+def first_step_after_restart(run: dict) -> float:
+    """Seconds from the supervisor's restart to the resumed process's
+    first logged step (its first ``train_loss`` event: a synced step)."""
+    from dtf_tpu_torch.obs.trace import read_records
+
+    restart = next(e["ts"] for e in run["events"]
+                   if e["event"] == "restart")
+    recs = read_records(os.path.join(run["trace_dir"], "trace_rank0.jsonl"))
+    last_start = max(i for i, r in enumerate(recs)
+                     if r.get("name") == "trace_start")
+    first = next(r["ts"] for r in recs[last_start:]
+                 if r.get("name") == "train_loss")
+    return first - restart
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output and error dropped."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return fn(*args)
+
+
+def check_recovered(what: str, base: dict, run: dict, fault: str,
+                    resumed_at: int, classification: str) -> dict:
+    """A faulted run against its uninterrupted twin: exit 0 after one
+    restart of ``classification``, resumed at ``resumed_at``, the losses
+    at every step equal as floats, the final state dicts' and final
+    checkpoints' digests equal, ``trace_main --check --allow
+    injected_fault`` green (and red without the allowance)."""
+    from dtf_tpu_torch.cli.trace_main import main as trace_main
+
+    restarts = [e for e in run["events"] if e["event"] == "restart"]
+    first_exit = next(e["code"] for e in run["events"]
+                      if e["event"] == "rank_exit")
+    res, want = run["result"], base["result"]
+    line = {
+        "fault": fault, "first_exit_code": first_exit,
+        "restarts": [e["classification"] for e in restarts],
+        "crashes_in_window": [e["crashes_in_window"] for e in restarts],
+        "resumed_step": res["resumed_step"],
+        "losses": base["losses"],
+        "losses_bit_identical": (run["losses"] == base["losses"] and all(
+            len(v) == 1 for v in run["losses"].values())
+            and sorted(run["losses"]) == list(range(1, RECOVERY_STEPS + 1))),
+        "state_dict_sha_equal": res["digest"] == want["digest"],
+        "final_checkpoint_sha_equal": (final_payload_sha(run["model_dir"])
+                                       == final_payload_sha(
+                                           base["model_dir"])),
+        "trace_check_allowing_fault": quiet(
+            trace_main, [run["trace_dir"], "--check", "--allow",
+                         "injected_fault"]),
+        "trace_check": quiet(trace_main, [run["trace_dir"], "--check"]),
+        "launches_resumed_process": res["launches"],
+        "wall_s": run["wall_s"], "baseline_wall_s": base["wall_s"]}
+    ok = (line["restarts"] == [classification]
+          and first_exit == {"crash": 77, "preempted": 75}[classification]
+          and line["resumed_step"] == resumed_at
+          and line["losses_bit_identical"]
+          and line["state_dict_sha_equal"]
+          and line["final_checkpoint_sha_equal"]
+          and line["trace_check_allowing_fault"] == 0
+          and line["trace_check"] == 1
+          and (classification != "preempted"
+               or line["crashes_in_window"] == [0]))
+    if not ok:
+        raise AssertionError(f"{what}: {line}")
+    return line
+
+
+def train_recovery(torch, seed: int, card: str):
+    """Phase 9: crash-exact recovery through the entry points.
+
+    (a) ``lm_main`` transformer_tpu bf16 at batch 8 x 2048 under the
+    launcher, one ``multi_worker_mirrored`` rank on NCCL: 8 steps
+    uninterrupted, sealed checkpoints every 2; then
+    from an empty model dir the same with ``--fault crash@step:4
+    --max_restarts 1``: exit 0, resumed at step 4, losses equal at every
+    step, state digests equal, K1 and K3 launched by the resumed
+    process (12 each a step).  A crash fires on its exact step in every
+    process, so it lands on a checkpoint boundary: a crash at step 5
+    resumes at 4 and dies at 5 again.  (b) ``cifar_main`` resnet56 bf16
+    at batch 128 on written CIFAR files the same way (BN buffers, Keras
+    SGD momentum, cuDNN), and (c) with ``sigterm@step:3``: exit 75 with
+    an emergency checkpoint at step 3, restarted outside the crash
+    budget, the same trajectory.  (d) ``serve_main --model_dir`` on the
+    LM's checkpoint: greedy tokens equal those served from the trained
+    parameters held in memory; K1 and K4 launched.  (e) Save, restore
+    and restart times and bytes a step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dtf_tpu_torch.cli import serve_main
+    from dtf_tpu_torch.cli.serve_main import build_serving_engine
+    from dtf_tpu_torch.config import parse_flags
+    from dtf_tpu_torch.data.cifar import write_binary_file
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+    from dtf_tpu_torch.runtime.mesh import TIMEOUT_S
+
+    tmp = tempfile.gettempdir()
+    usage = shutil.disk_usage(tmp)
+    emit({"phase": "recovery_disk", "dir": tmp, "free_bytes": usage.free,
+          "total_bytes": usage.total})
+    rng = np.random.default_rng(seed + 9)
+    n_new = 16
+    prompts = [rng.integers(0, 32768, (n,)).tolist() for n in (1, 17, 300)]
+    serve_argv = ["--model", "transformer_tpu", "--dtype", "bf16",
+                  "--device", "cuda", "--seed", str(seed),
+                  "--serve_max_batch", "4"]
+    b = TRAIN_SHAPE[0]
+    lm_argv = ["--use_synthetic_data", "--device", "cuda", "--model",
+               "transformer_tpu", "--dtype", "bf16", "--batch_size", str(b),
+               "--seed", str(seed)]
+    lines = {}
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.empty_cache()
+        # one rank of a data-parallel run: the NCCL group, the flat
+        # all-reduce, the barrier behind each save, the restore's
+        # broadcast of the chosen step
+        dp = "multi_worker_mirrored"
+        lm_base = recovery_run(root, "lm_base", "lm_main", lm_argv,
+                               strategy=dp)
+        lm = recovery_run(root, "lm_crash", "lm_main", lm_argv,
+                          fault="crash@step:4", strategy=dp,
+                          serve={"serve_argv": serve_argv,
+                                 "serve_prompts": prompts,
+                                 "serve_new": n_new})
+        line = check_recovered("recovery_lm", lm_base, lm, "crash@step:4",
+                               4, "crash")
+        steps_run = RECOVERY_STEPS - 4
+        want = {"K1": 12 * steps_run, "K2a": 0, "K2b": 0,
+                "K3": 12 * steps_run, "K4": 0}
+        if line["launches_resumed_process"] != want:
+            raise AssertionError(f"recovery_lm: resumed process launched "
+                                 f"{line['launches_resumed_process']}, "
+                                 f"expected {want}")
+        lines["lm"] = {"phase": "recovery_lm", "card": card,
+                       "model": "transformer_tpu", "dtype": "bf16",
+                       "batch": b, "seq": TRAIN_SHAPE[1],
+                       "distribution_strategy": dp, "ranks": 1, **line}
+        emit(lines["lm"])
+
+        # (d) serving the LM's checkpoint through serve_main
+        reset_counts(fa, pa)
+        out = serve_main.main(serve_argv + [
+            "--model_dir", lm["model_dir"], "--serve_requests", "4",
+            "--serve_prompt_len", "64", "--serve_max_new_tokens",
+            str(n_new)])
+        served_launches = kernel_counts(fa, pa)
+        model, engine = build_serving_engine(parse_flags(
+            serve_argv + ["--model_dir", lm["model_dir"]]))
+        try:
+            handles = [engine.submit(np.asarray(p, np.int32),
+                                     max_new_tokens=n_new) for p in prompts]
+            tokens = [h.result(timeout=600).tokens for h in handles]
+        finally:
+            engine.stop(drain=False)
+        del model, engine
+        torch.cuda.empty_cache()
+        lines["serve"] = {
+            "phase": "recovery_serve", "card": card,
+            "model_dir": "lm_crash_model", "requests": out["requests"],
+            "new_tokens": out["new_tokens"], "launches": served_launches,
+            "prompts": [len(p) for p in prompts], "tokens": tokens,
+            "token_exact_to_memory": tokens == lm["result"]["served_tokens"]}
+        emit(lines["serve"])
+        if not (lines["serve"]["token_exact_to_memory"]
+                and out["requests"] == 4 and out["shed"] == 0
+                and min(served_launches["K1"], served_launches["K4"]) > 0):
+            raise AssertionError(f"recovery_serve: {lines['serve']}, "
+                                 f"in memory "
+                                 f"{lm['result']['served_tokens']}")
+        for run in (lm_base, lm):
+            shutil.rmtree(run["model_dir"], ignore_errors=True)
+
+        # (b), (c) resnet56 on written CIFAR files
+        d = os.path.join(root, "cifar-10-batches-bin")
+        os.makedirs(d)
+        for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
+                "test_batch.bin"]:
+            write_binary_file(os.path.join(d, name),
+                              rng.integers(0, 256, (256, 32, 32, 3)),
+                              rng.integers(0, 10, 256))
+        rn_argv = ["--data_dir", root, "--device", "cuda", "--model",
+                   "resnet56", "--dtype", "bf16", "--batch_size", "128",
+                   "--skip_eval", "--seed", str(seed)]
+        rn_base = recovery_run(root, "resnet_base", "cifar_main", rn_argv)
+        for key, fault, at, cls in (
+                ("resnet_crash", "crash@step:4", 4, "crash"),
+                ("resnet_preempt", "sigterm@step:3", 3, "preempted")):
+            run = recovery_run(root, key, "cifar_main", rn_argv, fault=fault)
+            line = check_recovered(f"recovery_{key}", rn_base, run, fault,
+                                   at, cls)
+            lines[key] = {"phase": f"recovery_{key}", "card": card,
+                          "model": "resnet56", "dtype": "bf16",
+                          "batch": 128, **line}
+            emit(lines[key])
+
+        # (e) the measurements, from the LM run (1.65 GB a step)
+        save = lm["result"]["timings"]["save"]
+        restore = lm["result"]["timings"]["restore"]
+        lines["measure"] = {
+            "phase": "recovery_measure", "card": card,
+            "model": "transformer_tpu", "bytes_per_step": save["bytes"],
+            "save_ms": {k[:-2] + "_ms": 1e3 * save[k] for k in (
+                "state_to_host_s", "payload_s", "fsync_s", "sha256_s",
+                "total_s")},
+            "restore_ms": {"verify_and_load_ms": 1e3 * restore["total_s"],
+                           "with_state_to_device_ms":
+                               1e3 * lm["result"]["restore_total_s"]},
+            "restart_to_first_step_s": first_step_after_restart(lm),
+            "resnet56_bytes_per_step": run["result"]["timings"]["save"][
+                "bytes"],
+            "resnet56_preempt_restart_to_first_step_s":
+                first_step_after_restart(run),
+            # the NCCL barrier every rank passes behind rank 0's save,
+            # against the group's collective timeout
+            "barrier_behind_save_ms": 1e3 * save["barrier_s"],
+            "collective_timeout_s": TIMEOUT_S}
+        emit(lines["measure"])
+
+    return lines
 
 
 def main(argv=None) -> int:
@@ -2303,6 +2709,13 @@ def main(argv=None) -> int:
     dp_run_name = ("lm_main multi_worker_mirrored, one rank on NCCL, "
                    "20 steps (phase 8)")
 
+    # phase 9: recovery (K1 and K3 in the resumed LM run, K1 and K4
+    # serving its checkpoint)
+    rec = train_recovery(torch, args.seed, card)
+    rec_run = ("lm_main resumed after crash@step:4, steps 5-8, one "
+               "process (phase 9)")
+    rec_serve_run = "serve_main --model_dir, 4 requests (phase 9)"
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -2348,6 +2761,10 @@ def main(argv=None) -> int:
               train["launches"]["K1"], "train (phase 6)",
               launches_dp=dp["lm"]["launches_nccl_world1"]["K1"],
               launches_dp_run=dp_run_name,
+              launches_recovery=rec["lm"]["launches_resumed_process"]["K1"],
+              launches_recovery_run=rec_run,
+              launches_recovery_serve=rec["serve"]["launches"]["K1"],
+              launches_recovery_serve_run=rec_serve_run,
               launches_serve=serve_launches["K1"],
               launches_per_serve_call={c: n["K1"]
                                        for c, n in per_call.items()}),
@@ -2375,6 +2792,8 @@ def main(argv=None) -> int:
               train["launches"]["K3"], "train (phase 6)",
               launches_dp=dp["lm"]["launches_nccl_world1"]["K3"],
               launches_dp_run=dp_run_name,
+              launches_recovery=rec["lm"]["launches_resumed_process"]["K3"],
+              launches_recovery_run=rec_run,
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
@@ -2387,6 +2806,8 @@ def main(argv=None) -> int:
               "dtf_tpu/ops/paged_attention.py:170",
               k4_case("bfloat16", "decode"), serve_launches["K4"],
               "serve (phase 4)",
+              launches_recovery_serve=rec["serve"]["launches"]["K4"],
+              launches_recovery_serve_run=rec_serve_run,
               launches_per_serve_call={c: n["K4"]
                                        for c, n in per_call.items()},
               keys_per_split=k4[0]["keys_per_split"],

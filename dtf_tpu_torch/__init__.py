@@ -7,7 +7,9 @@ standard library, never jax or dtf_tpu.  Ported: the serving path
 (``cli/lm_main``) and ResNet training (``cli/cifar_main``,
 ``cli/imagenet_main``), on one device or under synchronous data
 parallelism over ``torch.distributed`` (``runtime/mesh.py``,
-``cli/launch.py``).  The attention kernels are hand-written CUDA
+``cli/launch.py``), with checkpoints, crash-exact resume under the
+launcher's supervision, fault injection and tracing
+(``train/checkpoint.py``, ``chaos/``, ``obs/``).  The attention kernels are hand-written CUDA
 under csrc/, built with nvcc at first use; the ResNets run cuDNN
 convolutions through plain torch ops.
 """

@@ -1,6 +1,24 @@
-"""``run(cfg) -> stats`` -- the body of the JAX package's
-``cli/runner.py`` ``_run``: runtime -> spec -> model -> Trainer ->
-input -> prefetcher -> fit -> "Run stats".
+"""``run(cfg) -> stats`` -- the JAX package's ``cli/runner.py`` ``run``
+and ``_run``: tracing, chaos and the preemption guard -> runtime ->
+spec -> model -> Trainer -> checkpoint restore -> input positioned at
+the restored step -> prefetcher -> fit -> export -> "Run stats".
+
+Recovery, as the JAX runner wires it: ``--trace_dir`` (or the
+launcher's ``DTF_TRACE_DIR``) and the run-scoped trace id
+(``DTF_TRACE_ID``, minted here for a standalone run), ``--fault`` (or
+``DTF_FAULT``), the SIGTERM/SIGINT latch and ``--preemption_poll_s``'s
+poller; a preempted run exits ``EXIT_PREEMPTED`` (75).  With
+``--model_dir`` and no ``--skip_checkpoint`` the Trainer saves sealed
+checkpoints (every ``--checkpoint_steps``, at epoch ends, on
+preemption) whose manifests carry the host state (seed, step, epoch,
+data position); ``--resume`` restores the newest usable step, refuses
+a checkpoint written under another ``--seed`` (it would continue on
+other batches), and otherwise trains from scratch when there is none
+(``--eval_only --resume`` raises instead).  The input stream is built
+once, positioned at the restored step (``start_step``): batch n of the
+synthetic and CIFAR streams is a function of (seed, n), so a resumed
+run sees exactly the batches the uninterrupted one saw.  ``--export_dir``
+writes the inference variables after training.
 
 The runtime (``runtime/mesh.py initialize``) comes first, before
 anything touches CUDA: it joins the process group of a data-parallel
@@ -30,21 +48,27 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
+import shutil
 import sys
 from typing import Optional
 
 import numpy as np
 import torch
 
+from dtf_tpu_torch import chaos
 from dtf_tpu_torch.config import parse_flags
 from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
 from dtf_tpu_torch.data.normalize import for_config
 from dtf_tpu_torch.data.pipeline import DevicePrefetcher
 from dtf_tpu_torch.models.registry import build_model, is_vision
+from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.runtime.mesh import (LOCAL_STRATEGIES, MeshRuntime,
                                         initialize, mirrored_world)
 from dtf_tpu_torch.serve.bridge import random_init
-from dtf_tpu_torch.train import Trainer
+from dtf_tpu_torch.train import Trainer, preemption
+from dtf_tpu_torch.train.checkpoint import CheckpointCallback, export_model
+from dtf_tpu_torch.utils.logs import build_stats
 
 log = logging.getLogger("dtf_tpu_torch")
 
@@ -61,7 +85,9 @@ def effective_global_batch(cfg, runtime: MeshRuntime) -> int:
 
 def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
     """(train_iter_factory, eval_iter_factory) of this process's numpy
-    batches: its 1/process-count share of the global batch."""
+    batches: its 1/process-count share of the global batch.  The train
+    factory takes ``start_step``: a resumed run's stream starts at the
+    restored step's batch."""
     rank, count = runtime.rank, runtime.num_replicas
     if global_batch % count:
         raise ValueError(
@@ -69,16 +95,16 @@ def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
             f"process count ({count})")
     host_batch = global_batch // count
     if cfg.use_synthetic_data or not cfg.data_dir:
-        fns = (lambda: synthetic_input_fn(spec, True, host_batch,
-                                          cfg.seed),
+        fns = (lambda start_step=0: synthetic_input_fn(
+                   spec, True, host_batch, cfg.seed, start_step=start_step),
                lambda: synthetic_input_fn(spec, False, host_batch,
                                           cfg.seed + 1))
     elif spec.name == "cifar10":
         from dtf_tpu_torch.data.cifar import cifar_input_fn
-        fns = (lambda: cifar_input_fn(cfg.data_dir, True, host_batch,
-                                      seed=cfg.seed, process_id=rank,
-                                      process_count=count,
-                                      wire=cfg.input_wire),
+        fns = (lambda start_step=0: cifar_input_fn(
+                   cfg.data_dir, True, host_batch, seed=cfg.seed,
+                   process_id=rank, process_count=count,
+                   wire=cfg.input_wire, start_step=start_step),
                lambda: cifar_input_fn(cfg.data_dir, False, host_batch,
                                       process_id=rank, process_count=count,
                                       drop_remainder=cfg.drop_remainder,
@@ -95,8 +121,8 @@ def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
 
 
 def _channels_first_factory(fn):
-    def wrapped():
-        for batch in fn():
+    def wrapped(*args, **kw):
+        for batch in fn(*args, **kw):
             images = np.ascontiguousarray(
                 np.asarray(batch[0]).transpose(0, 3, 1, 2))
             yield (images,) + tuple(batch[1:])
@@ -127,8 +153,10 @@ def build_model_for(cfg, spec, device, bn_group=None):
         return random_init(model, cfg.seed).to(device), l2
     if device.type == "cuda":
         # cuDNN's default may pick weight-gradient algorithms that add
-        # with atomics; the reference's step is bit-reproducible
+        # with atomics, and autotuning may pick another algorithm in a
+        # restarted process; the reference's step is bit-reproducible
         torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     model = model.init_weights(cfg.seed)
     return model.to(device, memory_format=torch.channels_last), l2
 
@@ -156,24 +184,110 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
     """Train per ``cfg`` and return the stats dict (logged as "Run
     stats" by the coordinator).  ``runtime``: an initialized one
     (``initialize(cfg, backend=...)``), else ``initialize(cfg)``; its
-    process group is destroyed at the end either way."""
-    rt = runtime or initialize(cfg)
+    process group is destroyed at the end either way.  A preemption
+    (SIGTERM/SIGINT, or the metadata poller) ends in an emergency
+    checkpoint and ``SystemExit(EXIT_PREEMPTED)``."""
+    rt, poller = runtime, None
     try:
+        trace.maybe_configure(cfg)
+        # run-scoped trace id: the launcher mints one (DTF_TRACE_ID) so
+        # every rank's and every restart's records share it
+        trace.set_default_trace(os.environ.get("DTF_TRACE_ID")
+                                or trace.new_trace_id())
+        chaos.maybe_configure(cfg)
+        preemption.install()
+        if cfg.preemption_poll_s:
+            poller = preemption.MetadataPoller(cfg.preemption_poll_s).start()
+        rt = rt or initialize(cfg)
         return _run(cfg, rt)
+    except preemption.Preempted as p:
+        log.warning("run preempted at step %d -- emergency checkpoint "
+                    "written; exiting %d", p.step, preemption.EXIT_PREEMPTED)
+        trace.flush()
+        raise SystemExit(preemption.EXIT_PREEMPTED)
     finally:
-        rt.shutdown()
+        if poller is not None:
+            poller.stop()
+        preemption.restore()
+        if rt is not None:
+            rt.shutdown()
+
+
+def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
+    """(CheckpointCallback or None, state, resumed step): the callback
+    when ``--model_dir`` is set and saves or ``--resume`` are asked for,
+    and the state ``--resume`` restored (else the fresh ``state``)."""
+    if not cfg.model_dir or (cfg.skip_checkpoint and not cfg.resume):
+        return None, state, 0
+    spe = trainer.steps_per_epoch
+
+    def host_state_fn(step):
+        return {"seed": cfg.seed, "global_step": step,
+                "epoch": step // spe, "step_in_epoch": step % spe,
+                # which topology WROTE this step -- informational: the
+                # payload is topology-free
+                "topology": {"devices": rt.num_replicas,
+                             "replicas": rt.num_replicas,
+                             "processes": rt.num_replicas},
+                "data": {"scheme": "position-derived",
+                         "dataset": cfg.dataset, "start_step": step}}
+
+    cb = CheckpointCallback(cfg.model_dir, trainer.checkpoint_payload,
+                            every_steps=cfg.checkpoint_steps,
+                            host_state_fn=host_state_fn,
+                            keep=cfg.checkpoint_keep, runtime=rt)
+    if not cfg.resume:
+        return cb, state, 0
+    payload = cb.ckpt.restore()
+    if payload is None:
+        if cfg.eval_only:
+            # evaluating random init as if it were a checkpoint would
+            # silently report garbage
+            raise FileNotFoundError(
+                f"--eval_only --resume: no checkpoint found under "
+                f"{cfg.model_dir}/checkpoints; point --model_dir at a "
+                f"trained run")
+        log.warning("--resume: no checkpoint found under %s/checkpoints "
+                    "-- training from scratch", cfg.model_dir)
+        return cb, state, 0
+    host = cb.ckpt.host_state(cb.ckpt.last_restored_step) or {}
+    if host.get("seed") is not None and host["seed"] != cfg.seed:
+        # another seed derives another data stream: the resumed run would
+        # silently train on other batches than the run it continues
+        raise ValueError(
+            f"--resume seed mismatch: checkpoint was written with seed "
+            f"{host['seed']}, this run has --seed {cfg.seed}; crash-exact "
+            f"resume needs the same seed (pass --seed {host['seed']})")
+    state = trainer.restore_state(payload)
+    return cb, state, state.step
 
 
 def _run(cfg, rt: MeshRuntime) -> dict:
+    if cfg.clean and cfg.model_dir and rt.is_coordinator:
+        shutil.rmtree(cfg.model_dir, ignore_errors=True)
     trainer, state, train_fn, eval_fn = build_training(cfg, rt)
     cfg = trainer.cfg
-    prefetched = DevicePrefetcher(train_fn(), trainer.device, buffer_size=2)
+    ckpt_cb, state, resumed_step = _checkpointing(cfg, trainer, rt, state)
+    if cfg.eval_only:
+        eval_output = trainer.evaluate(state, eval_fn())
+        stats = build_stats({}, eval_output, None)
+        stats["eval_count"] = trainer.eval_count
+        log.info("Run stats (eval only): %s", stats)
+        return stats
+    callbacks = [ckpt_cb] if ckpt_cb is not None and not cfg.skip_checkpoint \
+        else []
+    # the one stream of the run, positioned at the restored step
+    prefetched = DevicePrefetcher(train_fn(start_step=resumed_step),
+                                  trainer.device, buffer_size=2)
     try:
         state, stats = trainer.fit(
             state, prefetched,
-            eval_iter_fn=None if cfg.skip_eval else eval_fn)
+            eval_iter_fn=None if cfg.skip_eval else eval_fn,
+            callbacks=callbacks)
     finally:
         prefetched.close()
+    if cfg.export_dir and rt.is_coordinator:
+        export_model(cfg.export_dir, trainer.model)
     if not rt.is_coordinator:
         return stats
     if cfg.benchmark_log_dir:

@@ -4,7 +4,9 @@ synthetic traffic.  The PyTorch counterpart of
 
 It builds the model on ``--device`` (default ``cuda``; with no CUDA it
 raises unless ``--device cpu`` is given), loads weights (``--serve_
-params_npz``) or draws them at random (``--serve_random_init``), stands
+params_npz``, else an ``--export_dir`` export or the newest usable
+``--model_dir`` training checkpoint) or draws them at random
+(``--serve_random_init``), stands
 up the dynamic batching engine, drives it with synthetic traffic --
 every request consumed through its token stream -- and reports latency
 percentiles and tokens/s (``--benchmark_log_dir`` writes metric.log).
@@ -12,6 +14,10 @@ percentiles and tokens/s (``--benchmark_log_dir`` writes metric.log).
 Examples:
   # on the GPU, the flagship width in bf16:
   python -m dtf_tpu_torch.cli.serve_main --serve_random_init \\
+      --model transformer_tpu --dtype bf16
+
+  # a training run's checkpoint (lm_main --model_dir /ckpt ...):
+  python -m dtf_tpu_torch.cli.serve_main --model_dir /ckpt \
       --model transformer_tpu --dtype bf16
 
   # on the CPU (the kernels' plain versions), a small model:
@@ -50,12 +56,16 @@ def build_serving_engine(cfg, random_init: bool = False):
         log.warning("--serve_random_init: serving random parameters -- "
                     "a pipeline smoke test, outputs are noise")
         bridge.random_init(model, cfg.seed)
-    elif cfg.serve_params_npz:
-        bridge.load_for_serving(model, cfg.serve_params_npz)
     else:
-        raise FileNotFoundError(
-            "no weights to serve: pass --serve_params_npz (flax params as "
-            ".npz) or --serve_random_init")
+        try:
+            bridge.load_for_serving(model, cfg.serve_params_npz,
+                                    model_dir=cfg.model_dir,
+                                    export_dir=cfg.export_dir)
+        except FileNotFoundError as e:
+            raise FileNotFoundError(
+                f"no weights to serve ({e}): pass --serve_params_npz "
+                f"(flax params as .npz), --export_dir, a --model_dir "
+                f"holding checkpoints, or --serve_random_init") from e
     model = model.to(device).eval()
     max_seq = cfg.serve_max_seq_len or model.max_seq_len
     bridge.serving_memory_plan(model, num_slots=cfg.serve_max_batch,

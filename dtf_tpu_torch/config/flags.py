@@ -15,11 +15,19 @@ the JAX package's.  Parsing is
 the same absl style: ``--name value``, ``--name=value``, ``-name value``
 and bare boolean flags (``--use_synthetic_data``).
 
+Recovery's fields are the JAX package's too: checkpoints
+(``model_dir``, ``resume``, ``checkpoint_steps``, ``checkpoint_keep``,
+``skip_checkpoint``, ``eval_only``, ``clean``, ``export_dir``),
+tracing and watchdogs (``trace_dir``, ``nan_guard``,
+``step_time_guard_factor``, ``heartbeat_secs``), preemption
+(``preemption_poll_s``) and fault injection (``fault``); the default
+``model_dir`` is the port's own, so the two packages never share one.
+
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (checkpoints, model parallelism, the profiler, chaos, ...) raise
-with a message that says so; any other unknown flag raises too.
+yet (model parallelism, the profiler, ZeRO, ...) raise with a message
+that says so; any other unknown flag raises too.
 """
 
 from __future__ import annotations
@@ -38,15 +46,11 @@ DTYPES = {"fp32": torch.float32, "float32": torch.float32,
 
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
-    "model_dir": "checkpointing", "resume": "checkpointing",
-    "checkpoint_steps": "checkpointing", "export_dir": "checkpointing",
     "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
     "model_parallelism": "tensor/pipeline/expert parallelism",
     "seq_parallelism": "ring attention",
     "remat_policy": "selective remat (use --remat)",
-    "profile_steps": "the profiler", "trace_dir": "tracing",
-    "fault": "chaos injection", "preemption_poll_s": "preemption",
-    "plan": "the planner",
+    "profile_steps": "the profiler", "plan": "the planner",
 }
 
 # --distribution_strategy names, the JAX package's (cli/runner.py and
@@ -104,6 +108,24 @@ class Config:
     skip_eval: bool = False
     report_accuracy_metrics: bool = True
     remat: bool = False                 # recompute each block in backward
+
+    # --- checkpoints and recovery (train/checkpoint.py, cli/runner.py) ---
+    model_dir: str = "/tmp/dtf_tpu_torch"   # checkpoints/, checkpoints.meta/
+    clean: bool = False                 # delete model_dir before the run
+    export_dir: str = ""                # inference variables after training
+    eval_only: bool = False             # evaluate a restored checkpoint, exit
+    skip_checkpoint: bool = False       # no saves (a --resume still restores)
+    resume: bool = False                # restore the newest usable step
+    checkpoint_steps: int = 0           # sealed saves every N steps (0: epochs)
+    checkpoint_keep: int = 0            # after training keep N verified steps
+    # --- observability (obs/) and fault injection (chaos/) ---
+    trace_dir: str = ""                 # trace_rank{N}.jsonl ("" = off, or
+                                        # DTF_TRACE_DIR)
+    nan_guard: bool = True              # abort on a non-finite logged loss
+    step_time_guard_factor: float = 3.0  # flag windows > factor x median
+    heartbeat_secs: float = 5.0         # launcher heartbeat file interval
+    preemption_poll_s: float = 0.0      # metadata preemption poll (0 = off)
+    fault: str = ""                     # chaos specs ("" = off, or DTF_FAULT)
 
     # --- serving (cli/serve_main.py over dtf_tpu_torch/serve) ---
     serve_max_batch: int = 8            # decode slots = max concurrent sequences
@@ -165,6 +187,23 @@ class Config:
         if self.ps_mode not in ("sync", "async"):
             raise ValueError(
                 f"unknown ps_mode {self.ps_mode!r}; choose sync or async")
+        if self.eval_only and self.skip_eval:
+            raise ValueError("--eval_only contradicts --skip_eval")
+        if self.checkpoint_steps < 0 or self.checkpoint_keep < 0:
+            raise ValueError(
+                f"checkpoint_steps and checkpoint_keep must be >= 0, got "
+                f"{self.checkpoint_steps} and {self.checkpoint_keep}")
+        if self.step_time_guard_factor and self.step_time_guard_factor <= 1.0:
+            raise ValueError(
+                f"step_time_guard_factor must be > 1.0 (or 0 to disable), "
+                f"got {self.step_time_guard_factor}")
+        if self.heartbeat_secs <= 0 or self.preemption_poll_s < 0:
+            raise ValueError(
+                f"heartbeat_secs must be > 0 and preemption_poll_s >= 0, "
+                f"got {self.heartbeat_secs} and {self.preemption_poll_s}")
+        if self.fault:
+            from dtf_tpu_torch.chaos import parse_spec
+            parse_spec(self.fault)              # raises on a bad spec
 
     @property
     def compute_dtype(self) -> torch.dtype:

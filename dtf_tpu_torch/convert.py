@@ -1,30 +1,37 @@
-"""flax trees <-> PyTorch state dicts, for the transformer LM and the
-vision models.
+"""flax trees <-> PyTorch state, for the transformer LM and the vision
+models: parameters, batch statistics and a whole training state.
 
-``from_flax_params`` takes the ``params`` collection of a
-``dtf_tpu`` TransformerLM as a nested dict of numpy arrays (never JAX
-arrays: the port does not import jax; a caller that holds JAX arrays
-converts them with ``jax.tree_util.tree_map(np.asarray, params)``) and
-returns a state dict for ``dtf_tpu_torch.models.transformer
-.TransformerLM`` in the model's dtype.
+Everything here takes numpy in and gives numpy out on the flax side
+(never JAX arrays: the port does not import jax; a caller that holds
+JAX arrays converts them with ``jax.tree_util.tree_map(np.asarray,
+tree)``), so a test can carry a JAX run's state into the port and
+back.  Every leaf is mapped by its flax path (``leaves``); the layout
+rules:
 
-Layout rules:
   ``embed/embedding`` [V, d]       -> ``embed.weight`` as is
   ``pos_embed`` [max_seq, d]       -> ``pos_embed`` as is
   ``qkv/kernel`` [d, 3, H, Dh]     -> ``qkv.weight`` [3*H*Dh, d]
   ``qkv/bias`` [3, H, Dh]          -> ``qkv.bias`` [3*H*Dh]
-  Dense ``kernel`` [in, out]       -> Linear ``weight`` [out, in]
-  LayerNorm ``scale``/``bias``     -> ``weight``/``bias``
-
-``from_flax_vision`` / ``to_flax_vision`` carry a ResNet's or the
-trivial model's ``params`` and ``batch_stats`` both ways; the flax path
-of a leaf is the torch module path with "/" for ".":
   Conv ``kernel`` HWIO             -> ``weight`` OIHW (transpose 3, 2, 0, 1)
-  Dense ``kernel`` [in, out]       -> ``weight`` [out, in]; ``bias`` as is
-  BatchNorm ``scale``/``bias``     -> ``weight``/``bias``
+  Dense ``kernel`` [in, out]       -> Linear ``weight`` [out, in]
+  LayerNorm/BatchNorm ``scale``    -> ``weight``; ``bias`` as is
   batch_stats ``mean``/``var``     -> ``running_mean``/``running_var``
-Both directions raise KeyError on a missing leaf and ValueError on a
-shape that does not fit or a leaf the model has no place for.
+
+A vision model's flax path of a leaf is its torch module path with "/"
+for "."; the transformer's names follow the flax module tree
+(``block{i}/attn/qkv``, ...).
+
+A training state (:func:`train_state_to_flax`,
+:func:`train_state_from_flax`) is the JAX package's ``TrainState`` as
+a nested dict: ``step``, ``params``, ``batch_stats``, ``opt_state``
+(optax AdamW ``{"adam": {"count", "mu", "nu"}}`` or Keras SGD
+``{"velocity"}``, each moment tree in its parameter's flax layout),
+``loss_scale`` and ``good_steps`` (None under static scaling).  The
+checkpoint payload (``train/checkpoint.py``) is that dict flattened to
+"/"-joined keys.
+
+Conversions raise KeyError on a missing leaf and ValueError on a shape
+that does not fit or a leaf the model has no place for.
 """
 
 from __future__ import annotations
@@ -36,73 +43,62 @@ import torch
 from torch import nn
 
 
-def _leaf(tree, path: str) -> np.ndarray:
-    node = tree
-    for key in path.split("/"):
-        if key not in node:
-            raise KeyError(f"flax params have no {path!r} (missing {key!r})")
-        node = node[key]
-    return np.asarray(node)
+def flatten(tree, prefix: str = "") -> dict:
+    """{"a/b/c": leaf} of a nested dict."""
+    out = {}
+    for key, node in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(node, dict):
+            out.update(flatten(node, path + "/"))
+        else:
+            out[path] = node
+    return out
 
 
-def from_flax_params(params, model) -> Dict[str, torch.Tensor]:
-    """The state dict of ``model`` holding the flax ``params``' values;
-    raises KeyError on a missing leaf and ValueError on a shape that
-    does not fit."""
-    d = model.d_model
-    out: Dict[str, np.ndarray] = {
-        "embed.weight": _leaf(params, "embed/embedding"),
-        "pos_embed": _leaf(params, "pos_embed"),
-    }
+def unflatten(flat: dict) -> dict:
+    """The nested dict of "/"-joined keys."""
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    return tree
 
-    def dense(dst: str, src: str, bias: bool = True):
-        out[f"{dst}.weight"] = _leaf(params, f"{src}/kernel").T
+
+def _lm_leaves(model):
+    """(state-dict key, flax collection, flax path, layout) of each
+    transformer leaf."""
+    out = [("embed.weight", "params", "embed/embedding", None),
+           ("pos_embed", "params", "pos_embed", None)]
+
+    def dense(dst, src, bias=True):
+        out.append((f"{dst}.weight", "params", f"{src}/kernel", "dense"))
         if bias:
-            out[f"{dst}.bias"] = _leaf(params, f"{src}/bias")
+            out.append((f"{dst}.bias", "params", f"{src}/bias", None))
 
-    def layer_norm(dst: str, src: str):
-        out[f"{dst}.weight"] = _leaf(params, f"{src}/scale")
-        out[f"{dst}.bias"] = _leaf(params, f"{src}/bias")
+    def norm(dst, src):
+        out.extend([(f"{dst}.weight", "params", f"{src}/scale", None),
+                    (f"{dst}.bias", "params", f"{src}/bias", None)])
 
     for i in range(model.num_layers):
         blk = f"block{i}"
-        layer_norm(f"{blk}.ln1", f"{blk}/ln1")
-        qkv = _leaf(params, f"{blk}/attn/qkv/kernel")      # [d, 3, H, Dh]
-        out[f"{blk}.attn.qkv.weight"] = qkv.reshape(d, -1).T
-        out[f"{blk}.attn.qkv.bias"] = _leaf(
-            params, f"{blk}/attn/qkv/bias").reshape(-1)
+        norm(f"{blk}.ln1", f"{blk}/ln1")
+        out += [(f"{blk}.attn.qkv.weight", "params",
+                 f"{blk}/attn/qkv/kernel", "qkv"),
+                (f"{blk}.attn.qkv.bias", "params",
+                 f"{blk}/attn/qkv/bias", "qkv_bias")]
         dense(f"{blk}.attn.out", f"{blk}/attn/out", bias=False)
-        layer_norm(f"{blk}.ln2", f"{blk}/ln2")
+        norm(f"{blk}.ln2", f"{blk}/ln2")
         dense(f"{blk}.fc1", f"{blk}/fc1")
         dense(f"{blk}.fc2", f"{blk}/fc2", bias=False)
-    layer_norm("ln_f", "ln_f")
+    norm("ln_f", "ln_f")
     dense("lm_head", "lm_head")
-
-    want = model.state_dict()
-    if set(out) != set(want):
-        raise ValueError(f"converted keys differ from the model's: "
-                         f"{sorted(set(out) ^ set(want))}")
-    sd = {}
-    for name, arr in out.items():
-        if tuple(arr.shape) != tuple(want[name].shape):
-            raise ValueError(f"{name}: flax shape {tuple(arr.shape)} does "
-                             f"not fit {tuple(want[name].shape)}")
-        # a copy: arrays handed over from JAX are read-only
-        sd[name] = torch.from_numpy(np.array(
-            arr, dtype=np.float32, order="C")).to(want[name].dtype)
-    return sd
-
-
-# flax leaf -> torch layout, and back, by the kind of module
-_FROM_FLAX = {"conv": lambda a: a.transpose(3, 2, 0, 1),   # HWIO -> OIHW
-              "dense": lambda a: a.T, None: lambda a: a}
-_TO_FLAX = {"conv": lambda a: a.transpose(2, 3, 1, 0),     # OIHW -> HWIO
-            "dense": lambda a: a.T, None: lambda a: a}
+    return out
 
 
 def _vision_leaves(model):
-    """(state-dict key, flax collection, flax path, layout kind) for
-    each leaf of a vision model."""
     from dtf_tpu_torch.models.resnet import BatchNorm
 
     out = []
@@ -123,50 +119,242 @@ def _vision_leaves(model):
     return out
 
 
-def _flat_paths(tree, prefix=""):
-    out = set()
-    for key, node in tree.items():
-        path = f"{prefix}{key}"
-        out |= (_flat_paths(node, path + "/") if isinstance(node, dict)
-                else {path})
-    return out
+def leaves(model):
+    """(state-dict key, flax collection, flax path, layout) for every
+    leaf of a transformer LM or a vision model."""
+    from dtf_tpu_torch.models.transformer import TransformerLM
+
+    if isinstance(model, TransformerLM):
+        return _lm_leaves(model)
+    return _vision_leaves(model)
+
+
+def _from_flax(t: torch.Tensor, layout, model) -> torch.Tensor:
+    if layout == "conv":
+        return t.permute(3, 2, 0, 1)                # HWIO -> OIHW
+    if layout == "dense":
+        return t.t()
+    if layout == "qkv":                             # [d, 3, H, Dh]
+        return t.reshape(t.shape[0], -1).t()
+    if layout == "qkv_bias":
+        return t.reshape(-1)
+    return t
+
+
+def _to_flax(t: torch.Tensor, layout, model) -> torch.Tensor:
+    if layout == "conv":
+        return t.permute(2, 3, 1, 0)                # OIHW -> HWIO
+    if layout == "dense":
+        return t.t()
+    if layout in ("qkv", "qkv_bias"):
+        heads = (3, model.num_heads, model.d_model // model.num_heads)
+        if layout == "qkv":                         # [3*H*Dh, d]
+            return t.t().reshape(model.d_model, *heads)
+        return t.reshape(heads)
+    return t
+
+
+def _tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    # a copy (arrays handed over from JAX are read-only), floats as
+    # float32
+    arr = np.array(leaf, order="C")
+    return torch.from_numpy(arr.astype(np.float32) if arr.dtype.kind == "f"
+                            else arr)
+
+
+def _numpy(flat: dict) -> dict:
+    return {k: v.numpy() for k, v in flat.items()}
+
+
+def _flat_from_tree(tree) -> dict:
+    """"/"-joined leaves of a nested dict as tensors; None leaves
+    dropped."""
+    return {k: _tensor(v) for k, v in flatten(tree).items()
+            if v is not None}
+
+
+# ---------------------------------------------------------------------------
+# flat flax state: {"params/block0/ln1/scale": tensor, ...}
+# ---------------------------------------------------------------------------
+
+def model_to_flat(model) -> Dict[str, torch.Tensor]:
+    """``model``'s parameters and BN buffers in their flax layout as
+    contiguous float32 CPU tensors keyed "params/<path>" and
+    "batch_stats/<path>" (the layout change runs on the model's
+    device)."""
+    sd = model.state_dict()
+    return {f"{coll}/{path}": _to_flax(sd[key].detach().float(), layout,
+                                       model).contiguous().cpu()
+            for key, coll, path, layout in leaves(model)}
+
+
+def model_from_flat(flat: dict, model, device=None) -> Dict[str, torch.Tensor]:
+    """The state dict of ``model`` holding the "params/..." and
+    "batch_stats/..." leaves of ``flat`` (tensors or numpy arrays), on
+    ``device`` (default: the CPU), in each leaf's dtype."""
+    want = model.state_dict()
+    sd = {}
+    used = set()
+    for key, coll, path, layout in leaves(model):
+        name = f"{coll}/{path}"
+        if name not in flat:
+            raise KeyError(f"flax tree has no {path!r} in {coll}")
+        used.add(name)
+        t = _from_flax(_tensor(flat[name]).to(device), layout, model)
+        if tuple(t.shape) != tuple(want[key].shape):
+            raise ValueError(f"{key}: flax {coll} {path!r} of shape "
+                             f"{tuple(t.shape)} does not fit "
+                             f"{tuple(want[key].shape)}")
+        sd[key] = t.to(want[key].dtype).contiguous()
+    extra = {k for k in flat if k.split("/")[0] in ("params", "batch_stats")
+             } - used
+    if extra:
+        raise ValueError(f"flax leaves the model has no place for: "
+                         f"{sorted(extra)}")
+    return sd
+
+
+def from_flax(params, batch_stats, model) -> Dict[str, torch.Tensor]:
+    """The state dict (parameters and BN buffers) of ``model`` holding
+    the flax ``params`` and ``batch_stats`` (nested dicts of numpy
+    arrays)."""
+    return model_from_flat(_flat_from_tree(
+        {"params": params, "batch_stats": batch_stats or {}}), model)
+
+
+def to_flax(model) -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``model`` as the flax trees, nested
+    dicts of float32 numpy arrays (batch_stats empty for the LM)."""
+    tree = unflatten(_numpy(model_to_flat(model)))
+    return tree.get("params", {}), tree.get("batch_stats", {})
+
+
+def from_flax_params(params, model) -> Dict[str, torch.Tensor]:
+    """The state dict of a transformer ``model`` holding the flax
+    ``params``' values."""
+    return from_flax(params, None, model)
+
+
+def to_flax_params(model) -> dict:
+    """A transformer ``model``'s parameters as the flax ``params``
+    tree."""
+    return to_flax(model)[0]
 
 
 def from_flax_vision(params, batch_stats, model) -> Dict[str, torch.Tensor]:
     """The state dict (parameters and BN buffers) of a vision ``model``
-    holding the flax ``params`` and ``batch_stats`` (nested dicts of
-    numpy arrays), in float32."""
-    trees = {"params": params, "batch_stats": batch_stats or {}}
-    want = model.state_dict()
-    sd, used = {}, {"params": set(), "batch_stats": set()}
-    for key, coll, path, kind in _vision_leaves(model):
-        arr = _FROM_FLAX[kind](_leaf(trees[coll], path))
-        used[coll].add(path)
-        if tuple(arr.shape) != tuple(want[key].shape):
-            raise ValueError(f"{key}: flax {coll} {path!r} of shape "
-                             f"{tuple(arr.shape)} does not fit "
-                             f"{tuple(want[key].shape)}")
-        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32,
-                                            order="C"))
-    for coll, tree in trees.items():
-        extra = _flat_paths(tree) - used[coll]
-        if extra:
-            raise ValueError(f"flax {coll} leaves the model has no place "
-                             f"for: {sorted(extra)}")
-    return sd
+    holding the flax ``params`` and ``batch_stats``, in float32."""
+    return from_flax(params, batch_stats, model)
 
 
 def to_flax_vision(model) -> Tuple[dict, dict]:
-    """(params, batch_stats) of a vision ``model`` as the flax trees, as
-    nested dicts of float32 numpy arrays."""
-    trees: dict = {"params": {}, "batch_stats": {}}
-    sd = model.state_dict()
-    for key, coll, path, kind in _vision_leaves(model):
-        arr = _TO_FLAX[kind](sd[key].detach().to("cpu", torch.float32)
-                             .numpy())
-        node = trees[coll]
-        *parents, leaf = path.split("/")
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(arr)
-    return trees["params"], trees["batch_stats"]
+    """(params, batch_stats) of a vision ``model`` as the flax trees."""
+    return to_flax(model)
+
+
+# ---------------------------------------------------------------------------
+# training state
+# ---------------------------------------------------------------------------
+
+def _param_leaves(model):
+    """[(index in model.parameters(), flax path, layout)]: the order of
+    ``TrainState.params`` and of the optimizer's moment lists."""
+    index = {name: i for i, (name, _) in enumerate(model.named_parameters())}
+    return [(index[key], path, layout)
+            for key, coll, path, layout in leaves(model)
+            if coll == "params"]
+
+
+def _moments_to_flat(model, prefix: str, tensors) -> dict:
+    return {f"{prefix}/{path}": _to_flax(tensors[i].detach().float(), layout,
+                                         model).contiguous().cpu()
+            for i, path, layout in _param_leaves(model)}
+
+
+def _moments_from_flat(model, prefix: str, flat: dict, device):
+    params = list(model.parameters())
+    out = [None] * len(params)
+    for i, path, layout in _param_leaves(model):
+        t = _from_flax(_tensor(flat[f"{prefix}/{path}"]).to(device), layout,
+                       model)
+        if tuple(t.shape) != tuple(params[i].shape):
+            raise ValueError(f"{prefix}/{path} of shape {tuple(t.shape)} "
+                             f"does not fit {tuple(params[i].shape)}")
+        out[i] = t.float().contiguous()
+    return out
+
+
+def state_to_flat(model, state) -> Dict[str, torch.Tensor]:
+    """The JAX ``TrainState`` of ``model`` and the port's ``state``
+    (``train/loop.py`` TrainState) as a flat dict of CPU tensors keyed
+    by flax path: the checkpoint payload."""
+    from dtf_tpu_torch.train.optimizer import AdamWState, KerasSGDState
+
+    flat = model_to_flat(model)
+    opt = state.opt_state
+    if isinstance(opt, AdamWState):
+        flat["opt_state/adam/count"] = torch.tensor(opt.count,
+                                                    dtype=torch.int32)
+        flat.update(_moments_to_flat(model, "opt_state/adam/mu", opt.mu))
+        flat.update(_moments_to_flat(model, "opt_state/adam/nu", opt.nu))
+    elif isinstance(opt, KerasSGDState):
+        flat.update(_moments_to_flat(model, "opt_state/velocity",
+                                     opt.velocity))
+    else:
+        raise ValueError(f"no flax layout for optimizer state "
+                         f"{type(opt).__name__}")
+    flat["step"] = torch.tensor(state.step, dtype=torch.int32)
+    if state.loss_scale is not None:
+        flat["loss_scale"] = torch.tensor(state.loss_scale,
+                                          dtype=torch.float32)
+        flat["good_steps"] = torch.tensor(state.good_steps,
+                                          dtype=torch.int32)
+    return flat
+
+
+def state_from_flat(flat: dict, model):
+    """Load the flat flax training state ``flat`` (tensors or numpy
+    arrays) into ``model`` -- parameters and BN buffers, in place, so
+    their tensors stay the ones the optimizer holds -- and return the
+    port's TrainState, its moments on the model's device."""
+    from dtf_tpu_torch.train.loop import TrainState
+    from dtf_tpu_torch.train.optimizer import AdamWState, KerasSGDState
+
+    device = next(model.parameters()).device
+    model.load_state_dict(model_from_flat(flat, model, device))
+    if "opt_state/adam/count" in flat:
+        opt_state = AdamWState(
+            count=int(flat["opt_state/adam/count"]),
+            mu=_moments_from_flat(model, "opt_state/adam/mu", flat, device),
+            nu=_moments_from_flat(model, "opt_state/adam/nu", flat, device))
+    elif any(k.startswith("opt_state/velocity/") for k in flat):
+        opt_state = KerasSGDState(velocity=_moments_from_flat(
+            model, "opt_state/velocity", flat, device))
+    else:
+        raise ValueError("the state holds neither AdamW nor Keras SGD "
+                         "optimizer state")
+    scale = flat.get("loss_scale")
+    return TrainState(
+        step=int(flat["step"]), params=list(model.parameters()),
+        opt_state=opt_state,
+        loss_scale=None if scale is None else float(scale),
+        good_steps=None if scale is None else int(flat["good_steps"]))
+
+
+def train_state_to_flax(model, state) -> dict:
+    """The JAX ``TrainState`` of ``model`` and the port's ``state`` as
+    nested numpy dicts (``loss_scale``/``good_steps`` None under static
+    scaling)."""
+    tree = unflatten(_numpy(state_to_flat(model, state)))
+    tree.setdefault("batch_stats", {})
+    tree.setdefault("loss_scale", None)
+    tree.setdefault("good_steps", None)
+    return tree
+
+
+def train_state_from_flax(tree, model):
+    """Load the JAX ``TrainState`` ``tree`` (nested numpy dicts) into
+    ``model`` and return the port's TrainState."""
+    return state_from_flat(_flat_from_tree(tree), model)

@@ -1,7 +1,7 @@
 """Weights for serving -- the PyTorch counterpart of
 ``dtf_tpu/serve/bridge.py``.
 
-Two sources:
+Four sources:
 
   random init -- ``random_init(model, seed)``: every parameter drawn
       from one ``torch.Generator(seed)`` on the CPU, with flax's default
@@ -14,8 +14,15 @@ Two sources:
       flax param paths joined by "/" (``block0/attn/qkv/kernel``), as
       ``np.savez(path, **flat)`` writes them, carried into the model by
       ``convert.from_flax_params``.
+  a training checkpoint -- ``--model_dir``: the newest usable step the
+      port's ``train/checkpoint.py`` wrote (a torn newest step falls
+      back to the one before, as the trainer's restore does); the
+      optimizer state is not read.
+  an export -- ``--export_dir``: what ``--export_dir`` training wrote
+      (inference variables only); it wins over ``--model_dir``.
 
-Orbax checkpoints are not read here (the port imports no JAX package).
+Orbax checkpoints of the JAX package are not read here (the port
+imports no JAX package); ``convert.py`` carries a JAX state across.
 ``serving_memory_plan`` is the byte accounting serve_main logs.
 """
 
@@ -23,6 +30,8 @@ from __future__ import annotations
 
 import logging
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -73,11 +82,37 @@ def load_flax_npz(path: str) -> dict:
     return tree
 
 
-def load_for_serving(model, npz_path: str):
-    """Load flax params from ``npz_path`` into ``model``; returns it."""
-    model.load_state_dict(convert.from_flax_params(load_flax_npz(npz_path),
-                                                   model))
-    log.info("serve bridge: loaded flax params from %s", npz_path)
+def load_inference_variables(model_dir: str = "", export_dir: str = "",
+                             step: Optional[int] = None) -> dict:
+    """``{"params", "batch_stats"}`` from an export (``export_dir``,
+    which wins) or a training checkpoint (``model_dir``; ``step`` None
+    is the newest usable one).  Raises FileNotFoundError when neither
+    holds one: serving random weights would silently answer noise."""
+    from dtf_tpu_torch.train import checkpoint
+
+    if export_dir and os.path.isfile(os.path.join(
+            os.path.abspath(export_dir), "model", checkpoint.PAYLOAD)):
+        log.info("serve bridge: loading exported model from %s", export_dir)
+        return checkpoint.load_exported_model(export_dir)
+    if model_dir:
+        variables = checkpoint.load_train_checkpoint(model_dir, step=step)
+        if variables is not None:
+            return variables
+    raise FileNotFoundError(
+        f"no checkpoint to serve: export_dir={export_dir!r} has no "
+        f"model/, model_dir={model_dir!r} has no checkpoints/")
+
+
+def load_for_serving(model, npz_path: str = "", model_dir: str = "",
+                     export_dir: str = ""):
+    """Load weights into ``model`` from flax params in ``npz_path``, else
+    from ``export_dir`` or ``model_dir``; returns the model."""
+    if npz_path:
+        params = load_flax_npz(npz_path)
+        log.info("serve bridge: loaded flax params from %s", npz_path)
+    else:
+        params = load_inference_variables(model_dir, export_dir)["params"]
+    model.load_state_dict(convert.from_flax_params(params, model))
     return model
 
 

@@ -7,7 +7,8 @@ synthetic data backend, call the real ``run()``, and count "did not
 crash" as the assertion.  The same contract over the port's flags,
 strategy flags and the ``DTF_*`` topology included (``parse_flags``
 applies them), so a rank started by ``cli/launch.py`` joins its group.
-The port has no checkpoints, so there is nothing to turn off for them.
+Checkpoints are off, as in the JAX helper: smoke cells leave nothing
+behind.
 """
 
 from __future__ import annotations
@@ -28,4 +29,6 @@ def run_synthetic(main: Callable[[Config], dict],
     argv = list(extra_flags or [])
     if synth:
         argv += ["--use_synthetic_data", "true"]
-    return main(parse_flags(argv, defaults=defaults))
+    base = dict(skip_checkpoint=True, model_dir="")
+    base.update(defaults or {})
+    return main(parse_flags(argv, defaults=base))

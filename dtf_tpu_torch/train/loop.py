@@ -37,19 +37,36 @@ once; the replicas' sums are added.  ``fit`` runs the reference's
 boundary -- a sync, so the logged time is the device's and not the
 enqueue's -- before the BenchmarkMetric line is written.
 
+Around each step ``fit`` does what the JAX loop does: it starts at the
+state's step (a resumed run continues mid-epoch at batch step %
+steps_per_epoch; its data stream is positioned by the runner), emits a
+``train_loss`` event with the loss's exact float at each log step (the
+crash-exactness checks compare these), ``step``/``eval`` spans and
+``log_window`` spans (``obs/trace.py``), runs the NaN-loss and
+step-time watchdogs and the launcher's heartbeat (``obs/watchdog.py``),
+calls the chaos probe after the interval checkpoint of a boundary is
+sealed, and honours the preemption latch (``train/preemption.py``):
+the callbacks' ``on_preempt`` (the emergency checkpoint), a
+``preempted`` event, then ``Preempted``.  Under data parallelism the
+replicas must stop at the same boundary: each step's all-reduce carries
+the rank's latch, and every rank acts on the previous step's reduced
+flag (read one step late, so reading it never idles the device).
+``checkpoint_payload`` and ``restore_state`` carry the TrainState to
+and from the checkpoint's flat flax-keyed payload (``convert.py``).
+
 Initialization is seed-synced: every replica draws the same weights from
 ``--seed`` (horovod's broadcast, as the JAX package does it).  Logs come
 from the coordinator (rank 0) only.
 
-Not ported yet: ZeRO, TP/EP/PP, the MFU ledger, the profiler, watchdogs,
-chaos, preemption and checkpoints; the flags that ask for them raise
-(``config/flags.py``).
+Not ported yet: ZeRO, TP/EP/PP, the MFU ledger and the profiler; the
+flags that ask for them raise (``config/flags.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import signal
 import time
 from typing import Any, Callable, Iterator, List, Optional
 
@@ -57,11 +74,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dtf_tpu_torch import chaos
+from dtf_tpu_torch.convert import state_from_flat, state_to_flat
 from dtf_tpu_torch.data.base import DatasetSpec
 from dtf_tpu_torch.models.registry import l2_weight_penalty
+from dtf_tpu_torch.obs import trace
+from dtf_tpu_torch.obs.watchdog import (Heartbeat, NanLossWatchdog,
+                                        StepTimeWatchdog)
 from dtf_tpu_torch.parallel.collectives import (all_reduce_mean,
                                                 all_reduce_sum)
 from dtf_tpu_torch.runtime.mesh import MeshRuntime
+from dtf_tpu_torch.train import preemption
 from dtf_tpu_torch.train import schedules as sched_lib
 from dtf_tpu_torch.train.optimizer import apply_updates, build_optimizer
 from dtf_tpu_torch.utils.logs import TimeHistory, build_stats
@@ -178,6 +201,16 @@ class Trainer:
             loss_scale=DYNAMIC_SCALE_INIT if self.dynamic_scale else None,
             good_steps=0 if self.dynamic_scale else None)
 
+    def checkpoint_payload(self, state: TrainState) -> dict:
+        """The checkpoint payload of ``state``: the JAX TrainState's
+        leaves keyed by flax path, as CPU tensors."""
+        return state_to_flat(self.model, state)
+
+    def restore_state(self, payload: dict) -> TrainState:
+        """Load a checkpoint payload into the model (in place) and
+        return its TrainState, the optimizer's moments on the device."""
+        return state_from_flat(payload, self.model)
+
     # ------------------------------------------------------------------
     def _clip(self, grads):
         clip = self.cfg.clip_grad_norm
@@ -190,13 +223,19 @@ class Trainer:
 
     def _all_reduce_step(self, grads, loss, acc):
         """The replicas' mean of the gradients, the BN running
-        statistics (written back into the buffers) and the step's loss
-        and accuracy, through one all-reduce of a flat float32 buffer.
-        Returns (grads, loss, acc)."""
+        statistics (written back into the buffers), the step's loss and
+        accuracy and the ranks' preemption latch (nonzero when any rank
+        latched a signal), through one all-reduce of a flat float32
+        buffer.  Returns (grads, loss, acc, preempt)."""
+        latched = float(preemption.triggered() is not None)
+        # a fill on the device: a scalar copied from the host would
+        # synchronize the stream in the middle of the step
         tail = torch.stack([torch.as_tensor(loss, dtype=torch.float32,
                                             device=self.device),
                             torch.as_tensor(acc, dtype=torch.float32,
-                                            device=self.device)])
+                                            device=self.device),
+                            torch.full((), latched, dtype=torch.float32,
+                                       device=self.device)])
         parts = grads + self.bn_buffers + [tail]
         flat = all_reduce_mean(
             torch.cat([t.reshape(-1).float() for t in parts]), self.rt.group)
@@ -206,7 +245,7 @@ class Trainer:
         with torch.no_grad():
             for b, v in zip(self.bn_buffers, views[n:-1]):
                 b.copy_(v)
-        return views[:n], views[-1][0], views[-1][1]
+        return views[:n], views[-1][0], views[-1][1], views[-1][2]
 
     def _inputs(self, images):
         """The batch as the model takes it: NHWC, normalized."""
@@ -248,8 +287,9 @@ class Trainer:
             grads = [g / self.grad_accum for g in grads]
         if self.dynamic_scale or scale != 1.0:
             grads = [g / scale for g in grads]
+        preempt = None
         if self.rt.group is not None:
-            grads, step_loss, step_acc = self._all_reduce_step(
+            grads, step_loss, step_acc, preempt = self._all_reduce_step(
                 grads, step_loss, step_acc)
         grads = self._clip(grads)
         for p in state.params:
@@ -285,13 +325,16 @@ class Trainer:
             metrics["accuracy"] = step_acc
         if self.dynamic_scale:
             metrics["loss_scale"] = new_scale
+        if preempt is not None:
+            metrics["preempt"] = preempt
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state, loss_scale=new_scale,
                           good_steps=new_good), metrics
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def evaluate(self, state: TrainState, eval_iter: Iterator):
+    def evaluate(self, state: TrainState, eval_iter: Iterator,
+                 heartbeat: Optional[Heartbeat] = None):
         """Weighted-exact eval over batches (images, labels[, mask]); a
         missing mask means every example is real.  Returns (mean loss,
         top-1) over exactly the unmasked examples (top-1 None under
@@ -303,6 +346,8 @@ class Trainer:
         dev = self.device
         loss_sum = correct = count = 0.0
         for batch in eval_iter:
+            if heartbeat is not None:
+                heartbeat.beat()
             images, labels = (torch.as_tensor(np.asarray(x), device=dev)
                               for x in batch[:2])
             images = self._inputs(images)
@@ -333,57 +378,124 @@ class Trainer:
     def fit(self, state: TrainState, train_iter: Iterator,
             eval_iter_fn: Optional[Callable[[], Iterator]] = None,
             callbacks: Optional[list] = None):
-        """Runs training; returns (state, stats) with the stats dict
-        key-compatible with the reference's build_stats, plus
-        ``train_loss_log`` [(step, loss)] and ``window_step_s``."""
+        """Runs training from ``state.step``; returns (state, stats)
+        with the stats dict key-compatible with the reference's
+        build_stats, plus ``train_loss_log`` [(step, loss)] and
+        ``window_step_s``."""
         cfg = self.cfg
+        resumed_step = int(state.step)
         time_cb = TimeHistory(self.global_batch, cfg.log_steps,
-                              initial_global_step=state.step)
+                              initial_global_step=resumed_step)
         callbacks = [time_cb] + list(callbacks or [])
+        # watchdogs (obs/watchdog.py): the NaN check reads the loss this
+        # loop already syncs at log cadence; the step-time guard watches
+        # the synced log windows; the heartbeat exists only when the
+        # launcher exported DTF_HEARTBEAT_DIR
+        nan_guard = NanLossWatchdog(enabled=cfg.nan_guard)
+        step_guard = (StepTimeWatchdog(factor=cfg.step_time_guard_factor)
+                      if cfg.step_time_guard_factor else None)
+        heartbeat = Heartbeat.from_env(interval_s=cfg.heartbeat_secs)
+        ckpt_every = cfg.checkpoint_steps or 0
         acc_key = ("categorical_accuracy" if self.spec.one_hot
                    else "sparse_categorical_accuracy")
         history: dict = {"loss": [], acc_key: []}
         # the first window covers the kernels' build and first launches,
-        # and a window after an epoch boundary its eval: skipped
+        # and a window after an epoch boundary or an interval checkpoint
+        # its eval or save: skipped
         window_skewed = True
         window_t0 = time.monotonic()
         for cb in callbacks:
             _call(cb, "on_train_begin", None)
         eval_output = None
         metrics = None
-        global_step = state.step
+        # data parallelism: the previous step's all-reduced latch
+        pending_preempt = None
+        global_step = resumed_step
+        spe = self.steps_per_epoch
+        # crash-exact mid-epoch resume: a run restored at step K of
+        # epoch E continues at batch K % spe -- neither re-training the
+        # epoch's prefix nor consuming those batches
+        start_epoch, start_batch = divmod(global_step, spe)
+        if global_step and self.rt.is_coordinator:
+            log.info("resuming at step %d (epoch %d, batch %d)",
+                     global_step, start_epoch, start_batch)
         t0 = time.time()
-        for epoch in range(self.train_epochs):
+        for epoch in range(start_epoch, self.train_epochs):
             for cb in callbacks:
                 _call(cb, "on_epoch_begin", epoch, None)
-            for batch_idx in range(self.steps_per_epoch):
+            for batch_idx in range(start_batch if epoch == start_epoch
+                                   else 0, spe):
                 for cb in callbacks:
                     _call(cb, "on_batch_begin", batch_idx, None)
                 images, labels = next(train_iter)
-                state, metrics = self.train_step(state, images, labels)
+                with trace.span("step", step=global_step):
+                    state, metrics = self.train_step(state, images, labels)
                 global_step += 1
                 if global_step % cfg.log_steps == 0:
                     # the sync: the host waits for the step's loss
                     loss_val = float(metrics["loss"])
+                    nan_guard.check(global_step, loss_val)
+                    # the loss trajectory record: Python floats
+                    # round-trip JSON exactly, so crash-exactness
+                    # checks compare these bit for bit
+                    trace.event("train_loss", step=global_step,
+                                loss=loss_val)
                     self.loss_log.append((global_step, loss_val))
                     if self.rt.is_coordinator:
                         log.info("step %d: loss %.6f lr %.6g", global_step,
                                  loss_val, metrics["learning_rate"])
                     now = time.monotonic()
                     if not window_skewed:
-                        self.window_step_s.append(
-                            (now - window_t0) / cfg.log_steps)
+                        window_s = now - window_t0
+                        trace.span_completed(
+                            "log_window", window_s, step=global_step,
+                            steps=cfg.log_steps,
+                            step_s=window_s / cfg.log_steps)
+                        self.window_step_s.append(window_s / cfg.log_steps)
+                        if step_guard is not None:
+                            step_guard.observe(global_step, window_s)
                     window_t0 = now
                     window_skewed = False
+                if heartbeat is not None:
+                    heartbeat.beat(step=global_step)
+                # interval checkpointing reads state and step from the
+                # logs dict (CheckpointCallback.every_steps)
                 for cb in callbacks:
                     _call(cb, "on_batch_end", batch_idx,
                           {"state": state, "step": global_step})
-            history["loss"].append(float(metrics["loss"]))
+                if ckpt_every and global_step % ckpt_every == 0:
+                    # a sealed save ran inside this log window: keep its
+                    # I/O out of the step-time signal
+                    window_skewed = True
+                # chaos probe AFTER the interval checkpoint sealed:
+                # crash@step:K with checkpoint_steps dividing K is the
+                # deterministic kill-after-durable-save experiment
+                chaos.step(global_step)
+                signum = self._preempt_signal(pending_preempt)
+                pending_preempt = metrics.get("preempt")
+                if signum is not None:
+                    # emergency checkpoint at this boundary (sealed),
+                    # then the preempted exit the supervisor restarts
+                    # without spending the crash budget
+                    for cb in callbacks:
+                        _call(cb, "on_preempt",
+                              {"state": state, "step": global_step})
+                    trace.event("preempted", step=global_step,
+                                signum=int(signum))
+                    trace.flush()
+                    raise preemption.Preempted(global_step, signum)
+            loss_val = float(metrics["loss"])
+            nan_guard.check(global_step, loss_val)
+            trace.event("epoch_end", epoch=epoch, step=global_step,
+                        loss=loss_val)
+            history["loss"].append(loss_val)
             if "accuracy" in metrics:
                 history[acc_key].append(float(metrics["accuracy"]))
             for cb in callbacks:
                 _call(cb, "on_epoch_end", epoch,
                       {"state": state, "history": history})
+            if heartbeat is not None:
+                heartbeat.beat(step=global_step)
             if self.rt.is_coordinator:
                 log.info("epoch %d/%d: loss=%.4f top1=%s lr=%.5f",
                          epoch + 1, self.train_epochs, history["loss"][-1],
@@ -393,23 +505,44 @@ class Trainer:
             if (not cfg.skip_eval and eval_iter_fn is not None
                     and ((epoch + 1) % cfg.epochs_between_evals == 0
                          or epoch + 1 == self.train_epochs)):
-                eval_output = self.evaluate(state, eval_iter_fn())
+                with trace.span("eval", epoch=epoch, step=global_step):
+                    eval_output = self.evaluate(state, eval_iter_fn(),
+                                                heartbeat=heartbeat)
                 if eval_output and self.rt.is_coordinator:
                     log.info("eval: loss=%.4f top1=%s", eval_output[0],
                              ("%.4f" % eval_output[1])
                              if eval_output[1] is not None else "n/a")
             window_t0 = time.monotonic()
             window_skewed = True
+        if (start_epoch >= self.train_epochs and not cfg.skip_eval
+                and eval_iter_fn is not None):
+            # resumed a fully trained checkpoint: still honour the eval
+            with trace.span("eval", epoch=start_epoch, step=global_step):
+                eval_output = self.evaluate(state, eval_iter_fn(),
+                                            heartbeat=heartbeat)
         for cb in callbacks:
             _call(cb, "on_train_end", {"state": state, "history": history})
         log.info("train wall time: %.1fs (%d steps)", time.time() - t0,
                  global_step)
+        trace.event("train_end", step=global_step, wall_s=time.time() - t0)
+        trace.flush()
         stats = build_stats(history, eval_output, time_cb)
         stats["train_loss_log"] = list(self.loss_log)
         stats["window_step_s"] = list(self.window_step_s)
         if eval_output is not None:
             stats["eval_count"] = self.eval_count
         return state, stats
+
+    def _preempt_signal(self, pending) -> Optional[int]:
+        """The signal to stop on at this step boundary, or None.  One
+        process: its own latch.  Data parallelism: the previous step's
+        all-reduced latch, which every rank reads alike (a rank that
+        latched nothing itself stops for SIGTERM)."""
+        if self.rt.group is None:
+            return preemption.triggered()
+        if pending is None or not float(pending):
+            return None
+        return preemption.triggered() or int(signal.SIGTERM)
 
 
 def _call(cb, name, *args):

@@ -204,7 +204,7 @@ def test_imagenet_main_trivial_model_runs(small_eval, dtype):
     stats = imagenet_main.main(["--use_synthetic_data", "--device", "cpu",
                                 "--use_trivial_model", "--batch_size", "4",
                                 "--train_steps", "2", "--log_steps", "1",
-                                "--dtype", dtype])
+                                "--dtype", dtype, "--skip_checkpoint"])
     _finite_stats(stats)
     assert np.isfinite(stats["eval_loss"])
 
@@ -215,7 +215,7 @@ def test_cifar_main_on_written_files_covers_the_test_set(cifar_dir):
     stats = cifar_main.main(["--data_dir", cifar_dir, "--device", "cpu",
                              "--model", "resnet20", "--batch_size",
                              str(BATCH), "--train_steps", "2",
-                             "--log_steps", "1"])
+                             "--log_steps", "1", "--skip_checkpoint"])
     _finite_stats(stats)
     assert stats["eval_count"] == TEST_N
     assert np.isfinite(stats["eval_loss"])

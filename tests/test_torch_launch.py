@@ -182,14 +182,26 @@ def test_mirrored_over_many_devices_starts_one_rank_a_device(monkeypatch):
     assert exit_info.value.code == 7
 
 
-@pytest.mark.parametrize("option", list(launch.SUPERVISION_OPTIONS)
+@pytest.mark.parametrize("option", list(launch.ELASTIC_OPTIONS)
                          + ["--devices_per_process", "--bogus"])
 def test_launcher_refuses_supervision_and_unknown_options(option):
+    """Elastic resizing is the supervision left unported."""
     match = {"--devices_per_process": "one process a device",
              "--bogus": "unknown launcher option"}.get(
-                 option, "Queue 1 item 4")
+                 option, "elastic resizing")
     with pytest.raises(ValueError, match=match):
         launch.main([option, "1", "--", "true"])
+
+
+@pytest.mark.parametrize("option", sorted(launch.SUPERVISION_OPTIONS))
+def test_launcher_takes_supervision_options(tmp_path, option):
+    logs = tmp_path / "logs"
+    assert launch.main([option, "1", "--log_dir", str(logs), "--",
+                        "true"]) == 0
+    events = [json.loads(line) for line in
+              (logs / "supervisor_events.jsonl").read_text().splitlines()]
+    assert [e["event"] for e in events] == ["attempt_start", "rank_exit",
+                                            "job_done"]
 
 
 def test_cluster_command_generation_matches_jax():
@@ -202,14 +214,17 @@ def test_cluster_command_generation_matches_jax():
     assert all("DTF_PROCESS_COUNT=2" in line and line.startswith("ssh h")
                for line in lines)
     assert "log1.log" in lines[1] and lines[1].endswith("&'")
-    jlines = jax_cluster_commands(cmd, ["h1", "h2"], "h1:12346",
-                                  "/tmp/logs", background=False)
-    got = launch.cluster_commands(cmd, ["h1", "h2"], "h1:12346",
-                                  "/tmp/logs", background=False)
-    # the JAX lines also carry DTF_TRACE_ID (tracing is not ported)
-    strip = lambda line: " ".join(w for w in line.split()
-                                  if not w.startswith("DTF_TRACE_ID="))
-    assert [strip(line) for line in jlines] == got
+    # one exported trace id: both packages' lines carry it alike
+    os.environ["DTF_TRACE_ID"] = "0123456789abcdef"
+    try:
+        jlines = jax_cluster_commands(cmd, ["h1", "h2"], "h1:12346",
+                                      "/tmp/logs", background=False)
+        got = launch.cluster_commands(cmd, ["h1", "h2"], "h1:12346",
+                                      "/tmp/logs", background=False)
+    finally:
+        del os.environ["DTF_TRACE_ID"]
+    assert jlines == got
+    assert all("DTF_TRACE_ID=0123456789abcdef" in line for line in got)
 
 
 def test_a_failing_rank_takes_the_launcher_down(tmp_path):
@@ -223,7 +238,8 @@ def test_a_failing_rank_takes_the_launcher_down(tmp_path):
                              timeout_s=60)
     assert rc == 3
     assert time.monotonic() - t0 < 15
-    assert sorted(os.listdir(tmp_path / "logs")) == ["log0.log", "log1.log"]
+    assert sorted(os.listdir(tmp_path / "logs")) == [
+        "log0.log", "log1.log", "supervisor_events.jsonl"]
 
 
 def test_launcher_kills_ranks_past_its_timeout(tmp_path):
@@ -278,7 +294,7 @@ def test_two_rank_cifar_main_through_the_launcher(tmp_path, cifar_dir,
     flags = ["--data_dir", cifar_dir, "--device", "cpu", "--model",
              "resnet20", "--batch_size", "8", "--train_steps", "2",
              "--log_steps", "1", "--distribution_strategy",
-             "multi_worker_mirrored", "--seed", "3"]
+             "multi_worker_mirrored", "--seed", "3", "--skip_checkpoint"]
     monkeypatch.setenv("OUT_DIR", str(tmp_path))
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.setenv("PYTHONPATH", REPO)

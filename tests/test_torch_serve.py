@@ -340,9 +340,10 @@ def test_parse_flags_and_validation():
         parse_flags(["--serve_prefix_sharing"])
 
 
-def test_serve_main_needs_weights():
+def test_serve_main_needs_weights(tmp_path):
     with pytest.raises(FileNotFoundError, match="no weights"):
-        serve_main.main(["--device", "cpu", "--model", "transformer_small"])
+        serve_main.main(["--device", "cpu", "--model", "transformer_small",
+                         "--model_dir", str(tmp_path)])
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +419,8 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.testing.integration; "
             "import dtf_tpu_torch.runtime.mesh, dtf_tpu_torch.cli.launch; "
             "import dtf_tpu_torch.parallel.collectives; "
+            "import dtf_tpu_torch.chaos, dtf_tpu_torch.train.checkpoint; "
+            "import dtf_tpu_torch.cli.trace_main; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")

@@ -520,13 +520,15 @@ def test_flags_parse_the_jax_training_names():
     from dtf_tpu.config.flags import define_flags
     jax_defaults = define_flags()
     for f in dataclasses.fields(Config):
-        if f.name in jax_defaults and f.name not in ("model", "device"):
+        # the port keeps its checkpoints apart from the JAX package's
+        if f.name in jax_defaults and f.name not in ("model", "device",
+                                                     "model_dir"):
             assert f.default == jax_defaults[f.name], f.name
 
 
-@pytest.mark.parametrize("flag", ["--model_dir", "--zero_stage",
+@pytest.mark.parametrize("flag", ["--seq_parallelism", "--zero_stage",
                                   "--model_parallelism", "--profile_steps",
-                                  "--remat_policy", "--resume"])
+                                  "--remat_policy", "--plan"])
 def test_flags_of_unported_features_raise(flag):
     with pytest.raises(ValueError, match="not ported"):
         parse_flags([flag, "1"])
@@ -545,7 +547,7 @@ def test_lm_main_on_cpu_returns_finite_run_stats():
                           "--model", "transformer_small", "--seq_len", "32",
                           "--num_classes", "256", "--batch_size", "4",
                           "--train_steps", "4", "--log_steps", "2",
-                          "--dtype", "fp32"])
+                          "--dtype", "fp32", "--skip_checkpoint"])
     assert np.isfinite(stats["loss"]) and stats["avg_exp_per_second"] > 0
     assert [s for s, _ in stats["train_loss_log"]] == [2, 4]
     assert all(np.isfinite(v) for _, v in stats["train_loss_log"])
@@ -557,7 +559,8 @@ def test_lm_main_eval_returns_masked_mean():
                           "--model", "transformer_small", "--seq_len", "16",
                           "--num_classes", "128", "--batch_size", "4",
                           "--train_steps", "2", "--log_steps", "1",
-                          "--skip_eval", "false", "--dtype", "bf16"])
+                          "--skip_eval", "false", "--dtype", "bf16",
+                          "--skip_checkpoint"])
     assert np.isfinite(stats["eval_loss"])
     assert 0.0 <= stats["accuracy_top_1"] <= 1.0
 
