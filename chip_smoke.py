@@ -165,6 +165,32 @@ Phases, each printing one JSON object per line (the card's
                  restore ms, bytes a step, the barrier behind a save and
                  the time from the supervisor's restart to the resumed
                  process's first step.
+  10. ImageNet input -- no hand kernel on this path either (decode, crop
+                 and resize on the host, the mean subtraction on the
+                 card through ``data/normalize.py``); it writes its own
+                 shards: 8 train files of 256 and 2 validation files of
+                 150 smooth 375x500 JPEGs with boxes, in the reference's
+                 Example format, from ``--seed``:
+     imagenet_input -- the data service's host images/s at batch 256 on
+                 the uint8 wire, inline and with one spawned reader a
+                 core (capped by the 8 shards), then two epochs through
+                 the decode-once cache (fill, then served: hit ratio and
+                 rate); the decode path (``native`` libjpeg-turbo, built
+                 at first use, or ``pil``);
+     train_imagenet_files / imagenet_eval -- ``cli.imagenet_main.main
+                 --data_dir`` resnet50 bf16 b256, 20 steps with
+                 ``--profile_steps 2,3``: step p50 and images/s beside
+                 phase 7's synthetic run, the reader-lag gauge, the
+                 profiled steps' device time (none fails the run); the
+                 eval must count each of the 300 validation records once;
+     imagenet_resume -- resnet50 under the launcher, 8 steps, sealed
+                 checkpoints every 2, 4 readers uninterrupted; then one
+                 reader a core with ``crash@step:4,reader_crash@batch:6``
+                 and one restart: every step's loss equal as a float,
+                 equal digests, at least one reader respawn;
+     train_cifar_fp16 -- ``cli.cifar_main.main`` resnet56 fp16 b128, 40
+                 steps, a static loss scale (128) and a dynamic one:
+                 finite falling losses, step p50 beside phase 7's bf16.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -2019,7 +2045,7 @@ def train_cifar_files(torch, seed: int, card: str):
 def train_resnet(torch, timer, seed: int, card: str):
     """Phase 7, in order: the f32 check, determinism, the two mains,
     the profile (at the mains' step times), the stem, the record
-    files."""
+    files; returns the mains' step-time p50s by model."""
     check_resnet_f32(torch, seed, card)
     check_resnet_determinism(torch, seed, card)
     step_s = {"resnet56": train_cifar(torch, seed, card)["step_s_p50"],
@@ -2027,6 +2053,7 @@ def train_resnet(torch, timer, seed: int, card: str):
     profile_resnets(torch, seed, card, step_s)
     check_resnet_stem(torch, timer, seed, card)
     train_cifar_files(torch, seed, card)
+    return step_s
 
 
 # ---------------------------------------------------------------------------
@@ -2647,6 +2674,277 @@ def train_recovery(torch, seed: int, card: str):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 10: ImageNet input (data/records.py, native/, data/imagenet.py,
+# data/service) into ResNet-50, and fp16 on the CIFAR ResNet
+# ---------------------------------------------------------------------------
+
+IMAGENET_SIZE = (375, 500)     # ImageNet's typical photograph, H x W
+IMAGENET_SHARDS = 8            # train files, one service shard each
+IMAGENET_PER_FILE = 256        # 2,048 train images: a batch a shard-epoch
+IMAGENET_VAL = (2, 150)        # 300 validation images: 2 batches, masked
+IMAGENET_BATCH = 256
+
+
+def write_imagenet(root: str, seed: int) -> dict:
+    """The train and validation shards, one process a file: smooth
+    375x500 JPEGs (they compress like photographs, ~10x a noise image's
+    ratio) with a box each, from ``seed`` (``testing/imagenet.py``)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from dtf_tpu_torch.testing.imagenet import shard_files, write_shard_file
+
+    files = shard_files(root, IMAGENET_SHARDS, IMAGENET_PER_FILE,
+                        *IMAGENET_VAL)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(files), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        nbytes = sum(pool.map(
+            write_shard_file, [f[0] for f in files], [f[1] for f in files],
+            [IMAGENET_SIZE] * len(files), [seed * 1000 + f[3] for f in files],
+            [True] * len(files), [f[2] for f in files]))
+    train = IMAGENET_SHARDS * IMAGENET_PER_FILE
+    return {"train_images": train,
+            "validation_images": IMAGENET_VAL[0] * IMAGENET_VAL[1],
+            "image_hw": list(IMAGENET_SIZE), "jpeg_bytes": nbytes,
+            "mean_jpeg_bytes": nbytes / (train + IMAGENET_VAL[0]
+                                         * IMAGENET_VAL[1]),
+            "write_s": time.perf_counter() - t0}
+
+
+def imagenet_input(root: str, seed: int, card: str, shards: dict) -> dict:
+    """The data service's host rate on the written shards (batches of
+    256 on the uint8 wire): inline, then with one spawned reader a
+    core (``os.cpu_count()``, capped by the 8 shards), each after a
+    warm-up; then two epochs through the decode-once cache with the
+    same readers -- the first decodes and fills it, the second is
+    served from it (its hit ratio, and its rate)."""
+    import tempfile
+
+    from dtf_tpu_torch import native
+    from dtf_tpu_torch.data.service import ServiceStream
+    from dtf_tpu_torch.obs.registry import MetricsRegistry
+
+    workers = min(os.cpu_count() or 1, IMAGENET_SHARDS)
+
+    def stream(num_workers, **kw):
+        return ServiceStream(root, IMAGENET_BATCH, seed=seed,
+                             num_shards=IMAGENET_SHARDS,
+                             num_workers=num_workers,
+                             registry=MetricsRegistry(), **kw)
+
+    def rate(s, warm: int, batches: int) -> float:
+        for _ in range(warm):
+            next(s)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(s)
+        return batches * IMAGENET_BATCH / (time.perf_counter() - t0)
+
+    s = stream(0)
+    try:
+        inline = rate(s, 1, 2)
+    finally:
+        s.close()
+    t0 = time.perf_counter()
+    s = stream(workers)
+    try:
+        next(s)
+        first_batch_s = time.perf_counter() - t0
+        pooled = rate(s, workers, 2 * workers)
+    finally:
+        s.close()
+    epoch = IMAGENET_SHARDS      # one batch a shard an epoch
+    with tempfile.TemporaryDirectory() as cache:
+        s = stream(workers, cache_dir=cache)
+        try:
+            fill = rate(s, 0, epoch)
+            cached = rate(s, 0, epoch)
+            hits, lookups = s.cache_stats()
+        finally:
+            s.close()
+    first_epoch = epoch * IMAGENET_BATCH   # every lookup of it a miss
+    line = {"phase": "imagenet_input", "card": card, **shards,
+            "decode_path": native.decode_path(),
+            "decode_unavailable_reason": native.unavailable_reason or None,
+            "batch": IMAGENET_BATCH, "wire": "uint8",
+            "num_shards": IMAGENET_SHARDS, "cpu_count": os.cpu_count(),
+            "cores_usable": len(os.sched_getaffinity(0)),
+            "images_per_s_inline": inline,
+            "workers": workers, "images_per_s_workers": pooled,
+            "first_batch_s_workers": first_batch_s,
+            "images_per_s_cache_fill": fill,
+            "images_per_s_cache_epoch2": cached,
+            "cache_hit_ratio_epoch2": hits / max(lookups - first_epoch, 1),
+            "cache_lookups": lookups, "cache_hits": hits}
+    emit(line)
+    if not (line["cache_hit_ratio_epoch2"] > 0.99 and inline > 0
+            and pooled > 0):
+        raise AssertionError(f"imagenet_input: {line}")
+    return line
+
+
+def profile_device_ms(path: str) -> dict:
+    """Device time in a ``--profile_steps`` Chrome trace: the kernels'
+    durations (``cat`` "kernel") and the copies and sets."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {"kernel_ms": 0.0, "memcpy_ms": 0.0, "kernels": 0}
+    for ev in events:
+        cat = ev.get("cat", "")
+        if cat == "kernel":
+            out["kernel_ms"] += ev.get("dur", 0) / 1e3
+            out["kernels"] += 1
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            out["memcpy_ms"] += ev.get("dur", 0) / 1e3
+    return out
+
+
+def train_imagenet_files(torch, root: str, seed: int, card: str,
+                         synthetic_p50) -> dict:
+    """``cli.imagenet_main.main --data_dir``: resnet50 bf16 at batch 256
+    on the written shards through the data service (default workers),
+    20 steps with ``--profile_steps 2,3``, then the eval, which must
+    count each validation record once: step p50 and images/s beside
+    phase 7's synthetic run, the reader-lag gauge (the consumer's wait
+    for the last batch), and the profiled steps' device time (a trace
+    without device time fails the run)."""
+    import tempfile
+
+    from dtf_tpu_torch.cli import imagenet_main
+    from dtf_tpu_torch.obs.registry import default_registry
+
+    default_registry().reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        stats = imagenet_main.main([
+            "--data_dir", root, "--device", "cuda", "--dtype", "bf16",
+            "--batch_size", str(IMAGENET_BATCH), "--train_steps", "20",
+            "--log_steps", "5", "--seed", str(seed), "--skip_checkpoint",
+            "--input_num_shards", str(IMAGENET_SHARDS),
+            "--profile_steps", "2,3", "--model_dir", model_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = profile_device_ms(stats["profile_trace"])
+    reg = default_registry()
+    lag = reg.get("data_reader_lag_s")
+    p50 = statistics.median(stats["window_step_s"])
+    line = {"phase": "train_imagenet_files", "card": card,
+            "model": "resnet50", "dtype": "bf16", "batch": IMAGENET_BATCH,
+            "steps": 20, "wire": "uint8", "decode": stats["input_decode"],
+            "losses": stats["train_loss_log"], "step_s_p50": p50,
+            "window_step_s": stats["window_step_s"],
+            "images_per_s": IMAGENET_BATCH / p50,
+            "synthetic_step_s_p50": synthetic_p50,
+            "synthetic_images_per_s": (IMAGENET_BATCH / synthetic_p50
+                                       if synthetic_p50 else None),
+            "step_over_synthetic": (p50 / synthetic_p50 if synthetic_p50
+                                    else None),
+            "reader_lag_s_last": lag.value if lag is not None else None,
+            "profiled_steps": "2,3", "profile_device": prof,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "wall_s": wall}
+    emit(line)
+    eval_line = {"phase": "imagenet_eval", "card": card,
+                 "eval_count": stats.get("eval_count"),
+                 "records_written": IMAGENET_VAL[0] * IMAGENET_VAL[1],
+                 "eval_loss": stats.get("eval_loss"),
+                 "eval_top1": stats.get("accuracy_top_1")}
+    emit(eval_line)
+    losses = [v for _, v in stats["train_loss_log"]]
+    if not (losses and all(math.isfinite(v) for v in losses)
+            and prof["kernel_ms"] > 0
+            and eval_line["eval_count"] == eval_line["records_written"]
+            and math.isfinite(stats["eval_loss"])):
+        raise AssertionError(f"train_imagenet_files: {line} {eval_line}")
+    torch.cuda.empty_cache()
+    return line
+
+
+def imagenet_resume(torch, root: str, seed: int, card: str) -> dict:
+    """resnet50 bf16 b256 on the shards under the launcher, 8 steps,
+    sealed checkpoints every 2: uninterrupted with 4 readers; then with
+    one reader a core, ``--fault crash@step:4,reader_crash@batch:6``
+    and one restart -- the worker count differs from the uninterrupted
+    run's, and the reader owning batch 6 is SIGKILLed and respawned (in
+    the first attempt, in the resumed one, or both: the prefetcher may
+    have reached batch 6 before the crash).  Every step's loss equal as
+    a float, the state and final checkpoint digests equal, and at least
+    one reader respawn in the supervisor's events."""
+    import tempfile
+
+    argv = ["--data_dir", root, "--device", "cuda", "--dtype", "bf16",
+            "--batch_size", str(IMAGENET_BATCH), "--skip_eval",
+            "--seed", str(seed), "--input_num_shards", str(IMAGENET_SHARDS)]
+    workers = min(os.cpu_count() or 1, IMAGENET_SHARDS)
+    fault = "crash@step:4,reader_crash@batch:6"
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        base = recovery_run(tmp, "imagenet_base", "imagenet_main",
+                            argv + ["--input_workers", "4"])
+        run = recovery_run(tmp, "imagenet_crash", "imagenet_main",
+                           argv + ["--input_workers", str(workers)],
+                           fault=fault)
+        line = check_recovered("imagenet_resume", base, run, fault, 4,
+                               "crash")
+    respawns = [e for e in run["events"] if e["event"] == "reader_crash"]
+    line = {"phase": "imagenet_resume", "card": card, "model": "resnet50",
+            "dtype": "bf16", "batch": IMAGENET_BATCH,
+            "workers_uninterrupted": 4, "workers_resumed": workers,
+            "reader_respawns": len(respawns),
+            "reader_respawn_positions": [e.get("shard_positions")
+                                         for e in respawns], **line}
+    emit(line)
+    if not respawns:
+        raise AssertionError(f"imagenet_resume: no reader respawn: {line}")
+    return line
+
+
+def train_cifar_fp16(torch, seed: int, card: str, bf16_p50) -> list:
+    """``cli.cifar_main.main`` resnet56 in fp16 at batch 128, synthetic,
+    40 steps: a static loss scale (128, the JAX rule's default) and a
+    dynamic one; finite falling losses, step p50 beside phase 7's bf16
+    run."""
+    from dtf_tpu_torch.cli import cifar_main
+
+    flops = vision_flops_per_image(torch, "resnet56", 32)
+    lines = []
+    for scale in ("static", "dynamic"):
+        argv = ["--use_synthetic_data", "--device", "cuda", "--model",
+                "resnet56", "--dtype", "fp16", "--train_steps", "40",
+                "--skip_eval", "--seed", str(seed)]
+        if scale == "dynamic":
+            argv += ["--loss_scale", "dynamic"]
+        line, _ = vision_run(torch, cifar_main.main, argv,
+                             "train_cifar_fp16", card, 128, flops,
+                             model="resnet56", dtype="fp16", steps=40,
+                             loss_scale=(128.0 if scale == "static"
+                                         else "dynamic"),
+                             bf16_step_s_p50=bf16_p50)
+        lines.append(line)
+    return lines
+
+
+def train_imagenet_input(torch, seed: int, card: str, step_s: dict):
+    """Phase 10: the shards, the service's rates, ResNet-50 on the files
+    with its eval and a profiled range, the crash-resume with another
+    worker count and a reader crash, then fp16 on resnet56."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        shards = write_imagenet(root, seed)
+        imagenet_input(root, seed, card, shards)
+        train_imagenet_files(torch, root, seed, card,
+                             step_s.get("resnet50"))
+        imagenet_resume(torch, root, seed, card)
+    train_cifar_fp16(torch, seed, card, step_s.get("resnet56"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2702,7 +3000,7 @@ def main(argv=None) -> int:
     profile_train_step(torch, args.seed)
 
     # phase 7: ResNet training (no TPU kernel lies on this path)
-    train_resnet(torch, timer, args.seed, card)
+    resnet_step_s = train_resnet(torch, timer, args.seed, card)
 
     # phase 8: data parallelism (K1 and K3 on the LM's path)
     dp = train_data_parallel(torch, args.seed, card)
@@ -2715,6 +3013,10 @@ def main(argv=None) -> int:
     rec_run = ("lm_main resumed after crash@step:4, steps 5-8, one "
                "process (phase 9)")
     rec_serve_run = "serve_main --model_dir, 4 requests (phase 9)"
+
+    # phase 10: ImageNet input into ResNet-50 and fp16 (no TPU kernel
+    # lies on this path either)
+    train_imagenet_input(torch, args.seed, card, resnet_step_s)
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

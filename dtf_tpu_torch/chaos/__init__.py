@@ -42,9 +42,15 @@ Kinds that fire here, their observation points being ported:
                           boundary (exact match): the rank-exit pattern
                           of a vanished host, which the supervisor
                           classifies as host loss.
+  reader_crash@batch:N    SIGKILLs the data-service shard worker that
+                          owns merged batch N, as the consumer reaches
+                          that batch (exact match, one-shot): the
+                          service's supervisor respawns the worker at
+                          its recorded per-shard positions and the
+                          merged stream is unchanged (data/service).
 
-The other kinds of the grammar (``NOT_PORTED``: device_loss, ps_drop,
-reader_crash and the serving fleet's replica_kill, net_partition,
+The other kinds of the grammar (``NOT_PORTED``: device_loss, ps_drop
+and the serving fleet's replica_kill, net_partition,
 slow_replica, page_fetch_stall, router_kill, lease_stall, rollout_kill)
 parse, but :func:`configure` raises naming the subsystem that is not
 ported yet.
@@ -111,7 +117,6 @@ _FLOAT_POINT = ("slow_replica", "page_fetch_stall")
 NOT_PORTED = {
     "device_loss": "elastic training (train/elastic.py)",
     "ps_drop": "the async parameter server (parallel/ps.py)",
-    "reader_crash": "the ImageNet data service (data/service)",
     **{kind: "the serving fleet (serve/router.py, serve/ha.py, "
              "serve/rollout.py, serve/migrate.py)"
        for kind in ("replica_kill", "net_partition", "slow_replica",
@@ -307,6 +312,18 @@ class Injector:
                     return True
         return False
 
+    def reader_crash(self, batch: int) -> bool:
+        """One-shot, EXACT-match: True when the data-service consumer
+        reaching merged batch `batch` should kill the owning shard
+        worker.  Exact match for the same reason as step(): a resumed
+        run positioned at/past the batch must not re-fire."""
+        with self._mu:
+            for spec in self._armed("reader_crash"):
+                if int(batch) == spec.value:
+                    self._record(spec, batch=int(batch))
+                    return True
+        return False
+
     def ckpt_truncate(self) -> bool:
         """One-shot: True when the next restore should first truncate
         the newest checkpoint step (the torn-write simulation)."""
@@ -391,3 +408,10 @@ def ckpt_truncate() -> bool:
     if inj is None:
         return False
     return inj.ckpt_truncate()
+
+
+def reader_crash(batch: int) -> bool:
+    inj = _injector
+    if inj is None:
+        return False
+    return inj.reader_crash(batch)

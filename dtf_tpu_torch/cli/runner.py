@@ -38,9 +38,20 @@ are laid out ``torch.channels_last`` on ``--device``; their run sets
 ``torch.backends.cudnn.deterministic``, so the step is as deterministic
 as XLA's.  The transformer LMs draw theirs with
 ``serve.bridge.random_init``.  Input: the synthetic stream for every
-dataset, and CIFAR-10 binary files under ``--data_dir``, on the uint8
-wire (normalized on the device by the Trainer) or the float32 one;
-``--data_dir`` for ImageNet or LM data raises.
+dataset, CIFAR-10 binary files under ``--data_dir``, and ImageNet
+TFRecord shards under ``--data_dir``, on the uint8 wire (normalized on
+the device by the Trainer) or the float32 one; ``--data_dir`` for LM
+data raises.  ImageNet trains from the data service by default
+(``data/service``: batch n a pure function of (seed, process, n), so a
+resumed run replays its exact stream, whatever ``--input_workers``) or,
+with ``--input_service false``, the legacy threaded pipeline; its eval
+is the masked, file-sharded pass of ``data/imagenet.py``.  With the
+service on, a checkpoint's host state carries ``num_shards`` and the
+per-shard positions, and ``--resume`` refuses a checkpoint written
+under another ``--input_num_shards``.  The train stream is closed at
+the end of the run; the stats name the JPEG decode path (``native`` or
+``pil``, ``input_decode``).  ``--enable_tensorboard`` writes scalar
+event files under ``--model_dir/train`` from the coordinator.
 """
 
 from __future__ import annotations
@@ -109,11 +120,43 @@ def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
                                       process_id=rank, process_count=count,
                                       drop_remainder=cfg.drop_remainder,
                                       wire=cfg.input_wire))
+    elif spec.name == "imagenet":
+        from dtf_tpu_torch.data.imagenet import imagenet_input_fn
+        if cfg.input_service:
+            # the sharded deterministic service (the default): batch n
+            # is a pure function of (seed, process, n), so a resumed run
+            # replays exactly, and decode runs in worker processes
+            from dtf_tpu_torch.data.service import service_input_fn
+            train_fn = lambda start_step=0: service_input_fn(
+                cfg.data_dir, host_batch, seed=cfg.seed,
+                num_shards=cfg.input_num_shards,
+                num_workers=cfg.input_workers, process_id=rank,
+                process_count=count, wire=cfg.input_wire,
+                cache_dir=cfg.input_cache_dir,
+                cache_limit_mb=cfg.input_cache_limit_mb,
+                start_step=start_step)
+        else:
+            # the legacy threaded pipeline (fused native decode), which
+            # refuses a mid-stream resume: its order is decode-timing
+            # dependent
+            train_fn = lambda start_step=0: imagenet_input_fn(
+                cfg.data_dir, True, host_batch, seed=cfg.seed,
+                num_threads=cfg.datasets_num_private_threads,
+                process_id=rank, process_count=count,
+                fast_dct=cfg.input_fast_dct,
+                scaled_decode=cfg.input_scaled_decode,
+                wire=cfg.input_wire, start_step=start_step)
+        fns = (train_fn,
+               lambda: imagenet_input_fn(cfg.data_dir, False, host_batch,
+                                         process_id=rank,
+                                         process_count=count,
+                                         drop_remainder=cfg.drop_remainder,
+                                         wire=cfg.input_wire))
     else:
         raise NotImplementedError(
             f"--data_dir {cfg.data_dir!r}: the {spec.name} input pipeline "
             f"is not ported to dtf_tpu_torch yet (CIFAR-10 binary files "
-            f"are); pass --use_synthetic_data")
+            f"and ImageNet TFRecords are); pass --use_synthetic_data")
     if cfg.data_format == "channels_first" and not spec.is_sequence:
         # batches flow NCHW from here on; the Trainer transposes back
         fns = tuple(_channels_first_factory(fn) for fn in fns)
@@ -213,6 +256,14 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
             rt.shutdown()
 
 
+def service_on(cfg, spec) -> bool:
+    """True when the run's train stream is the data service (the branch
+    order of :func:`make_input_fns`): synthetic runs have no shards, so
+    their manifests must not claim the service's host state."""
+    return (spec.name == "imagenet" and cfg.input_service
+            and bool(cfg.data_dir) and not cfg.use_synthetic_data)
+
+
 def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
     """(CheckpointCallback or None, state, resumed step): the callback
     when ``--model_dir`` is set and saves or ``--resume`` are asked for,
@@ -220,8 +271,19 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
     if not cfg.model_dir or (cfg.skip_checkpoint and not cfg.resume):
         return None, state, 0
     spe = trainer.steps_per_epoch
+    service = service_on(cfg, trainer.spec)
 
     def host_state_fn(step):
+        data = {"scheme": "position-derived", "dataset": cfg.dataset,
+                "start_step": step}
+        if service:
+            # the stream's identity (the merged order depends on the
+            # shard count) and the per-shard next positions, which the
+            # step alone derives: the manifest is self-describing
+            from dtf_tpu_torch.data.service import shard_positions
+            data["num_shards"] = cfg.input_num_shards
+            data["shard_positions"] = shard_positions(
+                step, cfg.input_num_shards)
         return {"seed": cfg.seed, "global_step": step,
                 "epoch": step // spe, "step_in_epoch": step % spe,
                 # which topology WROTE this step -- informational: the
@@ -229,8 +291,7 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
                 "topology": {"devices": rt.num_replicas,
                              "replicas": rt.num_replicas,
                              "processes": rt.num_replicas},
-                "data": {"scheme": "position-derived",
-                         "dataset": cfg.dataset, "start_step": step}}
+                "data": data}
 
     cb = CheckpointCallback(cfg.model_dir, trainer.checkpoint_payload,
                             every_steps=cfg.checkpoint_steps,
@@ -258,6 +319,17 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
             f"--resume seed mismatch: checkpoint was written with seed "
             f"{host['seed']}, this run has --seed {cfg.seed}; crash-exact "
             f"resume needs the same seed (pass --seed {host['seed']})")
+    shards = host.get("data", {}).get("num_shards")
+    if service and shards is not None and int(shards) != \
+            cfg.input_num_shards:
+        # the merged order (batch n = shard n % S, its batch n // S)
+        # depends on the shard count: another count is another stream
+        raise ValueError(
+            f"--resume input_num_shards mismatch: checkpoint was written "
+            f"with {shards} shard(s), this run has --input_num_shards "
+            f"{cfg.input_num_shards}; the merged batch order depends on "
+            f"the shard count (pass --input_num_shards {shards}).  The "
+            f"worker count, by contrast, may change freely")
     state = trainer.restore_state(payload)
     return cb, state, state.step
 
@@ -276,9 +348,12 @@ def _run(cfg, rt: MeshRuntime) -> dict:
         return stats
     callbacks = [ckpt_cb] if ckpt_cb is not None and not cfg.skip_checkpoint \
         else []
+    if cfg.enable_tensorboard and cfg.model_dir and rt.is_coordinator:
+        from dtf_tpu_torch.utils.tensorboard import TensorBoardCallback
+        callbacks.append(TensorBoardCallback(cfg.model_dir))
     # the one stream of the run, positioned at the restored step
-    prefetched = DevicePrefetcher(train_fn(start_step=resumed_step),
-                                  trainer.device, buffer_size=2)
+    stream = train_fn(start_step=resumed_step)
+    prefetched = DevicePrefetcher(stream, trainer.device, buffer_size=2)
     try:
         state, stats = trainer.fit(
             state, prefetched,
@@ -286,6 +361,14 @@ def _run(cfg, rt: MeshRuntime) -> dict:
             callbacks=callbacks)
     finally:
         prefetched.close()
+        if hasattr(stream, "close"):
+            # the service's worker processes, the legacy pipeline's
+            # threads
+            stream.close()
+    if trainer.spec.name == "imagenet" and cfg.data_dir \
+            and not cfg.use_synthetic_data:
+        from dtf_tpu_torch import native
+        stats["input_decode"] = native.decode_path()
     if cfg.export_dir and rt.is_coordinator:
         export_model(cfg.export_dir, trainer.model)
     if not rt.is_coordinator:

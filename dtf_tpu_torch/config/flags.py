@@ -1,10 +1,21 @@
 """Typed configuration + CLI flags for the port's entry points.
 
-The PyTorch counterpart of ``dtf_tpu/config/flags.py``, cut to the
-fields the ported paths read: the model and its dtype, the seed, the
-device, the training fields of ``cli/lm_main.py``, ``cli/cifar_main.py``
-and ``cli/imagenet_main.py`` (dataset, input wire and layout, batch,
-steps, optimizer, loss scaling, accumulation, clipping, logging, remat),
+The PyTorch counterpart of ``dtf_tpu/config/flags.py``.  Every field of
+the JAX ``Config`` is one of three things here: a field the port reads,
+a declared no-op (``NO_OPS``: reference-compat flags the JAX package
+also accepts and ignores), or a key of ``NOT_PORTED``, whose message
+names the subsystem not ported yet.
+
+The fields the ported paths read: the model and its dtype (fp16 for
+the vision families only, behind the JAX loss-scale rule), the seed,
+the device, the training fields of ``cli/lm_main.py``,
+``cli/cifar_main.py`` and ``cli/imagenet_main.py`` (dataset, input wire
+and layout, batch, steps, optimizer, loss scaling, accumulation,
+clipping, logging, remat, ``use_tensor_lr``, ``stop_threshold``,
+``enable_tensorboard``, ``profile_steps``), the ImageNet input flags
+(``input_service``, ``input_num_shards``, ``input_workers``, the
+decode cache, ``input_fast_dct``, ``input_scaled_decode``,
+``datasets_num_private_threads``),
 the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py``, the
 benchmark log, and the topology of a data-parallel run
 (``distribution_strategy``, ``num_devices``, ``ps_mode``, the
@@ -26,31 +37,69 @@ tracing and watchdogs (``trace_dir``, ``nan_guard``,
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (model parallelism, the profiler, ZeRO, ...) raise with a message
-that says so; any other unknown flag raises too.
+yet (model parallelism, ZeRO, the async parameter server, the serving
+fleet, ...) raise with a message that says so; any other unknown flag
+raises too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from typing import Any, Optional
 
 import torch
 
-# fp16 is not offered: the attention kernels take float32 and bfloat16
 DTYPES = {"fp32": torch.float32, "float32": torch.float32,
-          "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+          "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+          "fp16": torch.float16, "float16": torch.float16}
+# the attention kernels (K1-K4) have float32 and bfloat16 routes only,
+# so fp16 trains the vision families (cuDNN convolutions) alone
+_FP16 = ("fp16", "float16")
 
+# reference-compat flags the JAX Config declares and ignores; the port
+# accepts and ignores them too
+NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
+          "per_gpu_thread_count", "tf_gpu_thread_mode",
+          "batchnorm_spatial_persistent", "image_bytes_as_serving_input",
+          "enable_eager", "verbose")
 
+_PS = "the async parameter server (parallel/ps.py)"
+_MP = "model parallelism (tensor, pipeline and expert)"
+_FLEET = ("the serving fleet (serve/router.py, serve/replica.py, "
+          "serve/ha.py, serve/rollout.py)")
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
     "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
+    "zero_wire": "ZeRO", "zero_probe": "ZeRO",
     "model_parallelism": "tensor/pipeline/expert parallelism",
     "seq_parallelism": "ring attention",
     "remat_policy": "selective remat (use --remat)",
-    "profile_steps": "the profiler", "plan": "the planner",
+    "plan": "the planner", "plan_mesh": "the planner",
+    "plan_cache": "the planner",
+    **{name: _PS for name in ("ps_wire", "ps_snapshot_dir",
+                              "ps_snapshot_secs", "ps_reconnect_secs",
+                              "ps_reseed_tolerance")},
+    **{name: _MP for name in ("shard_lm_head", "num_experts",
+                              "moe_capacity_factor", "moe_aux_weight",
+                              "moe_top_k", "num_microbatches",
+                              "pipeline_interleave")},
+    "serve_tp": "serving tensor parallelism",
+    "serve_prefix_sharing": "prefix sharing (the serving page registry)",
+    **{name: _FLEET for name in (
+        "router_replicas", "router_deadline_s", "router_admission",
+        "router_probe_s", "router_health_timeout_s",
+        "router_replica_inflight", "router_max_respawns",
+        "router_respawn_window_s", "router_respawn_backoff_s",
+        "router_hedge_s", "router_placement", "router_prefill_replicas",
+        "router_ha", "router_standby", "router_lease_ttl_s",
+        "router_journal_fsync_s", "rendezvous_dir", "replica_id",
+        "serve_host", "rollout_checkpoint", "rollout_canary_requests",
+        "rollout_mirror_fraction", "rollout_max_divergence",
+        "rollout_warm_timeout_s", "rollout_state")},
+    "metrics_port": "the Prometheus endpoint (obs/prom.py)",
 }
 
 # --distribution_strategy names, the JAX package's (cli/runner.py and
@@ -65,7 +114,7 @@ class Config:
 
     model: str = "transformer_small"
     num_classes: Optional[int] = None   # vocabulary; None = the model's
-    dtype: str = "fp32"                 # fp32 | bf16
+    dtype: str = "fp32"                 # fp32 | bf16 | fp16 (vision only)
     seed: int = 0
     device: str = "cuda"                # cuda | cpu; never a silent fallback
     benchmark_log_dir: str = ""         # writes metric.log when set
@@ -85,7 +134,7 @@ class Config:
 
     # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
     dataset: str = ""                   # lm | cifar10 | imagenet
-    data_dir: str = ""                  # CIFAR-10 binary files (else raises)
+    data_dir: str = ""                  # CIFAR-10 files, ImageNet TFRecords
     use_synthetic_data: bool = False    # one random batch, repeated
     use_trivial_model: bool = False     # the input probe in place of --model
     # uint8: raw pixels over the wire, normalized on the device first
@@ -108,6 +157,36 @@ class Config:
     skip_eval: bool = False
     report_accuracy_metrics: bool = True
     remat: bool = False                 # recompute each block in backward
+    use_tensor_lr: bool = False         # PiecewiseConstantDecayWithWarmup
+    stop_threshold: Optional[float] = None  # stop once eval top-1 >= it
+    enable_tensorboard: bool = False    # scalar event files in model_dir
+    profile_steps: Optional[str] = None  # "start,stop": torch.profiler
+    # True forces drop_remainder=False (eval covers the partial batch)
+    enable_get_next_as_optional: bool = False
+
+    # --- ImageNet input (data/imagenet.py, data/service) ---
+    # train batches from the sharded deterministic data service (batch n
+    # a pure function of (seed, process, n)); False = the legacy
+    # threaded pipeline, which refuses a mid-stream resume
+    input_service: bool = True
+    input_num_shards: int = 16          # part of the stream's identity
+    input_workers: int = -1             # -1 auto, 0 inline, N processes
+    input_cache_dir: str = ""           # decode-once cache ("" = off)
+    input_cache_limit_mb: int = 0       # per-shard bound; 0 = unbounded
+    input_fast_dct: bool = False        # legacy pipeline: JDCT_IFAST
+    input_scaled_decode: bool = False   # legacy pipeline: DCT scaling
+    datasets_num_private_threads: Optional[int] = None  # legacy threads
+
+    # --- reference-compat no-ops (NO_OPS), the JAX defaults ---
+    enable_xla: bool = True
+    all_reduce_alg: Optional[str] = None
+    num_packs: int = 1
+    per_gpu_thread_count: int = 0
+    tf_gpu_thread_mode: Optional[str] = None
+    batchnorm_spatial_persistent: bool = False
+    image_bytes_as_serving_input: bool = False
+    enable_eager: bool = False
+    verbose: int = 2
 
     # --- checkpoints and recovery (train/checkpoint.py, cli/runner.py) ---
     model_dir: str = "/tmp/dtf_tpu_torch"   # checkpoints/, checkpoints.meta/
@@ -150,6 +229,47 @@ class Config:
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; choose from "
                              f"{sorted(DTYPES)}")
+        if (self.dtype in _FP16 and self.model.startswith("transformer")
+                and not self.use_trivial_model):
+            raise ValueError(
+                f"--dtype {self.dtype} is for the vision families: "
+                f"{self.model} runs the attention kernels K1-K4 "
+                f"(ops/flash_attention.py, ops/paged_attention.py), which "
+                f"have float32 and bfloat16 routes only")
+        if self.enable_get_next_as_optional and self.drop_remainder:
+            # the reference's get_next_as_optional exists to handle the
+            # partial final batch; dropping it would contradict it
+            self.drop_remainder = False
+        if self.loss_scale is not None and \
+                str(self.loss_scale).lower() != "dynamic":
+            try:
+                val = float(self.loss_scale)
+            except (TypeError, ValueError):
+                raise ValueError(f"loss_scale must be a number or "
+                                 f"'dynamic', got {self.loss_scale!r}"
+                                 ) from None
+            if not math.isfinite(val) or val <= 0:
+                raise ValueError(f"loss_scale must be a positive finite "
+                                 f"number, got {val}")
+        if self.stop_threshold is not None and \
+                not self.report_accuracy_metrics:
+            raise ValueError(
+                "--stop_threshold needs eval top-1, which "
+                "--report_accuracy_metrics false disables -- early "
+                "stopping would silently never fire")
+        if self.input_num_shards < 1:
+            raise ValueError(f"input_num_shards must be >= 1, got "
+                             f"{self.input_num_shards}")
+        if self.input_workers < -1:
+            raise ValueError(f"input_workers must be >= -1 (-1 = auto, "
+                             f"0 = inline), got {self.input_workers}")
+        if self.input_cache_limit_mb < 0:
+            raise ValueError(f"input_cache_limit_mb must be >= 0 (0 = "
+                             f"unbounded), got {self.input_cache_limit_mb}")
+        if self.input_cache_limit_mb and not self.input_cache_dir:
+            raise ValueError(
+                "input_cache_limit_mb needs --input_cache_dir (the "
+                "decode-once cache is off without a directory)")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ValueError(f"unknown device {self.device!r}; use cuda "
                              f"or cpu")
@@ -211,13 +331,14 @@ class Config:
 
     @property
     def loss_scale_value(self):
-        """A float (static scale; 1.0 when unset -- bf16 and fp32 need
-        none) or the string "dynamic"."""
+        """The JAX rule: ``--loss_scale dynamic`` gives "dynamic", a
+        number that static scale; unset, fp16 takes a static 128 and
+        bf16 and fp32 none (1.0)."""
         if self.loss_scale is not None:
             if str(self.loss_scale).lower() == "dynamic":
                 return "dynamic"
             return float(self.loss_scale)
-        return 1.0
+        return 128.0 if self.dtype in _FP16 else 1.0
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -48,6 +48,12 @@ _SPECS = {"cifar10": CIFAR10, "cifar": CIFAR10, "imagenet": IMAGENET,
           "lm": LM}
 
 
+def shard_for_process(items, process_id: int, process_count: int):
+    """Disjoint 1/N split by position -- the reference's shard-by-file
+    rule (kept here, torch-free, for the data service's readers)."""
+    return items[process_id::process_count]
+
+
 def get_dataset_spec(name: str) -> DatasetSpec:
     if name not in _SPECS:
         raise ValueError(f"unknown dataset {name!r}; have {sorted(_SPECS)}")

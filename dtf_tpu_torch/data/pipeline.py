@@ -1,6 +1,7 @@
 """Host-to-device pipeline: double-buffered prefetch -- the PyTorch
-counterpart of ``dtf_tpu/data/pipeline.py`` ``DevicePrefetcher``, and
-its ``shard_for_process``.
+counterpart of ``dtf_tpu/data/pipeline.py`` ``DevicePrefetcher``, its
+``shard_for_process`` (from ``data/base.py``) and ``all_processes_max``
+over the ``torch.distributed`` process group.
 
 A background thread keeps ``buffer_size`` batches already on the device
 while the device computes.  On CUDA each batch is copied from pinned
@@ -19,12 +20,28 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from dtf_tpu_torch.data.base import shard_for_process  # noqa: F401
 
 
-def shard_for_process(items, process_id: int, process_count: int):
-    """Disjoint 1/N split by position -- the reference's shard-by-file
-    rule."""
-    return items[process_id::process_count]
+def all_processes_max(value: int, group=None) -> int:
+    """Max of a host-local int across the processes of ``group`` (the
+    default group when None), the identity at one process: sharded eval
+    pipelines with uneven per-process record counts agree on one
+    collective batch count with it.  An int64 ``all_reduce(MAX)`` on
+    the group's device: this process's card under NCCL, else the CPU."""
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            return int(value)
+        group = dist.group.WORLD
+    if dist.get_world_size(group) == 1:
+        return int(value)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t.item())
 
 
 class DevicePrefetcher:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 class Counter:
@@ -234,3 +234,19 @@ class MetricsRegistry:
     def reset(self) -> None:
         with self._mu:
             self._metrics.clear()
+
+
+_default: Optional[MetricsRegistry] = None
+_default_mu = threading.Lock()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-global registry (the data service's reader lag,
+    cache hit ratio and respawn count live here; subsystems with a
+    natural owner -- the serve engine -- carry their own instance
+    instead)."""
+    global _default
+    with _default_mu:
+        if _default is None:
+            _default = MetricsRegistry()
+        return _default

@@ -58,14 +58,19 @@ Initialization is seed-synced: every replica draws the same weights from
 ``--seed`` (horovod's broadcast, as the JAX package does it).  Logs come
 from the coordinator (rank 0) only.
 
-Not ported yet: ZeRO, TP/EP/PP, the MFU ledger and the profiler; the
-flags that ask for them raise (``config/flags.py``).
+``--stop_threshold`` ends training after the first eval whose top-1
+reaches it, and ``--profile_steps "start,stop"`` runs ``torch.profiler``
+over that range of steps (:class:`StepProfiler`).
+
+Not ported yet: ZeRO, TP/EP/PP and the MFU ledger; the flags that ask
+for them raise (``config/flags.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import signal
 import time
 from typing import Any, Callable, Iterator, List, Optional
@@ -174,7 +179,8 @@ class Trainer:
         else:
             self.schedule = sched_lib.for_dataset(
                 spec.name, self.global_batch, max(self.steps_per_epoch, 1),
-                spec.num_train, train_epochs=self.train_epochs)
+                spec.num_train, use_tensor_lr=cfg.use_tensor_lr,
+                train_epochs=self.train_epochs)
         self.tx = build_optimizer(cfg.optimizer, self.schedule)
         self.dynamic_scale = cfg.loss_scale_value == "dynamic"
         self.loss_scale = (1.0 if self.dynamic_scale
@@ -419,101 +425,121 @@ class Trainer:
         if global_step and self.rt.is_coordinator:
             log.info("resuming at step %d (epoch %d, batch %d)",
                      global_step, start_epoch, start_batch)
+        profiler = StepProfiler(cfg, self.device, self.rt.rank)
         t0 = time.time()
-        for epoch in range(start_epoch, self.train_epochs):
-            for cb in callbacks:
-                _call(cb, "on_epoch_begin", epoch, None)
-            for batch_idx in range(start_batch if epoch == start_epoch
-                                   else 0, spe):
+        try:
+            for epoch in range(start_epoch, self.train_epochs):
                 for cb in callbacks:
-                    _call(cb, "on_batch_begin", batch_idx, None)
-                images, labels = next(train_iter)
-                with trace.span("step", step=global_step):
-                    state, metrics = self.train_step(state, images, labels)
-                global_step += 1
-                if global_step % cfg.log_steps == 0:
-                    # the sync: the host waits for the step's loss
-                    loss_val = float(metrics["loss"])
-                    nan_guard.check(global_step, loss_val)
-                    # the loss trajectory record: Python floats
-                    # round-trip JSON exactly, so crash-exactness
-                    # checks compare these bit for bit
-                    trace.event("train_loss", step=global_step,
-                                loss=loss_val)
-                    self.loss_log.append((global_step, loss_val))
-                    if self.rt.is_coordinator:
-                        log.info("step %d: loss %.6f lr %.6g", global_step,
-                                 loss_val, metrics["learning_rate"])
-                    now = time.monotonic()
-                    if not window_skewed:
-                        window_s = now - window_t0
-                        trace.span_completed(
-                            "log_window", window_s, step=global_step,
-                            steps=cfg.log_steps,
-                            step_s=window_s / cfg.log_steps)
-                        self.window_step_s.append(window_s / cfg.log_steps)
-                        if step_guard is not None:
-                            step_guard.observe(global_step, window_s)
-                    window_t0 = now
-                    window_skewed = False
+                    _call(cb, "on_epoch_begin", epoch, None)
+                for batch_idx in range(start_batch if epoch == start_epoch
+                                       else 0, spe):
+                    for cb in callbacks:
+                        _call(cb, "on_batch_begin", batch_idx, None)
+                    profiler.before_step(global_step)
+                    images, labels = next(train_iter)
+                    with trace.span("step", step=global_step):
+                        state, metrics = self.train_step(state, images, labels)
+                    global_step += 1
+                    if global_step % cfg.log_steps == 0:
+                        # the sync: the host waits for the step's loss
+                        loss_val = float(metrics["loss"])
+                        nan_guard.check(global_step, loss_val)
+                        # the loss trajectory record: Python floats
+                        # round-trip JSON exactly, so crash-exactness
+                        # checks compare these bit for bit
+                        trace.event("train_loss", step=global_step,
+                                    loss=loss_val)
+                        self.loss_log.append((global_step, loss_val))
+                        if self.rt.is_coordinator:
+                            log.info("step %d: loss %.6f lr %.6g", global_step,
+                                     loss_val, metrics["learning_rate"])
+                        now = time.monotonic()
+                        if not window_skewed:
+                            window_s = now - window_t0
+                            trace.span_completed(
+                                "log_window", window_s, step=global_step,
+                                steps=cfg.log_steps,
+                                step_s=window_s / cfg.log_steps)
+                            self.window_step_s.append(window_s / cfg.log_steps)
+                            if step_guard is not None:
+                                step_guard.observe(global_step, window_s)
+                        window_t0 = now
+                        window_skewed = False
+                    if heartbeat is not None:
+                        heartbeat.beat(step=global_step)
+                    profiler.after_step(global_step)
+                    # interval checkpointing reads state and step from the
+                    # logs dict (CheckpointCallback.every_steps)
+                    for cb in callbacks:
+                        _call(cb, "on_batch_end", batch_idx,
+                              {"state": state, "step": global_step})
+                    if ckpt_every and global_step % ckpt_every == 0:
+                        # a sealed save ran inside this log window: keep its
+                        # I/O out of the step-time signal
+                        window_skewed = True
+                    # chaos probe AFTER the interval checkpoint sealed:
+                    # crash@step:K with checkpoint_steps dividing K is the
+                    # deterministic kill-after-durable-save experiment
+                    chaos.step(global_step)
+                    signum = self._preempt_signal(pending_preempt)
+                    pending_preempt = metrics.get("preempt")
+                    if signum is not None:
+                        # emergency checkpoint at this boundary (sealed),
+                        # then the preempted exit the supervisor restarts
+                        # without spending the crash budget
+                        for cb in callbacks:
+                            _call(cb, "on_preempt",
+                                  {"state": state, "step": global_step})
+                        trace.event("preempted", step=global_step,
+                                    signum=int(signum))
+                        trace.flush()
+                        raise preemption.Preempted(global_step, signum)
+                loss_val = float(metrics["loss"])
+                nan_guard.check(global_step, loss_val)
+                trace.event("epoch_end", epoch=epoch, step=global_step,
+                            loss=loss_val)
+                history["loss"].append(loss_val)
+                if "accuracy" in metrics:
+                    history[acc_key].append(float(metrics["accuracy"]))
+                for cb in callbacks:
+                    _call(cb, "on_epoch_end", epoch,
+                          {"state": state, "history": history})
                 if heartbeat is not None:
                     heartbeat.beat(step=global_step)
-                # interval checkpointing reads state and step from the
-                # logs dict (CheckpointCallback.every_steps)
-                for cb in callbacks:
-                    _call(cb, "on_batch_end", batch_idx,
-                          {"state": state, "step": global_step})
-                if ckpt_every and global_step % ckpt_every == 0:
-                    # a sealed save ran inside this log window: keep its
-                    # I/O out of the step-time signal
-                    window_skewed = True
-                # chaos probe AFTER the interval checkpoint sealed:
-                # crash@step:K with checkpoint_steps dividing K is the
-                # deterministic kill-after-durable-save experiment
-                chaos.step(global_step)
-                signum = self._preempt_signal(pending_preempt)
-                pending_preempt = metrics.get("preempt")
-                if signum is not None:
-                    # emergency checkpoint at this boundary (sealed),
-                    # then the preempted exit the supervisor restarts
-                    # without spending the crash budget
-                    for cb in callbacks:
-                        _call(cb, "on_preempt",
-                              {"state": state, "step": global_step})
-                    trace.event("preempted", step=global_step,
-                                signum=int(signum))
-                    trace.flush()
-                    raise preemption.Preempted(global_step, signum)
-            loss_val = float(metrics["loss"])
-            nan_guard.check(global_step, loss_val)
-            trace.event("epoch_end", epoch=epoch, step=global_step,
-                        loss=loss_val)
-            history["loss"].append(loss_val)
-            if "accuracy" in metrics:
-                history[acc_key].append(float(metrics["accuracy"]))
-            for cb in callbacks:
-                _call(cb, "on_epoch_end", epoch,
-                      {"state": state, "history": history})
-            if heartbeat is not None:
-                heartbeat.beat(step=global_step)
-            if self.rt.is_coordinator:
-                log.info("epoch %d/%d: loss=%.4f top1=%s lr=%.5f",
-                         epoch + 1, self.train_epochs, history["loss"][-1],
-                         ("%.4f" % history[acc_key][-1])
-                         if "accuracy" in metrics else "n/a",
-                         metrics["learning_rate"])
-            if (not cfg.skip_eval and eval_iter_fn is not None
-                    and ((epoch + 1) % cfg.epochs_between_evals == 0
-                         or epoch + 1 == self.train_epochs)):
-                with trace.span("eval", epoch=epoch, step=global_step):
-                    eval_output = self.evaluate(state, eval_iter_fn(),
-                                                heartbeat=heartbeat)
-                if eval_output and self.rt.is_coordinator:
-                    log.info("eval: loss=%.4f top1=%s", eval_output[0],
-                             ("%.4f" % eval_output[1])
-                             if eval_output[1] is not None else "n/a")
-            window_t0 = time.monotonic()
-            window_skewed = True
+                if self.rt.is_coordinator:
+                    log.info("epoch %d/%d: loss=%.4f top1=%s lr=%.5f",
+                             epoch + 1, self.train_epochs, history["loss"][-1],
+                             ("%.4f" % history[acc_key][-1])
+                             if "accuracy" in metrics else "n/a",
+                             metrics["learning_rate"])
+                if (not cfg.skip_eval and eval_iter_fn is not None
+                        and ((epoch + 1) % cfg.epochs_between_evals == 0
+                             or epoch + 1 == self.train_epochs)):
+                    with trace.span("eval", epoch=epoch, step=global_step):
+                        eval_output = self.evaluate(state, eval_iter_fn(),
+                                                    heartbeat=heartbeat)
+                    if eval_output and self.rt.is_coordinator:
+                        log.info("eval: loss=%.4f top1=%s", eval_output[0],
+                                 ("%.4f" % eval_output[1])
+                                 if eval_output[1] is not None else "n/a")
+                    # --stop_threshold (the reference's
+                    # past_stop_threshold): end training once eval
+                    # top-1 reaches the threshold
+                    if (eval_output and cfg.stop_threshold is not None
+                            and eval_output[1] is not None
+                            and eval_output[1] >= cfg.stop_threshold):
+                        if self.rt.is_coordinator:
+                            log.info("stop_threshold %.4f reached (top1="
+                                     "%.4f) -- stopping at epoch %d",
+                                     cfg.stop_threshold, eval_output[1],
+                                     epoch + 1)
+                        break
+                window_t0 = time.monotonic()
+                window_skewed = True
+        finally:
+            # every exit -- the end, the stop_threshold break, a
+            # watchdog's abort, a preemption -- closes an open trace
+            profiler.stop()
         if (start_epoch >= self.train_epochs and not cfg.skip_eval
                 and eval_iter_fn is not None):
             # resumed a fully trained checkpoint: still honour the eval
@@ -529,6 +555,8 @@ class Trainer:
         stats = build_stats(history, eval_output, time_cb)
         stats["train_loss_log"] = list(self.loss_log)
         stats["window_step_s"] = list(self.window_step_s)
+        if profiler.path:
+            stats["profile_trace"] = profiler.path
         if eval_output is not None:
             stats["eval_count"] = self.eval_count
         return state, stats
@@ -543,6 +571,73 @@ class Trainer:
         if pending is None or not float(pending):
             return None
         return preemption.triggered() or int(signal.SIGTERM)
+
+
+def _parse_profile_steps(profile_steps: Optional[str]):
+    """--profile_steps "start,stop" (the reference's common.py)."""
+    if not profile_steps:
+        return None
+    parts = [p.strip() for p in str(profile_steps).split(",")]
+    if len(parts) != 2:
+        raise ValueError("profile_steps must be 'start,stop'")
+    return int(parts[0]), int(parts[1])
+
+
+class StepProfiler:
+    """``--profile_steps "start,stop"``: ``torch.profiler`` (the CPU,
+    and the card on CUDA) over the steps numbered start..stop, the JAX
+    loop's contract: the trace starts before the first step at or past
+    ``start`` -- a run resumed inside the range still traces the rest
+    of it -- and stops once ``stop`` has run.  One Chrome trace a run,
+    ``profile_rank{R}_steps{a}-{b}.json``, in ``--trace_dir`` (or the
+    launcher's ``DTF_TRACE_DIR``) else ``--model_dir``, its path in a
+    ``profiler_trace`` event and the run's stats."""
+
+    def __init__(self, cfg, device: torch.device, rank: int = 0):
+        self.range = _parse_profile_steps(cfg.profile_steps)
+        self.directory = (cfg.trace_dir or os.environ.get("DTF_TRACE_DIR",
+                                                          "")
+                          or cfg.model_dir)
+        if self.range and not self.directory:
+            raise ValueError("--profile_steps writes its trace under "
+                             "--trace_dir or --model_dir; set one")
+        self.device, self.rank = device, rank
+        self.path = ""
+        self._prof = None
+        self._first = None
+
+    def before_step(self, step: int) -> None:
+        if (self.range is None or self._first is not None
+                or not self.range[0] <= step <= self.range[1]):
+            return
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=acts)
+        self._prof.start()
+        self._first = step
+        trace.event("profiler_trace", path=self.directory, start_step=step,
+                    stop_step=self.range[1])
+
+    def after_step(self, step: int) -> None:
+        if self._prof is not None and step > self.range[1]:
+            self.stop()
+
+    def stop(self) -> None:
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        self.path = os.path.join(
+            self.directory, f"profile_rank{self.rank}_steps{self._first}-"
+                            f"{self.range[1]}.json")
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+        log.info("profiler trace of steps %d-%d: %s", self._first,
+                 self.range[1], self.path)
 
 
 def _call(cb, name, *args):

@@ -107,7 +107,6 @@ def test_kinds_and_vocabulary_are_the_jax_packages():
 @pytest.mark.parametrize("spec,subsystem", [
     ("device_loss@step:4", "elastic"),
     ("ps_drop@version:3", "parameter server"),
-    ("reader_crash@batch:2", "data service"),
     ("replica_kill@req:3", "serving fleet"),
     ("net_partition@replica1:6", "serving fleet"),
     ("slow_replica@replica0:2.5", "serving fleet"),
@@ -522,3 +521,17 @@ def test_inprocess_sigterm_writes_emergency_checkpoint(tmp_path):
     chaos.disable()
     stats = lm_main.main(_lm_flags(tmp_path) + ["--resume"])
     assert [s for s, _ in stats["train_loss_log"]] == [3, 4]
+
+
+def test_reader_crash_fires_once_on_its_batch_like_jax():
+    """reader_crash is ported with the data service: it arms, and fires
+    once, on its exact merged batch, as the JAX injector does."""
+    from dtf_tpu import chaos as jchaos
+    for mod in (chaos, jchaos):
+        mod.configure("reader_crash@batch:3", rank=0)
+        try:
+            assert [mod.reader_crash(b) for b in (2, 3, 3, 4)] == [
+                False, True, False, False]
+        finally:
+            mod.disable()
+    assert not chaos.reader_crash(3)    # disarmed: a None check

@@ -247,7 +247,8 @@ def test_vision_mains_raise_without_cuda(main):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--data_dir", "/nonexistent"], NotImplementedError, "data_dir"),
+    (["--data_dir", "/nonexistent"], FileNotFoundError,
+     "no ImageNet TFRecord shards"),
     (["--use_synthetic_data", "--remat"], NotImplementedError, "remat"),
     (["--use_synthetic_data", "--model_parallelism", "2"], ValueError,
      "not ported"),

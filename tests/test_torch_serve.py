@@ -328,7 +328,7 @@ def test_parse_flags_and_validation():
     assert cfg.serve_prefill_chunk is None
     assert cfg.compute_dtype == torch.bfloat16
     assert parse_flags([]).device == "cuda"
-    with pytest.raises(ValueError, match="unknown flag"):
+    with pytest.raises(ValueError, match="tensor parallelism.*not ported"):
         parse_flags(["--serve_tp", "2"])
     with pytest.raises(ValueError, match="dtype"):
         Config(dtype="fp16")
@@ -336,8 +336,10 @@ def test_parse_flags_and_validation():
         Config(kv_page_size=16, serve_prefill_chunk=24)
     with pytest.raises(ValueError, match="contiguous"):
         Config(kv_page_size=0)
-    with pytest.raises(ValueError, match="unknown flag"):
+    with pytest.raises(ValueError, match="prefix sharing.*not ported"):
         parse_flags(["--serve_prefix_sharing"])
+    with pytest.raises(ValueError, match="unknown flag"):
+        parse_flags(["--no_such_flag", "1"])
 
 
 def test_serve_main_needs_weights(tmp_path):

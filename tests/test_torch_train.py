@@ -527,7 +527,7 @@ def test_flags_parse_the_jax_training_names():
 
 
 @pytest.mark.parametrize("flag", ["--seq_parallelism", "--zero_stage",
-                                  "--model_parallelism", "--profile_steps",
+                                  "--model_parallelism", "--num_experts",
                                   "--remat_policy", "--plan"])
 def test_flags_of_unported_features_raise(flag):
     with pytest.raises(ValueError, match="not ported"):
