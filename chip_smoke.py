@@ -192,12 +192,41 @@ Phases, each printing one JSON object per line (the card's
                  steps, a static loss scale (128) and a dynamic one:
                  finite falling losses, step p50 beside phase 7's bf16.
 
+ 11. async_ps -- the async parameter server (``parallel/ps.py``, the
+                 native store ``native/ps_store.cpp`` built at first use
+                 without libjpeg, ``convert.py``'s wire layout):
+     ps_store   -- the store must be the native one; pull and push round
+                 trips over loopback at ResNet-50's 25,559,081 floats on
+                 the fp32 and bf16 wires, the bytes a step moves (exactly
+                 8 or 4 B a float), the bf16 bytes of the client's and
+                 the store's conversions equal to the numpy rule, NaNs
+                 included;
+     ps_one_worker -- resnet56 b128 f32, 10 synthetic steps, an
+                 in-process store and one worker, twice: losses equal as
+                 floats, the final snapshots' params and velocity equal,
+                 version 10; the gap to the sync ``off`` Trainer printed;
+     ps_reference -- 1 store + 2 resnet50 workers at the reference's
+                 per-worker batch 192 in fp32 through ``cli.launch``, 10
+                 steps each, fp32 then bf16 wire: every rank exits 0,
+                 version 20, the store's rank touched no card; steps/s,
+                 images/s, the pull and push spans' p50 and share, wire
+                 bytes, peak memory;
+     ps_lm      -- transformer_tpu b8 x 2048 bf16 as one worker, 3 steps:
+                 12 K1 and 12 K3 launches a step, its parameter count;
+     ps_faults  -- ``ps_drop@version:3`` (a reconnect, every step done,
+                 version 8), then the store's rank SIGTERMed while it
+                 serves under ``--ps_snapshot_dir``: the launcher
+                 restarts the job, the store restores its snapshot and
+                 discards the old attempt's done count, and the re-run
+                 workers finish at the restored version plus 40.
+
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
 run of its path: K1 and K3 phase 6 (and, as ``launches_dp``, phase 8's
 data-parallel LM run; as ``launches_recovery``, phase 9's resumed
-process), K2a and K2b phase 6's companion, the f32 routes phase 5's f32
-AdamW steps, K4 serving (and, as ``launches_recovery_serve``, with K1,
+process; as ``launches_async``, phase 11's async worker), K2a and K2b
+phase 6's companion, the f32 routes phase 5's f32 AdamW steps, K4
+serving (and, as ``launches_recovery_serve``, with K1,
 serving phase 9's checkpoint) -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
@@ -275,6 +304,19 @@ class Timer:
             e.synchronize()
             out.append(s.elapsed_time(e) / reps)
         return statistics.median(out)
+
+
+class PhaseClock:
+    """Seconds each phase took, one ``phase_time`` line as it ends: the
+    script's time limit is shared by every phase."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        emit({"phase": "phase_time", "of": phase, "s": now - self.t})
+        self.t = now
 
 
 def rotated(tensors, nbytes: int):
@@ -2945,6 +2987,490 @@ def train_imagenet_input(torch, seed: int, card: str, step_s: dict):
     train_cifar_fp16(torch, seed, card, step_s.get("resnet56"))
 
 
+# phase 11: the async parameter server (parallel/ps.py, native/ps.py,
+# convert.py's wire layout, cli/launch.py)
+# ---------------------------------------------------------------------------
+
+RESNET50_PARAMS = 25_559_081
+PS_TIMEOUT_S = 240
+PS_HEADER_BYTES = 13         # a push's op, lr and count before its payload
+
+# one rank of a phase-11 launch: the entry point's main, then one line
+# with its stats, the TF32 switches it ran under and whether it touched
+# CUDA (the store's rank must not)
+PS_RANK = r"""
+import json, sys
+sys.path.insert(0, @ROOT@)
+import torch
+spec = json.loads(sys.argv[1])
+main = __import__("dtf_tpu_torch.cli." + spec["main"], fromlist=["main"])
+stats = main.main(spec["argv"])
+out = {k: v for k, v in stats.items() if k != "step_timestamp_log"}
+out["tf32"] = {"cudnn": torch.backends.cudnn.allow_tf32,
+               "matmul": torch.backends.cuda.matmul.allow_tf32}
+out["cuda_initialized"] = torch.cuda.is_initialized()
+print("PS_RESULT=" + json.dumps(out), flush=True)
+""".replace("@ROOT@", repr(ROOT))
+
+
+def ps_results(log_dir: str, world: int, what: str, suffix: str = ""):
+    """Each rank's PS_RESULT line, by rank (0 is the store's)."""
+    out = []
+    for rank in range(world):
+        with open(os.path.join(log_dir, f"log{rank}{suffix}.log")) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("PS_RESULT=")]
+        if not lines:
+            raise AssertionError(f"{what}: rank {rank} printed no result:\n"
+                                 f"{text[-3000:]}")
+        out.append(json.loads(lines[-1][len("PS_RESULT="):]))
+    return out
+
+
+def ps_store_case(seed: int, card: str) -> dict:
+    """The native store (built here at first use, no libjpeg) at
+    ResNet-50's size over loopback: pull and push round trips on both
+    wires, the bytes a step moves, and the bf16 wire against the numpy
+    rule on the client's and the store's conversions, NaNs included."""
+    import numpy as np
+
+    from dtf_tpu_torch.native import ps as native_ps
+    from dtf_tpu_torch.parallel import ps
+
+    if native_ps.load() is None:
+        raise AssertionError(f"ps_store: the native store did not build: "
+                             f"{native_ps.unavailable_reason}")
+    n = RESNET50_PARAMS
+    rng = np.random.default_rng(seed)
+    p0 = rng.standard_normal(n, dtype=np.float32)
+    special = np.asarray([0x7F800001, 0xFFFFFFFF, 0x7FC00000, 0xFFC00000,
+                          0x7F80FFFF, 0x7F800000, 0x80000000, 0x00000001,
+                          0x3F80FFFF, 0x3F818000], np.uint32)
+    p0[::n // len(special)][:len(special)] = special.view(np.float32)
+    client_plain = ps.f32_to_bf16_plain(p0)
+    client_native = ps._f32_to_bf16(p0)
+    g = (rng.standard_normal(n, dtype=np.float32) * 1e-3)
+    server = ps.PsServer(port=0)
+    out = {"phase": "ps_store", "card": card, "store": server.store,
+           "build_s": native_ps.build_seconds,
+           "library": os.path.basename(native_ps.lib_path()),
+           "params": n}
+    try:
+        client = ps.PsClient(f"127.0.0.1:{server.port}")
+        client.init(p0)
+        buf = np.empty(n, np.float32)
+        for wire in ("fp32", "bf16"):
+            bf16 = wire == "bf16"
+            pull_ms, push_ms = [], []
+            for i in range(7):
+                before = client.counters()
+                t = time.perf_counter()
+                client.pull(bf16=bf16, out=buf)
+                pull_ms.append(1e3 * (time.perf_counter() - t))
+                t = time.perf_counter()
+                client.push(0.0, g, bf16=bf16)  # lr 0: the params stay
+                push_ms.append(1e3 * (time.perf_counter() - t))
+                after = client.counters()
+            step_bytes = (after["ps_client_pull_bytes"]
+                          - before["ps_client_pull_bytes"]
+                          + after["ps_client_push_bytes"]
+                          - before["ps_client_push_bytes"]
+                          - PS_HEADER_BYTES)
+            out[wire] = {"pull_ms_p50": statistics.median(pull_ms[2:]),
+                         "push_ms_p50": statistics.median(push_ms[2:]),
+                         "pull_ms": pull_ms, "push_ms": push_ms,
+                         "bytes_per_step": step_bytes,
+                         # pull plus push payloads: 4 + 4 or 2 + 2 B
+                         "expected_bytes": (4 if bf16 else 8) * n}
+        _, f32 = client.pull()
+        f32 = f32.copy()
+        _, wide = client.pull(bf16=True)
+        store_plain = ps.f32_to_bf16_plain(f32).astype(np.uint32) << 16
+        client.done()
+        client.close()
+    finally:
+        server.stop()
+    nan = np.isnan(p0)
+    out.update({
+        "nan_inputs": int(nan.sum()),
+        "client_bf16_equal_plain": bool(np.array_equal(client_native,
+                                                       client_plain)),
+        "store_bf16_equal_plain": bool(np.array_equal(wide.view(np.uint32),
+                                                      store_plain)),
+        "nan_kept": bool(np.isnan(wide[np.isnan(f32)]).all())})
+    emit(out)
+    if not (out["store"] == "native" and out["client_bf16_equal_plain"]
+            and out["store_bf16_equal_plain"] and out["nan_kept"]
+            and out["nan_inputs"] >= 5
+            and all(out[w]["bytes_per_step"] == out[w]["expected_bytes"]
+                    for w in ("fp32", "bf16"))):
+        raise AssertionError(f"ps_store: {out}")
+    return out
+
+
+def snapshot_state(path: str):
+    """(version, sha256 of params and velocity) of a store snapshot."""
+    import hashlib
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    version, n = struct.unpack("<QQ", data[8:24])
+    return version, hashlib.sha256(data[24:24 + 8 * n]).hexdigest()
+
+
+def ps_one_worker(torch, seed: int, card: str, root: str) -> dict:
+    """resnet56 b128 f32, 10 synthetic steps, an in-process store and
+    one worker, twice: losses equal as floats and the final store equal
+    (cudnn.deterministic); then the largest relative gap per step to the
+    sync ``off`` Trainer from the same initial state (printed only)."""
+    from dtf_tpu_torch.cli.cifar_main import CIFAR_DEFAULTS
+    from dtf_tpu_torch.cli.runner import run
+    from dtf_tpu_torch.config import parse_flags
+
+    steps = 10
+    argv = ["--use_synthetic_data", "--device", "cuda", "--model",
+            "resnet56", "--dtype", "fp32", "--batch_size", "128",
+            "--train_steps", str(steps), "--log_steps", "1", "--skip_eval",
+            "--skip_checkpoint", "--seed", str(seed)]
+    runs = []
+    for i in range(2):
+        snap_dir = os.path.join(root, f"one_worker_{i}")
+        cfg = parse_flags(argv + [
+            "--distribution_strategy", "parameter_server", "--ps_mode",
+            "async", "--ps_snapshot_dir", snap_dir], defaults=CIFAR_DEFAULTS)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        stats = quiet(run, cfg)
+        wall = time.perf_counter() - t0
+        version, sha = snapshot_state(os.path.join(snap_dir,
+                                                   "ps_store.snap"))
+        runs.append({"losses": [v for _, v in stats["train_loss_log"]],
+                     "version": version, "sha": sha, "wall_s": wall,
+                     "step_wall_s": stats["step_wall_s"],
+                     "store": stats["ps_store"]})
+    torch.cuda.empty_cache()
+    sync = quiet(run, parse_flags(argv + ["--distribution_strategy", "off"],
+                                  defaults=CIFAR_DEFAULTS))
+    sync_losses = [v for _, v in sync["train_loss_log"]]
+    a, b = runs
+    line = {"phase": "ps_one_worker", "card": card, "model": "resnet56",
+            "dtype": "fp32", "batch": 128, "steps": steps,
+            "store": a["store"], "losses": a["losses"],
+            "losses_bit_identical": a["losses"] == b["losses"],
+            "store_sha_equal": a["sha"] == b["sha"],
+            "versions": [a["version"], b["version"]],
+            "step_wall_s_p50": statistics.median(a["step_wall_s"][1:]),
+            "wall_s": [a["wall_s"], b["wall_s"]],
+            "sync_off_losses": sync_losses,
+            "sync_off_step_s_p50": statistics.median(
+                sync["window_step_s"]) if sync["window_step_s"] else None,
+            "max_rel_gap_to_sync_off": max(
+                abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                    sync_losses)),
+            "gap_note": "printed, not gated: the store's update on the "
+                        "host and the Trainer's on the card may differ "
+                        "in the last bit, which a ResNet's f32 gradient "
+                        "amplifies"}
+    emit(line)
+    if not (line["losses_bit_identical"] and line["store_sha_equal"]
+            and line["versions"] == [steps, steps]
+            and len(a["losses"]) == steps
+            and all(math.isfinite(v) for v in a["losses"])):
+        raise AssertionError(f"ps_one_worker: {line}")
+    return line
+
+
+def ps_launch(argv, root: str, what: str, world: int, main: str):
+    """``main`` under the port's launcher, 1 store + world - 1 workers
+    on a TCP coordinator; (results by rank, log dir, wall s)."""
+    from dtf_tpu_torch.cli.launch import free_address, launch_local
+
+    log_dir = os.path.join(root, what)
+    cmd = [sys.executable, "-c", PS_RANK,
+           json.dumps({"main": main, "argv": argv})]
+    t0 = time.perf_counter()
+    rc = launch_local(cmd, world, free_address(), log_dir,
+                      timeout_s=PS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if rc:
+        texts = []
+        for rank in range(world):
+            with open(os.path.join(log_dir, f"log{rank}.log")) as f:
+                texts.append(f.read()[-3000:])
+        raise AssertionError(f"{what}: launcher exit {rc}\n"
+                             + "\n".join(texts))
+    return ps_results(log_dir, world, what), log_dir, wall
+
+
+def span_ms(trace_dir: str, ranks) -> dict:
+    """{span name: [ms, ...]} of the step, ps_pull and ps_push spans in
+    these ranks' traces."""
+    from dtf_tpu_torch.obs.trace import read_records
+
+    out: dict = {"step": [], "ps_pull": [], "ps_push": []}
+    for rank in ranks:
+        path = os.path.join(trace_dir, f"trace_rank{rank}.jsonl")
+        for rec in read_records(path):
+            if rec.get("kind") == "span" and rec["name"] in out:
+                out[rec["name"]].append(1e3 * rec["dur_s"])
+    return out
+
+
+def ps_reference(torch, seed: int, card: str, root: str) -> list:
+    """The reference's deployment shape on the one card: 1 store + 2
+    resnet50 workers at the reference's per-worker --batch_size 192 in
+    its default fp32, 10 synthetic steps each, through the launcher, on
+    the fp32 wire and then the bf16 one."""
+    lines = []
+    steps, batch = 10, 192
+    for wire in ("fp32", "bf16"):
+        what = f"ps_reference_{wire}"
+        trace_dir = os.path.join(root, what + "_trace")
+        argv = ["--use_synthetic_data", "--device", "cuda", "--model",
+                "resnet50", "--dtype", "fp32", "--batch_size", str(batch),
+                "--train_steps", str(steps), "--log_steps", "1",
+                "--skip_eval", "--skip_checkpoint", "--seed", str(seed),
+                "--distribution_strategy", "parameter_server",
+                "--ps_mode", "async", "--ps_wire", wire,
+                "--trace_dir", trace_dir]
+        torch.cuda.empty_cache()
+        results, log_dir, wall = ps_launch(argv, root, what, 3,
+                                           "imagenet_main")
+        store, workers = results[0], results[1:]
+        with open(os.path.join(log_dir, "log0.log")) as f:
+            ps_done = "PS rank done" in f.read()
+        spans = span_ms(trace_dir, (1, 2))
+        rates = [[1.0 / s for s in w["step_wall_s"][1:]] for w in workers]
+        med = {k: statistics.median(v) for k, v in spans.items()}
+        line = {"phase": "ps_reference", "card": card, "wire": wire,
+                "model": "resnet50", "dtype": "fp32",
+                "tf32": workers[0]["tf32"], "workers": 2,
+                "batch_per_worker": batch, "steps_per_worker": steps,
+                "store": store["ps_store"], "version": store["ps_version"],
+                "ps_rank_logged_done": ps_done,
+                "ps_rank_touched_cuda": store["cuda_initialized"],
+                "steps_per_s_per_worker": [
+                    {"median": statistics.median(r), "min": min(r),
+                     "max": max(r)} for r in rates],
+                "images_per_s_sum": sum(batch * statistics.median(r)
+                                        for r in rates),
+                "step_ms_p50": med["step"], "ps_pull_ms_p50":
+                med["ps_pull"], "ps_push_ms_p50": med["ps_push"],
+                "wire_share": (sum(spans["ps_pull"]) + sum(spans["ps_push"]))
+                / sum(sum(v) for v in spans.values()),
+                "wire_bytes_per_step": [
+                    (w["ps_client"]["ps_client_pull_bytes"]
+                     + w["ps_client"]["ps_client_push_bytes"]
+                     - PS_HEADER_BYTES * w["ps_client"]["ps_client_pushes"])
+                    / w["ps_client"]["ps_client_pushes"] for w in workers],
+                "peak_memory_bytes": [w["peak_memory_bytes"]
+                                      for w in workers],
+                "losses": [[v for _, v in w["train_loss_log"]]
+                           for w in workers],
+                "wall_s": wall}
+        emit(line)
+        lines.append(line)
+        if not (line["version"] == 2 * steps and ps_done
+                and not line["ps_rank_touched_cuda"]
+                and line["store"] == "native"
+                and all(len(v) == steps and all(map(math.isfinite, v))
+                        for v in line["losses"])):
+            raise AssertionError(f"ps_reference: {line}")
+    return lines
+
+
+def ps_lm(torch, seed: int, card: str) -> dict:
+    """transformer_tpu b8 x 2048 bf16 as one async worker, 3 steps: K1
+    and K3 launch 12 times a step (counted as phases 6 and 9 count
+    them); the parameters' exact count and the bytes a pull moves."""
+    from dtf_tpu_torch.cli.lm_main import LM_DEFAULTS
+    from dtf_tpu_torch.cli.runner import run
+    from dtf_tpu_torch.config import parse_flags
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    steps = 3
+    cfg = parse_flags(
+        ["--use_synthetic_data", "--device", "cuda", "--model",
+         "transformer_tpu", "--dtype", "bf16", "--batch_size",
+         str(TRAIN_SHAPE[0]), "--train_steps", str(steps), "--log_steps",
+         "1", "--seed", str(seed), "--skip_eval", "--skip_checkpoint",
+         "--distribution_strategy", "parameter_server", "--ps_mode",
+         "async"], defaults=LM_DEFAULTS)
+    torch.cuda.empty_cache()
+    fa.launches = fa.launches_dq = fa.launches_dkdv = fa.launches_fused = 0
+    t0 = time.perf_counter()
+    stats = quiet(run, cfg)
+    wall = time.perf_counter() - t0
+    launches = {"K1": fa.launches, "K2a": fa.launches_dq,
+                "K2b": fa.launches_dkdv, "K3": fa.launches_fused}
+    wire = stats["ps_client"]
+    params = wire["ps_client_pull_bytes"] // wire["ps_client_pulls"] // 4
+    line = {"phase": "ps_lm", "card": card, "model": "transformer_tpu",
+            "dtype": "bf16", "batch": TRAIN_SHAPE[0], "seq": TRAIN_SHAPE[1],
+            "steps": steps, "launches": launches, "params": params,
+            "pull_bytes": 4 * params, "version": stats["ps_version"],
+            "losses": [v for _, v in stats["train_loss_log"]],
+            "step_wall_s": stats["step_wall_s"],
+            "peak_memory_bytes": stats["peak_memory_bytes"],
+            "wall_s": wall}
+    emit(line)
+    want = {"K1": 12 * steps, "K2a": 0, "K2b": 0, "K3": 12 * steps}
+    if not (launches == want and line["version"] == steps
+            and all(map(math.isfinite, line["losses"]))):
+        raise AssertionError(f"ps_lm: {line}, expected launches {want}")
+    return line
+
+
+def ps_drop_case(torch, seed: int, card: str, root: str) -> dict:
+    """One worker under ``--fault ps_drop@version:3``: its client severs
+    the connection at version 3, reconnects and finishes every step."""
+    from dtf_tpu_torch.cli.cifar_main import CIFAR_DEFAULTS
+    from dtf_tpu_torch.cli.runner import run
+    from dtf_tpu_torch.config import parse_flags
+
+    steps = 8
+    cfg = parse_flags(
+        ["--use_synthetic_data", "--device", "cuda", "--model", "resnet56",
+         "--dtype", "fp32", "--batch_size", "128", "--train_steps",
+         str(steps), "--log_steps", "1", "--skip_eval", "--skip_checkpoint",
+         "--seed", str(seed), "--distribution_strategy",
+         "parameter_server", "--ps_mode", "async", "--fault",
+         "ps_drop@version:3", "--ps_snapshot_dir",
+         os.path.join(root, "ps_drop")], defaults=CIFAR_DEFAULTS)
+    torch.cuda.empty_cache()
+    stats = quiet(run, cfg)
+    line = {"phase": "ps_faults", "case": "ps_drop@version:3", "card": card,
+            "model": "resnet56", "steps": steps,
+            "reconnects": stats["ps_client"]["ps_client_reconnects"],
+            "version": stats["ps_version"],
+            "losses": [v for _, v in stats["train_loss_log"]]}
+    emit(line)
+    if not (line["reconnects"] >= 1 and line["version"] == steps
+            and len(line["losses"]) == steps
+            and all(map(math.isfinite, line["losses"]))):
+        raise AssertionError(f"ps_faults ps_drop: {line}")
+    return line
+
+
+def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
+    """A store's rank preempted by SIGTERM while it serves, under
+    ``--ps_snapshot_dir``: the launcher restarts the whole job (a new
+    port, restart generation 1), the store restores its final snapshot
+    and discards the done count of attempt 0, and the re-run workers
+    finish: the final version is the restored one plus their steps."""
+    import re
+    import signal
+
+    from dtf_tpu_torch.cli.launch import free_address
+    from dtf_tpu_torch.obs.watchdog import heartbeat_path, read_heartbeat
+    from dtf_tpu_torch.parallel.ps import PsClient
+
+    steps = 20
+    log_dir = os.path.join(root, "ps_preempt")
+    coordinator = free_address()
+    cmd = [sys.executable, "-m", "dtf_tpu_torch.cli.launch",
+           "--num_processes", "3", "--max_restarts", "1",
+           "--heartbeat_timeout", "120", "--teardown_grace", "10",
+           "--coordinator", coordinator, "--log_dir", log_dir, "--",
+           sys.executable, "-m", "dtf_tpu_torch.cli.cifar_main",
+           "--use_synthetic_data", "--device", "cuda", "--model",
+           "resnet56", "--dtype", "fp32", "--batch_size", "128",
+           "--train_steps", str(steps), "--log_steps", "1", "--skip_eval",
+           "--skip_checkpoint", "--seed", str(seed),
+           "--distribution_strategy", "parameter_server", "--ps_mode",
+           "async", "--ps_snapshot_dir", os.path.join(root, "ps_snaps"),
+           "--ps_snapshot_secs", "1", "--ps_reconnect_secs", "60"]
+    t0 = time.perf_counter()
+    launcher = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    try:
+        # wait for the store to reach version 6, then SIGTERM its rank
+        # (the pid in its heartbeat file)
+        deadline = time.time() + 120
+        version = 0
+        while version < 6:
+            if time.time() > deadline or launcher.poll() is not None:
+                raise AssertionError("ps_faults preempt: the store never "
+                                     "reached version 6")
+            try:
+                client = PsClient(coordinator, connect_timeout=1.0)
+                version = client.info()[2]
+                client.close()
+            except OSError:
+                pass
+            time.sleep(0.2)
+        hb = read_heartbeat(heartbeat_path(log_dir, 0))
+        os.kill(hb["pid"], signal.SIGTERM)
+        killed_at = version
+        out, _ = launcher.communicate(timeout=PS_TIMEOUT_S)
+    finally:
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+    wall = time.perf_counter() - t0
+
+    def text(name):
+        with open(os.path.join(log_dir, name)) as f:
+            return f.read()
+
+    with open(os.path.join(log_dir, "supervisor_events.jsonl")) as f:
+        events = [json.loads(ln) for ln in f if ln.strip()]
+    first = next((e for e in events if e["event"] == "rank_exit"
+                  and e["rank"] == 0 and e["attempt"] == 0), {})
+    ps1 = text("log0.retry1.log") if os.path.exists(
+        os.path.join(log_dir, "log0.retry1.log")) else ""
+    restored = re.search(r"restored snapshot \S+ at version (\d+)", ps1)
+    done = re.search(r"PS rank done: version (\d+)", ps1)
+    losses = []
+    for rank in (1, 2):
+        name = f"log{rank}.retry1.log"
+        found = re.findall(r"Run stats: .*'loss': ([-\d.e+]+)",
+                           text(name) if os.path.exists(
+                               os.path.join(log_dir, name)) else "")
+        losses.append(float(found[-1]) if found else None)
+    line = {"phase": "ps_faults", "case": "ps rank sigterm, resumed",
+            "card": card, "model": "resnet56", "steps_per_worker": steps,
+            "launcher_exit": launcher.returncode,
+            "ps_first_exit": first.get("code"),
+            "ps_first_classification": first.get("classification"),
+            "sigterm_at_version": killed_at,
+            "restarts": [e.get("classification") for e in events
+                         if e["event"] == "restart"],
+            "restored_version": int(restored.group(1)) if restored else None,
+            "done_count_discarded": "discarded" in ps1,
+            "final_version": int(done.group(1)) if done else None,
+            "worker_losses": losses, "wall_s": wall}
+    emit(line)
+    if not (line["launcher_exit"] == 0 and line["ps_first_exit"] == 75
+            and line["restarts"] == ["preempted"]
+            and line["restored_version"]
+            and line["restored_version"] >= killed_at
+            and line["done_count_discarded"]
+            and line["final_version"] == line["restored_version"]
+            + 2 * steps
+            and all(v is not None and math.isfinite(v) for v in losses)):
+        raise AssertionError(f"ps_faults preempt: {line}\n{out[-3000:]}")
+    return line
+
+
+def async_ps(torch, seed: int, card: str) -> dict:
+    """Phase 11: the store, one worker twice, the reference's shape
+    through the launcher on both wires, the LM worker's kernels, and
+    the two faults."""
+    import tempfile
+
+    out = {"store": ps_store_case(seed, card)}
+    with tempfile.TemporaryDirectory() as root:
+        out["one_worker"] = ps_one_worker(torch, seed, card, root)
+        out["reference"] = ps_reference(torch, seed, card, root)
+        out["lm"] = ps_lm(torch, seed, card)
+        out["drop"] = ps_drop_case(torch, seed, card, root)
+        out["preempt"] = ps_preempt_case(torch, seed, card, root)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2979,17 +3505,20 @@ def main(argv=None) -> int:
           "ptxas": {n: _build.ptxas_report(n) for n in _build.SOURCES}})
 
     # phase 2: each kernel against its plain version
+    clock = PhaseClock()
     gen = torch.Generator().manual_seed(args.seed)
     timer = Timer(torch)
     k1 = check_flash(torch, timer, gen)
     _, bwd = check_backward(torch, timer, gen)
     k4 = check_paged(torch, timer, gen)
     check_peaked(torch, gen)
+    clock.done("2")
 
     # phases 3 and 4: the serving path
     per_call = check_serving_f32(torch, args.seed)
     serve_launches = serve_bf16(torch, args.seed, per_call)
     decode_profile = profile_decode_step(torch, args.seed)
+    clock.done("3-4")
 
     # phases 5 and 6: the training path
     train32 = check_training_f32(torch, args.seed)
@@ -2998,14 +3527,17 @@ def main(argv=None) -> int:
     # the split pair's path at the training shape, beside K3's
     train_split = train_bf16(torch, args.seed, split=True, steps=20)
     profile_train_step(torch, args.seed)
+    clock.done("5-6")
 
     # phase 7: ResNet training (no TPU kernel lies on this path)
     resnet_step_s = train_resnet(torch, timer, args.seed, card)
+    clock.done("7")
 
     # phase 8: data parallelism (K1 and K3 on the LM's path)
     dp = train_data_parallel(torch, args.seed, card)
     dp_run_name = ("lm_main multi_worker_mirrored, one rank on NCCL, "
                    "20 steps (phase 8)")
+    clock.done("8")
 
     # phase 9: recovery (K1 and K3 in the resumed LM run, K1 and K4
     # serving its checkpoint)
@@ -3013,10 +3545,18 @@ def main(argv=None) -> int:
     rec_run = ("lm_main resumed after crash@step:4, steps 5-8, one "
                "process (phase 9)")
     rec_serve_run = "serve_main --model_dir, 4 requests (phase 9)"
+    clock.done("9")
 
     # phase 10: ImageNet input into ResNet-50 and fp16 (no TPU kernel
     # lies on this path either)
     train_imagenet_input(torch, args.seed, card, resnet_step_s)
+    clock.done("10")
+
+    # phase 11: the async parameter server (K1 and K3 in the LM worker)
+    ps = async_ps(torch, args.seed, card)
+    ps_lm_run = ("lm_main --ps_mode async, one worker, 3 steps "
+                 "(phase 11)")
+    clock.done("11")
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3065,6 +3605,8 @@ def main(argv=None) -> int:
               launches_dp_run=dp_run_name,
               launches_recovery=rec["lm"]["launches_resumed_process"]["K1"],
               launches_recovery_run=rec_run,
+              launches_async=ps["lm"]["launches"]["K1"],
+              launches_async_run=ps_lm_run,
               launches_recovery_serve=rec["serve"]["launches"]["K1"],
               launches_recovery_serve_run=rec_serve_run,
               launches_serve=serve_launches["K1"],
@@ -3096,6 +3638,8 @@ def main(argv=None) -> int:
               launches_dp_run=dp_run_name,
               launches_recovery=rec["lm"]["launches_resumed_process"]["K3"],
               launches_recovery_run=rec_run,
+              launches_async=ps["lm"]["launches"]["K3"],
+              launches_async_run=ps_lm_run,
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

@@ -48,9 +48,13 @@ Kinds that fire here, their observation points being ported:
                           service's supervisor respawns the worker at
                           its recorded per-shard positions and the
                           merged stream is unchanged (data/service).
+  ps_drop@version:N       an async parameter-server client severs its
+                          connection once the store version it observed
+                          reaches N (one-shot): its next op exercises
+                          the real reconnect and backoff (parallel/ps.py).
 
-The other kinds of the grammar (``NOT_PORTED``: device_loss, ps_drop
-and the serving fleet's replica_kill, net_partition,
+The other kinds of the grammar (``NOT_PORTED``: device_loss and the
+serving fleet's replica_kill, net_partition,
 slow_replica, page_fetch_stall, router_kill, lease_stall, rollout_kill)
 parse, but :func:`configure` raises naming the subsystem that is not
 ported yet.
@@ -116,7 +120,6 @@ _FLOAT_POINT = ("slow_replica", "page_fetch_stall")
 # port does not have yet: configure() refuses them, naming it
 NOT_PORTED = {
     "device_loss": "elastic training (train/elastic.py)",
-    "ps_drop": "the async parameter server (parallel/ps.py)",
     **{kind: "the serving fleet (serve/router.py, serve/ha.py, "
              "serve/rollout.py, serve/migrate.py)"
        for kind in ("replica_kill", "net_partition", "slow_replica",
@@ -312,6 +315,16 @@ class Injector:
                     return True
         return False
 
+    def ps_drop(self, version: int) -> bool:
+        """One-shot: True when the PS client should drop its connection
+        (observed store version reached the spec value)."""
+        with self._mu:
+            for spec in self._armed("ps_drop"):
+                if int(version) >= spec.value:
+                    self._record(spec, version=int(version))
+                    return True
+        return False
+
     def reader_crash(self, batch: int) -> bool:
         """One-shot, EXACT-match: True when the data-service consumer
         reaching merged batch `batch` should kill the owning shard
@@ -401,6 +414,13 @@ def heartbeat_stalled(step_value: Optional[int]) -> bool:
     if inj is None:
         return False
     return inj.heartbeat_stalled(step_value)
+
+
+def ps_drop(version: int) -> bool:
+    inj = _injector
+    if inj is None:
+        return False
+    return inj.ps_drop(version)
 
 
 def ckpt_truncate() -> bool:

@@ -1,7 +1,9 @@
 """Multi-process launcher and supervisor -- the PyTorch counterpart of
 ``dtf_tpu/cli/launch.py``: one command starts every rank of a
 data-parallel run, each told its place by the environment, and
-restarts the whole job when a rank fails.
+restarts the whole job when a rank fails.  It also starts the async
+parameter server (``--ps_mode async``): rank 0 serves the store on the
+coordinator's port and ranks 1..N are its workers.
 
 Local fan-out (every rank on this host: one rank a GPU, or gloo ranks on
 the CPU):
@@ -44,7 +46,11 @@ whose heartbeat file (``obs/watchdog.py``) -- or, before its first
 beat, its log -- stays still that long after ``--startup_grace`` is
 killed as a lost host.  A restart relaunches every rank with a fresh
 rendezvous: a new free port, or a new ``file://`` store path, never a
-stale store.  Every decision lands in ``<log_dir>/supervisor_events.jsonl``.
+stale store; an async PS job's restarted workers reach its restarted
+store at the new port, and its snapshot carries the training state
+across (``parallel/ps.py``, with ``DTF_RESTART_GENERATION`` telling the
+store's rank to discard the done count of the attempt before).  Every
+decision lands in ``<log_dir>/supervisor_events.jsonl``.
 Elastic resizing (``--elastic``, ``--min_devices``, ``--max_elastic``)
 is not ported yet.
 """
@@ -133,6 +139,17 @@ def free_address() -> str:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return f"localhost:{s.getsockname()[1]}"
+
+
+def _async_ps(cmd: List[str]) -> bool:
+    """True when ``cmd`` runs the async parameter server."""
+    for i, tok in enumerate(cmd):
+        name, eq, val = tok.lstrip("-").partition("=")
+        if name == "ps_mode" and tok.startswith("-"):
+            val = val if eq else (cmd[i + 1] if i + 1 < len(cmd) else "")
+            if val == "async":
+                return True
+    return False
 
 
 def fresh_rendezvous(coordinator: str, attempt: int) -> str:
@@ -311,6 +328,13 @@ def launch_local(cmd: List[str], num_processes: int, coordinator: str,
     Returns 0, or the failing attempt's code once the policy gives up;
     past ``timeout_s`` (over all attempts) every rank is killed and 124
     returned."""
+    if coordinator.startswith("file://") and _async_ps(cmd):
+        # rank 0 of an async parameter server serves the store on the
+        # coordinator's TCP port, and its workers connect there
+        raise ValueError(
+            f"--ps_mode async needs a host:port coordinator (rank 0 "
+            f"binds its port for the parameter store), not "
+            f"{coordinator!r}")
     os.makedirs(log_dir, exist_ok=True)
     events = SupervisorEventLog(log_dir)
     trace_id = os.environ.get("DTF_TRACE_ID") or os.urandom(8).hex()

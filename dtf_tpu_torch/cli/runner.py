@@ -20,9 +20,12 @@ synthetic and CIFAR streams is a function of (seed, n), so a resumed
 run sees exactly the batches the uninterrupted one saw.  ``--export_dir``
 writes the inference variables after training.
 
-The runtime (``runtime/mesh.py initialize``) comes first, before
-anything touches CUDA: it joins the process group of a data-parallel
-run and picks the rank's card.  ``--batch_size`` is global, except
+``--distribution_strategy parameter_server --ps_mode async`` leaves
+here for ``parallel/ps.py run_async`` once tracing, chaos and the
+preemption guard are set up: the store's rank and its workers join no
+process group.  Otherwise the runtime (``runtime/mesh.py initialize``)
+comes first, before anything touches CUDA: it joins the process group
+of a data-parallel run and picks the rank's card.  ``--batch_size`` is global, except
 under ``horovod`` and ``parameter_server``, where it is per replica
 (:func:`effective_global_batch`); each process feeds its share, the
 global batch over the process count.  The synthetic stream is the JAX
@@ -241,11 +244,19 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
         preemption.install()
         if cfg.preemption_poll_s:
             poller = preemption.MetadataPoller(cfg.preemption_poll_s).start()
+        if (cfg.distribution_strategy == "parameter_server"
+                and cfg.ps_mode == "async"):
+            # push/pull against the parameter store: no runtime, no
+            # process group -- each worker steps on its own card, and
+            # the PS rank touches no card at all
+            from dtf_tpu_torch.parallel import ps
+            return ps.run_async(cfg)
         rt = rt or initialize(cfg)
         return _run(cfg, rt)
     except preemption.Preempted as p:
-        log.warning("run preempted at step %d -- emergency checkpoint "
-                    "written; exiting %d", p.step, preemption.EXIT_PREEMPTED)
+        log.warning("run preempted at step %d -- emergency checkpoint (or, "
+                    "async PS, the store's snapshot) written; exiting %d",
+                    p.step, preemption.EXIT_PREEMPTED)
         trace.flush()
         raise SystemExit(preemption.EXIT_PREEMPTED)
     finally:

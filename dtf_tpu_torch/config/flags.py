@@ -20,11 +20,13 @@ the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py``, the
 benchmark log, and the topology of a data-parallel run
 (``distribution_strategy``, ``num_devices``, ``ps_mode``, the
 coordinator, process id and count, ``worker_hosts``/``task_index`` and
-``sync_bn``), filled from the ``DTF_*`` environment or the reference's
-``TF_CONFIG`` by :func:`apply_env_topology`.  Names and defaults are
-the JAX package's.  Parsing is
-the same absl style: ``--name value``, ``--name=value``, ``-name value``
-and bare boolean flags (``--use_synthetic_data``).
+``sync_bn``) and the async parameter server's (``ps_wire``,
+``ps_snapshot_dir``, ``ps_snapshot_secs``, ``ps_reconnect_secs``,
+``ps_reseed_tolerance``), the topology filled from the ``DTF_*``
+environment or the reference's ``TF_CONFIG`` by
+:func:`apply_env_topology`.  Names and defaults are the JAX package's.
+Parsing is the same absl style: ``--name value``, ``--name=value``,
+``-name value`` and bare boolean flags (``--use_synthetic_data``).
 
 Recovery's fields are the JAX package's too: checkpoints
 (``model_dir``, ``resume``, ``checkpoint_steps``, ``checkpoint_keep``,
@@ -37,9 +39,8 @@ tracing and watchdogs (``trace_dir``, ``nan_guard``,
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (model parallelism, ZeRO, the async parameter server, the serving
-fleet, ...) raise with a message that says so; any other unknown flag
-raises too.
+yet (model parallelism, ZeRO, the serving fleet, ...) raise with a
+message that says so; any other unknown flag raises too.
 """
 
 from __future__ import annotations
@@ -66,7 +67,6 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "batchnorm_spatial_persistent", "image_bytes_as_serving_input",
           "enable_eager", "verbose")
 
-_PS = "the async parameter server (parallel/ps.py)"
 _MP = "model parallelism (tensor, pipeline and expert)"
 _FLEET = ("the serving fleet (serve/router.py, serve/replica.py, "
           "serve/ha.py, serve/rollout.py)")
@@ -79,9 +79,6 @@ NOT_PORTED = {
     "remat_policy": "selective remat (use --remat)",
     "plan": "the planner", "plan_mesh": "the planner",
     "plan_cache": "the planner",
-    **{name: _PS for name in ("ps_wire", "ps_snapshot_dir",
-                              "ps_snapshot_secs", "ps_reconnect_secs",
-                              "ps_reseed_tolerance")},
     **{name: _MP for name in ("shard_lm_head", "num_experts",
                               "moe_capacity_factor", "moe_aux_weight",
                               "moe_top_k", "num_microbatches",
@@ -123,6 +120,21 @@ class Config:
     # --- distribution / topology (runtime/mesh.py: one process a device) ---
     distribution_strategy: str = "mirrored"
     ps_mode: str = "sync"               # parameter_server: sync | async
+    # --- the async parameter server (parallel/ps.py) ---
+    ps_wire: str = "fp32"               # fp32 | bf16 (halves pull/push
+                                        # traffic; store math stays fp32)
+    # the PS rank restores <dir>/ps_store.snap at start when present and
+    # snapshots params+velocity+version there every ps_snapshot_secs;
+    # workers then reconnect with backoff for ps_reconnect_secs instead
+    # of dying with the store.  None: the reference's in-memory store
+    ps_snapshot_dir: Optional[str] = None
+    ps_snapshot_secs: float = 30.0
+    ps_reconnect_secs: float = 300.0
+    # how many store versions a restarted PS may trail what a worker saw
+    # before the worker refuses to continue; the literal is
+    # parallel/ps.py DEFAULT_RESEED_TOLERANCE (Config imports without
+    # that module; a test pins the two)
+    ps_reseed_tolerance: int = 10_000
     num_devices: Optional[int] = None   # mirrored: local devices to use
     worker_hosts: Optional[str] = None  # "h1:p,h2:p" (with task_index)
     task_index: int = -1
@@ -304,6 +316,9 @@ class Config:
             raise ValueError(
                 f"unknown distribution_strategy "
                 f"{self.distribution_strategy!r}; choose from {STRATEGIES}")
+        if self.ps_wire not in ("fp32", "bf16"):
+            raise ValueError(
+                f"unknown ps_wire {self.ps_wire!r}; choose fp32 or bf16")
         if self.ps_mode not in ("sync", "async"):
             raise ValueError(
                 f"unknown ps_mode {self.ps_mode!r}; choose sync or async")

@@ -30,13 +30,21 @@ a nested dict: ``step``, ``params``, ``batch_stats``, ``opt_state``
 checkpoint payload (``train/checkpoint.py``) is that dict flattened to
 "/"-joined keys.
 
+The async parameter server's wire (:func:`wire_layout`,
+:func:`to_wire`, :func:`from_wire`) is the JAX package's flat vector,
+``jax.flatten_util.ravel_pytree(params)[0]``: the ``params`` leaves in
+``jax.tree_util``'s order (dict keys sorted level by level), each
+raveled in its flax layout (conv kernels HWIO, dense kernels [in,
+out]).  So a store's state is one bit pattern whichever package's
+workers push to it, and snapshots move between them.
+
 Conversions raise KeyError on a missing leaf and ValueError on a shape
 that does not fit or a leaf the model has no place for.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -358,3 +366,78 @@ def train_state_from_flax(tree, model):
     """Load the JAX ``TrainState`` ``tree`` (nested numpy dicts) into
     ``model`` and return the port's TrainState."""
     return state_from_flat(_flat_from_tree(tree), model)
+
+
+# ---------------------------------------------------------------------------
+# the async parameter server's flat wire vector
+# ---------------------------------------------------------------------------
+
+class WireLeaf(NamedTuple):
+    key: str                 # the parameter's name in the model
+    path: str                # its flax path in ``params``
+    layout: Optional[str]    # the _to_flax / _from_flax rule
+    shape: Tuple[int, ...]   # its flax shape
+    offset: int              # where it starts in the flat vector
+    size: int
+
+
+def wire_layout(model) -> List[WireLeaf]:
+    """The leaves of ``ravel_pytree(params)[0]`` in order: sorted by
+    their flax path's components (``jax.tree_util`` sorts each dict
+    level; comparing "/"-joined strings would put "a-b" before "a/c")."""
+    params = dict(model.named_parameters())
+    rows = sorted(((key, path, layout) for key, coll, path, layout
+                   in leaves(model) if coll == "params"),
+                  key=lambda r: r[1].split("/"))
+    out, offset = [], 0
+    for key, path, layout in rows:
+        with torch.no_grad():
+            shape = tuple(_to_flax(params[key].detach(), layout,
+                                   model).shape)
+        size = params[key].numel()
+        out.append(WireLeaf(key, path, layout, shape, offset, size))
+        offset += size
+    return out
+
+
+def to_wire(model, tensors: Optional[dict] = None,
+            layout: Optional[List[WireLeaf]] = None,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The flat float32 wire vector of ``model``'s parameters, or of
+    ``tensors`` ({parameter name: tensor}, e.g. the gradients), on
+    their device; into ``out`` when given."""
+    layout = layout or wire_layout(model)
+    src = tensors if tensors is not None else dict(
+        model.named_parameters())
+    if out is None:
+        first = src[layout[0].key]
+        out = torch.empty(layout[-1].offset + layout[-1].size,
+                          dtype=torch.float32, device=first.device)
+    with torch.no_grad():
+        for leaf in layout:
+            # one copy a leaf, its layout change folded in
+            out[leaf.offset:leaf.offset + leaf.size].view(leaf.shape).copy_(
+                _to_flax(src[leaf.key].detach(), leaf.layout, model))
+    return out
+
+
+def from_wire(flat, model, layout: Optional[List[WireLeaf]] = None) -> None:
+    """Write the wire vector ``flat`` (a tensor or a numpy array, on any
+    device) into ``model``'s parameters, in place."""
+    layout = layout or wire_layout(model)
+    params = dict(model.named_parameters())
+    if isinstance(flat, np.ndarray) and flat.flags.writeable:
+        flat = torch.from_numpy(flat)    # a pulled buffer: no copy
+    elif not isinstance(flat, torch.Tensor):
+        flat = _tensor(flat)
+    total = layout[-1].offset + layout[-1].size if layout else 0
+    if flat.numel() != total:
+        raise ValueError(f"wire vector of {flat.numel()} floats does not "
+                         f"fit the model's {total}")
+    # one copy to the parameters' device (asynchronous from a pinned
+    # buffer), then each leaf's layout change on that device
+    flat = flat.to(next(iter(params.values())).device, non_blocking=True)
+    with torch.no_grad():
+        for leaf in layout:
+            t = flat[leaf.offset:leaf.offset + leaf.size].view(leaf.shape)
+            params[leaf.key].copy_(_from_flax(t, leaf.layout, model))

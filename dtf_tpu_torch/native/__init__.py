@@ -15,7 +15,9 @@ reader in ``data/records.py``, PIL for JPEG) when the library cannot be
 built -- no g++, no libjpeg-turbo headers.  That choice is logged once
 and reported by :func:`decode_path`, which the runner puts in a run's
 stats.  ctypes foreign calls release the GIL, so Python worker threads
-get true decode parallelism.
+get true decode parallelism.  The async parameter store
+(``ps_store.cpp``) is a library of its own, built the same way without
+libjpeg (``native/ps.py``).
 """
 
 from __future__ import annotations
@@ -47,17 +49,28 @@ unavailable_reason = ""
 
 def lib_path() -> str:
     """Where the library for this source and these flags lives."""
+    return library_path("libdtf_native", SOURCE, CXXFLAGS + LDLIBS)
+
+
+def library_path(stem: str, source: str, flags) -> str:
+    """``_build/<stem>-<hash>.so``: the hash covers the source and the
+    flags, so an edited source is never served by a stale library."""
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(CXXFLAGS + LDLIBS).encode())
-    return os.path.join(BUILD_DIR, f"libdtf_native-{h.hexdigest()[:12]}.so")
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
 
 def build() -> str:
     """Compile the library unless it is there; returns its path.
     Raises RuntimeError naming what is missing."""
-    path = lib_path()
+    return build_library(lib_path(), SOURCE, CXXFLAGS, LDLIBS)
+
+
+def build_library(path: str, source: str, cxxflags, ldlibs) -> str:
+    """Compile ``source`` into ``path`` unless it is there, through a
+    temporary name renamed into place; returns ``path``."""
     if os.path.exists(path):
         return path
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
@@ -65,7 +78,7 @@ def build() -> str:
         raise RuntimeError("no C++ compiler (g++) on PATH")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
-    proc = subprocess.run([cxx, *CXXFLAGS, "-o", tmp, SOURCE, *LDLIBS],
+    proc = subprocess.run([cxx, *cxxflags, "-o", tmp, source, *ldlibs],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode:
         try:

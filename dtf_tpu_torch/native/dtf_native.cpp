@@ -1,6 +1,6 @@
 // dtf_native -- the port's C++ data runtime: a copy of the TFRecord
 // and JPEG half of dtf_tpu/native/dtf_native.cpp (the parameter
-// store, ps_store.cpp, is not ported yet).
+// store, ps_store.cpp, is a library of its own: native/ps.py).
 //
 // The host half of the reference's tf.data C++ kernels: TFRecord
 // record framing + crc32c, JPEG decode (libjpeg) incl. fused

@@ -24,7 +24,9 @@ Strategy -> runtime (the JAX package's names):
                            ``train/loop.py``)
     parameter_server       ``--ps_mode sync``: as horovod's batch, over
                            one global group; ``--ps_mode async`` (the
-                           C++ parameter store) is not ported
+                           C++ parameter store, ``parallel/ps.py``)
+                           joins no group: ``cli/runner.py`` dispatches
+                           it before initializing a runtime
 
 A process group exists whenever the topology is named -- the launcher's
 ``DTF_*`` variables, ``TF_CONFIG``, ``--worker_hosts`` or the flags --
@@ -110,10 +112,10 @@ def initialize(cfg, backend: Optional[str] = None) -> MeshRuntime:
     current."""
     strategy = cfg.distribution_strategy
     if strategy == "parameter_server" and cfg.ps_mode == "async":
-        raise NotImplementedError(
-            "--ps_mode async (push/pull against the C++ parameter store) "
-            "is not ported to dtf_tpu_torch yet (ROADMAP.md, Queue 1 "
-            "item 9); --ps_mode sync runs the synchronous form")
+        raise ValueError(
+            "--ps_mode async has no mesh runtime: cli/runner.py run "
+            "dispatches it to parallel/ps.py run_async before initialize, "
+            "and async workers join no process group")
     world = cfg.process_count
     if strategy in SINGLE_DEVICE:
         if world and world > 1:

@@ -118,6 +118,14 @@ def test_kinds_and_vocabulary_are_the_jax_packages():
 def test_unported_kinds_parse_but_refuse_to_arm(spec, subsystem):
     chaos.parse_spec(spec)
     Config(fault=spec)                       # the flag's grammar check
+    if spec.partition("@")[0] not in chaos.NOT_PORTED:
+        # ported since (ps_drop, with the async parameter server): it
+        # arms, and fires once at its point
+        inj = chaos.configure(spec, rank=0)
+        assert chaos.enabled() and [str(s) for s in inj.specs] == [spec]
+        assert not chaos.ps_drop(2) and chaos.ps_drop(3)
+        assert not chaos.ps_drop(4)
+        return
     with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
         chaos.configure(spec)
     assert not chaos.enabled()

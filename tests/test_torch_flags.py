@@ -82,8 +82,8 @@ def test_every_jax_config_field_is_accounted_for():
 
 
 @pytest.mark.parametrize("subsystem,flags", [
-    ("parameter server", ["ps_wire", "ps_snapshot_dir",
-                          "ps_reseed_tolerance"]),
+    ("parameter server", ["ps_wire", "ps_snapshot_dir", "ps_snapshot_secs",
+                          "ps_reconnect_secs", "ps_reseed_tolerance"]),
     ("model parallelism", ["shard_lm_head", "num_experts", "moe_top_k",
                            "num_microbatches", "pipeline_interleave"]),
     ("ZeRO", ["zero_wire", "zero_probe", "zero_stage"]),
@@ -95,10 +95,36 @@ def test_every_jax_config_field_is_accounted_for():
     ("obs/prom.py", ["metrics_port"]),
 ])
 def test_unported_flags_name_their_subsystem(subsystem, flags):
+    if subsystem == "parameter server":
+        # ported since (parallel/ps.py): the five parse, with the JAX
+        # package's defaults and validation
+        _check_ps_flags(flags)
+        return
     for name in flags:
         assert subsystem in NOT_PORTED[name], name
         with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
             parse_flags([f"--{name}", "1"])
+
+
+def _check_ps_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    argv = ["--ps_wire", "bf16", "--ps_snapshot_dir", "/tmp/snaps",
+            "--ps_snapshot_secs", "2.5", "--ps_reconnect_secs", "40",
+            "--ps_reseed_tolerance", "77"]
+    got, want = parse_flags(argv), jax_parse_flags(argv)
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+        assert getattr(got, name) == getattr(want, name), name
+    assert (got.ps_wire, got.ps_snapshot_dir, got.ps_snapshot_secs,
+            got.ps_reconnect_secs, got.ps_reseed_tolerance) == (
+        "bf16", "/tmp/snaps", 2.5, 40.0, 77)
+    for bad in (["--ps_wire", "fp16"], ["--ps_mode", "lazy"]):
+        with pytest.raises(ValueError, match=bad[0][2:]):
+            parse_flags(bad)
+        with pytest.raises(ValueError, match=bad[0][2:]):
+            jax_parse_flags(bad)
 
 
 def test_ported_and_no_op_flags_parse_with_the_jax_defaults():

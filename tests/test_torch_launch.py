@@ -137,7 +137,7 @@ def test_host_batch_must_split_over_the_processes():
 
 @pytest.mark.parametrize("argv,match", [
     (["--distribution_strategy", "parameter_server", "--ps_mode", "async"],
-     "Queue 1 item 9"),
+     "dispatches it to parallel/ps.py run_async before initialize"),
     (["--distribution_strategy", "off", "--process_count", "2",
       "--process_id", "0", "--coordinator_address", "localhost:1"],
      "runs one process"),
