@@ -219,6 +219,39 @@ Phases, each printing one JSON object per line (the card's
                  restarts the job, the store restores its snapshot and
                  discards the old attempt's done count, and the re-run
                  workers finish at the restored version plus 40.
+ 12. serving as the JAX package serves by default -- prefix sharing
+                 with refcounted, copy-on-write pages, eviction,
+                 cancellation, the drain, /metrics and the MFU ledger, the
+                 contiguous cache; transformer_tpu, random weights from
+                 ``--seed``, a warm request before each burst:
+     prefix_concurrency -- bench_serve.py's shared-prefix arm in bf16: a
+                 128-token system prompt, 8 tails of 8 tokens, 24 new
+                 tokens, 8 slots, a 25-page pool: with sharing at least
+                 twice the peak concurrency, fewer pages a live sequence,
+                 greedy tokens identical, K1/K4 launches as counted per
+                 request and chunk (a hit's first chunk runs K4);
+     prefix_ttft -- a 1024-token system prompt, 16 tails of U[1, 64], 64
+                 new tokens, the full pool: TTFT p50 with and without
+                 sharing (sharing lower), tokens/s, high-water lower,
+                 tokens identical; the decode step's ledger MFU and HBM
+                 share against the card's peaks;
+     prefix_pressure -- the 25-page pool: a distinct 300-token prompt
+                 evicts cached pages and completes; a request cancelled
+                 mid-decode comes back cancelled, the pool back to what
+                 the registry holds; begin_drain sheds the next submit;
+     prefix_f32 -- in float32 (the routes agree to ~1e-6 there): a
+                 4-page prompt seen twice is a COW replay with the
+                 unshared engine's tokens; 8 requests through the
+                 contiguous cache and the paged one, tokens equal,
+                 tokens/s side by side;
+     serve_cli_drain -- ``cli.serve_main`` as a process, bf16, 16
+                 requests of 512 new tokens, ``--metrics_port``: the
+                 serve_* and ledger_* series scraped, SIGTERM after 20
+                 decode steps, /healthz 503 while it drains, every
+                 request finished, exit 0, ``trace_main --ledger --json``
+                 rows from its trace.
+  The training phase 6 also holds the ledger's train_step MFU within 20%
+  of its own formula's.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -227,7 +260,8 @@ data-parallel LM run; as ``launches_recovery``, phase 9's resumed
 process; as ``launches_async``, phase 11's async worker), K2a and K2b
 phase 6's companion, the f32 routes phase 5's f32 AdamW steps, K4
 serving (and, as ``launches_recovery_serve``, with K1,
-serving phase 9's checkpoint) -- and, last, the device line.
+serving phase 9's checkpoint; as ``launches_prefix``, with K1, phase
+12's bursts with and without sharing) -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -1359,7 +1393,26 @@ def train_bf16(torch, seed: int, split: bool = False, steps: int = 30):
            "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"],
            "wall_s": wall, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    # the MFU ledger's train_step (obs/ledger.py): FlopCounterMode's
+    # FLOPs with K1's and K3's own counts, over the synced windows' mean
+    # step, against the card's peak by name; the JAX ledger's contract
+    # is within 20% of this formula's MFU
+    # counted: 6 FLOPs a weight a token, plus K1's 4 D and K3's 10 D a
+    # causal pair of each head (K3's reported from autograd's thread)
+    ledger = stats["ledger"].get("train_step") or {}
+    pairs = b * h * s * (s + 1) // 2
+    counted = (6 * b * s * (layers * (4 * d * d + 2 * d * d_ff) + d * vocab)
+               + layers * (4 + 10) * dh * pairs)
+    out.update(ledger_train_step=ledger, ledger_flops_counted=counted,
+               ledger_flops_over_formula=ledger.get("flops", 0.0)
+               / (flops_per_token * b * s),
+               ledger_mfu_over_mfu=(ledger.get("mfu") or 0.0) / out["mfu"])
     emit(out)
+    if not split and (ledger.get("flops") != counted
+                      or abs(out["ledger_mfu_over_mfu"] - 1) > 0.2):
+        raise AssertionError(f"ledger train_step {ledger}: FLOPs not "
+                             f"{counted}, or its MFU not within 20% of the "
+                             f"formula's {out['mfu']}")
     torch.cuda.empty_cache()
     return out
 
@@ -3471,6 +3524,462 @@ def async_ps(torch, seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving as the JAX package serves by default (prefix sharing,
+# copy-on-write, eviction, cancellation, drain, /metrics, the MFU ledger,
+# the contiguous cache)
+# ---------------------------------------------------------------------------
+
+# bench_serve.py's shared-prefix arm: tokens after the system prompt and
+# new tokens a request
+PREFIX_TAIL_LEN, PREFIX_BUDGET = 8, 24
+PREFIX_PAGE = 16
+
+
+def prefix_pool_pages(batch: int, sys_pages: int, page_size: int) -> int:
+    """bench_serve.py's pool: one full prompt copy plus each request's
+    tail pages fit, ``batch`` unshared copies do not."""
+    tail_pages = (-(-(sys_pages * page_size + PREFIX_TAIL_LEN
+                      + PREFIX_BUDGET) // page_size) - sys_pages)
+    return 1 + (sys_pages + tail_pages) + (batch - 1) * tail_pages
+
+
+def settle(engine, timeout: float = 300.0) -> None:
+    """Wait until the engine thread has retired everything it holds."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        with engine._cond:
+            if not engine._pending and all(s is None
+                                           for s in engine._slots):
+                return
+        time.sleep(0.01)
+    raise AssertionError("serving engine did not go idle")
+
+
+def prefix_arm(torch, model, *, sharing: bool, sys_prompt, tails,
+               budget: int, pool=None, batch: int = 8) -> dict:
+    """A warm request (the system prompt alone: it registers the prefix
+    when sharing), then a burst of ``sys_prompt + tail`` requests with
+    the kernels' counters zeroed just before and read just after: the
+    tokens, concurrency, pool high-water, TTFTs, launches and what they
+    should be (K1 per request without a hit, K4 per continuation chunk
+    and decode step), and the decode step's ledger row."""
+    import numpy as np
+
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+    from dtf_tpu_torch.serve import ServeEngine, collect_stats
+
+    eng = ServeEngine(model, max_batch=batch, max_seq_len=model.max_seq_len,
+                      max_delay_s=0.0, queue_size=64,
+                      kv_page_size=PREFIX_PAGE, kv_pool_pages=pool,
+                      prefix_sharing=sharing)
+    try:
+        eng.generate(sys_prompt, max_new_tokens=2)
+        settle(eng)
+        n_warm = eng.reset_measurement()
+        m = eng.metrics
+        names = ("serve_prefill_chunks_total", "serve_prefix_hit_pages_total")
+        before = [m.get(n).value for n in names]
+        steps0 = m.get("serve_decode_step_s").count
+        reset_counts(fa, pa)
+        t0 = time.time()
+        hs = [eng.submit(np.concatenate([sys_prompt, t]).astype(np.int32),
+                         max_new_tokens=budget) for t in tails]
+        res = [h.result(timeout=600) for h in hs]
+        wall = time.time() - t0
+        torch.cuda.synchronize()
+        launches = kernel_counts(fa, pa)
+        chunks, hits = (m.get(n).value - b for n, b in zip(names, before))
+        steps = m.get("serve_decode_step_s").count - steps0
+        stats = collect_stats(eng.completed[n_warm:], eng.shed_count,
+                              wall_time_s=wall)
+        out = {"sharing": sharing, "requests": len(tails),
+               "pool_pages": eng.pool.num_pages,
+               "max_concurrent": eng.max_concurrent,
+               "high_water": eng.pool.high_water,
+               "hit_pages": hits, "prefill_chunks": chunks,
+               "decode_steps": steps, "tokens_per_s": stats.tokens_per_s,
+               "ttft_p50_s": stats.ttft_p50_s,
+               "ttft_s": sorted(r.time_to_first_token_s for r in res),
+               "latency_p50_s": stats.latency_p50_s,
+               "launches": launches,
+               "ledger_decode_step": eng.ledger.summary().get(
+                   "serve_decode_step"),
+               "ledger_gauges": {
+                   g: m.get(f"ledger_serve_decode_step_{g}").value
+                   for g in ("mfu", "hbm_frac", "flops", "bytes")
+                   if m.get(f"ledger_serve_decode_step_{g}") is not None},
+               "tokens": [r.tokens for r in res]}
+    finally:
+        eng.stop()
+    # requests whose first chunk starts at 0 run K1 once a layer; every
+    # other chunk and every decode step runs K4 once a layer
+    layers = model.num_layers
+    hit_requests = hits // (len(sys_prompt) // PREFIX_PAGE)
+    first_chunks = len(tails) - hit_requests
+    want = {"K1": layers * first_chunks, "K2a": 0, "K2b": 0, "K3": 0,
+            "K4": layers * (chunks - first_chunks + steps)}
+    if launches != want:
+        raise AssertionError(f"prefix arm (sharing={sharing}): launches "
+                             f"{launches}, expected {want}")
+    out["hit_requests"] = hit_requests
+    return out
+
+
+def prefix_concurrency(torch, model, rng) -> dict:
+    """bench_serve.py's shared-prefix arm at transformer_tpu bf16: a
+    128-token system prompt, tails of 8, 24 new tokens, 8 slots, the
+    25-page pool.  Sharing must at least double the peak concurrency,
+    lower the high-water mark and leave every greedy token unchanged."""
+    sys_pages = 8
+    sys_prompt = rng.integers(0, model.vocab_size,
+                              (sys_pages * PREFIX_PAGE,)).astype("int32")
+    tails = [rng.integers(0, model.vocab_size,
+                          (PREFIX_TAIL_LEN,)).astype("int32")
+             for _ in range(8)]
+    pool = prefix_pool_pages(8, sys_pages, PREFIX_PAGE)
+    arms = {name: prefix_arm(torch, model, sharing=name == "sharing",
+                             sys_prompt=sys_prompt, tails=tails,
+                             budget=PREFIX_BUDGET, pool=pool)
+            for name in ("sharing", "nosharing")}
+    share, plain = arms["sharing"], arms["nosharing"]
+    line = {"phase": "prefix_concurrency", "model": "transformer_tpu",
+            "dtype": "bf16", "pool_pages": pool, "sys_tokens": 128,
+            "tail_tokens": PREFIX_TAIL_LEN, "new_tokens": PREFIX_BUDGET,
+            "concurrency_gain": share["max_concurrent"]
+            / max(plain["max_concurrent"], 1),
+            "tokens_identical": share["tokens"] == plain["tokens"],
+            **{f"{k}_{name}": a[k] for name, a in arms.items()
+               for k in ("max_concurrent", "high_water", "hit_pages",
+                         "hit_requests", "prefill_chunks", "decode_steps",
+                         "tokens_per_s", "ttft_p50_s", "launches",
+                         "ledger_gauges")}}
+    # the shared arm fills the same pool with 4x the sequences, so its
+    # high-water mark a live sequence is the comparison that holds
+    line["high_water_per_sequence"] = {
+        name: a["high_water"] / max(a["max_concurrent"], 1)
+        for name, a in arms.items()}
+    emit(line)
+    per_seq = line["high_water_per_sequence"]
+    if not (share["max_concurrent"] >= 2 * plain["max_concurrent"]
+            and per_seq["sharing"] < per_seq["nosharing"]
+            and line["tokens_identical"] and share["hit_requests"] == 8):
+        raise AssertionError(f"prefix concurrency: {line}")
+    return arms
+
+
+def prefix_ttft(torch, model, rng) -> dict:
+    """A 1024-token system prompt, 16 requests with tails from U[1, 64]
+    and 64 new tokens each, on the full pool: TTFT p50 and tokens/s
+    with and without sharing; tokens identical."""
+    sys_prompt = rng.integers(0, model.vocab_size, (1024,)).astype("int32")
+    tails = [rng.integers(0, model.vocab_size,
+                          (int(rng.integers(1, 65)),)).astype("int32")
+             for _ in range(16)]
+    arms = {name: prefix_arm(torch, model, sharing=name == "sharing",
+                             sys_prompt=sys_prompt, tails=tails, budget=64)
+            for name in ("sharing", "nosharing")}
+    share, plain = arms["sharing"], arms["nosharing"]
+    line = {"phase": "prefix_ttft", "model": "transformer_tpu",
+            "dtype": "bf16", "sys_tokens": 1024, "requests": 16,
+            "new_tokens": 64,
+            "tail_tokens": [len(t) for t in tails],
+            "ttft_speedup": plain["ttft_p50_s"] / share["ttft_p50_s"],
+            "tokens_identical": share["tokens"] == plain["tokens"],
+            **{f"{k}_{name}": a[k] for name, a in arms.items()
+               for k in ("ttft_p50_s", "ttft_s", "tokens_per_s",
+                         "latency_p50_s", "max_concurrent", "high_water",
+                         "hit_requests", "prefill_chunks", "launches",
+                         "ledger_decode_step", "ledger_gauges")}}
+    emit(line)
+    gauges = share["ledger_gauges"]
+    if not (line["tokens_identical"] and share["hit_requests"] == 16
+            and share["ttft_p50_s"] < plain["ttft_p50_s"]
+            and share["high_water"] < plain["high_water"]
+            and "mfu" in gauges and "hbm_frac" in gauges
+            and 0 < gauges["mfu"] < 1 and 0 < gauges["hbm_frac"] < 1):
+        raise AssertionError(f"prefix ttft: {line}")
+    return arms
+
+
+def prefix_pressure(torch, model, rng) -> dict:
+    """On the 25-page pool with sharing: eviction -- a distinct 300-token
+    prompt needs more pages than the cached prefix leaves free, so
+    registry-only pages are evicted and it completes (no livelock); a
+    cancel -- a request cancelled mid-decode comes back ``cancelled``
+    with its pages reclaimed down to what the registry holds; the drain
+    -- ``begin_drain`` sheds the next submit with retry_after."""
+    import numpy as np
+
+    from dtf_tpu_torch.serve import Backpressure, ServeEngine
+
+    pool = prefix_pool_pages(8, 8, PREFIX_PAGE)
+    eng = ServeEngine(model, max_batch=8, max_seq_len=model.max_seq_len,
+                      max_delay_s=0.0, kv_page_size=PREFIX_PAGE,
+                      kv_pool_pages=pool)
+    m = eng.metrics
+    try:
+        sys_prompt = rng.integers(0, model.vocab_size, (128,)).astype(
+            np.int32)
+        eng.generate(sys_prompt, max_new_tokens=2)
+        settle(eng)
+        cached = len(eng.registry)
+        big = rng.integers(0, model.vocab_size, (300,)).astype(np.int32)
+        t0 = time.time()
+        r_big = eng.submit(big, max_new_tokens=20).result(timeout=300)
+        evict_s = time.time() - t0
+        settle(eng)
+        evicted = m.get("serve_prefix_evicted_total").value
+        victim = eng.submit(rng.integers(0, model.vocab_size, (64,)).astype(
+            np.int32), max_new_tokens=300)
+        it = victim.stream(timeout=300)
+        streamed = [next(it) for _ in range(3)]
+        victim.cancel()
+        r_cancel = victim.result(timeout=300)
+        settle(eng)
+        reclaimed = eng.pool.used_pages == len(eng.registry)
+        eng.begin_drain()
+        try:
+            eng.submit(np.array([1, 2, 3], np.int32), max_new_tokens=2)
+            shed_on_drain = False
+        except Backpressure as e:
+            shed_on_drain = e.retry_after > 0
+        line = {"phase": "prefix_pressure", "model": "transformer_tpu",
+                "dtype": "bf16", "pool_pages": pool,
+                "registry_pages_before": cached,
+                "big_prompt_tokens": 300, "big_tokens": len(r_big.tokens),
+                "big_s": evict_s, "evicted_pages": evicted,
+                "cancelled": r_cancel.cancelled,
+                "cancelled_tokens": len(r_cancel.tokens),
+                "cancelled_total": m.get("serve_cancelled_total").value,
+                "pages_used_after_cancel": eng.pool.used_pages,
+                "registry_pages_after_cancel": len(eng.registry),
+                "reclaimed_to_registry": reclaimed,
+                "shed_on_drain": shed_on_drain,
+                "shed_total": eng.shed_count}
+    finally:
+        eng.stop()
+    emit(line)
+    if not (evicted > 0 and len(r_big.tokens) == 20 and r_cancel.cancelled
+            and 3 <= len(r_cancel.tokens) < 300
+            and r_cancel.tokens[:3] == streamed and reclaimed
+            and shed_on_drain and eng.failed is None):
+        raise AssertionError(f"prefix pressure: {line}")
+    return line
+
+
+def prefix_f32(torch, seed: int, rng) -> dict:
+    """transformer_tpu in float32, where the routes agree to ~1e-6 (phase
+    3's precision; in bf16 the COW replay's decode route and a prefill
+    chunk round differently, so token equality would be chance): COW --
+    a 4-page prompt seen twice, the second a full hit replayed into a
+    copied page, every token as the unshared engine's; the contiguous
+    cache -- 8 requests through kv_page_size 0 and through the paged
+    engine, tokens equal, tokens/s side by side."""
+    import numpy as np
+
+    from dtf_tpu_torch.models.registry import build_model
+    from dtf_tpu_torch.serve import ServeEngine, collect_stats
+    from dtf_tpu_torch.serve.bridge import random_init
+
+    model, _ = build_model("transformer_tpu", dtype=torch.float32)
+    model = random_init(model, seed).cuda().eval()
+    n_new = 16
+    prompt = rng.integers(0, model.vocab_size, (4 * PREFIX_PAGE,)).astype(
+        np.int32)
+    cow = {}
+    for sharing in (True, False):
+        eng = ServeEngine(model, max_batch=8, max_seq_len=model.max_seq_len,
+                          max_delay_s=0.0, kv_page_size=PREFIX_PAGE,
+                          prefix_sharing=sharing)
+        try:
+            runs = []
+            for _ in range(2):
+                runs.append(eng.generate(prompt, max_new_tokens=n_new).tokens)
+                settle(eng)
+            cow[sharing] = (runs, eng.metrics.get(
+                "serve_prefix_cow_total").value)
+        finally:
+            eng.stop()
+    prompts = [rng.integers(0, model.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.integers(1, 257, 8)]
+    layouts = {}
+    for name, page in (("paged", PREFIX_PAGE), ("contiguous", 0)):
+        eng = ServeEngine(model, max_batch=8, max_seq_len=model.max_seq_len,
+                          max_delay_s=0.0, kv_page_size=page)
+        try:
+            eng.generate(prompts[0], max_new_tokens=2)    # warm
+            n0 = eng.reset_measurement()
+            t0 = time.time()
+            hs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            res = [h.result(timeout=600) for h in hs]
+            st = collect_stats(eng.completed[n0:], eng.shed_count,
+                               wall_time_s=time.time() - t0)
+            layouts[name] = {"tokens": [r.tokens for r in res],
+                             "tokens_per_s": st.tokens_per_s,
+                             "ttft_p50_s": st.ttft_p50_s,
+                             "decode_step_p50_s": eng.metrics.get(
+                                 "serve_decode_step_s").percentile(50)}
+        finally:
+            eng.stop()
+    line = {"phase": "prefix_f32", "model": "transformer_tpu",
+            "dtype": "fp32", "cow_prompt_tokens": len(prompt),
+            "cow_total": cow[True][1],
+            "cow_tokens_equal_unshared":
+                cow[True][0][1] == cow[True][0][0] == cow[False][0][0]
+                == cow[False][0][1],
+            "contiguous_tokens_equal_paged":
+                layouts["contiguous"]["tokens"] == layouts["paged"]["tokens"],
+            "prompt_tokens": [len(p) for p in prompts], "new_tokens": 32,
+            **{f"{k}_{name}": v[k] for name, v in layouts.items()
+               for k in ("tokens_per_s", "ttft_p50_s", "decode_step_p50_s")}}
+    emit(line)
+    del model
+    torch.cuda.empty_cache()
+    if not (line["cow_total"] >= 1 and line["cow_tokens_equal_unshared"]
+            and line["contiguous_tokens_equal_paged"]):
+        raise AssertionError(f"prefix f32: {line}")
+    return line
+
+
+def scrape(url: str):
+    """(status, body) of one GET."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serve_cli_drain(seed: int, card: str) -> dict:
+    """``cli.serve_main`` as its own process on the card, bf16, with
+    ``--metrics_port`` and ``--trace_dir``: /metrics carries the serve_*
+    and ledger_* series; SIGTERM while it decodes turns /healthz to 503,
+    the in-flight requests finish and the process exits 0; ``trace_main
+    --ledger --json`` reads its ledger rows."""
+    import ast
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tdir = tempfile.mkdtemp(prefix="serve_drain_")
+    n_req = 16
+    argv = [sys.executable, "-m", "dtf_tpu_torch.cli.serve_main",
+            "--serve_random_init", "--device", "cuda", "--model",
+            "transformer_tpu", "--dtype", "bf16", "--seed", str(seed),
+            "--serve_max_batch", "8", "--serve_requests", str(n_req),
+            "--serve_prompt_len", "512", "--serve_max_new_tokens", "512",
+            "--metrics_port", str(port), "--trace_dir", tdir]
+    t0 = time.time()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    base = f"http://127.0.0.1:{port}"
+    body, steps_at_signal, healthz = "", 0.0, []
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline and proc.poll() is None:
+            try:
+                status, body = scrape(f"{base}/metrics")
+            except (urllib.error.URLError, OSError):
+                time.sleep(0.2)
+                continue
+            counts = [ln for ln in body.splitlines()
+                      if ln.startswith("serve_decode_step_s_count")]
+            if counts and float(counts[0].split()[1]) >= 20:
+                steps_at_signal = float(counts[0].split()[1])
+                break
+            time.sleep(0.1)
+        if not steps_at_signal:
+            raise AssertionError("serve_main never reached 20 decode steps "
+                                 "on /metrics")
+        signal_s = time.time() - t0
+        proc.send_signal(signal.SIGTERM)
+        while proc.poll() is None:
+            try:
+                status, hz = scrape(f"{base}/healthz")
+                healthz.append((status, json.loads(hz).get("draining")))
+            except (urllib.error.URLError, OSError, ValueError):
+                break
+            time.sleep(0.2)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stats_lines = [ln for ln in err.splitlines() if "Serve stats:" in ln]
+    stats = (ast.literal_eval(stats_lines[-1].split("Serve stats:", 1)[1]
+                              .strip()) if stats_lines else {})
+    series = sorted({ln.split()[2] for ln in body.splitlines()
+                     if ln.startswith("# TYPE ")})
+    rows = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.cli.trace_main", tdir,
+         "--ledger", "--json"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    ledger_rows = (json.loads(rows.stdout)["ledger"] if rows.returncode == 0
+                   else rows.stderr[-500:])
+    line = {"phase": "serve_cli_drain", "card": card,
+            "model": "transformer_tpu", "dtype": "bf16",
+            "returncode": proc.returncode, "requests": n_req,
+            "signal_after_s": signal_s,
+            "decode_steps_at_signal": steps_at_signal,
+            "wall_s": time.time() - t0,
+            "healthz_503_while_draining": any(
+                s == 503 and d for s, d in healthz),
+            "healthz_samples": len(healthz),
+            "serve_series": [n for n in series if n.startswith("serve_")],
+            "ledger_series": [n for n in series if n.startswith("ledger_")],
+            "stats": {k: stats.get(k) for k in (
+                "requests", "shed", "new_tokens", "tokens_per_second",
+                "ttft_p50_s", "decode_steps", "prefix_sharing", "drained")},
+            "ledger_rows": ledger_rows,
+            "stderr_tail": err[-1500:] if proc.returncode else ""}
+    emit(line)
+    want_series = {"serve_prefix_hit_pages_total", "serve_prefix_cow_total",
+                   "serve_prefix_evicted_total", "serve_cancelled_total",
+                   "serve_kv_pages_shared_refs", "serve_stream_lag_s",
+                   "ledger_serve_decode_step_mfu",
+                   "ledger_serve_decode_step_hbm_frac"}
+    if not (proc.returncode == 0 and line["healthz_503_while_draining"]
+            and "SIGTERM - draining" in err
+            and stats.get("drained") is True
+            and stats.get("requests", 0) + stats.get("shed", 0) == n_req
+            and stats.get("requests", 0) > 0
+            and stats.get("new_tokens") == stats.get("requests") * 512
+            and want_series <= set(series)
+            and isinstance(ledger_rows, list) and ledger_rows):
+        raise AssertionError(f"serve_main drain: {line}")
+    return line
+
+
+def serve_prefix(torch, seed: int, card: str) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import numpy as np
+
+    from dtf_tpu_torch.models.registry import build_model
+    from dtf_tpu_torch.serve.bridge import random_init
+
+    rng = np.random.default_rng(seed + 12)
+    model, _ = build_model("transformer_tpu", dtype=torch.bfloat16)
+    model = random_init(model, seed).cuda().eval()
+    try:
+        out = {"concurrency": prefix_concurrency(torch, model, rng),
+               "ttft": prefix_ttft(torch, model, rng),
+               "pressure": prefix_pressure(torch, model, rng)}
+    finally:
+        del model
+        torch.cuda.empty_cache()
+    out["f32"] = prefix_f32(torch, seed, rng)
+    out["cli"] = serve_cli_drain(seed, card)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3558,6 +4067,20 @@ def main(argv=None) -> int:
                  "(phase 11)")
     clock.done("11")
 
+    # phase 12: serving as the JAX package serves by default (K1 on
+    # first chunks without a hit, K4 on everything else)
+    prefix = serve_prefix(torch, args.seed, card)
+    launches_prefix = {
+        f"{arm}_{name}": prefix[arm][name]["launches"]
+        for arm in ("concurrency", "ttft")
+        for name in ("sharing", "nosharing")}
+    prefix_run = ("phase 12 shared-prefix bursts after a warm request, "
+                  "bf16: concurrency (128-token system prompt, 8 tails "
+                  "of 8, the 25-page pool) and ttft (1024-token system "
+                  "prompt, 16 tails of U[1, 64]), with and without "
+                  "sharing")
+    clock.done("12")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -3611,7 +4134,10 @@ def main(argv=None) -> int:
               launches_recovery_serve_run=rec_serve_run,
               launches_serve=serve_launches["K1"],
               launches_per_serve_call={c: n["K1"]
-                                       for c, n in per_call.items()}),
+                                       for c, n in per_call.items()},
+              launches_prefix={a: n["K1"]
+                               for a, n in launches_prefix.items()},
+              launches_prefix_run=prefix_run),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -3656,6 +4182,9 @@ def main(argv=None) -> int:
               launches_recovery_serve_run=rec_serve_run,
               launches_per_serve_call={c: n["K4"]
                                        for c, n in per_call.items()},
+              launches_prefix={a: n["K4"]
+                               for a, n in launches_prefix.items()},
+              launches_prefix_run=prefix_run,
               keys_per_split=k4[0]["keys_per_split"],
               chunk_case=k4_brief(k4_case("bfloat16", "chunk@1984")),
               f32_decode_case=k4_brief(k4_case("float32", "decode")),

@@ -7,7 +7,9 @@ Recovery, as the JAX runner wires it: ``--trace_dir`` (or the
 launcher's ``DTF_TRACE_DIR``) and the run-scoped trace id
 (``DTF_TRACE_ID``, minted here for a standalone run), ``--fault`` (or
 ``DTF_FAULT``), the SIGTERM/SIGINT latch and ``--preemption_poll_s``'s
-poller; a preempted run exits ``EXIT_PREEMPTED`` (75).  With
+poller; a preempted run exits ``EXIT_PREEMPTED`` (75).
+``--metrics_port`` serves the default registry (the MFU ledger's
+``train_step`` gauges among them) from rank 0 (``obs/prom.py``).  With
 ``--model_dir`` and no ``--skip_checkpoint`` the Trainer saves sealed
 checkpoints (every ``--checkpoint_steps``, at epoch ends, on
 preemption) whose manifests carry the host state (seed, step, epoch,
@@ -233,7 +235,7 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
     process group is destroyed at the end either way.  A preemption
     (SIGTERM/SIGINT, or the metadata poller) ends in an emergency
     checkpoint and ``SystemExit(EXIT_PREEMPTED)``."""
-    rt, poller = runtime, None
+    rt, poller, metrics_server = runtime, None, None
     try:
         trace.maybe_configure(cfg)
         # run-scoped trace id: the launcher mints one (DTF_TRACE_ID) so
@@ -244,6 +246,12 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
         preemption.install()
         if cfg.preemption_poll_s:
             poller = preemption.MetadataPoller(cfg.preemption_poll_s).start()
+        if cfg.metrics_port and not (cfg.process_id or 0):
+            # rank 0 only: co-hosted ranks must not race for one port.
+            # The default registry: the ledger's train_step gauges, the
+            # data service's reader lag, cache and respawns
+            from dtf_tpu_torch.obs.prom import MetricsServer
+            metrics_server = MetricsServer(cfg.metrics_port)
         if (cfg.distribution_strategy == "parameter_server"
                 and cfg.ps_mode == "async"):
             # push/pull against the parameter store: no runtime, no
@@ -260,6 +268,8 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
         trace.flush()
         raise SystemExit(preemption.EXIT_PREEMPTED)
     finally:
+        if metrics_server is not None:
+            metrics_server.shutdown()
         if poller is not None:
             poller.stop()
         preemption.restore()

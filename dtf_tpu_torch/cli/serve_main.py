@@ -11,6 +11,15 @@ up the dynamic batching engine, drives it with synthetic traffic --
 every request consumed through its token stream -- and reports latency
 percentiles and tokens/s (``--benchmark_log_dir`` writes metric.log).
 
+Serving is the JAX package's default: the paged cache with prefix
+sharing (``--serve_prefix_sharing``, on; ``--kv_page_size 0`` serves
+from the contiguous cache, without sharing).  ``--metrics_port``
+serves the engine's registry (queue, prefix hits, the MFU ledger) as
+Prometheus text on ``GET /metrics`` and ``GET /healthz`` (503 while
+draining).  SIGTERM drains: admissions shed with ``retry_after``,
+in-flight requests finish, and the process exits 0.  ``--trace_dir``
+records each request's submit, admit and retire.
+
 Examples:
   # on the GPU, the flagship width in bf16:
   python -m dtf_tpu_torch.cli.serve_main --serve_random_init \\
@@ -29,6 +38,8 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import logging
+import os
+import signal
 import sys
 import time
 
@@ -36,6 +47,8 @@ import numpy as np
 
 from dtf_tpu_torch.config import parse_flags
 from dtf_tpu_torch.models.registry import build_model
+from dtf_tpu_torch.obs import trace
+from dtf_tpu_torch.obs.watchdog import Heartbeat
 from dtf_tpu_torch.runtime.device import resolve_device
 from dtf_tpu_torch.serve import bridge
 from dtf_tpu_torch.serve.engine import Backpressure, ServeEngine
@@ -45,7 +58,8 @@ log = logging.getLogger("dtf_tpu_torch")
 
 
 def build_serving_engine(cfg, random_init: bool = False):
-    """(model, engine) from a Config, on ``cfg.device``."""
+    """(model, engine) from a Config, on ``cfg.device``.  The engine
+    beats a heartbeat when the launcher exported DTF_HEARTBEAT_DIR."""
     if not cfg.model.startswith("transformer"):
         raise ValueError(f"serving is implemented for the transformer LM "
                          f"family, not {cfg.model!r}")
@@ -76,9 +90,12 @@ def build_serving_engine(cfg, random_init: bool = False):
         model, max_batch=cfg.serve_max_batch, max_seq_len=max_seq,
         max_delay_s=cfg.serve_max_delay_ms / 1000.0,
         queue_size=cfg.serve_queue_size, seed=cfg.seed,
-        kv_page_size=cfg.kv_page_size,
+        kv_page_size=cfg.kv_page_size or None,
         kv_pool_pages=cfg.kv_pool_pages or None,
-        prefill_chunk=cfg.serve_prefill_chunk)
+        # Config refuses a chunk size with the contiguous cache
+        prefill_chunk=cfg.serve_prefill_chunk,
+        prefix_sharing=cfg.serve_prefix_sharing and bool(cfg.kv_page_size),
+        heartbeat=Heartbeat.from_env(interval_s=cfg.heartbeat_secs))
     return model, engine
 
 
@@ -87,6 +104,33 @@ def serve(cfg, random_init: bool = False) -> dict:
     demo and return the stats dict.  Library entry for tests and the
     smoke script."""
     model, engine = build_serving_engine(cfg, random_init=random_init)
+
+    # SIGTERM (the preemption signal) drains: admissions shed, in-flight
+    # work finishes, and the process exits 0.  The handler is minimal:
+    # one lock-free engine call and one os.write.  Installed before the
+    # metrics server, so a process that answers /healthz drains on it
+    drained = {"signaled": False}
+
+    def _on_sigterm(signum, frame):
+        drained["signaled"] = True
+        engine.begin_drain()
+        os.write(2, b"serve: SIGTERM - draining (admissions shed, "
+                    b"in-flight finishing)\n")
+
+    old_handler = None
+    try:
+        old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread (library use)
+        pass
+    metrics_server = None
+    if cfg.metrics_port:
+        from dtf_tpu_torch.obs.prom import MetricsServer
+        metrics_server = MetricsServer(
+            cfg.metrics_port, registry_fn=lambda: engine.metrics,
+            health_fn=lambda: {"ok": not engine.draining,
+                               "draining": engine.draining,
+                               "outstanding": engine.outstanding})
+
     rng = np.random.default_rng(cfg.seed)
     handles = []
     shed = 0
@@ -96,6 +140,7 @@ def serve(cfg, random_init: bool = False) -> dict:
         return sum(1 for _ in handle.stream(timeout=600))
 
     t0 = time.time()
+    stopped = False
     try:
         # synthetic traffic: varied-length prompts, all submitted up
         # front (a burst), each consumed through its token stream
@@ -110,6 +155,7 @@ def serve(cfg, random_init: bool = False) -> dict:
                         prompt, max_new_tokens=cfg.serve_max_new_tokens,
                         temperature=cfg.serve_temperature)
                 except Backpressure:
+                    # a full queue, or the drain: the client's to retry
                     shed += 1
                     continue
                 handles.append(h)
@@ -118,10 +164,20 @@ def serve(cfg, random_init: bool = False) -> dict:
         for h in handles:
             h.result(timeout=600)
         wall = time.time() - t0
+        engine.stop()       # drain=True: waits out queued + in-flight
+        stopped = True
     finally:
-        engine.stop(drain=False)
+        if not stopped:
+            engine.stop(drain=False)
+        if old_handler is not None:
+            signal.signal(signal.SIGTERM, old_handler)
+        if metrics_server is not None:
+            metrics_server.shutdown()
     if engine.failed is not None:
         raise RuntimeError("serving engine failed") from engine.failed
+    if drained["signaled"]:
+        log.info("serve: drained after SIGTERM (%d in flight finished, %d "
+                 "shed) -- exiting 0", len(handles), shed)
 
     stats = collect_stats(engine.completed, engine.shed_count,
                           wall_time_s=wall)
@@ -134,6 +190,7 @@ def serve(cfg, random_init: bool = False) -> dict:
         blog.log_serving_stats(stats)
         blog.log_registry(engine.metrics)
     steps = engine.metrics.get("serve_decode_step_s")
+    m = engine.metrics
     out = {
         "device": str(engine.decoder.device),
         "requests": stats.num_requests,
@@ -145,9 +202,12 @@ def serve(cfg, random_init: bool = False) -> dict:
         "ttft_p50_s": stats.ttft_p50_s,
         "decode_step_p50_s": steps.percentile(50),
         "decode_steps": steps.count,
-        "prefill_chunks":
-            engine.metrics.get("serve_prefill_chunks_total").value,
+        "prefill_chunks": m.get("serve_prefill_chunks_total").value,
         "streamed_tokens": streamed,
+        "prefix_sharing": engine.prefix_sharing,
+        "prefix_hit_pages": m.get("serve_prefix_hit_pages_total").value,
+        "drained": drained["signaled"],
+        "ledger": engine.ledger.summary(),
     }
     log.info("Serve stats: %s", out)
     return out
@@ -162,7 +222,11 @@ def main(argv=None) -> dict:
     random_init = "--serve_random_init" in argv
     if random_init:
         argv.remove("--serve_random_init")
-    return serve(parse_flags(argv), random_init=random_init)
+    cfg = parse_flags(argv)
+    # --trace_dir: batch-form, chunk and decode spans, each request's
+    # submit/admit/retire, shed anomalies and the ledger
+    trace.maybe_configure(cfg)
+    return serve(cfg, random_init=random_init)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """Trace summarizer -- turn per-rank JSONL traces into a step report; a
 copy of ``dtf_tpu/cli/trace_main.py`` over the port's trace files and
-vocabulary (``obs/trace.py``, ``obs/vocab.py``).  The MFU ledger view
-(``--ledger``) is not ported: the port has no ledger yet.
+vocabulary (``obs/trace.py``, ``obs/vocab.py``).
 
 Reads the ``trace_rank*.jsonl`` files a traced run wrote (any
 subsystem emitting through dtf_tpu_torch.obs.trace), and prints
@@ -11,7 +10,7 @@ event counts, and every anomaly record.
 Usage:
   python -m dtf_tpu_torch.cli.trace_main <trace_dir | trace.jsonl> [...]
       [--check] [--allow <kind>]... [--json] [--merge]
-      [--request <trace_id>]
+      [--request <trace_id>] [--ledger]
 
 ``--request <trace_id>`` reconstructs ONE request's (or one run's)
 cross-process timeline: every record whose ``trace`` is the id — or
@@ -23,6 +22,13 @@ re-dispatch → stream delivery → completion, each line rank-tagged.
 Composes with ``--merge`` (emit the filtered records as raw JSONL
 instead of the rendered timeline).  Exits 2 when the id appears in no
 record.
+
+``--ledger`` renders the MFU/cost ledger (``obs/ledger.py``) from the
+trace stream's ``ledger_exec``/``ledger_summary`` events: one row per
+(rank, executable) with FLOPs, calls, measured mean wall time, achieved
+TFLOP/s, MFU and HBM-bandwidth fraction.  With ``--json`` the same rows
+come out as one JSON object (``{"ledger": [...]}``).  Exits 2 when the
+stream holds no ledger record.
 
 ``--merge`` emits ONE time-ordered cross-rank stream (JSONL on stdout)
 instead of the aggregate table: every record from every
@@ -156,6 +162,55 @@ def print_request_timeline(trace_id: str, recs: List[dict]) -> None:
               f"{tag}{name}{dur} {detail if detail else ''}")
 
 
+def ledger_rows(merged: List[dict]) -> List[dict]:
+    """The MFU/cost ledger as machine-readable rows from
+    ledger_exec/ledger_summary events -- the latest record per (rank,
+    executable) wins.  One dict per (rank, exec): flops/bytes/count/
+    mean_s/achieved_tflops/mfu/hbm_frac (missing fields None)."""
+    rows: Dict[tuple, dict] = {}
+    for rec in merged:
+        if rec.get("name") == "ledger_exec":
+            key = (str(rec.get("rank", "?")), rec.get("exec", "?"))
+            rows.setdefault(key, {}).update(
+                flops=rec.get("flops"), bytes=rec.get("bytes"))
+        elif rec.get("name") == "ledger_summary":
+            key = (str(rec.get("rank", "?")), rec.get("exec", "?"))
+            row = rows.setdefault(key, {})
+            row.update(count=rec.get("count"), mean_s=rec.get("mean_s"),
+                       achieved_tflops=rec.get("achieved_tflops"),
+                       mfu=rec.get("mfu"), hbm_frac=rec.get("hbm_frac"))
+            # the port's summary carries the mean counts a call (data-
+            # dependent work): they supersede the registration's
+            row.update({k: rec[k] for k in ("flops", "bytes") if k in rec})
+    return [{"rank": rank, "exec": name, **r}
+            for (rank, name), r in sorted(rows.items())]
+
+
+def print_ledger(merged: List[dict]) -> bool:
+    """Render :func:`ledger_rows` as the human table.  Returns False
+    when the stream carries no ledger records at all."""
+    rows = ledger_rows(merged)
+    if not rows:
+        return False
+
+    def fmt(v, spec):
+        return format(v, spec) if isinstance(v, (int, float)) else "-"
+
+    hdr = (f"{'rank':<7}{'executable':<28}{'gflops':>9}{'calls':>7}"
+           f"{'mean_ms':>9}{'tflop/s':>9}{'mfu':>7}{'hbm':>7}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        print(f"{r['rank']:<7}{r['exec']:<28}"
+              f"{fmt((r.get('flops') or 0) / 1e9, '9.1f'):>9}"
+              f"{fmt(r.get('count'), 'd'):>7}"
+              f"{fmt((r.get('mean_s') or 0) * 1e3, '9.2f'):>9}"
+              f"{fmt(r.get('achieved_tflops'), '.2f'):>9}"
+              f"{fmt(r.get('mfu'), '.3f'):>7}"
+              f"{fmt(r.get('hbm_frac'), '.3f'):>7}")
+    return True
+
+
 def summarize(files: List[str]) -> dict:
     spans: Dict[str, Histogram] = {}
     events: CCounter = CCounter()
@@ -241,6 +296,9 @@ def main(argv=None) -> int:
     ap.add_argument("--merge", action="store_true",
                     help="emit one time-ordered cross-rank JSONL stream "
                          "(rank-tagged records) instead of the summary")
+    ap.add_argument("--ledger", action="store_true",
+                    help="render the MFU/cost ledger table from the "
+                         "stream's ledger_exec/ledger_summary events")
     ap.add_argument("--request", default="", metavar="TRACE_ID",
                     help="reconstruct one trace id's cross-process "
                          "timeline (with --merge: emit its records as "
@@ -270,6 +328,20 @@ def main(argv=None) -> int:
             print_request_timeline(args.request, recs)
         # --check still scans the WHOLE stream: a clean request inside
         # a dirty run is not a clean run
+        anomalies = [r for r in merged if r.get("kind") == "anomaly"]
+    elif args.ledger:
+        merged = merge_records(files)
+        if args.json:
+            rows = ledger_rows(merged)
+            if not rows:
+                print("no ledger records in this trace", file=sys.stderr)
+                return 2
+            print(json.dumps({"ledger": rows}, indent=2, default=str))
+        elif not print_ledger(merged):
+            print("no ledger records in this trace (ledger_exec/"
+                  "ledger_summary events are emitted by instrumented "
+                  "train/serve runs)", file=sys.stderr)
+            return 2
         anomalies = [r for r in merged if r.get("kind") == "anomaly"]
     elif args.merge:
         # one pass over the files: the merged stream also feeds the

@@ -16,9 +16,10 @@ clipping, logging, remat, ``use_tensor_lr``, ``stop_threshold``,
 (``input_service``, ``input_num_shards``, ``input_workers``, the
 decode cache, ``input_fast_dct``, ``input_scaled_decode``,
 ``datasets_num_private_threads``),
-the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py``, the
-benchmark log, and the topology of a data-parallel run
-(``distribution_strategy``, ``num_devices``, ``ps_mode``, the
+the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py`` (prefix
+sharing and the contiguous cache, ``kv_page_size 0``, included),
+``metrics_port`` (``obs/prom.py``), the benchmark log, and the
+topology of a data-parallel run (``distribution_strategy``, ``num_devices``, ``ps_mode``, the
 coordinator, process id and count, ``worker_hosts``/``task_index`` and
 ``sync_bn``) and the async parameter server's (``ps_wire``,
 ``ps_snapshot_dir``, ``ps_snapshot_secs``, ``ps_reconnect_secs``,
@@ -84,7 +85,6 @@ NOT_PORTED = {
                               "moe_top_k", "num_microbatches",
                               "pipeline_interleave")},
     "serve_tp": "serving tensor parallelism",
-    "serve_prefix_sharing": "prefix sharing (the serving page registry)",
     **{name: _FLEET for name in (
         "router_replicas", "router_deadline_s", "router_admission",
         "router_probe_s", "router_health_timeout_s",
@@ -96,7 +96,6 @@ NOT_PORTED = {
         "serve_host", "rollout_checkpoint", "rollout_canary_requests",
         "rollout_mirror_fraction", "rollout_max_divergence",
         "rollout_warm_timeout_s", "rollout_state")},
-    "metrics_port": "the Prometheus endpoint (obs/prom.py)",
 }
 
 # --distribution_strategy names, the JAX package's (cli/runner.py and
@@ -231,11 +230,17 @@ class Config:
     # whole-prompt single chunk; None = 4 pages
     serve_prefill_chunk: Optional[int] = None
     serve_params_npz: str = ""          # flax params as .npz ("" = none)
-    # paged KV cache: tokens per page (the contiguous cache is not
-    # ported, so 0 is refused) and total pool pages incl. the scratch
-    # page (0 = the full reservation, 1 + slots x pages-per-slot)
+    # paged KV cache: tokens per page (0 = the contiguous per-slot
+    # layout) and total pool pages incl. the scratch page (0 = the full
+    # reservation, 1 + slots x pages-per-slot)
     kv_page_size: int = 16
     kv_pool_pages: int = 0
+    # share full prompt-prefix pages across requests (paged cache):
+    # refcounted pages, copy-on-write, eviction under pool pressure
+    serve_prefix_sharing: bool = True
+    # Prometheus text + /healthz on this port ("" = 0 = off): the
+    # serving engine's registry, or rank 0's default registry in training
+    metrics_port: int = 0
 
     def __post_init__(self):
         if self.dtype not in DTYPES:
@@ -288,19 +293,26 @@ class Config:
         if self.serve_max_batch < 1 or self.serve_queue_size < 1:
             raise ValueError(
                 "serve_max_batch and serve_queue_size must be >= 1")
-        if self.kv_page_size < 1:
+        if self.kv_page_size < 0 or self.kv_pool_pages < 0 or (
+                self.serve_prefill_chunk is not None
+                and self.serve_prefill_chunk < 0):
             raise ValueError(
-                f"kv_page_size must be >= 1 (the contiguous KV cache is "
-                f"not ported), got {self.kv_page_size}")
-        if self.kv_pool_pages < 0 or (self.serve_prefill_chunk is not None
-                                      and self.serve_prefill_chunk < 0):
-            raise ValueError(
-                "kv_pool_pages and serve_prefill_chunk must be >= 0")
-        if (self.serve_prefill_chunk
+                "kv_page_size, kv_pool_pages and serve_prefill_chunk "
+                "must be >= 0 (0 disables each)")
+        if (self.kv_page_size and self.serve_prefill_chunk
                 and self.serve_prefill_chunk % self.kv_page_size):
             raise ValueError(
                 f"serve_prefill_chunk ({self.serve_prefill_chunk}) must be "
                 f"a multiple of kv_page_size ({self.kv_page_size})")
+        if not self.kv_page_size and (
+                self.kv_pool_pages or self.serve_prefill_chunk is not None):
+            raise ValueError(
+                "kv_pool_pages / serve_prefill_chunk need the paged "
+                "cache (kv_page_size > 0)")
+        if not 0 <= self.metrics_port <= 65535:
+            raise ValueError(
+                f"metrics_port must be in [0, 65535] (0 = off), got "
+                f"{self.metrics_port}")
 
         if self.input_wire not in ("uint8", "float32"):
             raise ValueError(f"unknown input_wire {self.input_wire!r}; "

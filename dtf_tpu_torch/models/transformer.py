@@ -14,10 +14,17 @@ Two forwards over one set of weights:
       chunks and decode steps attend over the row's pages through
       ``ops.paged_attention.paged_attention_auto`` -- the paged flash
       decode kernel on CUDA.
+  contiguous decode -- ``model(tokens, cache_index=..., cache=...)``
+      with per-slot slabs: each row's chunk is written at its
+      ``cache_index`` and the queries attend over the whole slab under
+      the mask key <= query position (``ops.paged_attention.
+      cached_attention``, dense; the JAX package runs no Pallas kernel
+      on this layout either).
 
-The cache is a list with one ``{"paged_key", "paged_value"}`` dict of
-[pool_pages, page_size, H, Dh] pools per layer, owned by the caller
-(``serve.decode.Decoder``) and updated in place.
+The cache is a list with one dict per layer, owned by the caller
+(``serve.decode.Decoder``) and updated in place: ``{"paged_key",
+"paged_value"}`` [pool_pages, page_size, H, Dh] pools, or
+``{"cached_key", "cached_value"}`` [slots, max_seq_len, H, Dh] slabs.
 
 Parameter names follow the flax module tree (``embed``, ``pos_embed``,
 ``block{i}.ln1/attn.qkv/attn.out/ln2/fc1/fc2``, ``ln_f``, ``lm_head``),
@@ -41,8 +48,8 @@ reused until the weight changes (:func:`cast`).
 so the flash forward runs twice per block and step.  The selective
 ``remat_policy`` is not ported yet.
 
-Ring attention (``seq_axis``), tensor parallelism (``model_axis``) and
-the contiguous per-slot cache are not ported yet.
+Ring attention (``seq_axis``) and tensor parallelism (``model_axis``)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from dtf_tpu_torch.ops.flash_attention import flash_attention
-from dtf_tpu_torch.ops.paged_attention import (paged_attention_auto,
+from dtf_tpu_torch.ops.paged_attention import (cached_attention,
+                                               paged_attention_auto,
                                                write_pages)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
@@ -116,6 +124,10 @@ class CausalSelfAttention(nn.Module):
         q, k, v = (t.contiguous() for t in qkv.unbind(2))
         if layer_cache is None:
             o = flash_attention(q, k, v, causal=True)
+        elif "cached_key" in layer_cache:
+            if cache_index is None:
+                raise ValueError("decode needs cache_index [B] int32")
+            o = _contiguous_attention(q, k, v, layer_cache, cache_index)
         else:
             if cache_index is None or block_table is None:
                 raise ValueError("paged decode needs cache_index [B] and "
@@ -137,6 +149,27 @@ class CausalSelfAttention(nn.Module):
                                          cache_index,
                                          window_pages=window_pages)
         return dense(self.out, o.reshape(b, s, d), self.compute_dtype)
+
+
+def _contiguous_attention(q, k, v, layer_cache, cache_index):
+    """Write the chunk's K/V at each row's ``cache_index`` into the
+    [B, L, H, Dh] slabs, then attend every query over the slab: query i
+    (position index + i) sees slab rows j <= index + i -- the chunk
+    causally, the prefix fully, never the stale tail.  The write start
+    is clamped to L - S, as ``lax.dynamic_update_slice`` clamps it."""
+    ck, cv = layer_cache["cached_key"], layer_cache["cached_value"]
+    b, s = q.shape[:2]
+    length = ck.shape[1]
+    dev = q.device
+    start = torch.clamp(cache_index.long(), 0, length - s)
+    rows = torch.arange(b, device=dev)[:, None]
+    pos = start[:, None] + torch.arange(s, device=dev)[None, :]
+    ck[rows, pos] = k.to(ck.dtype)
+    cv[rows, pos] = v.to(cv.dtype)
+    jpos = torch.arange(length, device=dev)[None, None, :]
+    qpos = (cache_index.long()[:, None, None]
+            + torch.arange(s, device=dev)[None, :, None])
+    return cached_attention(q, ck, cv, jpos <= qpos)
 
 
 class Block(nn.Module):

@@ -49,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from dtf_tpu_torch.obs import ledger
 from dtf_tpu_torch.ops import _build
 from dtf_tpu_torch.ops import blockwise as bw
 
@@ -168,6 +169,25 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a head attends: causal query i sees keys
+    0..i."""
+    if not causal:
+        return sq * sk
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + max(sq - sk, 0) * sk
+
+
+def _report_ops(q, k, causal: bool, products: int) -> None:
+    """The ledger's operation count of one kernel call (2 D operations
+    per pair per tile product: S and PV forward; S, dP and the grads
+    backward), the count its bound uses; a no-op outside a count."""
+    if ledger.counting():
+        b, sq, h, d = q.shape
+        ledger.kernel_ops(2 * products * d * b * h
+                          * attention_pairs(sq, k.shape[1], causal))
+
+
 def _flash_forward_cuda(q, k, v, causal: bool, scale: float):
     global launches
     check_kernel_args(q, k, v)
@@ -199,6 +219,7 @@ def flash_forward(q, k, v, *, causal: bool = False,
     signature's sake: neither formulation tiles queries by it."""
     del block_q
     scale = float(scale) if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    _report_ops(q, k, causal, 2)
     with torch.no_grad():
         if q.is_cuda:
             return _flash_forward_cuda(q, k, v, causal, scale)
@@ -310,6 +331,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """K2a on CUDA tensors (raises on anything it does not take), its
     plain version on CPU tensors."""
     global launches_dq
+    _report_ops(q, k, causal, 3)
     if not q.is_cuda:
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                                   scale=scale)
@@ -330,6 +352,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
 def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """K2b on CUDA tensors, its plain version on CPU tensors."""
     global launches_dkdv
+    _report_ops(q, k, causal, 4)
     if not q.is_cuda:
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, causal=causal,
                                     scale=scale)
@@ -366,6 +389,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """K3 on CUDA tensors (both of its passes), its plain version on CPU
     tensors.  Returns (dq, dk, dv)."""
     global launches_fused
+    _report_ops(q, k, causal, 5)
     if not q.is_cuda:
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, causal=causal,
                                      scale=scale)

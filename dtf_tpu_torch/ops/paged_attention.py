@@ -43,6 +43,7 @@ import ctypes
 
 import torch
 
+from dtf_tpu_torch.obs import ledger
 from dtf_tpu_torch.ops import _build
 from dtf_tpu_torch.ops import blockwise as bw
 from dtf_tpu_torch.ops.flash_attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS
@@ -64,6 +65,25 @@ def num_splits(m_pages: int, page_size: int, keys_per_split: int) -> int:
     (M * page), not from ``index``, which would need the host to read
     the device."""
     return -(-m_pages * page_size // keys_per_split)
+
+
+def live_pairs(index, s: int, capacity: int) -> int:
+    """(query, key) pairs of one head over a paged history: row b's
+    query i (position index[b] + i) sees keys 0 .. index[b] + i, within
+    the table's ``capacity`` (M * page) -- the keys K4 reads, dead
+    pages skipped.  ``index`` is a host sequence."""
+    return sum(min(int(i) + j + 1, capacity)
+               for i in index for j in range(s))
+
+
+def _report_ops(q, block_table, index, page_size: int) -> None:
+    """The ledger's operation count of one K4 call (the count its bound
+    uses: 4 D operations per live pair); a no-op outside a count.  It
+    reads ``index`` on the host: inside a count only."""
+    if ledger.counting():
+        _, s, h, d = q.shape
+        ledger.kernel_ops(4 * h * d * live_pairs(
+            index.tolist(), s, block_table.shape[1] * page_size))
 
 
 def cached_attention(q, k, v, mask):
@@ -234,6 +254,7 @@ def paged_flash_decode(q, pool_k, pool_v, block_table, index, *,
     :func:`paged_attention`).  CUDA tensors run the kernel; CPU tensors
     its plain version."""
     scale = float(scale) if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    _report_ops(q, block_table, index, pool_k.shape[1])
     if q.is_cuda:
         return _paged_flash_decode_cuda(q, pool_k, pool_v, block_table,
                                         index, scale)
@@ -245,9 +266,11 @@ def paged_attention_auto(q, pool_k, pool_v, block_table, index, *,
                          window_pages=None):
     """The kernel for CUDA tensors, the gather for CPU tensors.
     ``window_pages`` trims the gather's window to the pages the chunk
-    can see; the kernel needs no trim (it stops at the live length)."""
+    can see; the kernel needs no trim (it stops at the live length).
+    Inside a ledger count both report K4's operations."""
     if q.is_cuda:
         return paged_flash_decode(q, pool_k, pool_v, block_table, index)
+    _report_ops(q, block_table, index, pool_k.shape[1])
     table = (block_table if window_pages is None
              else block_table[:, :window_pages])
     return paged_attention(q, pool_k, pool_v, table, index)

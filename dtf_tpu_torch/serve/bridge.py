@@ -117,21 +117,30 @@ def load_for_serving(model, npz_path: str = "", model_dir: str = "",
 
 
 def serving_memory_plan(model, *, num_slots: int, max_seq_len: int,
-                        kv_page_size: int, kv_pool_pages: int = 0) -> dict:
-    """Byte accounting of the paged KV pool: ``kv_pool_pages`` of 0 is
-    the full reservation (1 + slots x pages-per-slot)."""
+                        kv_page_size: int = 0,
+                        kv_pool_pages: int = 0) -> dict:
+    """Byte accounting of the KV cache: the contiguous layout reserves
+    ``num_slots x max_seq_len`` tokens, the paged pool
+    ``(kv_pool_pages - 1) x kv_page_size`` (``kv_pool_pages`` of 0 is
+    the full reservation, 1 + slots x pages-per-slot; ``kv_page_size``
+    0 is the contiguous layout)."""
     head_dim = model.d_model // model.num_heads
     elem = torch.empty((), dtype=model.dtype).element_size()
     per_token = 2 * model.num_layers * model.num_heads * head_dim * elem
-    pages_per_slot = -(-max_seq_len // kv_page_size)
+    pages_per_slot = -(-max_seq_len // max(kv_page_size, 1))
     pool_pages = int(kv_pool_pages) or 1 + num_slots * pages_per_slot
-    tokens = (pool_pages - 1) * kv_page_size
+    contiguous = num_slots * max_seq_len
+    paged = (pool_pages - 1) * kv_page_size if kv_page_size else 0
     plan = {"per_token_kv_bytes": per_token,
-            "kv_bytes_paged": pool_pages * kv_page_size * per_token,
-            "kv_tokens_capacity": tokens,
-            "pages_per_slot": pages_per_slot,
-            "pool_pages": pool_pages}
-    log.info("serving memory plan: %d slots x %d tokens; paged pool %.1f MB "
-             "(%d pages x %d tokens)", num_slots, max_seq_len,
-             plan["kv_bytes_paged"] / 2**20, pool_pages, kv_page_size)
+            "kv_bytes_contiguous": contiguous * per_token,
+            "kv_bytes_paged": paged * per_token,
+            "kv_tokens_capacity": paged or contiguous,
+            "pages_per_slot": pages_per_slot if kv_page_size else 0,
+            "pool_pages": pool_pages if kv_page_size else 0}
+    log.info("serving memory plan: %d slots x %d tokens; KV contiguous "
+             "%.1f MB%s", num_slots, max_seq_len,
+             plan["kv_bytes_contiguous"] / 2**20,
+             (f", paged pool {plan['kv_bytes_paged'] / 2**20:.1f} MB "
+              f"({pool_pages} pages x {kv_page_size} tokens)"
+              if kv_page_size else " (paged cache off)"))
     return plan

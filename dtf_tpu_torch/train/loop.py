@@ -62,8 +62,15 @@ from the coordinator (rank 0) only.
 reaches it, and ``--profile_steps "start,stop"`` runs ``torch.profiler``
 over that range of steps (:class:`StepProfiler`).
 
-Not ported yet: ZeRO, TP/EP/PP and the MFU ledger; the flags that ask
-for them raise (``config/flags.py``).
+The MFU ledger (``obs/ledger.py``) registers ``train_step`` once: the
+first step of a ``fit`` runs under the FLOP counter (aten FLOPs plus
+the attention kernels' own counts), and every clean log window feeds
+its synced per-step wall time; the summary goes to the trace at the
+end and into the stats as ``ledger``.  ``DTF_LEDGER=0`` turns it off,
+as in the JAX loop.
+
+Not ported yet: ZeRO and TP/EP/PP; the flags that ask for them raise
+(``config/flags.py``).
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ from dtf_tpu_torch.convert import state_from_flat, state_to_flat
 from dtf_tpu_torch.data.base import DatasetSpec
 from dtf_tpu_torch.models.registry import l2_weight_penalty
 from dtf_tpu_torch.obs import trace
+from dtf_tpu_torch.obs.ledger import Ledger, count_flops
 from dtf_tpu_torch.obs.watchdog import (Heartbeat, NanLossWatchdog,
                                         StepTimeWatchdog)
 from dtf_tpu_torch.parallel.collectives import (all_reduce_mean,
@@ -426,6 +434,10 @@ class Trainer:
             log.info("resuming at step %d (epoch %d, batch %d)",
                      global_step, start_epoch, start_batch)
         profiler = StepProfiler(cfg, self.device, self.rt.rank)
+        # the MFU ledger on the default registry (what --metrics_port
+        # serves): the first step counted, then each clean window
+        ledger = Ledger(device=self.device)
+        count_pending = os.environ.get("DTF_LEDGER", "1") != "0"
         t0 = time.time()
         try:
             for epoch in range(start_epoch, self.train_epochs):
@@ -438,7 +450,16 @@ class Trainer:
                     profiler.before_step(global_step)
                     images, labels = next(train_iter)
                     with trace.span("step", step=global_step):
-                        state, metrics = self.train_step(state, images, labels)
+                        if count_pending:
+                            # its wall sits in the first window, which
+                            # is skipped
+                            (state, metrics), count = count_flops(
+                                self.train_step, state, images, labels)
+                            ledger.register("train_step", flops=count.total)
+                            count_pending = False
+                        else:
+                            state, metrics = self.train_step(state, images,
+                                                             labels)
                     global_step += 1
                     if global_step % cfg.log_steps == 0:
                         # the sync: the host waits for the step's loss
@@ -461,6 +482,8 @@ class Trainer:
                                 steps=cfg.log_steps,
                                 step_s=window_s / cfg.log_steps)
                             self.window_step_s.append(window_s / cfg.log_steps)
+                            ledger.observe("train_step",
+                                           window_s / cfg.log_steps)
                             if step_guard is not None:
                                 step_guard.observe(global_step, window_s)
                         window_t0 = now
@@ -551,10 +574,12 @@ class Trainer:
         log.info("train wall time: %.1fs (%d steps)", time.time() - t0,
                  global_step)
         trace.event("train_end", step=global_step, wall_s=time.time() - t0)
+        ledger.emit_summary()
         trace.flush()
         stats = build_stats(history, eval_output, time_cb)
         stats["train_loss_log"] = list(self.loss_log)
         stats["window_step_s"] = list(self.window_step_s)
+        stats["ledger"] = ledger.summary()
         if profiler.path:
             stats["profile_trace"] = profiler.path
         if eval_output is not None:

@@ -100,10 +100,34 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         # package's defaults and validation
         _check_ps_flags(flags)
         return
+    if subsystem in ("prefix sharing", "obs/prom.py"):
+        # ported since (serve/engine.py, obs/prom.py): they parse, with
+        # the JAX package's defaults and validation
+        _check_ported_flags(flags)
+        return
     for name in flags:
         assert subsystem in NOT_PORTED[name], name
         with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
             parse_flags([f"--{name}", "1"])
+
+
+def _check_ported_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+    argv = {"serve_prefix_sharing": ["--serve_prefix_sharing", "false"],
+            "metrics_port": ["--metrics_port", "9099"]}
+    for name in flags:
+        got, want = parse_flags(argv[name]), jax_parse_flags(argv[name])
+        assert getattr(got, name) == getattr(want, name), name
+    if "metrics_port" in flags:
+        for bad in (["--metrics_port", "70000"], ["--metrics_port", "-1"]):
+            with pytest.raises(ValueError, match="metrics_port"):
+                parse_flags(bad)
+            with pytest.raises(ValueError, match="metrics_port"):
+                jax_parse_flags(bad)
 
 
 def _check_ps_flags(flags):

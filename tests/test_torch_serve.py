@@ -204,9 +204,13 @@ def test_engine_rejects_oversized_requests(pair):
 
 def test_page_admission_waits_fifo(pair):
     """The head of the queue waits for pages; a small request behind a
-    starved big one does not slip past it."""
+    starved big one does not slip past it.  Sharing off: the prompts
+    share a head (a hit would shrink the big one's need), and full
+    reclamation is then exactly used_pages == 0 (the registry keeps
+    prompt pages on purpose)."""
     _, _, tmodel = pair
-    eng = _engine(tmodel, max_batch=2, kv_pool_pages=9)   # 8 usable
+    eng = _engine(tmodel, max_batch=2, kv_pool_pages=9,   # 8 usable
+                  prefix_sharing=False)
     try:
         a = eng.submit(np.arange(1, 13, dtype=np.int32), max_new_tokens=8)
         big = eng.submit(np.arange(1, 21, dtype=np.int32), max_new_tokens=8)
@@ -232,14 +236,31 @@ def test_page_pool_scratch_page_and_double_free():
         PagePool(1)
 
 
-def test_engine_refuses_unported_modes(pair):
+def test_engine_refuses_unported_modes(pair, jax_tokens):
+    """Prefix sharing (the default) and the contiguous cache, refused
+    until they were ported, now serve -- the contiguous engine token for
+    token as the JAX paged engine; what stays refused is a chunk that is
+    no page multiple and a pool or chunk size without pages."""
     _, _, tmodel = pair
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        ServeEngine(tmodel, prefix_sharing=True)
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        ServeEngine(tmodel, kv_page_size=0)
+    eng = ServeEngine(tmodel, max_seq_len=SEQ, max_delay_s=0.0,
+                      kv_page_size=PAGE)
+    assert eng.prefix_sharing and eng.registry is not None
+    eng.stop(drain=False)
+    eng = ServeEngine(tmodel, max_batch=3, max_seq_len=SEQ, max_delay_s=0.0,
+                      kv_page_size=0)
+    try:
+        assert eng.pool is None and not eng.prefix_sharing
+        hs = [eng.submit(p, max_new_tokens=_budget(len(p)))
+              for p in _prompts()]
+        assert [h.result(timeout=300).tokens for h in hs] == jax_tokens
+    finally:
+        eng.stop(drain=False)
     with pytest.raises(ValueError, match="multiple"):
         ServeEngine(tmodel, kv_page_size=4, prefill_chunk=6)
+    with pytest.raises(ValueError, match="paged cache"):
+        ServeEngine(tmodel, kv_page_size=0, prefill_chunk=8)
+    with pytest.raises(ValueError, match="paged cache"):
+        ServeEngine(tmodel, kv_page_size=0, kv_pool_pages=9)
 
 
 # ---------------------------------------------------------------------------
@@ -334,10 +355,14 @@ def test_parse_flags_and_validation():
         Config(dtype="fp16")
     with pytest.raises(ValueError, match="multiple"):
         Config(kv_page_size=16, serve_prefill_chunk=24)
-    with pytest.raises(ValueError, match="contiguous"):
-        Config(kv_page_size=0)
-    with pytest.raises(ValueError, match="prefix sharing.*not ported"):
-        parse_flags(["--serve_prefix_sharing"])
+    # the contiguous cache and prefix sharing parse (ported), under the
+    # JAX package's rule: no pool or chunk size without pages
+    assert Config(kv_page_size=0).kv_page_size == 0
+    with pytest.raises(ValueError, match="paged cache"):
+        Config(kv_page_size=0, kv_pool_pages=8)
+    assert parse_flags(["--serve_prefix_sharing"]).serve_prefix_sharing
+    assert not parse_flags(["--serve_prefix_sharing",
+                            "false"]).serve_prefix_sharing
     with pytest.raises(ValueError, match="unknown flag"):
         parse_flags(["--no_such_flag", "1"])
 
@@ -423,6 +448,7 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.parallel.collectives; "
             "import dtf_tpu_torch.chaos, dtf_tpu_torch.train.checkpoint; "
             "import dtf_tpu_torch.cli.trace_main; "
+            "import dtf_tpu_torch.obs.ledger, dtf_tpu_torch.obs.prom; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")
