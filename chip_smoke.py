@@ -252,6 +252,28 @@ Phases, each printing one JSON object per line (the card's
                  rows from its trace.
   The training phase 6 also holds the ledger's train_step MFU within 20%
   of its own formula's.
+ 13. fleet    -- the serving fleet: two ``cli.replica_main`` processes on
+                 the card, spawned by ``serve.router.replica_spawner``
+                 with ``cli.router_main``'s replica command, behind the
+                 port's ``Router`` (affinity); transformer_tpu, random
+                 weights from ``--seed``, page 16, chunk 64; 16 requests
+                 of 4 families (a 256-token system prompt, a tail of
+                 U[1, 128]), 32 new tokens, each consumed through its
+                 stream.  colocated f32 through ``replica_kill@req:6``:
+                 tokens equal one in-process ServeEngine's, each token
+                 streamed once, the killed replica respawned and serving
+                 cold prompts; disaggregated (``prefill_replicas=1``),
+                 f32 then bf16: the family heads prefill on replica 0,
+                 their chains migrate to replica 1 and the siblings
+                 decode there from prefix hits (f32 tokens equal the
+                 colocated run's), each chain's payload digests read
+                 back equal on both replicas, the ledger's prefill-chunk
+                 calls on replica 0 and decode-step calls on replica 1
+                 from their ``/metrics``; tokens/s, TTFT p50, failover
+                 resolve and respawn times, ms and bytes a migrated page
+                 from the router's trace.  Each replica zeroes its
+                 kernels' launch counts as its server starts and writes
+                 them at exit (a SIGKILLed one's are lost).
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -261,7 +283,8 @@ process; as ``launches_async``, phase 11's async worker), K2a and K2b
 phase 6's companion, the f32 routes phase 5's f32 AdamW steps, K4
 serving (and, as ``launches_recovery_serve``, with K1,
 serving phase 9's checkpoint; as ``launches_prefix``, with K1, phase
-12's bursts with and without sharing) -- and, last, the device line.
+12's bursts with and without sharing; as ``launches_fleet``, with K1,
+phase 13's replica processes) -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -3980,6 +4003,385 @@ def serve_prefix(torch, seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving fleet (serve/router.py, serve/replica.py,
+# serve/migrate.py, cli/replica_main.py) -- replica processes on the card
+# ---------------------------------------------------------------------------
+
+FLEET_SYS, FLEET_TAIL, FLEET_NEW = 256, 128, 32
+FLEET_FAMILIES, FLEET_REQUESTS = 4, 16
+
+# a replica process as the router spawns it (cli/replica_main.py's main,
+# same flags), with the kernels' launch counts zeroed as its server
+# starts -- after the warm request, so they count the traffic -- and
+# written at its exit into the rendezvous directory
+FLEET_REPLICA = r"""
+import atexit, json, os, sys
+from dtf_tpu_torch.cli import replica_main
+from dtf_tpu_torch.ops import flash_attention as fa, paged_attention as pa
+from dtf_tpu_torch.serve import replica
+
+_start = replica.ReplicaServer.start
+
+
+def start(self):
+    fa.launches = pa.launches = 0
+    return _start(self)
+
+
+def dump():
+    name = "launches_rank%s.gen%s.json" % (
+        os.environ["DTF_PROCESS_ID"], os.environ["DTF_RESTART_GENERATION"])
+    with open(os.path.join(os.environ["DTF_HEARTBEAT_DIR"], name), "w") as f:
+        json.dump({"K1": fa.launches, "K4": pa.launches}, f)
+
+
+replica.ReplicaServer.start = start
+atexit.register(dump)
+sys.exit(replica_main.main(sys.argv[1:]))
+"""
+
+
+def fleet_prompts(seed: int):
+    """16 requests of 4 families (a 256-token system prompt each, then a
+    tail of U[1, 128] tokens), the family heads first; then 4 cold
+    prompts of 48 tokens that follow a respawn."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    fams = [rng.integers(0, 32768, (FLEET_SYS,)).astype(np.int32)
+            for _ in range(FLEET_FAMILIES)]
+    prompts = [np.concatenate([fams[i % FLEET_FAMILIES], rng.integers(
+        0, 32768, (int(rng.integers(1, FLEET_TAIL + 1)),)).astype(np.int32)])
+        for i in range(FLEET_REQUESTS)]
+    cold = [rng.integers(0, 32768, (48,)).astype(np.int32) for _ in range(4)]
+    return prompts, cold
+
+
+def fleet_argv(seed: int, dtype: str, root: str):
+    return ["--serve_random_init", "--device", "cuda", "--model",
+            "transformer_tpu", "--dtype", dtype, "--seed", str(seed),
+            "--kv_page_size", "16", "--serve_prefill_chunk", "64",
+            "--serve_max_batch", "8", "--serve_max_seq_len", "512",
+            "--heartbeat_secs", "1", "--router_health_timeout_s", "30",
+            "--rendezvous_dir", root]
+
+
+def fleet_reference(torch, seed: int, prompts) -> list:
+    """Greedy tokens of one in-process port ServeEngine, float32, on the
+    replicas' weights (the same seed)."""
+    from dtf_tpu_torch.cli.serve_main import build_serving_engine
+    from dtf_tpu_torch.config import parse_flags
+    cfg = parse_flags(fleet_argv(seed, "fp32", "")[1:])
+    model, engine = build_serving_engine(cfg, random_init=True)
+    try:
+        handles = [engine.submit(p, max_new_tokens=FLEET_NEW)
+                   for p in prompts]
+        tokens = [h.result(timeout=600).tokens for h in handles]
+    finally:
+        engine.stop(drain=False)
+    del model, engine
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def scrape_series(port: int) -> dict:
+    """name -> value of every sample line of one /metrics page."""
+    _, body = scrape(f"http://127.0.0.1:{port}/metrics")
+    out = {}
+    for ln in body.splitlines():
+        if ln and not ln.startswith("#"):
+            name, _, val = ln.rpartition(" ")
+            try:
+                out[name] = float(val)
+            except ValueError:
+                pass
+    return out
+
+
+def read_chain(root: str, replica_id: int, prompt):
+    """The registered page chain of ``prompt`` on one replica, pulled
+    over its wire (``page_fetch``, the migration's own op): each page's
+    payload digest, its raw payload bytes and its wire bytes."""
+    import socket
+
+    from dtf_tpu_torch.serve import migrate
+    from dtf_tpu_torch.serve.replica import read_announce
+    ann = read_announce(root, replica_id)
+    sock = socket.create_connection((ann["host"], ann["port"]), timeout=60)
+    rfile, wfile = sock.makefile("rb"), sock.makefile("wb")
+    xfer = f"read{replica_id}"
+    try:
+        wfile.write((json.dumps({"op": "page_fetch", "xfer": xfer,
+                                 "prompt": [int(t) for t in prompt],
+                                 "lo": 0, "n": 64}) + "\n").encode())
+        wfile.flush()
+        digests, raw, wire = [], 0, 0
+        while True:
+            line = rfile.readline()
+            msg = json.loads(line)
+            if msg.get("xfer") != xfer:
+                continue
+            if msg.get("error"):
+                raise AssertionError(f"page_fetch: {msg['error']}")
+            if msg.get("end"):
+                break
+            leaves = migrate.decode_page(msg["payload"])
+            digests.append(migrate.payload_digest(leaves))
+            raw += sum(leaf.nbytes for leaf in leaves)
+            wire += len(line)
+        wfile.write((json.dumps({"op": "page_fetch", "xfer": xfer,
+                                 "release": True}) + "\n").encode())
+        wfile.flush()
+    finally:
+        for c in (rfile, wfile, sock):
+            c.close()
+    return digests, raw, wire
+
+
+def fleet_trace(path: str) -> dict:
+    """From the router's trace: each migration's ms a page (its command
+    to its ack, over its pages); after a replica loss, the seconds to
+    the last re-dispatched request's completion (failover resolve) and
+    to the respawned replica's registration."""
+    recs = []
+    with open(path) as f:
+        for line in f:
+            recs.append(json.loads(line))
+    t_start, pages, mig_ms = {}, {}, []
+    lost, requeued, done, registered = None, set(), {}, []
+    for rec in recs:
+        name = rec.get("name")
+        if name == "chain_migrate":
+            t_start[rec["xfer"]] = rec["ts"]
+            pages[rec["xfer"]] = rec["pages"]
+        elif name == "chain_migrated" and rec["xfer"] in t_start:
+            mig_ms.append(1e3 * (rec["ts"] - t_start[rec["xfer"]])
+                          / pages[rec["xfer"]])
+        elif name == "replica_lost" and lost is None:
+            lost = rec["ts"]
+        elif name == "router_requeue":
+            requeued.add(rec["request"])
+        elif name == "router_complete":
+            done[rec["request"]] = rec["ts"]
+        elif name == "replica_registered" and lost is not None:
+            registered.append(rec["ts"])
+    out = {"ms_per_migrated_page": mig_ms}
+    if lost is not None:
+        out["requeued"] = len(requeued)
+        out["failover_resolve_s"] = max(
+            (done[r] for r in requeued if r in done), default=lost) - lost
+        out["respawn_registered_s"] = (min(registered) - lost
+                                       if registered else None)
+    return out
+
+
+def fleet_run(seed: int, card: str, prompts, cold, *, dtype: str,
+              prefill: int, kill: bool) -> dict:
+    """Two replica_main processes on the card behind an in-process port
+    Router, spawned by the port's replica_spawner with router_main's
+    replica command; affinity placement; every request consumed through
+    its token stream.  ``kill``: replica_kill@req:6 mid-burst, then the
+    respawned replica serves cold prompts.  ``prefill``: the family
+    heads prefill on replica 0, their chains migrate to replica 1, and
+    the siblings decode there."""
+    import glob
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from dtf_tpu_torch import chaos
+    from dtf_tpu_torch.cli import router_main
+    from dtf_tpu_torch.config import parse_flags
+    from dtf_tpu_torch.obs import trace
+    from dtf_tpu_torch.serve.router import Router, replica_spawner
+
+    root = tempfile.mkdtemp(prefix=f"fleet_{dtype}_{prefill}_")
+    cfg = parse_flags(fleet_argv(seed, dtype, root)[1:],
+                      defaults=router_main.ROUTER_DEFAULTS)
+    cmd = router_main.replica_command(cfg, random_init=True)
+    assert cmd[1:3] == ["-m", "dtf_tpu_torch.cli.replica_main"], cmd
+    metrics = [free_port(), free_port()]
+    spawn = replica_spawner([sys.executable, "-c", FLEET_REPLICA] + cmd[3:],
+                            root, extra_flags=lambda rid: [
+                                "--metrics_port", str(metrics[rid])])
+    tdir = os.path.join(root, "trace")
+    trace.configure(tdir, stream="router")
+    router = Router(2, root, spawn=spawn, page_size=16,
+                    placement="affinity", deadline_s=600.0,
+                    probe_interval_s=0.5, health_timeout_s=30.0,
+                    replica_inflight=64, prefill_replicas=prefill,
+                    migrate_timeout_s=120.0, seed=seed)
+    t0 = time.time()
+    router.start(wait_s=300)
+    start_s = time.time() - t0
+    streams = {}
+
+    def consume(i, handle, t_submit):
+        toks, first = [], None
+        for tok in handle.stream(timeout=600):
+            if first is None:
+                first = time.time() - t_submit
+            toks.append(tok)
+        streams[i] = (toks, first)
+
+    def burst(idx, plist):
+        threads, handles = [], {}
+        for i, p in zip(idx, plist):
+            h = router.submit(p, max_new_tokens=FLEET_NEW)
+            handles[i] = h
+            th = threading.Thread(target=consume, args=(i, h, time.time()),
+                                  daemon=True)
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=900)
+        return {i: h.result(timeout=60) for i, h in handles.items()}
+
+    line = {"phase": "fleet", "card": card, "dtype": dtype,
+            "arm": "disagg" if prefill else "colocated",
+            "model": "transformer_tpu", "replicas": 2,
+            "prefill_replicas": prefill, "start_s": start_s}
+    try:
+        results = {}
+        t1 = time.time()
+        if prefill:
+            heads = list(range(FLEET_FAMILIES))
+            results.update(burst(heads, [prompts[i] for i in heads]))
+            deadline = time.time() + 120
+            while (router.migration_stats()["migrated"] < FLEET_FAMILIES
+                   and time.time() < deadline):
+                time.sleep(0.05)
+            line["migration_wait_s"] = time.time() - t1
+            rest = list(range(FLEET_FAMILIES, len(prompts)))
+            results.update(burst(rest, [prompts[i] for i in rest]))
+        else:
+            if kill:
+                chaos.configure("replica_kill@req:6", rank=0)
+            results.update(burst(range(len(prompts)), prompts))
+        wall = time.time() - t1
+        chaos.disable()
+        line["migrations"] = router.migration_stats()
+        line["failovers"] = router.metrics.get("router_failover_total").value
+        line["respawns"] = router.metrics.get(
+            "router_replica_respawns_total").value
+        if kill:
+            deadline = time.time() + 300
+            while time.time() < deadline and not all(
+                    router.replica_healthy(r) for r in (0, 1)):
+                time.sleep(0.2)
+            before = [router.replica_completed(r) for r in (0, 1)]
+            extra = range(len(prompts), len(prompts) + len(cold))
+            results.update(burst(extra, cold))
+            line["served_after_respawn"] = [
+                router.replica_completed(r) - before[r] for r in (0, 1)]
+        tokens = [results[i].tokens for i in sorted(results)]
+        line["streams_equal_results"] = all(
+            streams[i][0] == results[i].tokens for i in results)
+        line["diverged"] = sum(r.diverged for r in results.values())
+        line["replica_of"] = [results[i].replica for i in sorted(results)]
+        n_tok = sum(len(results[i].tokens) for i in range(len(prompts)))
+        line["tokens_per_s"] = n_tok / wall
+        ttft = sorted(streams[i][1] for i in range(len(prompts)))
+        line["ttft_p50_s"] = statistics.median(ttft)
+        line["stats"] = [router.replica_stats(r, timeout=30) for r in (0, 1)]
+        line["ledger_calls"] = [
+            {k: v for k, v in scrape_series(port).items()
+             if k.startswith("ledger_serve_") and k.endswith("_calls")}
+            for port in metrics]
+        if prefill:
+            chains = [[read_chain(root, r, prompts[f]) for r in (0, 1)]
+                      for f in range(FLEET_FAMILIES)]
+            line["chain_pages"] = [len(c[0][0]) for c in chains]
+            line["chain_digests_equal"] = all(
+                c[0][0] == c[1][0] and c[0][0] for c in chains)
+            line["payload_bytes_per_page"] = chains[0][0][1] / len(
+                chains[0][0][0])
+            line["wire_bytes_per_page"] = chains[0][0][2] / len(
+                chains[0][0][0])
+    finally:
+        chaos.disable()
+        router.stop(drain=True)
+        trace.disable()
+    launches = {}
+    for path in sorted(glob.glob(os.path.join(root, "launches_rank*.json"))):
+        with open(path) as f:
+            launches[os.path.basename(path)[9:-5]] = json.load(f)
+    line["launches"] = launches
+    line.update(fleet_trace(os.path.join(tdir, "trace_router.jsonl")))
+    line["wall_s"] = time.time() - t0
+    emit(line)
+    line["tokens"] = tokens
+    return line
+
+
+def serve_fleet(torch, seed: int, card: str) -> dict:
+    """Phase 13 (see the module docstring)."""
+    prompts, cold = fleet_prompts(seed)
+    ref = fleet_reference(torch, seed, prompts + cold)
+    colo = fleet_run(seed, card, prompts, cold, dtype="fp32", prefill=0,
+                     kill=True)
+    dis = fleet_run(seed, card, prompts, cold, dtype="fp32", prefill=1,
+                    kill=False)
+    dis16 = fleet_run(seed, card, prompts, cold, dtype="bf16", prefill=1,
+                      kill=False)
+    n = len(prompts)
+
+    def k(run, rank, kernel):
+        return sum(v[kernel] for name, v in run["launches"].items()
+                   if name.startswith(f"rank{rank}."))
+
+    # the SIGKILLed replica: the one whose respawn (generation 1) wrote
+    # its counts at exit
+    killed = [r for r in (0, 1) if f"rank{r}.gen1" in colo["launches"]]
+    gates = {
+        "colocated_tokens_equal_engine": colo["tokens"] == ref,
+        "colocated_respawned_and_served": (
+            colo["respawns"] == 1 and colo["failovers"] >= 1
+            and len(killed) == 1
+            and colo["served_after_respawn"][killed[0]] > 0),
+        "streams_exact": all(r["streams_equal_results"] and not r["diverged"]
+                             for r in (colo, dis, dis16)),
+        "disagg_tokens_equal_colocated": dis["tokens"] == colo["tokens"][:n],
+        "disagg_imported_and_hit": all(
+            r["stats"][1]["serve_pages_imported_total"] > 0
+            and r["stats"][1]["serve_prefix_hit_pages_total"] > 0
+            and r["migrations"]["migrated"] == FLEET_FAMILIES
+            for r in (dis, dis16)),
+        "chain_digests_equal": dis["chain_digests_equal"]
+        and dis16["chain_digests_equal"],
+        "ledger_prefill_on_0_decode_on_1": all(
+            any(key.startswith("ledger_serve_prefill_chunk_c") and val > 0
+                for key, val in r["ledger_calls"][0].items())
+            and r["ledger_calls"][1].get("ledger_serve_decode_step_calls",
+                                         0) > 0
+            for r in (dis, dis16)),
+        "kernels_launched": all(
+            k(r, 0, "K1") + k(r, 1, "K1") > 0
+            and k(r, 0, "K4") + k(r, 1, "K4") > 0 for r in (colo, dis, dis16))
+        and k(dis, 1, "K4") > 0 and k(dis, 0, "K1") > 0,
+    }
+    line = {"phase": "fleet_gates", "card": card, **gates,
+            "killed_replica": killed,
+            "k1_replica1_disagg": [k(dis, 1, "K1"), k(dis16, 1, "K1")]}
+    emit(line)
+    if not all(gates.values()):
+        raise AssertionError(f"fleet: {line}")
+    return {"colocated": colo, "disagg": dis, "disagg_bf16": dis16,
+            "launches": {arm: {kern: k(r, 0, kern) + k(r, 1, kern)
+                               for kern in ("K1", "K4")}
+                         for arm, r in (("colocated_f32", colo),
+                                        ("disagg_f32", dis),
+                                        ("disagg_bf16", dis16))}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4081,6 +4483,17 @@ def main(argv=None) -> int:
                   "sharing")
     clock.done("12")
 
+    # phase 13: the serving fleet -- replica processes sharing the card
+    # (K1 on each replica's first chunks without a hit, K4 on the rest,
+    # the decode replica's over migrated pages)
+    fleet = serve_fleet(torch, args.seed, card)
+    fleet_run_name = ("phase 13 fleet, two replica_main processes: "
+                      "colocated f32 (16 requests, replica_kill@req:6, 4 "
+                      "after the respawn), disaggregated f32 and bf16 (16 "
+                      "requests each); counts from the replicas' exits, "
+                      "the SIGKILLed one's lost")
+    clock.done("13")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -4137,7 +4550,10 @@ def main(argv=None) -> int:
                                        for c, n in per_call.items()},
               launches_prefix={a: n["K1"]
                                for a, n in launches_prefix.items()},
-              launches_prefix_run=prefix_run),
+              launches_prefix_run=prefix_run,
+              launches_fleet={a: n["K1"]
+                              for a, n in fleet["launches"].items()},
+              launches_fleet_run=fleet_run_name),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -4185,6 +4601,9 @@ def main(argv=None) -> int:
               launches_prefix={a: n["K4"]
                                for a, n in launches_prefix.items()},
               launches_prefix_run=prefix_run,
+              launches_fleet={a: n["K4"]
+                              for a, n in fleet["launches"].items()},
+              launches_fleet_run=fleet_run_name,
               keys_per_split=k4[0]["keys_per_split"],
               chunk_case=k4_brief(k4_case("bfloat16", "chunk@1984")),
               f32_decode_case=k4_brief(k4_case("float32", "decode")),

@@ -52,12 +52,28 @@ Kinds that fire here, their observation points being ported:
                           connection once the store version it observed
                           reaches N (one-shot): its next op exercises
                           the real reconnect and backoff (parallel/ps.py).
+  replica_kill@[replicaK:]req:N
+                          the serving router SIGKILLs a replica at its
+                          Nth dispatch (exact match, one-shot): replica
+                          K, else the one that dispatch went to -- the
+                          failover and respawn path (serve/router.py).
+  net_partition@replicaK:T
+                          the router drops replica K's health probes for
+                          T prober ticks from the first tick after
+                          traffic began, then heals: a live replica read
+                          as lost, which must re-register.
+  slow_replica@replicaK:F replica K's engine stretches every decode step
+                          to F x its measured time (latched): the
+                          straggler the router's deadline absorbs
+                          (serve/engine.py).
+  page_fetch_stall@replicaK:S
+                          replica K's migration client waits S seconds
+                          before each page-fetch window (latched): a
+                          slow fabric (serve/migrate.py).
 
 The other kinds of the grammar (``NOT_PORTED``: device_loss and the
-serving fleet's replica_kill, net_partition,
-slow_replica, page_fetch_stall, router_kill, lease_stall, rollout_kill)
-parse, but :func:`configure` raises naming the subsystem that is not
-ported yet.
+serving fleet's router_kill, lease_stall and rollout_kill) parse, but
+:func:`configure` raises naming the subsystem that is not ported yet.
 
 Every fired fault emits a structured ``injected_fault`` anomaly record
 through ``obs.trace``, flushed before the process dies, so
@@ -120,11 +136,10 @@ _FLOAT_POINT = ("slow_replica", "page_fetch_stall")
 # port does not have yet: configure() refuses them, naming it
 NOT_PORTED = {
     "device_loss": "elastic training (train/elastic.py)",
-    **{kind: "the serving fleet (serve/router.py, serve/ha.py, "
-             "serve/rollout.py, serve/migrate.py)"
-       for kind in ("replica_kill", "net_partition", "slow_replica",
-                    "page_fetch_stall", "router_kill", "lease_stall",
-                    "rollout_kill")},
+    **{kind: "the serving fleet's router high availability (serve/ha.py)"
+       for kind in ("router_kill", "lease_stall")},
+    "rollout_kill": "the serving fleet's rollout controller "
+                    "(serve/rollout.py)",
 }
 
 _injector: Optional["Injector"] = None
@@ -257,6 +272,11 @@ class Injector:
         self.specs = [s for s in specs
                       if s.rank is None or s.rank == self.rank]
         self._mu = threading.Lock()
+        # net_partition bookkeeping: spec index -> remaining probe ticks
+        # (None until the partition starts)
+        self._partition_left: dict = {}
+        # lease_stall bookkeeping: spec index -> remaining renewal ticks
+        self._stall_left: dict = {}
 
     def _armed(self, kind: str):
         return [s for s in self.specs if s.kind == kind and not s.fired]
@@ -345,6 +365,128 @@ class Injector:
                 self._record(spec)
                 return True
         return False
+
+    # -- distributed serving faults (serve/router.py) -----------
+    def replica_kill(self, req_seq: int,
+                     dispatched_to: int) -> Optional[int]:
+        """Router-side, one-shot, EXACT-match on the dispatch sequence
+        number: returns the replica id to SIGKILL when the router's
+        ``req_seq``-th dispatch should trigger the kill -- the explicit
+        ``replica<K>`` target if the spec named one, else the replica
+        this request was just routed to.  None = don't fire."""
+        with self._mu:
+            for spec in self._armed("replica_kill"):
+                if int(req_seq) == spec.value:
+                    target = (spec.replica if spec.replica is not None
+                              else int(dispatched_to))
+                    self._record(spec, req=int(req_seq), replica=target)
+                    return target
+        return None
+
+    def net_partition(self, replica: int, traffic_started: bool) -> bool:
+        """Router-side, called ONCE per health-probe tick per replica:
+        True while the probe of ``replica`` should be dropped.  The
+        partition starts at the first probe tick after traffic began
+        (so it always lands mid-traffic) and lasts ``value`` ticks,
+        then heals -- the replica process never died, so it must
+        re-register and take traffic again."""
+        with self._mu:
+            for i, spec in enumerate(self.specs):
+                if spec.kind != "net_partition" or spec.replica != int(
+                        replica):
+                    continue
+                left = self._partition_left.get(i)
+                if left is None:
+                    if not traffic_started:
+                        continue
+                    left = int(spec.value)
+                    self._record(spec, replica=int(replica),
+                                 ticks=left)
+                if left <= 0:
+                    continue    # healed
+                self._partition_left[i] = left - 1
+                return True
+        return False
+
+    def router_kill(self, req_seq: int) -> bool:
+        """Router-side, one-shot, EXACT-match on the dispatch sequence
+        number: True when the router should die uncleanly at its
+        ``req_seq``-th dispatch (serve/ha.py's takeover drill)."""
+        with self._mu:
+            for spec in self._armed("router_kill"):
+                if int(req_seq) == spec.value:
+                    self._record(spec, req=int(req_seq))
+                    return True
+        return False
+
+    def lease_stall(self) -> bool:
+        """Leader-lease-side, called once per renewal attempt: True
+        while the renewal write should be silently dropped (the lease
+        ages toward expiry under the standby's nose).  Counts down
+        ``value`` renewal ticks from the first attempt, then heals --
+        by which time the lease has expired and the old leader must
+        discover it is FENCED, not resume."""
+        with self._mu:
+            for i, spec in enumerate(self.specs):
+                if spec.kind != "lease_stall":
+                    continue
+                left = self._stall_left.get(i)
+                if left is None:
+                    left = int(spec.value)
+                    self._record(spec, ticks=left)
+                if left <= 0:
+                    continue    # healed
+                self._stall_left[i] = left - 1
+                return True
+        return False
+
+    def rollout_kill(self, phase: str,
+                     candidate: int) -> Optional[int]:
+        """Rollout-controller-side, one-shot: returns the replica id to
+        SIGKILL when the rollout is working in ``phase`` -- the explicit
+        ``replica<K>`` target if the spec named one, else ``candidate``
+        (the replica the phase is currently operating on).  None =
+        don't fire."""
+        with self._mu:
+            for spec in self._armed("rollout_kill"):
+                if spec.label == phase:
+                    target = (spec.replica if spec.replica is not None
+                              else int(candidate))
+                    self._record(spec, phase=phase, replica=target)
+                    return target
+        return None
+
+    def slow_replica(self) -> float:
+        """Replica-side, latched: the slow-down factor for THIS process
+        (replica id == rank), or 0.0 when no slow fault targets it.  A
+        straggler does not recover by itself, so the factor stays on
+        once armed."""
+        with self._mu:
+            for spec in self.specs:
+                if spec.kind != "slow_replica":
+                    continue
+                if spec.replica is not None and spec.replica != self.rank:
+                    continue
+                if not spec.fired:
+                    self._record(spec, factor=float(spec.value))
+                return float(spec.value)
+        return 0.0
+
+    def page_fetch_stall(self) -> float:
+        """Migration-client-side, latched: seconds to stall before each
+        ``page_fetch`` window request when a stall fault targets THIS
+        process (replica id == rank), or 0.0.  A congested fabric does
+        not heal between windows, so the stall stays on once armed."""
+        with self._mu:
+            for spec in self.specs:
+                if spec.kind != "page_fetch_stall":
+                    continue
+                if spec.replica is not None and spec.replica != self.rank:
+                    continue
+                if not spec.fired:
+                    self._record(spec, seconds=float(spec.value))
+                return float(spec.value)
+        return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -435,3 +577,52 @@ def reader_crash(batch: int) -> bool:
     if inj is None:
         return False
     return inj.reader_crash(batch)
+
+
+def replica_kill(req_seq: int, dispatched_to: int) -> Optional[int]:
+    inj = _injector
+    if inj is None:
+        return None
+    return inj.replica_kill(req_seq, dispatched_to)
+
+
+def net_partition(replica: int, traffic_started: bool) -> bool:
+    inj = _injector
+    if inj is None:
+        return False
+    return inj.net_partition(replica, traffic_started)
+
+
+def router_kill(req_seq: int) -> bool:
+    inj = _injector
+    if inj is None:
+        return False
+    return inj.router_kill(req_seq)
+
+
+def lease_stall() -> bool:
+    inj = _injector
+    if inj is None:
+        return False
+    return inj.lease_stall()
+
+
+def rollout_kill(phase: str, candidate: int) -> Optional[int]:
+    inj = _injector
+    if inj is None:
+        return None
+    return inj.rollout_kill(phase, candidate)
+
+
+def slow_replica() -> float:
+    inj = _injector
+    if inj is None:
+        return 0.0
+    return inj.slow_replica()
+
+
+def page_fetch_stall() -> float:
+    inj = _injector
+    if inj is None:
+        return 0.0
+    return inj.page_fetch_stall()

@@ -57,9 +57,13 @@ from dtf_tpu_torch.serve.metrics import collect_stats
 log = logging.getLogger("dtf_tpu_torch")
 
 
-def build_serving_engine(cfg, random_init: bool = False):
-    """(model, engine) from a Config, on ``cfg.device``.  The engine
-    beats a heartbeat when the launcher exported DTF_HEARTBEAT_DIR."""
+def build_serving_engine(cfg, random_init: bool = False,
+                         replica_rank=None):
+    """(model, engine) from a Config, on ``cfg.device`` -- shared by this
+    main and the replica entry (cli/replica_main.py).  The engine beats
+    a heartbeat when the launcher (or the serving router) exported
+    DTF_HEARTBEAT_DIR: ``heartbeat_rank{replica_rank}.json``, the rank
+    from DTF_PROCESS_ID when None."""
     if not cfg.model.startswith("transformer"):
         raise ValueError(f"serving is implemented for the transformer LM "
                          f"family, not {cfg.model!r}")
@@ -95,7 +99,8 @@ def build_serving_engine(cfg, random_init: bool = False):
         # Config refuses a chunk size with the contiguous cache
         prefill_chunk=cfg.serve_prefill_chunk,
         prefix_sharing=cfg.serve_prefix_sharing and bool(cfg.kv_page_size),
-        heartbeat=Heartbeat.from_env(interval_s=cfg.heartbeat_secs))
+        heartbeat=Heartbeat.from_env(rank=replica_rank,
+                                     interval_s=cfg.heartbeat_secs))
     return model, engine
 
 

@@ -18,7 +18,10 @@ decode cache, ``input_fast_dct``, ``input_scaled_decode``,
 ``datasets_num_private_threads``),
 the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py`` (prefix
 sharing and the contiguous cache, ``kv_page_size 0``, included),
-``metrics_port`` (``obs/prom.py``), the benchmark log, and the
+``metrics_port`` (``obs/prom.py``), the serving fleet's
+(``cli/router_main.py`` and ``cli/replica_main.py``: ``router_*``
+without the HA pair's, ``rendezvous_dir``, ``replica_id``,
+``serve_host``), the benchmark log, and the
 topology of a data-parallel run (``distribution_strategy``, ``num_devices``, ``ps_mode``, the
 coordinator, process id and count, ``worker_hosts``/``task_index`` and
 ``sync_bn``) and the async parameter server's (``ps_wire``,
@@ -40,7 +43,7 @@ tracing and watchdogs (``trace_dir``, ``nan_guard``,
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (model parallelism, ZeRO, the serving fleet, ...) raise with a
+yet (model parallelism, ZeRO, the router's HA pair, ...) raise with a
 message that says so; any other unknown flag raises too.
 """
 
@@ -69,8 +72,8 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "enable_eager", "verbose")
 
 _MP = "model parallelism (tensor, pipeline and expert)"
-_FLEET = ("the serving fleet (serve/router.py, serve/replica.py, "
-          "serve/ha.py, serve/rollout.py)")
+_HA = "the serving fleet's router high availability (serve/ha.py)"
+_ROLLOUT = "the serving fleet's rollout controller (serve/rollout.py)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
     "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
@@ -85,18 +88,18 @@ NOT_PORTED = {
                               "moe_top_k", "num_microbatches",
                               "pipeline_interleave")},
     "serve_tp": "serving tensor parallelism",
-    **{name: _FLEET for name in (
-        "router_replicas", "router_deadline_s", "router_admission",
-        "router_probe_s", "router_health_timeout_s",
-        "router_replica_inflight", "router_max_respawns",
-        "router_respawn_window_s", "router_respawn_backoff_s",
-        "router_hedge_s", "router_placement", "router_prefill_replicas",
-        "router_ha", "router_standby", "router_lease_ttl_s",
-        "router_journal_fsync_s", "rendezvous_dir", "replica_id",
-        "serve_host", "rollout_checkpoint", "rollout_canary_requests",
+    **{name: _HA for name in ("router_ha", "router_standby",
+                              "router_lease_ttl_s",
+                              "router_journal_fsync_s")},
+    **{name: _ROLLOUT for name in (
+        "rollout_checkpoint", "rollout_canary_requests",
         "rollout_mirror_fraction", "rollout_max_divergence",
         "rollout_warm_timeout_s", "rollout_state")},
 }
+
+# literal copy of serve/router.py PLACEMENTS: Config imports without the
+# serving stack (a test pins the two)
+ROUTER_PLACEMENTS = ("affinity", "least_loaded", "random")
 
 # --distribution_strategy names, the JAX package's (cli/runner.py and
 # runtime/mesh.py say what each means here)
@@ -242,6 +245,49 @@ class Config:
     # serving engine's registry, or rank 0's default registry in training
     metrics_port: int = 0
 
+    # --- serving replica tier (serve/router.py over cli/replica_main) ---
+    # replica serve processes behind the router (cli/router_main.py),
+    # each a full ServeEngine
+    router_replicas: int = 2
+    # default per-request deadline: the router resolves every accepted
+    # request -- tokens, Backpressure, or DeadlineExceeded -- within it
+    router_deadline_s: float = 120.0
+    # outstanding (queued + in-flight) requests beyond this shed loudly
+    # with Backpressure(retry_after)
+    router_admission: int = 128
+    # health-probe cadence (reads each replica's heartbeat_rank{K}.json)
+    router_probe_s: float = 0.5
+    # heartbeat silence past this = the replica is declared lost (its
+    # in-flight re-dispatches; must be comfortably > --heartbeat_secs)
+    router_health_timeout_s: float = 15.0
+    # per-replica in-flight dispatch cap; 0 = auto (serve_queue_size)
+    router_replica_inflight: int = 0
+    # replica respawn budget: at most this many respawns per sliding
+    # window, exponential backoff between them, then a loud give-up
+    router_max_respawns: int = 8
+    router_respawn_window_s: float = 300.0
+    router_respawn_backoff_s: float = 0.5
+    # hedge: re-dispatch a request to a second replica when its first
+    # makes no progress for this long (first done wins).  0 = off
+    router_hedge_s: float = 0.0
+    # placement policy: prefix-affine (route by chained prompt-page
+    # digest to the replica whose PrefixRegistry is warm, least-loaded
+    # fallback) | least_loaded | random
+    router_placement: str = "affinity"
+    # disaggregation: replicas 0..N-1 prefill, the rest decode; cold
+    # prompts prefill in the first pool and their KV-page chains
+    # migrate (serve/migrate.py) to the second.  Needs
+    # router_placement=affinity.  0 = colocated
+    router_prefill_replicas: int = 0
+    # rendezvous directory for announce + heartbeat files (router +
+    # cli/replica_main); "" = router_main picks a temp dir.  On shared
+    # storage, with a routable --serve_host, the tier goes cross-host
+    rendezvous_dir: str = ""
+    # replica identity for cli/replica_main; -1 = from DTF_PROCESS_ID
+    replica_id: int = -1
+    # address a replica binds AND announces (replica_rank{K}.json)
+    serve_host: str = "127.0.0.1"
+
     def __post_init__(self):
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; choose from "
@@ -313,6 +359,53 @@ class Config:
             raise ValueError(
                 f"metrics_port must be in [0, 65535] (0 = off), got "
                 f"{self.metrics_port}")
+        if self.router_replicas < 1:
+            raise ValueError(
+                f"router_replicas must be >= 1, got {self.router_replicas}")
+        if self.router_deadline_s <= 0 or self.router_admission < 1:
+            raise ValueError(
+                "router_deadline_s must be > 0 and router_admission >= 1")
+        if self.router_probe_s <= 0 or (
+                self.router_probe_s >= self.router_health_timeout_s):
+            raise ValueError(
+                f"router_probe_s ({self.router_probe_s}) must be > 0 and "
+                f"< router_health_timeout_s "
+                f"({self.router_health_timeout_s}) -- a health verdict "
+                f"needs multiple probe ticks")
+        if self.router_health_timeout_s <= 0:
+            raise ValueError(
+                f"router_health_timeout_s must be > 0, got "
+                f"{self.router_health_timeout_s}")
+        # health_timeout vs heartbeat_secs is checked in
+        # cli/router_main.py: a training run raising --heartbeat_secs is
+        # not refused over router defaults it never uses
+        if self.router_placement not in ROUTER_PLACEMENTS:
+            raise ValueError(
+                f"unknown router_placement {self.router_placement!r}; "
+                f"choose from {ROUTER_PLACEMENTS}")
+        if self.router_prefill_replicas < 0 or (
+                self.router_prefill_replicas >= self.router_replicas
+                and self.router_prefill_replicas > 0):
+            raise ValueError(
+                f"router_prefill_replicas "
+                f"({self.router_prefill_replicas}) must leave at least "
+                f"one decode replica (router_replicas="
+                f"{self.router_replicas})")
+        if (self.router_prefill_replicas
+                and self.router_placement != "affinity"):
+            raise ValueError(
+                "router_prefill_replicas needs router_placement="
+                "affinity (pool re-homing rides the prefix-owner map)")
+        if (self.router_replica_inflight < 0 or self.router_max_respawns
+                < 0 or self.router_respawn_backoff_s < 0
+                or self.router_hedge_s < 0):
+            raise ValueError(
+                "router_replica_inflight/router_max_respawns/"
+                "router_respawn_backoff_s/router_hedge_s must be >= 0")
+        if not self.serve_host:
+            raise ValueError(
+                "serve_host must be a bindable address (127.0.0.1 for "
+                "single-host)")
 
         if self.input_wire not in ("uint8", "float32"):
             raise ValueError(f"unknown input_wire {self.input_wire!r}; "

@@ -1,4 +1,5 @@
-"""The serving subsystem: paged decoder, engine, metrics, weights."""
+"""The serving subsystem: paged decoder, engine, metrics, weights, and
+the fleet -- replicas behind a router, KV-page migration between them."""
 
 from dtf_tpu_torch.serve.bridge import (load_flax_npz,  # noqa: F401
                                         load_for_serving, random_init,
@@ -10,3 +11,6 @@ from dtf_tpu_torch.serve.engine import (Backpressure,  # noqa: F401
                                         ServeRequest, ServeResult)
 from dtf_tpu_torch.serve.metrics import (ServingStats,  # noqa: F401
                                          collect_stats)
+from dtf_tpu_torch.serve.replica import ReplicaServer  # noqa: F401
+from dtf_tpu_torch.serve.router import (PLACEMENTS,  # noqa: F401
+                                        DeadlineExceeded, Router)

@@ -8,6 +8,10 @@ counterpart of ``dtf_tpu/serve/decode.py``.
   ``Decoder.prefill``       -- (contiguous) one whole prompt into its slot
   ``Decoder.decode_step``   -- one token for every slot of the batch
   ``Decoder.copy_page``     -- (paged) the copy-on-write primitive
+  ``Decoder.read_page``     -- (paged) one pool page of every layer to
+                               host arrays: the migration export
+  ``Decoder.write_page``    -- (paged) such host arrays into a pool
+                               page: the migration import
   ``teacher_forced_logits`` -- the training-style forward, the oracle the
                                decode path is held to token for token
 
@@ -45,11 +49,21 @@ the JAX decoder's ``position_key`` gives.  The CPU's and CUDA's
 generators give different streams, so a replay stays on its device type.
 torch does not reproduce JAX's threefry bits, so sampled tokens differ
 between the two packages: their cross-package parity is greedy only.
+
+Page payloads (``read_page``/``write_page``, carried between replicas by
+``serve/migrate.py``) are the JAX decoder's: a flat list of
+[page_size, H, Dh] leaves in ``jax.tree_util.tree_leaves`` order of the
+JAX cache, whose dict keys sort as STRINGS -- block0, block1, block10,
+block11, block2, ... -- with K before V in each layer
+(:func:`wire_leaf_order`).  A bfloat16 leaf is its raw 16-bit words
+(:class:`BF16Words`): numpy has no bfloat16 without ml_dtypes, which
+this package does not need.  Both copies are exact: no cast, no change
+of layout.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +73,38 @@ from dtf_tpu_torch.ops.flash_attention import attention_pairs
 from dtf_tpu_torch.ops.paged_attention import live_pairs
 
 _MASK64 = (1 << 64) - 1
+
+# the migration wire's dtype tag of each pool dtype (numpy's names, and
+# the JAX wire's "bfloat16")
+WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+               torch.float16: "float16"}
+
+
+class BF16Words(np.ndarray):
+    """bfloat16 values held as their raw 16-bit words (uint16 storage).
+    The migration wire tags such a leaf ``"bfloat16"`` with exactly the
+    bytes the JAX wire sends for an ml_dtypes bfloat16 leaf; make one
+    with ``words.view(BF16Words)``."""
+
+    wire_dtype = "bfloat16"
+
+
+def wire_dtype(leaf) -> str:
+    """The wire's dtype tag of a host leaf: ``"bfloat16"`` for
+    :class:`BF16Words` (or an ml_dtypes bfloat16 array), else numpy's
+    name of its dtype."""
+    return getattr(leaf, "wire_dtype", None) or str(np.asarray(leaf).dtype)
+
+
+def wire_leaf_order(num_layers: int) -> List[Tuple[int, str]]:
+    """(layer, pool name) of each leaf of a page payload, in the JAX
+    wire's order: ``jax.tree_util.tree_leaves`` of the cache
+    ``{"block{i}": {"attn": {"paged_key", "paged_value"}}}`` sorts the
+    keys as strings, so at 12 layers the order is block0, block1,
+    block10, block11, block2, ..., block9, K before V in each."""
+    layers = sorted(range(int(num_layers)), key=lambda i: f"block{i}")
+    return [(i, name) for i in layers
+            for name in ("paged_key", "paged_value")]
 
 
 def position_seed(seed: int, position: int) -> int:
@@ -167,6 +213,63 @@ class Decoder:
         for layer in cache:
             for pool in layer.values():
                 pool[int(dst)].copy_(pool[int(src)])
+        return cache
+
+    @torch.no_grad()
+    def read_page(self, cache, page: int) -> List[np.ndarray]:
+        """Host copy of pool page ``page`` from every layer's K and V
+        pool -- the migration EXPORT primitive: a flat list of
+        [page_size, H, Dh] leaves in :func:`wire_leaf_order`, float32
+        (or float16) arrays or :class:`BF16Words`.  The bytes are what
+        the device holds: one device-to-host copy on this thread's
+        stream, which is synchronized before the bytes leave."""
+        if not self.paged:
+            raise RuntimeError("page migration needs the paged cache")
+        order = wire_leaf_order(len(cache))
+        rows = torch.stack([cache[i][name][int(page)] for i, name in order])
+        if rows.dtype == torch.bfloat16:
+            rows = rows.view(torch.int16)
+        host = rows.cpu()
+        if host.device != rows.device:
+            torch.cuda.current_stream(rows.device).synchronize()
+        host = host.numpy()
+        if host.dtype == np.int16:
+            host = host.view(np.uint16).view(BF16Words)
+        return list(host)
+
+    @torch.no_grad()
+    def write_page(self, cache, page: int, leaves):
+        """Write a host page payload (:meth:`read_page`'s list, or the
+        JAX decoder's) into pool page ``page`` of every layer -- the
+        migration IMPORT primitive.  Each leaf must carry the pool's
+        dtype (bfloat16 as :class:`BF16Words` or ml_dtypes) and the
+        page's shape: nothing is cast.  One synchronous host-to-device
+        copy queued on this thread's stream, so the page is written
+        before any later kernel of the thread reads it, and the host
+        buffer is not needed once this returns."""
+        if not self.paged:
+            raise RuntimeError("page migration needs the paged cache")
+        order = wire_leaf_order(len(cache))
+        if len(leaves) != len(order):
+            raise ValueError(f"page payload has {len(leaves)} leaves, the "
+                             f"cache {len(order)}")
+        pool0 = cache[0]["paged_key"]
+        want = WIRE_DTYPES.get(pool0.dtype)
+        shape = tuple(pool0.shape[1:])
+        for leaf in leaves:
+            if wire_dtype(leaf) != want or tuple(np.shape(leaf)) != shape:
+                raise ValueError(
+                    f"page leaf {wire_dtype(leaf)} {tuple(np.shape(leaf))} "
+                    f"does not match the pool's {want} {shape}: pages "
+                    f"migrate between engines of one dtype and width")
+        host = np.stack([np.asarray(a) for a in leaves])
+        if want == "bfloat16":
+            rows = torch.from_numpy(host.view(np.int16)).to(
+                pool0.device).view(torch.bfloat16)
+        else:
+            rows = torch.from_numpy(host).to(pool0.device)
+        for row, (i, name) in zip(rows, order):
+            cache[i][name][int(page)].copy_(row)
         return cache
 
     def _int32(self, x):

@@ -61,11 +61,22 @@ trace record carrying its trace id.
 
 One engine thread (a daemon) owns ALL device work; ``submit`` only
 enqueues.  The thread's CUDA stream is its own current stream: the
-kernels' wrappers and ``copy_page`` queue on it, in program order.
+kernels' wrappers, ``copy_page`` and the migration's ``read_page`` and
+``write_page`` queue on it, in program order.
 
-Not ported yet: KV-page migration (``read_page``, ``write_page``,
-``export_chain_*``, ``import_chain``, ``run_on_engine``), the
-``slow_replica`` chaos probe and tensor-parallel decode.
+KV-page migration (``serve/migrate.py``, the disaggregated tier of
+``serve/router.py``): ``export_chain_begin`` takes a migration hold on a
+prompt's registered page chain (one more pool holder a page, so a page
+in transfer is above eviction's refcount-1 bar), ``export_chain_read``
+reads a window of it to host arrays, ``export_chain_end`` drops the
+hold, and ``import_chain`` writes a fetched chain into fresh pages and
+registers them, so the next admit of that prefix is a prefix hit.
+Every one of them runs as a job on the engine thread
+(``run_on_engine``), drained once per iteration, so the pool, the
+registry and the cache keep one writer.  The ``slow_replica`` chaos
+probe stretches each decode step.
+
+Not ported yet: tensor-parallel decode.
 """
 
 from __future__ import annotations
@@ -81,6 +92,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from dtf_tpu_torch import chaos
 from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.obs.ledger import Ledger
 from dtf_tpu_torch.obs.registry import MetricsRegistry
@@ -522,6 +534,22 @@ class ServeEngine:
         self._m_stream_lag = m.histogram("serve_stream_lag_s", unit="s")
         self._m_cancelled = m.counter("serve_cancelled_total",
                                       unit="requests")
+        # KV-page migration: pages shipped out and pulled in over the
+        # replica wire, live migration holds (pages pinned above
+        # eviction while a transfer is in flight), torn transfers
+        # caught by the payload digest (serve/migrate.py counts those)
+        self._m_pages_exported = m.counter("serve_pages_exported_total",
+                                           unit="pages")
+        self._m_pages_imported = m.counter("serve_pages_imported_total",
+                                           unit="pages")
+        self._m_mig_holds = m.gauge("serve_migration_holds", unit="pages")
+        self._m_mig_torn = m.counter("serve_migration_torn_total",
+                                     unit="pages")
+        # migration jobs: wire threads enqueue closures, the engine
+        # thread drains them once per iteration (a thread-safe queue,
+        # not _cond-guarded state)
+        self._mig_q: "queue_mod.Queue" = queue_mod.Queue()
+        self._mig_hold_pages = 0        # engine-thread only
         self._heartbeat = heartbeat
         self._last_step_t: Optional[float] = None
         self._prefill_rr = -1           # round-robin cursor (chunk sched)
@@ -556,6 +584,155 @@ class ServeEngine:
             if self.pool is not None:
                 self.pool.high_water = self.pool.used_pages
             return len(self.completed)
+
+    # -- KV-page migration surface (serve/migrate.py) ------------------
+    # Every entry point runs its work on the engine thread
+    # (run_on_engine): the pool, registry and cache are engine-thread
+    # state, and migration serializes with admission, eviction and
+    # retire.  Wire threads block on the job; the loop drains the queue
+    # once per iteration (<= 0.1 s when idle).
+
+    def _run_migration_jobs(self):
+        """Engine thread: run the queued migration closures."""
+        while True:
+            try:
+                fn, box, ev = self._mig_q.get_nowait()
+            except queue_mod.Empty:
+                return
+            try:
+                box["result"] = fn()
+            except Exception as e:  # noqa: BLE001 -- the error belongs
+                # to the waiting wire thread, never the engine loop
+                box["error"] = e
+            ev.set()
+
+    def _drain_migration_jobs(self):
+        """Engine exit: fail the queued jobs instead of leaving their
+        wire threads to time out against a dead loop."""
+        while True:
+            try:
+                _, box, ev = self._mig_q.get_nowait()
+            except queue_mod.Empty:
+                return
+            box["error"] = RuntimeError("engine is stopped")
+            ev.set()
+
+    def run_on_engine(self, fn, timeout: float = 60.0):
+        """Run ``fn()`` on the engine thread and return its result (or
+        raise its exception) in the calling thread.  Never call it FROM
+        the engine thread: it would wait on itself."""
+        if self._stop.is_set():
+            raise RuntimeError("engine is stopped")
+        box: dict = {}
+        ev = threading.Event()
+        self._mig_q.put((fn, box, ev))
+        with self._cond:
+            self._cond.notify_all()      # wake an idle engine loop
+        if not ev.wait(timeout):
+            raise TimeoutError(f"engine job not run in {timeout}s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _chain_digests(self, prompt: np.ndarray, depths: int) -> List[str]:
+        ps = self.page_size
+        out: List[str] = []
+        digest = ""
+        for d in range(depths):
+            digest = _page_digest(digest, prompt[d * ps:(d + 1) * ps])
+            out.append(digest)
+        return out
+
+    def export_chain_begin(self, prompt) -> Tuple[List[int], List[str]]:
+        """The registry's verified page chain for ``prompt``, under a
+        MIGRATION HOLD (one more pool holder a page: refcount >= 2, so
+        ``_evict_for`` cannot take it).  Returns (pages, chained
+        digests); release with :meth:`export_chain_end` when the
+        transfer ends or aborts."""
+        if not self.paged or not self.prefix_sharing:
+            return [], []
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+
+        def job():
+            pages = self.registry.lookup(prompt)
+            self.pool.share(pages)
+            self._mig_hold_pages += len(pages)
+            self._m_mig_holds.set(self._mig_hold_pages)
+            return pages, self._chain_digests(prompt, len(pages))
+
+        return self.run_on_engine(job)
+
+    def export_chain_read(self, pages: List[int], lo: int, n: int):
+        """Host payloads (``Decoder.read_page`` leaf lists) of
+        ``pages[lo:lo + n]``, one window of a transfer.  The caller
+        holds the chain (:meth:`export_chain_begin`), so the physical
+        pages still carry its KV."""
+        def job():
+            out = [self.decoder.read_page(self._cache, p)
+                   for p in pages[lo:lo + n]]
+            self._m_pages_exported.inc(len(out))
+            return out
+
+        return self.run_on_engine(job)
+
+    def export_chain_end(self, pages: List[int]) -> None:
+        """Drop the migration hold (transfer complete or aborted)."""
+        if not pages:
+            return
+
+        def job():
+            for p in self.pool.free(pages):
+                self.registry.drop_page(p)
+            self._mig_hold_pages -= len(pages)
+            self._m_mig_holds.set(self._mig_hold_pages)
+
+        self.run_on_engine(job)
+
+    def import_chain(self, prompt, payloads) -> int:
+        """Write a fetched page chain (``payloads[d]``: the leaf list of
+        depth d, verified by the caller) into fresh pool pages and
+        register them, so the next admit of this prefix SHARES them
+        instead of prefilling.  Depths the registry already holds are
+        skipped; the fresh pages' holder becomes the registry's (after
+        import they are ordinary warm registry pages, evictable).
+        Returns the number of pages imported."""
+        if not self.paged or not self.prefix_sharing:
+            raise RuntimeError("page import needs the paged cache with "
+                               "prefix sharing on")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+
+        def job():
+            existing = self.registry.lookup(prompt)
+            todo = payloads[len(existing):]
+            if not todo:
+                return 0
+            need = len(todo)
+            pages = self.pool.alloc(need)
+            if pages is None:
+                self._evict_for(need)
+                pages = self.pool.alloc(need)
+            if pages is None:
+                raise RuntimeError(
+                    f"import starved: {need} pages needed, "
+                    f"{self.pool.free_pages} free")
+            try:
+                for page, leaves in zip(pages, todo):
+                    self._cache = self.decoder.write_page(self._cache,
+                                                          page, leaves)
+            except Exception:
+                self.pool.free(pages)   # never registered: no entries
+                raise
+            fresh = self.registry.register(prompt, existing + pages)
+            # pages the registry refused (a key raced in, or the
+            # collision guard) go straight back: nothing may own an
+            # unregistered imported page
+            stray = [p for p in pages if p not in fresh]
+            for p in self.pool.free(stray):
+                self.registry.drop_page(p)
+            self._m_pages_imported.inc(len(fresh))
+            return len(fresh)
+
+        return self.run_on_engine(job)
 
     # -- client side ---------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -652,6 +829,7 @@ class ServeEngine:
     def _loop(self):
         try:
             self._loop_body()
+            self._drain_migration_jobs()
         except Exception as e:
             # a dead engine thread must not strand clients blocked in
             # result(): fail loudly and deliver cancellations
@@ -669,12 +847,16 @@ class ServeEngine:
                     request_id=handle.request.id, tokens=[], prompt_len=0,
                     queue_wait_s=0.0, time_to_first_token_s=0.0,
                     latency_s=0.0, cancelled=True))
+            self._drain_migration_jobs()
 
     def _loop_body(self):
         while True:
             if self._heartbeat is not None:
                 # serving liveness; the interval gate is inside beat()
                 self._heartbeat.beat(step=self._m_completed.value)
+            # migration jobs run here, between iterations: they touch
+            # the pool, registry and cache, which only this thread writes
+            self._run_migration_jobs()
             with self._cond:
                 # cancellation sweep, queued half: resolved before it
                 # can cost an admission's pages
@@ -992,6 +1174,12 @@ class ServeEngine:
             flops, nbytes = self.decoder.last_cost
             self.ledger.observe("serve_decode_step", step_dt, flops=flops,
                                 bytes_accessed=nbytes)
+        # chaos slow_replica@replica<K>:<F>: stretch each decode step to
+        # F x its measured time -- the straggler the router's deadline
+        # and least-loaded placement absorb (a None check when off)
+        slow = chaos.slow_replica()
+        if slow > 1.0:
+            time.sleep((slow - 1.0) * step_dt)
         for i, s in enumerate(self._slots):
             if s is None or s.phase != "decode":
                 continue

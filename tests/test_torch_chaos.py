@@ -118,17 +118,76 @@ def test_kinds_and_vocabulary_are_the_jax_packages():
 def test_unported_kinds_parse_but_refuse_to_arm(spec, subsystem):
     chaos.parse_spec(spec)
     Config(fault=spec)                       # the flag's grammar check
-    if spec.partition("@")[0] not in chaos.NOT_PORTED:
-        # ported since (ps_drop, with the async parameter server): it
-        # arms, and fires once at its point
+    kind = spec.partition("@")[0]
+    if kind not in chaos.NOT_PORTED:
+        # ported since (ps_drop with the async parameter server; the
+        # fleet's replica_kill, net_partition, slow_replica and
+        # page_fetch_stall with serve/router.py, serve/engine.py and
+        # serve/migrate.py): it arms, and fires at its point as the JAX
+        # injector does
         inj = chaos.configure(spec, rank=0)
-        assert chaos.enabled() and [str(s) for s in inj.specs] == [spec]
-        assert not chaos.ps_drop(2) and chaos.ps_drop(3)
-        assert not chaos.ps_drop(4)
+        assert chaos.enabled() and [str(s) for s in inj.specs] == [
+            str(s) for s in chaos.parse_spec(spec)]
+        if kind == "ps_drop":
+            assert not chaos.ps_drop(2) and chaos.ps_drop(3)
+            assert not chaos.ps_drop(4)
+        else:
+            assert _fleet_probes(chaos, spec) == _fleet_probes(jax_chaos,
+                                                               spec)
         return
-    with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
+    # router_kill and lease_stall fire in serve/ha.py, rollout_kill in
+    # serve/rollout.py: still not ported, each named
+    where = {"rollout_kill": "serve/rollout.py", "router_kill": "serve/ha.py",
+             "lease_stall": "serve/ha.py"}.get(kind, "")
+    with pytest.raises(ValueError, match=f"{subsystem}.*{where}.*not ported"):
         chaos.configure(spec)
     assert not chaos.enabled()
+
+
+def _fleet_probes(mod, spec, rank=0):
+    """What one package's probes return for a fleet fault armed in the
+    process of replica ``rank``: replica_kill over dispatches 1-5
+    (routed to replica 1), net_partition of replicas 0 and 1 over 10
+    ticks (traffic from tick 3), slow_replica and page_fetch_stall three
+    times each."""
+    mod.configure(spec, rank=rank)
+    try:
+        return ([mod.replica_kill(seq, 1) for seq in range(1, 6)],
+                [mod.net_partition(r, tick >= 3)
+                 for tick in range(10) for r in (0, 1)],
+                [mod.slow_replica() for _ in range(3)],
+                [mod.page_fetch_stall() for _ in range(3)])
+    finally:
+        mod.disable()
+
+
+@pytest.mark.parametrize("spec", [
+    "replica_kill@req:3", "replica_kill@replica0:req:2",
+    "net_partition@replica1:6", "net_partition@replica0:ticks:2",
+    "slow_replica@replica0:2.5", "slow_replica@replica1:3",
+    "page_fetch_stall@replica0:0.5", "page_fetch_stall@replica1:0.25",
+])
+def test_fleet_kinds_fire_as_jax(spec, tmp_path):
+    """The four fleet kinds fire at the same probe calls as the JAX
+    injector's; the router-side kinds (replica_kill, net_partition) in
+    any process, the replica-side ones (slow_replica, page_fetch_stall)
+    only in the process whose rank is their replica; each firing is one
+    injected_fault record."""
+    (armed,) = chaos.parse_spec(spec)
+    router_side = armed.kind in ("replica_kill", "net_partition")
+    for rank in (0, 1):
+        got = _fleet_probes(chaos, spec, rank)
+        assert got == _fleet_probes(jax_chaos, spec, rank), rank
+        tdir = tmp_path / f"rank{rank}"
+        trace.configure(str(tdir), rank=rank)
+        _fleet_probes(chaos, spec, rank)
+        trace.flush()
+        trace.disable()
+        with open(tdir / f"trace_rank{rank}.jsonl") as f:
+            faults = [r["fault"] for r in map(json.loads, f)
+                      if r.get("name") == "injected_fault"]
+        fires = router_side or armed.replica == rank
+        assert faults == ([str(armed)] if fires else []), rank
 
 
 def test_config_flag_validates_spec():

@@ -105,10 +105,49 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         # the JAX package's defaults and validation
         _check_ported_flags(flags)
         return
+    if subsystem == "serving fleet":
+        # the router and replica flags are ported since (cli/router_main
+        # and cli/replica_main); the HA pair's and the rollout's still
+        # name their subsystem
+        _check_fleet_flags([f for f in flags if f not in
+                            ("rollout_checkpoint", "router_ha")])
+        flags = ["rollout_checkpoint", "router_ha"]
     for name in flags:
         assert subsystem in NOT_PORTED[name], name
         with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
             parse_flags([f"--{name}", "1"])
+
+
+FLEET_ARGV = ["--router_replicas", "3", "--router_deadline_s", "9.5",
+              "--router_admission", "7", "--router_probe_s", "0.2",
+              "--router_health_timeout_s", "4", "--router_replica_inflight",
+              "5", "--router_max_respawns", "2", "--router_respawn_window_s",
+              "60", "--router_respawn_backoff_s", "0.1", "--router_hedge_s",
+              "1.5", "--router_placement", "affinity",
+              "--router_prefill_replicas", "1", "--rendezvous_dir", "/tmp/r",
+              "--replica_id", "2", "--serve_host", "0.0.0.0"]
+
+
+def _check_fleet_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    got, want = parse_flags(FLEET_ARGV), jax_parse_flags(FLEET_ARGV)
+    for name in [a[2:] for a in FLEET_ARGV[::2]]:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+        assert getattr(got, name) == getattr(want, name), name
+    assert set(flags) <= {a[2:] for a in FLEET_ARGV[::2]}
+    for bad in (["--router_replicas", "0"],
+                ["--router_probe_s", "20"],
+                ["--router_placement", "sticky"],
+                ["--router_prefill_replicas", "2"],
+                ["--router_prefill_replicas", "1", "--router_placement",
+                 "random"],
+                ["--router_hedge_s", "-1"], ["--serve_host", ""]):
+        with pytest.raises(ValueError):
+            parse_flags(bad)
+        with pytest.raises(ValueError):
+            jax_parse_flags(bad)
 
 
 def _check_ported_flags(flags):

@@ -449,6 +449,10 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.chaos, dtf_tpu_torch.train.checkpoint; "
             "import dtf_tpu_torch.cli.trace_main; "
             "import dtf_tpu_torch.obs.ledger, dtf_tpu_torch.obs.prom; "
+            "import dtf_tpu_torch.cli.router_main; "
+            "import dtf_tpu_torch.cli.replica_main; "
+            "import dtf_tpu_torch.serve.router, dtf_tpu_torch.serve.migrate; "
+            "import dtf_tpu_torch.serve.replica, dtf_tpu_torch.serve.journal; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")
