@@ -11,6 +11,8 @@ Phases, each printing one JSON object per line (the card's
   1. device   -- the card, torch and CUDA versions; the kernels are
                  built from ``dtf_tpu_torch/csrc`` (one nvcc per source,
                  all started together) and the build time printed.
+                 Every Python process the script starts shares one
+                 bytecode cache under ``dtf_tpu_torch/_build/pycache``.
   2. kernels  -- each CUDA kernel against its plain PyTorch version on
                  the same inputs on the card: max abs error and
                  tolerance, then kernel, plain and library times (CUDA
@@ -132,15 +134,19 @@ Phases, each printing one JSON object per line (the card's
                  BN off and on: two ranks sharing the card over gloo
                  (``initialize(cfg, backend="gloo")``: CUDA tensors
                  reduced through the host) and the same two ranks on the
-                 CPU; the ranks end bit-identical and the card's losses
-                 are within ``DP_LOSS_RTOL`` of the CPU's;
+                 CPU, the four runs at once; the ranks end
+                 bit-identical and the card's losses are within
+                 ``DP_LOSS_RTOL`` of the CPU's;
      dp_nccl_multi_card -- with two cards, the same runs over NCCL one
                  card a rank; with one, a line saying it is unmeasured.
   9. recovery -- crash-exact resume through the entry points, each run
                  under ``cli/launch.py`` with sealed checkpoints every 2
                  steps (``--checkpoint_keep 2``) and a trace, its
                  processes printing their losses, launches, a digest of
-                 the trained state dict and the checkpoint times:
+                 the trained state dict and the checkpoint times (the
+                 two uninterrupted runs at once, and resnet56's crash
+                 run beside recovery_serve; the LM's faulted run and the
+                 preempted one alone):
      recovery_disk -- the free space of the temporary directory;
      recovery_lm -- ``cli.lm_main`` transformer_tpu bf16, batch 8 x
                  2048, one ``multi_worker_mirrored`` rank on NCCL, 8
@@ -184,8 +190,8 @@ Phases, each printing one JSON object per line (the card's
                  profiled steps' device time (none fails the run); the
                  eval must count each of the 300 validation records once;
      imagenet_resume -- resnet50 under the launcher, 8 steps, sealed
-                 checkpoints every 2, 4 readers uninterrupted; then one
-                 reader a core with ``crash@step:4,reader_crash@batch:6``
+                 checkpoints every 2, 4 readers uninterrupted; beside it
+                 one reader a core with ``crash@step:4,reader_crash@batch:6``
                  and one restart: every step's loss equal as a float,
                  equal digests, at least one reader respawn;
      train_cifar_fp16 -- ``cli.cifar_main.main`` resnet56 fp16 b128, 40
@@ -214,8 +220,10 @@ Phases, each printing one JSON object per line (the card's
      ps_lm      -- transformer_tpu b8 x 2048 bf16 as one worker, 3 steps:
                  12 K1 and 12 K3 launches a step, its parameter count;
      ps_faults  -- ``ps_drop@version:3`` (a reconnect, every step done,
-                 version 8), then the store's rank SIGTERMed while it
-                 serves under ``--ps_snapshot_dir``: the launcher
+                 version 8), and the store's rank SIGTERMed while it
+                 serves under ``--ps_snapshot_dir`` (that job's
+                 processes run beside ps_one_worker, ps_lm and
+                 ps_drop; ps_reference runs alone): the launcher
                  restarts the job, the store restores its snapshot and
                  discards the old attempt's done count, and the re-run
                  workers finish at the restored version plus 40.
@@ -274,6 +282,41 @@ Phases, each printing one JSON object per line (the card's
                  from the router's trace.  Each replica zeroes its
                  kernels' launch counts as its server starts and writes
                  them at exit (a SIGKILLed one's are lost).
+ 14. ha_rollout -- the fleet's HA pair and zero-downtime rollout on one
+                 tier: two ``cli.replica_main`` processes on the card
+                 serving export A (the port's ``export_model`` of the
+                 seeded weights; B an identical re-export, C a perturbed
+                 copy), phase 13's width and traffic, f32.  Routers come
+                 and go in this process; a dead one is frozen in place
+                 (loops stopped, connections severed, nothing resolved)
+                 on its dispatching thread, which then ends.
+                 A baseline burst is the oracle (equal to phase 13's
+                 engine); ``router_kill@req:5`` kills the journaling
+                 epoch-1 leader mid-burst and a standby takes epoch 2
+                 and adopts the tier (no request lost, the dispatched
+                 re-adopted and the queued re-dispatched, no replica
+                 respawned, every stream exactly once and token-exact);
+                 an epoch-3 force-take (its first burst reaching both
+                 replicas) fences the epoch-2 router at the replicas;
+                 ``lease_stall@4`` lets a standby take epoch 4
+                 and fences the stalled leader.  Then, under live
+                 traffic (``HA_PUMP_SHARE`` of the baseline's request
+                 rate; during A->B also phase 13's cold prompts, with
+                 its engine's tokens): A->B ends DONE (token-exact, no
+                 mixed stream, prefix hits after), B->C ROLLED_BACK on
+                 the canary's divergence, ``rollout_kill@phase:rolling``
+                 and ``ckpt_truncate`` (the canary fails to load)
+                 ROLLED_BACK, and a ``router_kill`` while ROLLING is
+                 resumed to DONE by the standby's ``take_over``.
+                 ``trace_main --check`` with each allowlist (a failed
+                 migration only in the same event as the loss of an
+                 endpoint, no more such losses than kills); takeover
+                 times, re-adopted and
+                 re-dispatched counts, each replica swap and rollout,
+                 tokens/s and TTFT during A->B.  K1 and K4 counted in the
+                 replica processes: the tier's first processes at the
+                 end of the HA stages (a SIGUSR1 snapshot), then every
+                 process at its exit.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -284,7 +327,9 @@ phase 6's companion, the f32 routes phase 5's f32 AdamW steps, K4
 serving (and, as ``launches_recovery_serve``, with K1,
 serving phase 9's checkpoint; as ``launches_prefix``, with K1, phase
 12's bursts with and without sharing; as ``launches_fleet``, with K1,
-phase 13's replica processes) -- and, last, the device line.
+phase 13's replica processes; as ``launches_ha`` and
+``launches_rollout``, with K1, phase 14's) -- and, last, the device
+line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -313,7 +358,32 @@ TRAIN_SHAPE = (8, 2048, 6, 128)      # transformer_tpu at batch 8
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # the process's own stdout: a line emitted on a thread while the
+    # main thread runs under ``quiet`` still reaches it
+    print(json.dumps(obj), file=sys.__stdout__, flush=True)
+
+
+def overlapped(fn, *args, **kw):
+    """``fn(*args, **kw)`` on a thread of its own, started now; the
+    returned future's ``result()`` waits for it and raises what it
+    raised.  For a run whose gates are its own and whose times no gate
+    or headline reads beside the run it overlaps (a baseline only its
+    faulted twin is compared with, a CPU reference, a fault case)."""
+    import concurrent.futures
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        return pool.submit(fn, *args, **kw)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def gathered(futures):
+    """Every future's result, in order, once all have ended (a failure
+    is raised only after the others have finished, so no run outlives
+    the phase that started it)."""
+    import concurrent.futures
+    concurrent.futures.wait(futures)
+    return [f.result() for f in futures]
 
 
 def fail(msg: str) -> int:
@@ -2325,8 +2395,15 @@ def dp_two_ranks(torch, card: str, root: str, data_dir: str, seed: int):
     and on: two ranks sharing the card over gloo (CUDA tensors), and
     the same two ranks on the CPU.  The ranks end bit-identical; the
     card's losses are within ``DP_LOSS_RTOL`` of the CPU's.  With two
-    cards, the same runs over NCCL, one card a rank."""
+    cards, the same runs over NCCL, one card a rank.  The runs go at
+    once: each is gated on its own ranks and the CPU's losses, and no
+    gate reads their step times."""
     lines = []
+    cases = [("gloo_cuda", "cuda", "gloo"), ("gloo_cpu", "cpu", None)]
+    if torch.cuda.device_count() >= 2:
+        cases.append(("nccl_two_cards", "cuda", None))
+    torch.cuda.empty_cache()
+    started = {}
     for sync_bn in (False, True):
         argv = ["--data_dir", data_dir, "--model", "resnet20", "--dtype",
                 "fp32", "--batch_size", "32", "--train_steps", "3",
@@ -2334,16 +2411,15 @@ def dp_two_ranks(torch, card: str, root: str, data_dir: str, seed: int):
                 "--skip_checkpoint",
                 "--distribution_strategy", "multi_worker_mirrored",
                 "--sync_bn", str(sync_bn).lower()]
-        runs = {}
-        cases = [("gloo_cuda", "cuda", "gloo"), ("gloo_cpu", "cpu", None)]
-        if torch.cuda.device_count() >= 2:
-            cases.append(("nccl_two_cards", "cuda", None))
         for name, device, backend in cases:
             spec = {"main": "cifar_main", "defaults": "CIFAR_DEFAULTS",
                     "backend": backend, "argv": argv + ["--device", device]}
-            torch.cuda.empty_cache()
-            runs[name] = dp_run(spec, 2, root,
-                                f"dp two ranks {name} sync_bn {sync_bn}")
+            started[sync_bn, name] = overlapped(
+                dp_run, spec, 2, root,
+                f"dp two ranks {name} sync_bn {sync_bn}")
+    done = dict(zip(started, gathered(list(started.values()))))
+    for sync_bn in (False, True):
+        runs = {name: done[sync_bn, name] for name, *_ in cases}
         cpu = runs["gloo_cpu"][0]["losses"]
         for name, ranks in runs.items():
             gap = max(abs(a - b) / abs(b)
@@ -2653,7 +2729,9 @@ def train_recovery(torch, seed: int, card: str):
     budget, the same trajectory.  (d) ``serve_main --model_dir`` on the
     LM's checkpoint: greedy tokens equal those served from the trained
     parameters held in memory; K1 and K4 launched.  (e) Save, restore
-    and restart times and bytes a step."""
+    and restart times and bytes a step.  The uninterrupted runs of (a)
+    and (b) go at once, and (b)'s crash run beside (d); the LM's faulted
+    run and (c) go alone: (e) reads their times."""
     import shutil
     import tempfile
 
@@ -2684,12 +2762,30 @@ def train_recovery(torch, seed: int, card: str):
     lines = {}
     with tempfile.TemporaryDirectory() as root:
         torch.cuda.empty_cache()
+        # the CIFAR files of (b) and (c), and resnet56's uninterrupted
+        # run beside the LM's: the two baselines, each read only beside
+        # its faulted twin
+        d = os.path.join(root, "cifar-10-batches-bin")
+        os.makedirs(d)
+        for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
+                "test_batch.bin"]:
+            write_binary_file(os.path.join(d, name),
+                              rng.integers(0, 256, (256, 32, 32, 3)),
+                              rng.integers(0, 10, 256))
+        rn_argv = ["--data_dir", root, "--device", "cuda", "--model",
+                   "resnet56", "--dtype", "bf16", "--batch_size", "128",
+                   "--skip_eval", "--seed", str(seed)]
+        rn_base_run = overlapped(recovery_run, root, "resnet_base",
+                                 "cifar_main", rn_argv)
         # one rank of a data-parallel run: the NCCL group, the flat
         # all-reduce, the barrier behind each save, the restore's
         # broadcast of the chosen step
         dp = "multi_worker_mirrored"
-        lm_base = recovery_run(root, "lm_base", "lm_main", lm_argv,
-                               strategy=dp)
+        lm_base, rn_base = gathered([
+            overlapped(recovery_run, root, "lm_base", "lm_main", lm_argv,
+                       strategy=dp), rn_base_run])
+        # the LM's faulted run alone: its save, restore and restart
+        # times are the phase's measurements
         lm = recovery_run(root, "lm_crash", "lm_main", lm_argv,
                           fault="crash@step:4", strategy=dp,
                           serve={"serve_argv": serve_argv,
@@ -2710,7 +2806,11 @@ def train_recovery(torch, seed: int, card: str):
                        "distribution_strategy": dp, "ranks": 1, **line}
         emit(lines["lm"])
 
-        # (d) serving the LM's checkpoint through serve_main
+        # (d) serving the LM's checkpoint through serve_main, while
+        # resnet56's crash run goes (no gate reads its times)
+        rn_crash_run = overlapped(recovery_run, root, "resnet_crash",
+                                  "cifar_main", rn_argv,
+                                  fault="crash@step:4")
         reset_counts(fa, pa)
         out = serve_main.main(serve_argv + [
             "--model_dir", lm["model_dir"], "--serve_requests", "4",
@@ -2734,6 +2834,7 @@ def train_recovery(torch, seed: int, card: str):
             "prompts": [len(p) for p in prompts], "tokens": tokens,
             "token_exact_to_memory": tokens == lm["result"]["served_tokens"]}
         emit(lines["serve"])
+        crashed_run = rn_crash_run.result()
         if not (lines["serve"]["token_exact_to_memory"]
                 and out["requests"] == 4 and out["shed"] == 0
                 and min(served_launches["K1"], served_launches["K4"]) > 0):
@@ -2743,22 +2844,13 @@ def train_recovery(torch, seed: int, card: str):
         for run in (lm_base, lm):
             shutil.rmtree(run["model_dir"], ignore_errors=True)
 
-        # (b), (c) resnet56 on written CIFAR files
-        d = os.path.join(root, "cifar-10-batches-bin")
-        os.makedirs(d)
-        for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
-                "test_batch.bin"]:
-            write_binary_file(os.path.join(d, name),
-                              rng.integers(0, 256, (256, 32, 32, 3)),
-                              rng.integers(0, 10, 256))
-        rn_argv = ["--data_dir", root, "--device", "cuda", "--model",
-                   "resnet56", "--dtype", "bf16", "--batch_size", "128",
-                   "--skip_eval", "--seed", str(seed)]
-        rn_base = recovery_run(root, "resnet_base", "cifar_main", rn_argv)
+        # (b), (c) resnet56 on the written CIFAR files; the preempted
+        # run alone (its restart time is measured)
         for key, fault, at, cls in (
                 ("resnet_crash", "crash@step:4", 4, "crash"),
                 ("resnet_preempt", "sigterm@step:3", 3, "preempted")):
-            run = recovery_run(root, key, "cifar_main", rn_argv, fault=fault)
+            run = crashed_run if key == "resnet_crash" else recovery_run(
+                root, key, "cifar_main", rn_argv, fault=fault)
             line = check_recovered(f"recovery_{key}", rn_base, run, fault,
                                    at, cls)
             lines[key] = {"phase": f"recovery_{key}", "card": card,
@@ -2986,8 +3078,8 @@ def train_imagenet_files(torch, root: str, seed: int, card: str,
 
 def imagenet_resume(torch, root: str, seed: int, card: str) -> dict:
     """resnet50 bf16 b256 on the shards under the launcher, 8 steps,
-    sealed checkpoints every 2: uninterrupted with 4 readers; then with
-    one reader a core, ``--fault crash@step:4,reader_crash@batch:6``
+    sealed checkpoints every 2: uninterrupted with 4 readers; at the
+    same time, with one reader a core, ``--fault crash@step:4,reader_crash@batch:6``
     and one restart -- the worker count differs from the uninterrupted
     run's, and the reader owning batch 6 is SIGKILLed and respawned (in
     the first attempt, in the resumed one, or both: the prefetcher may
@@ -3003,11 +3095,14 @@ def imagenet_resume(torch, root: str, seed: int, card: str) -> dict:
     fault = "crash@step:4,reader_crash@batch:6"
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.empty_cache()
-        base = recovery_run(tmp, "imagenet_base", "imagenet_main",
-                            argv + ["--input_workers", "4"])
-        run = recovery_run(tmp, "imagenet_crash", "imagenet_main",
-                           argv + ["--input_workers", str(workers)],
-                           fault=fault)
+        # the two runs at once: each is gated on its losses and digests
+        # against the other, and no gate reads their times
+        base, run = gathered([
+            overlapped(recovery_run, tmp, "imagenet_base", "imagenet_main",
+                       argv + ["--input_workers", "4"]),
+            overlapped(recovery_run, tmp, "imagenet_crash", "imagenet_main",
+                       argv + ["--input_workers", str(workers)],
+                       fault=fault)])
         line = check_recovered("imagenet_resume", base, run, fault, 4,
                                "crash")
     respawns = [e for e in run["events"] if e["event"] == "reader_crash"]
@@ -3532,18 +3627,27 @@ def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
 
 
 def async_ps(torch, seed: int, card: str) -> dict:
-    """Phase 11: the store, one worker twice, the reference's shape
-    through the launcher on both wires, the LM worker's kernels, and
-    the two faults."""
+    """Phase 11: the store, the reference's shape through the launcher
+    on both wires, then one worker twice, the LM worker's kernels and
+    the two faults, the preempted job beside the in-process runs."""
+    import concurrent.futures
     import tempfile
 
     out = {"store": ps_store_case(seed, card)}
     with tempfile.TemporaryDirectory() as root:
-        out["one_worker"] = ps_one_worker(torch, seed, card, root)
+        # the reference's shape alone: its rates are the measurement
         out["reference"] = ps_reference(torch, seed, card, root)
-        out["lm"] = ps_lm(torch, seed, card)
-        out["drop"] = ps_drop_case(torch, seed, card, root)
-        out["preempt"] = ps_preempt_case(torch, seed, card, root)
+        # the preempted job in its processes while the in-process runs
+        # go: each is gated on its own versions, losses and launches,
+        # and no gate reads a time
+        preempt = overlapped(ps_preempt_case, torch, seed, card, root)
+        try:
+            out["one_worker"] = ps_one_worker(torch, seed, card, root)
+            out["lm"] = ps_lm(torch, seed, card)
+            out["drop"] = ps_drop_case(torch, seed, card, root)
+        finally:
+            concurrent.futures.wait([preempt])
+        out["preempt"] = preempt.result()
     return out
 
 
@@ -4016,7 +4120,7 @@ FLEET_FAMILIES, FLEET_REQUESTS = 4, 16
 # starts -- after the warm request, so they count the traffic -- and
 # written at its exit into the rendezvous directory
 FLEET_REPLICA = r"""
-import atexit, json, os, sys
+import atexit, json, os, signal, sys
 from dtf_tpu_torch.cli import replica_main
 from dtf_tpu_torch.ops import flash_attention as fa, paged_attention as pa
 from dtf_tpu_torch.serve import replica
@@ -4029,15 +4133,20 @@ def start(self):
     return _start(self)
 
 
-def dump():
-    name = "launches_rank%s.gen%s.json" % (
-        os.environ["DTF_PROCESS_ID"], os.environ["DTF_RESTART_GENERATION"])
-    with open(os.path.join(os.environ["DTF_HEARTBEAT_DIR"], name), "w") as f:
+def dump(tag=""):
+    name = "launches_rank%s.gen%s%s.json" % (
+        os.environ["DTF_PROCESS_ID"], os.environ["DTF_RESTART_GENERATION"],
+        tag)
+    path = os.path.join(os.environ["DTF_HEARTBEAT_DIR"], name)
+    with open(path + ".tmp", "w") as f:
         json.dump({"K1": fa.launches, "K4": pa.launches}, f)
+    os.replace(path + ".tmp", path)
 
 
 replica.ReplicaServer.start = start
 atexit.register(dump)
+# phase 14 reads a live process's counts so far (its HA stages' share)
+signal.signal(signal.SIGUSR1, lambda *_: dump(".snap"))
 sys.exit(replica_main.main(sys.argv[1:]))
 """
 
@@ -4375,11 +4484,793 @@ def serve_fleet(torch, seed: int, card: str) -> dict:
     if not all(gates.values()):
         raise AssertionError(f"fleet: {line}")
     return {"colocated": colo, "disagg": dis, "disagg_bf16": dis16,
+            "prompts": prompts, "reference": ref[:n],
+            "cold": cold, "cold_reference": ref[n:],
             "launches": {arm: {kern: k(r, 0, kern) + k(r, 1, kern)
                                for kern in ("K1", "K4")}
                          for arm, r in (("colocated_f32", colo),
                                         ("disagg_f32", dis),
                                         ("disagg_bf16", dis16))}}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the fleet's HA pair and zero-downtime rollout (serve/ha.py,
+# serve/rollout.py, serve/journal.py) -- one tier of replica processes
+# on the card, routers coming and going in this process
+# ---------------------------------------------------------------------------
+
+HA_TTL = 1.0            # the leader lease's time to live, seconds
+HA_PUMP_SHARE = 0.25    # live traffic: this share of the baseline burst's
+                        # request rate, offered one request at a time
+HA_COLD_EVERY = 10      # A->B: one of phase 13's cold prompts every this
+                        # many of the pump's requests, each sent once
+HA_LOSS_WINDOW_S = 1.0  # a failed migration's replica_lost follows it
+HA_ALLOW = ("injected_fault", "stale_epoch", "router_fenced")
+# the JAX rollout smoke's allowlist, and migration_failed: a replica the
+# chaos kills can take a heal-time prefetch of a hot chain down with it
+# (each such record is held to that loss: ha_migration_failures)
+ROLLOUT_ALLOW = ("injected_fault", "rollout_rollback", "canary_divergence",
+                 "replica_lost", "migration_failed")
+
+
+def export_fleet_checkpoints(torch, cfg, root: str):
+    """Three exports by the port's ``export_model`` of one seeded param
+    set (the replicas' ``--serve_random_init`` weights): A, the
+    incumbent; B, an identical re-export in its own directory; C, a
+    perturbed copy (seeded noise of half each weight matrix's std).
+    Returns their paths once A is written and the thread writing B and
+    C (the tier starts on A meanwhile)."""
+    import threading
+
+    from dtf_tpu_torch.models.registry import build_model
+    from dtf_tpu_torch.serve import bridge
+    from dtf_tpu_torch.train.checkpoint import export_model
+    model, _ = build_model(cfg.model, num_classes=cfg.num_classes,
+                           dtype=torch.float32)
+    bridge.random_init(model, cfg.seed)
+    out = {k: os.path.join(root, f"ckpt_{k.lower()}") for k in "ABC"}
+    export_model(out["A"], model)
+
+    def rest():
+        export_model(out["B"], model)
+        gen = torch.Generator().manual_seed(cfg.seed + 14)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.dim() == 2:
+                    p.add_(torch.randn(p.shape, generator=gen) * 0.5
+                           * p.std())
+        export_model(out["C"], model)
+    writer = threading.Thread(target=rest, daemon=True)
+    writer.start()
+    return out, writer
+
+
+class HaClient:
+    """The clients of one router: each request consumed through its
+    stream on a thread of its own (tokens delivered, time to the first),
+    until it resolves or the stream goes silent (the router died)."""
+
+    def __init__(self, router, prompts, silence_s: float = 600.0):
+        import threading
+        self.router, self.prompts = router, prompts
+        self.silence_s = silence_s
+        self.reqs = []          # (prompt index, handle, tokens, t0, box)
+        self._threads = []
+        self._threading = threading
+
+    def submit(self, i: int):
+        h = self.router.submit(self.prompts[i], max_new_tokens=FLEET_NEW)
+        got, box, t0 = [], {}, time.time()
+
+        def consume():
+            try:
+                for tok in h.stream(timeout=self.silence_s):
+                    if not got:
+                        box["ttft"] = time.time() - t0
+                    got.append(tok)
+            except (TimeoutError, RuntimeError) as e:
+                box["error"] = repr(e)
+        th = self._threading.Thread(target=consume, daemon=True)
+        th.start()
+        self._threads.append(th)
+        self.reqs.append((i, h, got, t0, box))
+        return h
+
+    def join(self, timeout: float = 900.0) -> None:
+        for th in self._threads:
+            th.join(timeout=timeout)
+
+
+class HaPump(HaClient):
+    """Live traffic through a rollout: one prompt every ``interval_s``
+    cycling through the burst's (the first ``n`` of ``prompts``); once
+    ``cold`` is set, every ``HA_COLD_EVERY``-th request is the next of
+    those prompt indices instead, each sent once.  A shed is counted,
+    never retried."""
+
+    def __init__(self, router, prompts, n: int, interval_s: float,
+                 silence_s: float = 600.0):
+        super().__init__(router, prompts, silence_s)
+        self.n, self.interval_s = n, interval_s
+        self.cold: list = []
+        self.shed = 0
+        self._stop = self._threading.Event()
+        self._thread = self._threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        from dtf_tpu_torch.serve.engine import Backpressure
+        i = sent = 0
+        while not self._stop.wait(self.interval_s):
+            sent += 1
+            cold = bool(self.cold) and sent % HA_COLD_EVERY == 0
+            try:
+                self.submit(self.cold.pop(0) if cold else i % self.n)
+            except Backpressure:
+                self.shed += 1
+            except RuntimeError:      # the router died or stopped
+                return
+            i += not cold
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def check(self, oracle, stage: str) -> dict:
+        """Zero shed, zero lost, every request token-exact against the
+        oracle and streamed exactly once."""
+        self.join()
+        if self.shed or not self.reqs:
+            raise AssertionError(f"{stage}: shed {self.shed}, submitted "
+                                 f"{len(self.reqs)}")
+        for i, h, got, _, box in self.reqs:
+            res = h.result(timeout=300)
+            if res.tokens != oracle[i] or got != res.tokens:
+                raise AssertionError(
+                    f"{stage}: prompt {i} replica {res.replica} version "
+                    f"{res.version!r}: {res.tokens[:8]} streamed "
+                    f"{got[:8]} want {oracle[i][:8]} {box}")
+        return {"requests": len(self.reqs), "shed": 0, "lost": 0}
+
+
+def ha_freeze(router) -> None:
+    """What a SIGKILL leaves of a router, in process: loops stopped,
+    connections severed mid-stream, nothing resolved, the journal's
+    tail as it is (tools/router_ha_smoke.py's freeze)."""
+    import socket
+    with router._mu:
+        router._stopping = True
+        router._mu.notify_all()
+    for rep in router._replicas:
+        conn = rep.conn
+        if conn is not None:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        router._close_conn(rep)
+
+
+def ha_reaper(routers, stop) -> None:
+    """Reap the tier's exited processes, whichever router spawned them:
+    a frozen router never waits on its children again, so a successor
+    that stops one by the pid its announce names sees it gone."""
+    while not stop.wait(0.1):
+        for router in list(routers):
+            for rep in router._replicas:
+                proc = rep.proc
+                if proc is not None:
+                    proc.poll()
+
+
+def ha_pid_gone(pid) -> bool:
+    try:
+        os.kill(int(pid), 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def ha_tier_pids(root: str) -> dict:
+    from dtf_tpu_torch.serve.replica import read_announce
+    return {rid: (read_announce(root, rid) or {}).get("pid")
+            for rid in (0, 1)}
+
+
+def ha_trace_check(tdir: str, allow) -> dict:
+    cmd = [sys.executable, "-m", "dtf_tpu_torch.cli.trace_main", tdir,
+           "--check"]
+    for kind in allow:
+        cmd += ["--allow", kind]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"trace_main --check {tdir}: "
+                             f"{proc.stdout[-3000:]} {proc.stderr[-2000:]}")
+    return {"dir": os.path.basename(tdir), "allow": list(allow),
+            "ok": True}
+
+
+def ha_migration_failures(path: str) -> int:
+    """The router trace's failed migrations, each held to the loss of
+    one of its endpoints: its error names the loss's reason, and within
+    ``HA_LOSS_WINDOW_S`` after it comes the ``replica_lost`` record of
+    its source or target for that reason (the router fails a lost
+    replica's migrations, then records the loss: one event, so one
+    generation of that replica).  Those losses are no more than the
+    kills the trace injected.  Returns the failures' count."""
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f]
+    lost = [r for r in recs if r.get("name") == "replica_lost"]
+    kills = sum(r.get("name") == "injected_fault"
+                and r.get("fault_kind") in ("rollout_kill", "replica_kill")
+                for r in recs)
+    failed = [r for r in recs if r.get("name") == "migration_failed"]
+    causes = set()
+    for rec in failed:
+        cause = [i for i, r in enumerate(lost)
+                 if r["replica"] in (rec["source"], rec["target"])
+                 and rec.get("error") == f"replica_lost:{r.get('reason')}"
+                 and 0 <= r["ts"] - rec["ts"] <= HA_LOSS_WINDOW_S]
+        if not cause:
+            raise AssertionError(f"ha_rollout: a migration failed with no "
+                                 f"replica lost just after it: {rec}")
+        causes.add(cause[0])
+    if len(causes) > kills:
+        raise AssertionError(f"ha_rollout: migrations failed with "
+                             f"{len(causes)} replicas lost, {kills} killed")
+    return len(failed)
+
+
+def ha_swaps(path: str) -> list:
+    """From a router trace: each planned replica swap, its drain's start
+    to the replica's next registration (the truncated canary's failed
+    start included in its rollback's swap)."""
+    recs = []
+    with open(path) as f:
+        for line in f:
+            recs.append(json.loads(line))
+    out, start = [], {}
+    for rec in recs:
+        name, rid = rec.get("name"), rec.get("replica")
+        if name == "replica_drain":
+            start.setdefault(rid, rec["ts"])
+        elif name == "replica_registered" and rid in start:
+            out.append({"replica": rid,
+                        "s": rec["ts"] - start.pop(rid)})
+    return out
+
+
+def trace_events(tdir: str, name: str) -> list:
+    from dtf_tpu_torch.obs import trace
+    trace.flush()
+    with open(os.path.join(tdir, "trace_router.jsonl")) as f:
+        return [rec for rec in map(json.loads, f) if rec.get("name") == name]
+
+
+def ha_launches(root: str) -> dict:
+    """Per replica process (``rank{K}.gen{G}``): its launches at exit
+    and, for the tier's first processes, the snapshot taken when the
+    HA stages ended."""
+    import glob
+    out = {}
+    for path in sorted(glob.glob(os.path.join(root, "launches_rank*.json"))):
+        key = os.path.basename(path)[9:-5]
+        with open(path) as f:
+            out[key] = json.load(f)
+    return out
+
+
+def serve_ha_rollout(torch, seed: int, card: str, prompts, ref, cold,
+                     cold_ref, argv=None) -> dict:
+    """Phase 14 (see the module docstring): phase 13's prompts and cold
+    prompts with the engine's tokens for each.  ``argv`` replaces
+    ``fleet_argv`` (a small CPU tier for a debugging run)."""
+    import concurrent.futures
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from dtf_tpu_torch import chaos
+    from dtf_tpu_torch.cli import router_main
+    from dtf_tpu_torch.config import parse_flags
+    from dtf_tpu_torch.obs import trace
+    from dtf_tpu_torch.serve import ha
+    from dtf_tpu_torch.serve import journal as journal_mod
+    from dtf_tpu_torch.serve.rollout import (RolloutController,
+                                             RolloutState,
+                                             default_state_path)
+    from dtf_tpu_torch.serve.router import Router, replica_spawner
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="ha_rollout_")
+    argv = list(argv or fleet_argv(seed, "fp32", root))
+    argv[argv.index("--rendezvous_dir") + 1] = root
+    cfg = parse_flags([a for a in argv if a != "--serve_random_init"],
+                      defaults=router_main.ROUTER_DEFAULTS)
+    t0 = time.time()
+    ckpt, writer = export_fleet_checkpoints(torch, cfg, root)
+    export_s = time.time() - t0
+    cfg = cfg.replace(export_dir=ckpt["A"])
+    cmd = router_main.replica_command(cfg, random_init=False)
+    assert cmd[1:3] == ["-m", "dtf_tpu_torch.cli.replica_main"], cmd
+    tdirs = {k: os.path.join(root, f"trace_{k}") for k in ("ha", "rollout")}
+    state_path = default_state_path(root)
+    routers, line = [], {"phase": "ha_rollout", "card": card,
+                         "model": cfg.model, "dtype": cfg.dtype,
+                         "replicas": 2, "export_s": export_s,
+                         "lease_ttl_s": HA_TTL}
+
+    def make_router(epoch, trace_key, journal=True, crashed=None):
+        ckpt_map: dict = {}
+        box = []
+
+        def crash_hook():
+            # router_kill's os._exit, in process: on the dispatching
+            # thread, under the router's lock, the router freezes where
+            # it stands (what it had queued stays queued) and the
+            # thread ends
+            ha_freeze(box[0])
+            crashed.set()
+            raise SystemExit
+        spawn = replica_spawner(
+            [sys.executable, "-c", FLEET_REPLICA] + cmd[3:], root,
+            env_extra={"DTF_TRACE_DIR": tdirs[trace_key]},
+            checkpoint_map=ckpt_map)
+        router = Router(
+            2, root, spawn=spawn, checkpoint_map=ckpt_map, page_size=16,
+            placement="affinity", deadline_s=600.0, probe_interval_s=0.25,
+            health_timeout_s=30.0, replica_inflight=64,
+            respawn_backoff_s=0.2, max_respawns=4, seed=seed,
+            journal_path=(journal_mod.journal_path(root) if journal
+                          else None),
+            epoch=epoch, role="leader",
+            crash_hook=crash_hook if crashed is not None else None)
+        box.append(router)
+        routers.append(router)
+        return router
+
+    def burst(router, idx):
+        client = HaClient(router, prompts)
+        t1 = time.time()
+        for i in idx:
+            client.submit(i)
+        results = [h.result(timeout=600) for _, h, _, _, _ in client.reqs]
+        client.join()
+        wall = time.time() - t1
+        return ([r.tokens for r in results],
+                {"requests_per_s": len(results) / wall,
+                 "tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+                 "ttft_p50_s": statistics.median(
+                     box["ttft"] for *_, box in client.reqs)})
+
+    def crash_watch(keeper, crashed):
+        crashed.wait()
+        keeper.stop()           # a dead process renews nothing
+
+    def rollout(router, new, old, **kw):
+        args = dict(old_checkpoint=old, canary_requests=3,
+                    mirror_fraction=1.0, warm_timeout_s=600.0,
+                    drain_timeout_s=120.0, gate_timeout_s=300.0)
+        args.update(kw)
+        t1 = time.time()
+        state = RolloutController(router, new, **args).run()
+        return state, time.time() - t1
+
+    n = len(prompts)
+    everything = list(range(n))
+    reaping = threading.Event()
+    threading.Thread(target=ha_reaper, args=(routers, reaping),
+                     daemon=True).start()
+    try:
+        # -- HA 1: a tier and its baseline burst (the token oracle) -----
+        trace.configure(tdirs["ha"], stream="router")
+        r0 = make_router(0, "ha", journal=False)
+        t1 = time.time()
+        r0.start(wait_s=600)
+        line["tier_start_s"] = time.time() - t1
+        oracle, line["baseline"] = burst(r0, everything)
+        line["oracle_equals_engine"] = oracle == ref
+        if not line["oracle_equals_engine"]:
+            raise AssertionError("ha_rollout: export A does not serve the "
+                                 "engine's tokens")
+        # live traffic's prompts: the burst's, then phase 13's cold ones
+        # (no prefix of theirs anywhere in this tier), the engine's
+        # tokens for each the oracle
+        live, oracle_live = list(prompts) + list(cold), oracle + cold_ref
+        pump_s = 1.0 / (HA_PUMP_SHARE * line["baseline"]["requests_per_s"])
+
+        def pump(router, silence_s=600.0):
+            return HaPump(router, live, n, pump_s, silence_s)
+        # the tier's spawner steps aside as a dead router would: its
+        # handles keep the processes for the cleanup
+        ha_freeze(r0)
+
+        # -- HA 2: router_kill@req:5 kills the epoch-1 leader mid-burst --
+        crashed = threading.Event()
+        lease1 = ha.LeaderLease(root, ttl_s=HA_TTL, holder="leader")
+        if lease1.acquire() != 1:
+            raise AssertionError("ha_rollout: lease epoch 1")
+        r1 = make_router(1, "ha", crashed=crashed)
+        r1.start(wait_s=120, adopt=True)
+        keeper1 = ha.LeaseKeeper(lease1, on_fenced=r1.fence).start()
+        watcher = threading.Thread(target=crash_watch,
+                                   args=(keeper1, crashed), daemon=True)
+        watcher.start()
+        pids = ha_tier_pids(root)
+        chaos.configure("router_kill@req:5", rank=0)
+        client = HaClient(r1, prompts, silence_s=2.0)
+        with r1._mu:        # the whole burst queued before dispatch 1
+            for i in everything:
+                client.submit(i)
+        if not crashed.wait(timeout=300):
+            raise AssertionError("ha_rollout: router_kill@req:5 never fired")
+        t_kill = time.time()
+        watcher.join(timeout=60)
+        client.join()
+        chaos.disable()
+        delivered = {h.request.id: list(got)
+                     for _, h, got, _, _ in client.reqs}
+        resolved_pre = {h.request.id: h.result(timeout=0.001).tokens
+                        for _, h, _, _, _ in client.reqs
+                        if h.done() and h._exc is None}
+        lease2 = ha.LeaderLease(root, ttl_s=HA_TTL, holder="standby")
+        epoch2 = ha.wait_for_takeover(lease2, poll_s=0.05, timeout_s=60.0)
+        t_acquire = time.time()
+        if epoch2 != 2:
+            raise AssertionError(f"ha_rollout: standby epoch {epoch2}")
+        r2 = make_router(2, "ha")
+        r2.start(wait_s=120, adopt=True)
+        summary = ha.take_over(r2, delivered=delivered)
+        adopted = {h.request.id for _, h, _, _, _ in client.reqs} \
+            - set(resolved_pre)
+        if set(summary["handles"]) != adopted:
+            raise AssertionError(f"ha_rollout: lost requests: adopted "
+                                 f"{sorted(summary['handles'])}, want "
+                                 f"{sorted(adopted)}")
+        exact = True
+        for i, h, got, _, _ in client.reqs:
+            rid = h.request.id
+            if rid in resolved_pre:
+                exact &= resolved_pre[rid] == oracle[i]
+                continue
+            nh = summary["handles"][rid]
+            tail = list(nh.stream(timeout=600))
+            res = nh.result(timeout=60)
+            exact &= (delivered[rid] + tail == oracle[i]
+                      and res.tokens == oracle[i] and not res.diverged)
+        t_done = time.time()
+        takeover = {
+            "kill_to_acquire_s": t_acquire - t_kill,
+            "kill_to_last_readopted_done_s": t_done - t_kill,
+            "readopted": summary["readopted"],
+            "redispatched": summary["redispatched"],
+            "resolved_before_kill": len(resolved_pre),
+            "tokens_delivered_before_kill": sum(map(len, delivered.values())),
+            "exactly_once_token_exact": exact,
+            "pids_unchanged": ha_tier_pids(root) == pids,
+            "respawns": r2.metrics.get("router_replica_respawns_total").value,
+            "takeovers": r2.metrics.get("router_takeover_total").value}
+        line["takeover"] = takeover
+        if not (exact and takeover["pids_unchanged"]
+                and takeover["redispatched"] >= 1
+                and takeover["respawns"] == 0 and takeover["takeovers"] == 1):
+            raise AssertionError(f"ha_rollout: takeover {takeover}")
+
+        # -- HA 3: an epoch-3 force-take fences the epoch-2 router -------
+        lease3 = ha.LeaderLease(root, ttl_s=HA_TTL, holder="usurper")
+        r3 = make_router(3, "ha")
+        if lease3.acquire(force=True) != 3:
+            raise AssertionError("ha_rollout: force-take epoch")
+        keeper3 = ha.LeaseKeeper(lease3, on_fenced=r3.fence).start()
+        r3.start(wait_s=120, adopt=True)
+        # a burst queued whole before one dispatch pass, so both
+        # replicas take a share and see epoch 3 (a replica learns the
+        # epoch from the ops it is sent)
+        client3 = HaClient(r3, prompts)
+        with r3._mu:
+            for i in everything:
+                client3.submit(i)
+        res3 = [h.result(timeout=600) for _, h, _, _, _ in client3.reqs]
+        client3.join()
+        ok3 = ([r.tokens for r in res3] == oracle
+               and {r.replica for r in res3} == {0, 1})
+        try:
+            r2.submit(prompts[1], max_new_tokens=FLEET_NEW).result(
+                timeout=120)
+            rejected = False
+        except RuntimeError:
+            rejected = True
+        deadline = time.time() + 30
+        while time.time() < deadline and not r2.health()["fenced"]:
+            time.sleep(0.05)
+        fencing = {
+            "new_leader_exact": ok3
+            and r3.generate(prompts[2], max_new_tokens=FLEET_NEW).tokens
+            == oracle[2],
+            "stale_op_rejected": rejected,
+            "stale_epoch_total": r2.metrics.get(
+                "router_stale_epoch_total").value,
+            "deposed_fenced": r2.health()["fenced"]
+            and not r2.health()["ok"]}
+
+        # -- HA 4: lease_stall@4 under the renewing epoch-3 leader -------
+        lease4 = ha.LeaderLease(root, ttl_s=HA_TTL, holder="standby2")
+        fencing["lease_live_at_stall"] = not lease4.expired()
+        t1 = time.time()
+        chaos.configure("lease_stall@4", rank=0)
+        fencing["stall_takeover_epoch"] = ha.wait_for_takeover(
+            lease4, poll_s=0.05, timeout_s=60.0)
+        fencing["stall_to_acquire_s"] = time.time() - t1
+        deadline = time.time() + 30
+        while time.time() < deadline and not r3.health()["fenced"]:
+            time.sleep(0.05)
+        fencing["stalled_leader_fenced"] = r3.health()["fenced"]
+        keeper3.stop()
+        chaos.disable()
+        for deposed in (r2, r3):    # fenced: they never touch the tier
+            deposed.stop(drain=False)
+        line["fencing"] = fencing
+        if not (fencing["new_leader_exact"] and rejected
+                and fencing["stale_epoch_total"] >= 1
+                and fencing["deposed_fenced"]
+                and fencing["lease_live_at_stall"]
+                and fencing["stall_takeover_epoch"] == 4
+                and fencing["stalled_leader_fenced"]):
+            raise AssertionError(f"ha_rollout: fencing {fencing}")
+        # the HA stages' share of the tier's first processes
+        for pid in ha_tier_pids(root).values():
+            os.kill(pid, signal.SIGUSR1)
+        deadline = time.time() + 60
+        snaps = [os.path.join(root, f"launches_rank{r}.gen0.snap.json")
+                 for r in (0, 1)]
+        while time.time() < deadline and not all(map(os.path.exists, snaps)):
+            time.sleep(0.05)
+        line["ha_s"] = time.time() - t_phase
+
+        # -- rollouts on the epoch-4 leader ------------------------------
+        writer.join()
+        trace.flush()
+        trace.configure(tdirs["rollout"], stream="router")
+        crashed4 = threading.Event()
+        r4 = make_router(4, "rollout", crashed=crashed4)
+        r4.start(wait_s=120, adopt=True)
+        keeper4 = ha.LeaseKeeper(lease4, on_fenced=r4.fence).start()
+        rollouts = {}
+
+        # A -> B, identical: DONE, token-exact, prefix hits after
+        hits0 = r4.metrics.get("router_affinity_hits_total").value
+        with pump(r4) as live_pump:
+            time.sleep(8 * pump_s)          # steady traffic first
+            t_roll = time.time()
+            live_pump.cold = list(range(n, len(live)))
+            state, wall = rollout(r4, ckpt["B"], ckpt["A"])
+        pump_out = live_pump.check(oracle_live, "A->B")
+        steady = [box["ttft"]
+                  for _, _, _, t, box in live_pump.reqs if t < t_roll]
+        during = [(len(got), box["ttft"], i >= n)
+                  for i, _, got, t, box in live_pump.reqs if t >= t_roll]
+        persisted = RolloutState.load(state_path)
+        post, _ = burst(r4, everything)
+        hits1 = r4.metrics.get("router_affinity_hits_total").value
+        reg_hits = sum((r4.replica_stats(rid, timeout=60) or {}).get(
+            "serve_prefix_hit_pages_total", 0) for rid in (0, 1))
+        rollouts["A->B"] = {
+            "phase": state.phase, "reason": state.reason,
+            "compared": state.compared, "diverged": state.diverged,
+            "wall_s": wall, **pump_out,
+            "mixed": r4.metrics.get("router_mixed_model_total").value,
+            "persisted": persisted.phase, "post_burst_exact": post == oracle,
+            "affinity_hits_after": hits1 - hits0,
+            "replica_prefix_hit_pages": reg_hits,
+            "announced": [r4.replica_announced_checkpoint(r) == ckpt["B"]
+                          for r in (0, 1)],
+            "steady_ttft_p50_s": statistics.median(steady),
+            "during_ttft_p50_s": statistics.median(d[1] for d in during),
+            "during_tokens_per_s": sum(d[0] for d in during) / wall,
+            "during_cold_ttft_s": [d[1] for d in during if d[2]],
+            "offered_requests_per_s": 1.0 / pump_s}
+        g = rollouts["A->B"]
+        if not (state.phase == "DONE" and not state.diverged
+                and g["mixed"] == 0 and persisted.phase == "DONE"
+                and g["post_burst_exact"] and g["affinity_hits_after"] >= n
+                and reg_hits >= 1 and all(g["announced"])
+                and len(g["during_cold_ttft_s"]) == len(cold)):
+            raise AssertionError(f"ha_rollout: A->B {g}")
+
+        # B -> C, perturbed: the canary gate rolls it back
+        with pump(r4) as live_pump:
+            state, wall = rollout(r4, ckpt["C"], ckpt["B"])
+        rollouts["B->C"] = {
+            "phase": state.phase, "reason": state.reason,
+            "compared": state.compared, "diverged": state.diverged,
+            "first_divergence_pos": state.first_divergence_pos,
+            "wall_s": wall, **live_pump.check(oracle, "B->C"),
+            "mixed": r4.metrics.get("router_mixed_model_total").value}
+        g = rollouts["B->C"]
+        if not (state.phase == "ROLLED_BACK"
+                and state.reason.startswith("canary_divergence")
+                and state.diverged >= 1 and g["mixed"] == 0):
+            raise AssertionError(f"ha_rollout: B->C {g}")
+
+        # rollout_kill@phase:rolling: a replica SIGKILLed after the gate
+        chaos.configure("rollout_kill@phase:rolling", rank=0)
+        with pump(r4) as live_pump:
+            state, wall = rollout(r4, ckpt["B"], ckpt["B"])
+        chaos.disable()
+        rollouts["rollout_kill"] = {
+            "phase": state.phase, "reason": state.reason,
+            "compared": state.compared, "wall_s": wall,
+            **live_pump.check(oracle, "rollout_kill")}
+        if state.phase != "ROLLED_BACK":
+            raise AssertionError(f"ha_rollout: rollout_kill "
+                                 f"{rollouts['rollout_kill']}")
+
+        # ckpt_truncate against the new export: the canary cannot load
+        ckpt["D"] = os.path.join(root, "ckpt_d")
+        shutil.copytree(ckpt["B"], ckpt["D"])
+        chaos.configure("ckpt_truncate@latest", rank=0)
+        with pump(r4) as live_pump:
+            state, wall = rollout(r4, ckpt["D"], ckpt["B"],
+                                  warm_timeout_s=300.0)
+        chaos.disable()
+        failed = [e for e in trace_events(tdirs["rollout"], "replica_replaced")
+                  if e.get("checkpoint") == ckpt["D"]]
+        log_path = os.path.join(root, "replica%d.retry%d.log" % (
+            failed[0]["replica"], failed[0]["generation"])) if failed else ""
+        with open(log_path, errors="replace") as f:
+            canary_log = f.read()
+        rollouts["ckpt_truncate"] = {
+            "phase": state.phase, "reason": state.reason, "wall_s": wall,
+            **live_pump.check(oracle, "ckpt_truncate"),
+            "canary_failed_to_load": "Traceback" in canary_log
+            and "ready on port" not in canary_log}
+        g = rollouts["ckpt_truncate"]
+        if not (state.phase == "ROLLED_BACK"
+                and state.reason == "canary_start_failed"
+                and g["canary_failed_to_load"]):
+            raise AssertionError(f"ha_rollout: ckpt_truncate {g}")
+
+        # -- router_kill while ROLLING: the standby resumes it to DONE ----
+        watcher = threading.Thread(target=crash_watch,
+                                   args=(keeper4, crashed4), daemon=True)
+        watcher.start()
+        box = {}
+
+        def roll_b_to_a():
+            try:
+                box["state"] = rollout(r4, ckpt["A"], ckpt["B"])[0]
+            except Exception as e:  # noqa: BLE001 -- the router's death
+                box["error"] = repr(e)
+        t_roll = time.time()
+        with pump(r4, silence_s=2.0) as pump4:
+            roller = threading.Thread(target=roll_b_to_a, daemon=True)
+            roller.start()
+            armed = None
+            deadline = time.time() + 600
+            while time.time() < deadline and armed is None:
+                try:
+                    if RolloutState.load(state_path).phase == "ROLLING":
+                        with r4._mu:
+                            armed = r4._dispatch_seq + 1
+                except (OSError, ValueError):
+                    pass
+                time.sleep(0.02)
+            if armed is None:
+                raise AssertionError(f"ha_rollout: never ROLLING {box}")
+            chaos.configure(f"router_kill@req:{armed}", rank=0)
+            if not crashed4.wait(timeout=300):
+                raise AssertionError("ha_rollout: router_kill in ROLLING "
+                                     "never fired")
+            t_kill = time.time()
+            watcher.join(timeout=60)
+        chaos.disable()
+        roller.join(timeout=120)
+        pump4.join()
+        killed_state = RolloutState.load(state_path)
+        delivered = {h.request.id: list(got)
+                     for _, h, got, _, _ in pump4.reqs}
+        resolved_pre = {h.request.id for _, h, _, _, _ in pump4.reqs
+                        if h.done() and h._exc is None}
+        lease5 = ha.LeaderLease(root, ttl_s=HA_TTL, holder="standby3")
+        if ha.wait_for_takeover(lease5, poll_s=0.05, timeout_s=60.0) != 5:
+            raise AssertionError("ha_rollout: epoch 5")
+        t_acquire = time.time()
+        r5 = make_router(5, "rollout")
+        r5.start(wait_s=0, adopt=True)
+        # wait for each replica to register, unless its process is gone
+        # (no announce: a replacement may still be starting)
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(
+                r5.replica_healthy(r) or (pid and ha_pid_gone(pid))
+                for r, pid in ha_tier_pids(root).items()):
+            time.sleep(0.05)
+        with pump(r5) as pump5:
+            summary = ha.take_over(r5, delivered=delivered,
+                                   rollout_state_path=state_path)
+            t_resumed = time.time()
+            time.sleep(6 * pump_s)          # and traffic after it
+        exact = True
+        for i, h, got, _, _ in pump4.reqs:
+            rid = h.request.id
+            if rid in resolved_pre:
+                exact &= h.result(timeout=1).tokens == oracle[i]
+                continue
+            if rid not in summary["handles"]:
+                raise AssertionError(f"ha_rollout: request {rid} lost in "
+                                     f"the takeover")
+            nh = summary["handles"][rid]
+            tail = list(nh.stream(timeout=600))
+            exact &= delivered[rid] + tail == oracle[i] \
+                and nh.result(timeout=60).tokens == oracle[i]
+        final = RolloutState.load(state_path)
+        rollouts["router_kill_rolling"] = {
+            "killed_at_dispatch": armed, "kill_phase": killed_state.phase,
+            "kill_rolled": killed_state.rolled,
+            "controller_exit": box.get("error", box.get("state")),
+            "readopted": summary["readopted"],
+            "redispatched": summary["redispatched"],
+            "resumed": summary.get("rollout_resumed"),
+            "final": final.phase, "rolled": final.rolled,
+            "kill_to_acquire_s": t_acquire - t_kill,
+            "kill_to_done_s": t_resumed - t_kill,
+            "wall_s": t_resumed - t_roll,
+            "exactly_once_token_exact": exact,
+            **pump5.check(oracle, "after the takeover"),
+            "post_burst_exact": burst(r5, everything)[0] == oracle,
+            "announced": [r5.replica_announced_checkpoint(r) == ckpt["A"]
+                          for r in (0, 1)]}
+        g = rollouts["router_kill_rolling"]
+        g["announced_checkpoints"] = [r5.replica_announced_checkpoint(r)
+                                      for r in (0, 1)]
+        if not (killed_state.phase == "ROLLING" and g["resumed"] == "DONE"
+                and final.phase == "DONE" and sorted(final.rolled) == [0, 1]
+                and exact and g["post_burst_exact"] and all(g["announced"])):
+            raise AssertionError(f"ha_rollout: router_kill in ROLLING {g}")
+        line["rollouts"] = rollouts
+    finally:
+        chaos.disable()
+        for router in reversed(routers):
+            router.stop(drain=False)
+        reaping.set()
+        trace.disable()
+        for pid in ha_tier_pids(root).values():
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except (OSError, TypeError):
+                pass
+    line["swaps"] = ha_swaps(os.path.join(tdirs["rollout"],
+                                          "trace_router.jsonl"))
+    line["migrations_failed_with_a_lost_replica"] = ha_migration_failures(
+        os.path.join(tdirs["rollout"], "trace_router.jsonl"))
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        line["traces"] = list(pool.map(
+            ha_trace_check, (tdirs["ha"], tdirs["rollout"]),
+            (HA_ALLOW, ROLLOUT_ALLOW)))
+    launches = ha_launches(root)
+    line["launches_by_process"] = launches
+    line["wall_s"] = time.time() - t_phase
+    emit(line)
+    shutil.rmtree(root, ignore_errors=True)
+    ha_k = {k: sum(v[k] for name, v in launches.items()
+                   if name.endswith(".snap")) for k in ("K1", "K4")}
+    total = {k: sum(v[k] for name, v in launches.items()
+                    if not name.endswith(".snap")) for k in ("K1", "K4")}
+    rolled = {k: total[k] - ha_k[k] for k in ("K1", "K4")}
+    canary = launches.get("rank0.gen1", {})
+    gates = {"launched_in_ha": ha_k["K1"] > 0 and ha_k["K4"] > 0,
+             "launched_in_rollouts": rolled["K1"] > 0 and rolled["K4"] > 0,
+             "canary_launched": canary.get("K1", 0) > 0
+             and canary.get("K4", 0) > 0}
+    emit({"phase": "ha_rollout_gates", "card": card, **gates,
+          "launches_ha": ha_k, "launches_rollout": rolled})
+    if not all(gates.values()):
+        raise AssertionError(f"ha_rollout: launches {gates}")
+    return {"line": line, "launches_ha": ha_k, "launches_rollout": rolled}
 
 
 def main(argv=None) -> int:
@@ -4395,6 +5286,14 @@ def main(argv=None) -> int:
         return fail("dtf_tpu_torch/ is not beside this script; run it from "
                     "a checkout of the repository")
     sys.path.insert(0, ROOT)
+    # one bytecode cache in the checkout's build directory for this
+    # process and every one it starts: where Python runs with
+    # PYTHONDONTWRITEBYTECODE, or its packages ship no .pyc, each new
+    # process would compile torch's modules from source again
+    pycache = os.path.join(ROOT, "dtf_tpu_torch", "_build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = pycache, False
     from dtf_tpu_torch.ops import _build
     from dtf_tpu_torch.runtime.device import resolve_device
 
@@ -4494,6 +5393,22 @@ def main(argv=None) -> int:
                       "the SIGKILLed one's lost")
     clock.done("13")
 
+    # phase 14: the fleet's HA pair and rollouts on the same replica
+    # processes (K1 and K4 in each, the canary and every restarted
+    # generation included)
+    ha_roll = serve_ha_rollout(torch, args.seed, card, fleet["prompts"],
+                               fleet["reference"], fleet["cold"],
+                               fleet["cold_reference"])
+    ha_run = ("phase 14, two replica_main processes on exports A/B/C: "
+              "the HA stages (a 16-request baseline, router_kill@req:5 "
+              "and the takeover, an epoch-3 force-take, lease_stall@4)")
+    rollout_run = ("phase 14 after the HA stages: rollouts A->B, B->C, "
+                   "rollout_kill@phase:rolling, ckpt_truncate and a "
+                   "router_kill in ROLLING resumed by the standby, under "
+                   "live traffic; counts from the processes' exits (a "
+                   "SIGKILLed one's lost)")
+    clock.done("14")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -4553,7 +5468,11 @@ def main(argv=None) -> int:
               launches_prefix_run=prefix_run,
               launches_fleet={a: n["K1"]
                               for a, n in fleet["launches"].items()},
-              launches_fleet_run=fleet_run_name),
+              launches_fleet_run=fleet_run_name,
+              launches_ha=ha_roll["launches_ha"]["K1"],
+              launches_ha_run=ha_run,
+              launches_rollout=ha_roll["launches_rollout"]["K1"],
+              launches_rollout_run=rollout_run),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -4604,6 +5523,10 @@ def main(argv=None) -> int:
               launches_fleet={a: n["K4"]
                               for a, n in fleet["launches"].items()},
               launches_fleet_run=fleet_run_name,
+              launches_ha=ha_roll["launches_ha"]["K4"],
+              launches_ha_run=ha_run,
+              launches_rollout=ha_roll["launches_rollout"]["K4"],
+              launches_rollout_run=rollout_run,
               keys_per_split=k4[0]["keys_per_split"],
               chunk_case=k4_brief(k4_case("bfloat16", "chunk@1984")),
               f32_decode_case=k4_brief(k4_case("float32", "decode")),

@@ -70,10 +70,29 @@ Kinds that fire here, their observation points being ported:
                           replica K's migration client waits S seconds
                           before each page-fetch window (latched): a
                           slow fabric (serve/migrate.py).
+  router_kill@req:N       the serving router itself dies uncleanly
+                          (``os._exit``, no drain, no journal sync) at
+                          its Nth dispatch (exact match, one-shot);
+                          in-process tiers substitute its crash hook.
+                          The standby (serve/ha.py) takes over: replays
+                          the journal, fences the dead epoch, re-adopts
+                          every in-flight request exactly once.
+  lease_stall@T           the leader's lease renewal writes are dropped
+                          for T renewal attempts from the first one:
+                          the lease expires under a live leader, a
+                          standby takes the next epoch, and the old
+                          leader comes back fenced.
+  rollout_kill@[replicaK:]phase:P
+                          the rollout controller (serve/rollout.py)
+                          SIGKILLs a replica while it works in phase P
+                          (canary or rolling; one-shot): replica K,
+                          else the one the phase operates on.  The
+                          rollout must roll back, token-exact on the
+                          old model, losing no request.
 
-The other kinds of the grammar (``NOT_PORTED``: device_loss and the
-serving fleet's router_kill, lease_stall and rollout_kill) parse, but
-:func:`configure` raises naming the subsystem that is not ported yet.
+The one other kind of the grammar (``NOT_PORTED``: device_loss) parses,
+but :func:`configure` raises naming the subsystem that is not ported
+yet.
 
 Every fired fault emits a structured ``injected_fault`` anomaly record
 through ``obs.trace``, flushed before the process dies, so
@@ -136,10 +155,6 @@ _FLOAT_POINT = ("slow_replica", "page_fetch_stall")
 # port does not have yet: configure() refuses them, naming it
 NOT_PORTED = {
     "device_loss": "elastic training (train/elastic.py)",
-    **{kind: "the serving fleet's router high availability (serve/ha.py)"
-       for kind in ("router_kill", "lease_stall")},
-    "rollout_kill": "the serving fleet's rollout controller "
-                    "(serve/rollout.py)",
 }
 
 _injector: Optional["Injector"] = None

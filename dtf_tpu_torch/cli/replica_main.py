@@ -25,7 +25,8 @@ Identity and rendezvous are environment + files, launcher-style:
                                   announce file)
   DTF_SERVE_CHECKPOINT            checkpoint override (a model_dir or
                                   export_dir path): serve THIS instead
-                                  of the flag-configured checkpoint —
+                                  of the flag-configured checkpoint
+                                  (``--serve_params_npz`` included) —
                                   the rollout controller's lever for
                                   restarting one replica at a time
                                   onto a new model (serve/rollout.py)
@@ -78,12 +79,16 @@ def run_replica(cfg, random_init: bool = False,
                          "announce/heartbeat rendezvous)")
     ckpt = os.environ.get("DTF_SERVE_CHECKPOINT", "")
     if ckpt:
-        # rollout override: serve THIS checkpoint.  An export artifact
-        # has a model/ subdir; anything else is a train model_dir
+        # rollout override: serve THIS checkpoint and nothing else (the
+        # flax npz the tier may have started from would otherwise win:
+        # the bridge reads it first).  An export artifact has a model/
+        # subdir; anything else is a train model_dir
         if os.path.isdir(os.path.join(ckpt, "model")):
-            cfg = cfg.replace(export_dir=ckpt, model_dir="")
+            cfg = cfg.replace(export_dir=ckpt, model_dir="",
+                              serve_params_npz="")
         else:
-            cfg = cfg.replace(model_dir=ckpt, export_dir="")
+            cfg = cfg.replace(model_dir=ckpt, export_dir="",
+                              serve_params_npz="")
         random_init = False
         log.warning("replica %d: serving rollout checkpoint %s "
                     "(DTF_SERVE_CHECKPOINT)", replica_id, ckpt)

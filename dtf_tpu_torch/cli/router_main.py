@@ -1,7 +1,7 @@
 """Serving front-end: router + N replica serve processes.  The PyTorch
-counterpart of ``dtf_tpu/cli/router_main.py``, without its HA pair
-(``--router_ha``/``--router_standby``: ``serve/ha.py`` is not ported
-yet) and rollout (``--rollout_checkpoint``: ``serve/rollout.py``).
+counterpart of ``dtf_tpu/cli/router_main.py``, with its HA pair
+(``--router_ha``/``--router_standby``, serve/ha.py) and its live
+rollout (``--rollout_checkpoint``, serve/rollout.py).
 
 The one-command replica-tier entry: spawns ``--router_replicas``
 replica processes (cli/replica_main.py — each a full ServeEngine on
@@ -27,6 +27,23 @@ Examples:
   # pages:
   python -m dtf_tpu_torch.cli.router_main --serve_random_init \
       --model transformer_tpu --router_prefill_replicas 1
+
+  # HA pair on shared storage: the leader journals and holds the lease;
+  # the standby takes over (fencing epoch + 1, no replica respawned)
+  # when the leader dies:
+  python -m dtf_tpu_torch.cli.router_main --serve_random_init \
+      --router_ha --rendezvous_dir /shared/tier &
+  python -m dtf_tpu_torch.cli.router_main --serve_random_init \
+      --router_standby --rendezvous_dir /shared/tier
+
+  # a live rollout onto another export after the first burst, while
+  # waves of traffic keep flowing (canary-gated, rolled back on a
+  # breach):
+  python -m dtf_tpu_torch.cli.router_main --export_dir /ckpt/a \
+      --rollout_checkpoint /ckpt/b
+
+The standby, unlike the JAX package's, keeps a spawner: it adopts the
+live tier without spawning, but a rollout it resumes replaces replicas.
 
 ``--metrics_port N`` makes the tier scrapable: the router's registry on
 N, replica K's on N+1+K.  SIGTERM drains the tier: the router sheds new
@@ -97,6 +114,25 @@ def run_router(cfg, random_init: bool = False) -> dict:
         prefix="dtf_router_")
     cfg = cfg.replace(rendezvous_dir=rendezvous)
 
+    # --- high availability (serve/ha.py + serve/journal.py) ---
+    # leader: take the lease, journal every request, renew at ttl/3.
+    # standby: wait out the leader's lease, then take over under the
+    # next fencing epoch, adopting (never respawning) the live tier.
+    ha_on = cfg.router_ha or cfg.router_standby
+    ha_mod = lease = keeper = None
+    journal_file = None
+    epoch = 0
+    if ha_on:
+        from dtf_tpu_torch.serve import ha as ha_mod
+        from dtf_tpu_torch.serve import journal as journal_mod
+        journal_file = journal_mod.journal_path(rendezvous)
+        lease = ha_mod.LeaderLease(rendezvous,
+                                   ttl_s=cfg.router_lease_ttl_s)
+
+    # /healthz must answer DURING the standby's wait (external probes
+    # watch the takeover through it), so the payload source is swapped
+    # once the router exists
+    health_box = {"fn": lambda: {"ok": True, "role": "starting"}}
     metrics_server = None
     router_box: dict = {}
     if cfg.metrics_port:
@@ -107,9 +143,24 @@ def run_router(cfg, random_init: bool = False) -> dict:
             registry_fn=lambda: (router_box["r"].metrics
                                  if "r" in router_box
                                  else default_registry()),
-            health_fn=lambda: (router_box["r"].health()
-                               if "r" in router_box
-                               else {"ok": True, "role": "starting"}))
+            health_fn=lambda: health_box["fn"]())
+
+    if cfg.router_standby:
+        health_box["fn"] = lambda: ha_mod.standby_health(lease)
+        log.warning("standby: watching leader lease (ttl %.1fs) under "
+                    "%s", cfg.router_lease_ttl_s, rendezvous)
+        epoch = ha_mod.wait_for_takeover(lease)
+        log.warning("standby: lease expired — taking over at epoch %d",
+                    epoch)
+    elif ha_on:
+        epoch = lease.acquire()
+        if epoch is None:
+            if metrics_server is not None:
+                metrics_server.shutdown()
+            raise RuntimeError(
+                "leader lease already held — start this router with "
+                "--router_standby (or remove the stale "
+                "router_lease.json)")
 
     env_extra = {}
     if cfg.trace_dir:
@@ -124,11 +175,22 @@ def run_router(cfg, random_init: bool = False) -> dict:
     if cfg.metrics_port:
         extra_flags = (lambda rid:
                        ["--metrics_port", str(cfg.metrics_port + 1 + rid)])
+    # per-replica checkpoint overrides, shared BY REFERENCE between
+    # the router (the rollout controller writes it) and the spawner
+    # (reads it at spawn time → DTF_SERVE_CHECKPOINT)
+    ckpt_map: dict = {}
     spawn = replica_spawner(replica_command(cfg, random_init),
                             rendezvous, env_extra=env_extra,
-                            extra_flags=extra_flags)
+                            extra_flags=extra_flags,
+                            checkpoint_map=ckpt_map)
     router = Router(
         cfg.router_replicas, rendezvous, spawn=spawn,
+        checkpoint_map=ckpt_map,
+        journal_path=journal_file,
+        journal_fsync_s=cfg.router_journal_fsync_s,
+        epoch=epoch or 0,
+        role="leader",   # by construction: it holds the lease (HA) or
+                         # is the only router (HA off)
         page_size=cfg.kv_page_size or 16,
         placement=cfg.router_placement,
         deadline_s=cfg.router_deadline_s,
@@ -154,7 +216,15 @@ def run_router(cfg, random_init: bool = False) -> dict:
         pass
 
     router_box["r"] = router
-    log.info("router: spawning %d replicas (rendezvous %s)",
+    health_box["fn"] = router.health
+    if ha_on:
+        # the renewal heartbeat: a lease lost (stall, partition,
+        # operator force-take) fences this router on the spot
+        keeper = ha_mod.LeaseKeeper(lease, on_fenced=router.fence)
+        keeper.start()
+
+    log.info("router: %s %d replicas (rendezvous %s)",
+             "adopting" if cfg.router_standby else "spawning",
              cfg.router_replicas, rendezvous)
     # a replica's start (the model, its weights, a warm request, and a
     # kernel build when none is built yet) can take minutes on the CPU;
@@ -162,12 +232,29 @@ def run_router(cfg, random_init: bool = False) -> dict:
     # announces.  From here on the tier must come down with us — a
     # traffic-loop exception must not leave N serve processes running
     try:
-        router.start(wait_s=600.0)
-        return _drive_traffic(cfg, router)
+        router.start(wait_s=600.0, adopt=cfg.router_standby)
+        adopt_summary = None
+        if cfg.router_standby:
+            adopt_summary = ha_mod.take_over(
+                router, rollout_state_path=cfg.rollout_state)
+            log.warning("standby: takeover complete — %s", {
+                k: v for k, v in adopt_summary.items()
+                if k != "handles"})
+        out = _drive_traffic(cfg, router)
+        if adopt_summary is not None:
+            out["takeover_epoch"] = router.epoch
+            out["readopted"] = adopt_summary["readopted"]
+            out["redispatched"] = adopt_summary["redispatched"]
+        log.info("Router stats: %s", out)
+        return out
     except BaseException:
         router.stop(drain=False)
         raise
     finally:
+        if keeper is not None:
+            keeper.stop()
+        if lease is not None:
+            lease.release()
         if metrics_server is not None:
             metrics_server.shutdown()
 
@@ -214,6 +301,50 @@ def _drive_traffic(cfg, router) -> dict:
         except Backpressure:
             outcomes["backpressure"] += 1
     tokens = resolve(handles, outcomes)
+
+    # --rollout_checkpoint: a live mid-traffic rollout — the control-
+    # surface op, driven while waves of traffic keep flowing (the
+    # canary gate compares MIRRORED LIVE requests, so the rollout
+    # needs traffic to judge the new model against)
+    rollout_state = None
+    if cfg.rollout_checkpoint:
+        import threading
+
+        box = {}
+
+        def _roll():
+            try:
+                box["state"] = router.rollout(
+                    cfg.rollout_checkpoint,
+                    state_path=cfg.rollout_state,
+                    canary_requests=cfg.rollout_canary_requests,
+                    mirror_fraction=cfg.rollout_mirror_fraction,
+                    max_divergence=cfg.rollout_max_divergence,
+                    warm_timeout_s=cfg.rollout_warm_timeout_s)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                box["error"] = e
+
+        rt = threading.Thread(target=_roll, name="rollout", daemon=True)
+        rt.start()
+        wave = 0
+        while rt.is_alive():
+            hs = []
+            for i in range(4):
+                try:
+                    hs.append(router.submit(
+                        make_prompt(wave * 4 + i),
+                        max_new_tokens=cfg.serve_max_new_tokens,
+                        temperature=cfg.serve_temperature))
+                except Backpressure:
+                    outcomes["backpressure"] += 1
+            tokens += resolve(hs, outcomes)
+            wave += 1
+            rt.join(timeout=0.25)
+        if "error" in box:
+            raise box["error"]
+        rollout_state = box.get("state")
+        log.warning("rollout finished: %s",
+                    rollout_state.phase if rollout_state else "?")
     wall = time.time() - t0
 
     out = {
@@ -232,6 +363,11 @@ def _drive_traffic(cfg, router) -> dict:
             router.replica_completed(i)
             for i in range(cfg.router_replicas)],
     }
+    if rollout_state is not None:
+        out["rollout_phase"] = rollout_state.phase
+        out["rollout_reason"] = rollout_state.reason
+        out["canary_compared"] = rollout_state.compared
+        out["canary_diverged"] = rollout_state.diverged
     if cfg.benchmark_log_dir:
         import torch
 
@@ -242,7 +378,6 @@ def _drive_traffic(cfg, router) -> dict:
                           test_id=cfg.benchmark_test_id)
         blog.log_registry(router.metrics)
     router.stop(drain=True)
-    log.info("Router stats: %s", out)
     return out
 
 
@@ -266,7 +401,9 @@ def main(argv=None) -> dict:
         # the router is a NAMED stream: trace_router.jsonl next to the
         # replicas' trace_rank{K}.jsonl — trace_main --merge interleaves
         trace.configure(cfg.trace_dir, stream="router")
-    chaos.maybe_configure(cfg)   # replica_kill / net_partition fire here
+    # replica_kill / net_partition / router_kill / lease_stall /
+    # rollout_kill fire here
+    chaos.maybe_configure(cfg)
     return run_router(cfg, random_init=random_init)
 
 

@@ -20,8 +20,8 @@ the ``serve_*`` and ``kv_*`` knobs of ``cli/serve_main.py`` (prefix
 sharing and the contiguous cache, ``kv_page_size 0``, included),
 ``metrics_port`` (``obs/prom.py``), the serving fleet's
 (``cli/router_main.py`` and ``cli/replica_main.py``: ``router_*``
-without the HA pair's, ``rendezvous_dir``, ``replica_id``,
-``serve_host``), the benchmark log, and the
+with the HA pair's, ``rendezvous_dir``, ``replica_id``,
+``serve_host``, the rollout's ``rollout_*``), the benchmark log, and the
 topology of a data-parallel run (``distribution_strategy``, ``num_devices``, ``ps_mode``, the
 coordinator, process id and count, ``worker_hosts``/``task_index`` and
 ``sync_bn``) and the async parameter server's (``ps_wire``,
@@ -72,8 +72,6 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "enable_eager", "verbose")
 
 _MP = "model parallelism (tensor, pipeline and expert)"
-_HA = "the serving fleet's router high availability (serve/ha.py)"
-_ROLLOUT = "the serving fleet's rollout controller (serve/rollout.py)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
     "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
@@ -88,13 +86,6 @@ NOT_PORTED = {
                               "moe_top_k", "num_microbatches",
                               "pipeline_interleave")},
     "serve_tp": "serving tensor parallelism",
-    **{name: _HA for name in ("router_ha", "router_standby",
-                              "router_lease_ttl_s",
-                              "router_journal_fsync_s")},
-    **{name: _ROLLOUT for name in (
-        "rollout_checkpoint", "rollout_canary_requests",
-        "rollout_mirror_fraction", "rollout_max_divergence",
-        "rollout_warm_timeout_s", "rollout_state")},
 }
 
 # literal copy of serve/router.py PLACEMENTS: Config imports without the
@@ -287,6 +278,40 @@ class Config:
     replica_id: int = -1
     # address a replica binds AND announces (replica_rank{K}.json)
     serve_host: str = "127.0.0.1"
+    # --- router high availability (serve/journal.py + serve/ha.py) ---
+    # journal every request to router_journal.jsonl in the rendezvous
+    # dir and take the shared-storage leader lease: a successor router
+    # (a restart or the warm standby) replays the journal and re-adopts
+    # in-flight requests exactly once.  Off by default
+    router_ha: bool = False
+    # run router_main as the warm standby: wait out the leader's lease,
+    # then take over under the next fencing epoch, adopting the live
+    # tier (implies router_ha)
+    router_standby: bool = False
+    # leader-lease time to live: the standby takes over after the
+    # leader misses about one TTL of renewals (renewals every TTL/3)
+    router_lease_ttl_s: float = 2.0
+    # journal fsync cadence: a host crash loses at most this much
+    # journal tail (a process crash loses nothing: every append is
+    # flushed)
+    router_journal_fsync_s: float = 0.05
+    # --- zero-downtime rollout (serve/rollout.py over the router) ---
+    # roll the tier onto this checkpoint (an export_dir or model_dir)
+    # mid-traffic: one replica at a time, the first a canary gated
+    # token by token against the old model, rolled back on a breach.
+    # "" = no rollout
+    rollout_checkpoint: str = ""
+    # completed old-against-new comparisons the canary gate needs
+    rollout_canary_requests: int = 4
+    # share of live greedy traffic mirrored to the canary, (0, 1]
+    rollout_mirror_fraction: float = 1.0
+    # gate threshold on diverged/compared; 0.0 = token-exact
+    rollout_max_divergence: float = 0.0
+    # how long a restarted replica gets to warm and re-register before
+    # the rollout rolls back
+    rollout_warm_timeout_s: float = 600.0
+    # the persisted rollout state; "" = <rendezvous>/rollout_state.json
+    rollout_state: str = ""
 
     def __post_init__(self):
         if self.dtype not in DTYPES:
@@ -406,6 +431,45 @@ class Config:
             raise ValueError(
                 "serve_host must be a bindable address (127.0.0.1 for "
                 "single-host)")
+        if self.router_lease_ttl_s <= 0:
+            raise ValueError(
+                f"router_lease_ttl_s must be > 0, got "
+                f"{self.router_lease_ttl_s}")
+        if self.router_journal_fsync_s < 0:
+            raise ValueError(
+                f"router_journal_fsync_s must be >= 0, got "
+                f"{self.router_journal_fsync_s}")
+        if self.router_standby and not self.rendezvous_dir:
+            raise ValueError(
+                "router_standby needs an explicit --rendezvous_dir: the "
+                "standby finds the leader's lease, journal and replicas "
+                "there")
+        if self.rollout_canary_requests < 1:
+            raise ValueError(
+                f"rollout_canary_requests must be >= 1, got "
+                f"{self.rollout_canary_requests}")
+        if not 0.0 < self.rollout_mirror_fraction <= 1.0:
+            raise ValueError(
+                f"rollout_mirror_fraction must be in (0, 1], got "
+                f"{self.rollout_mirror_fraction}")
+        if not 0.0 <= self.rollout_max_divergence <= 1.0:
+            raise ValueError(
+                f"rollout_max_divergence must be in [0, 1], got "
+                f"{self.rollout_max_divergence}")
+        if self.rollout_warm_timeout_s <= 0:
+            raise ValueError(
+                f"rollout_warm_timeout_s must be > 0, got "
+                f"{self.rollout_warm_timeout_s}")
+        if self.rollout_checkpoint and self.serve_temperature > 0:
+            raise ValueError(
+                "rollout_checkpoint needs greedy traffic "
+                "(--serve_temperature 0): the canary gate compares "
+                "mirrored greedy requests token by token, and sampled "
+                "traffic is never mirrored")
+        if self.rollout_checkpoint and self.router_replicas < 2:
+            raise ValueError(
+                "rollout_checkpoint needs >= 2 router_replicas: the "
+                "shadow-only canary must not be the tier's only replica")
 
         if self.input_wire not in ("uint8", "float32"):
             raise ValueError(f"unknown input_wire {self.input_wire!r}; "

@@ -1,6 +1,6 @@
 """Append-only request journal: the router's crash-recovery WAL.  A
-copy of ``dtf_tpu/serve/journal.py`` (the router imports it; the
-successor router that replays it, ``serve/ha.py``, is not ported yet).
+copy of ``dtf_tpu/serve/journal.py`` (the router writes it; a successor
+router replays it through ``serve/ha.py``'s ``take_over``).
 
 The router journals every request's life as newline-delimited JSON in
 ``router_journal.jsonl`` inside the rendezvous directory (the tier's

@@ -224,6 +224,11 @@ class ReplicaServer:
             "pid": os.getpid(),
             "generation": int(os.environ.get("DTF_RESTART_GENERATION",
                                              "0")),
+            # the rollout's checkpoint override this process serves
+            # ("" = the flag-configured one): a successor router that
+            # resumes a rollout tells a replica already on the new
+            # checkpoint from one its dead predecessor only drained
+            "checkpoint": os.environ.get("DTF_SERVE_CHECKPOINT", ""),
             "ts": time.time(),
         }
         path = announce_path(self.rendezvous_dir, self.replica_id)

@@ -67,9 +67,7 @@ reading ``log7.log``:
       tier, byte-identical to the pre-disaggregation router.
 
   high availability — the router itself is no longer a single point
-      of failure (the journal, the takeover entry and the fencing
-      epoch are here; the lease and the standby, ``serve/ha.py``, are
-      not ported yet).  Every request's lifecycle is journaled to an
+      of failure.  Every request's lifecycle is journaled to an
       append-only WAL in the rendezvous dir (serve/journal.py) so a
       SUCCESSOR router — a restart, or a warm standby holding the
       shared-storage leader lease (serve/ha.py) — replays it and
@@ -91,8 +89,21 @@ decode steps, ``page_fetch_stall@replica<K>:<s>`` stalls K's
 migration client before each page-fetch window.
 tests/test_torch_router.py drives them over in-process replicas and
 pins token-exactness and zero lost requests, against the JAX router
-too; ``router_kill`` and ``lease_stall`` belong to ``serve/ha.py``
-and ``rollout_kill`` to ``serve/rollout.py``, not ported yet.
+too.  ``router_kill@req:N`` kills the router itself at its Nth
+dispatch and ``lease_stall@<ticks>`` drops its lease renewals
+(serve/ha.py, tests/test_torch_ha.py); ``rollout_kill@phase:P``
+kills a replica mid-rollout (serve/rollout.py,
+tests/test_torch_rollout.py).
+
+Beyond the JAX router, a router that can spawn replicas (proc mode)
+also stops, kills and replaces the replicas it ADOPTED from a
+predecessor (``start(adopt=True)``: no process handle here) by the pid
+their announce names, on this host, and continues their restart
+generation, so a standby that takes over mid-rollout can finish it;
+and once the router has stopped (or died: a crash hook's freeze sets
+the same flag) its replica-moving control ops refuse, so a rollout
+controller that outlives its router cannot act on the tier its
+successor now drives.
 """
 
 from __future__ import annotations
@@ -103,6 +114,7 @@ import json
 import logging
 import os
 import queue as queue_mod
+import signal
 import socket
 import struct
 import subprocess
@@ -123,6 +135,9 @@ from dtf_tpu_torch.serve.replica import read_announce, send_msg
 log = logging.getLogger("dtf_tpu_torch")
 
 PLACEMENTS = ("affinity", "least_loaded", "random")
+
+# announce hosts whose pid names a process of THIS host
+_LOCAL_HOSTS = ("127.0.0.1", "localhost", "::1")
 
 
 class DeadlineExceeded(RuntimeError):
@@ -296,6 +311,10 @@ class _Replica:
         self.host: str = "127.0.0.1"
         self.port: Optional[int] = None
         self.announced_pid: Optional[int] = None
+        # the checkpoint the announce says the process serves (its
+        # DTF_SERVE_CHECKPOINT, "" = the flag-configured one); None =
+        # the announce does not say
+        self.announced_checkpoint: Optional[str] = None
         self.conn: Optional[socket.socket] = None
         self.wfile = None
         self.wlock = threading.Lock()
@@ -650,10 +669,16 @@ class Router:
                     req.handle._fail(RuntimeError("router stopped"))
             self._outstanding = 0
             self._mu.notify_all()
+        with self._mu:
+            fenced = self._fenced
         for r in self._replicas:
             self._close_conn(r)
             if r.proc is not None and r.proc.poll() is None:
                 r.proc.terminate()   # SIGTERM: replicas drain + exit 0
+            elif r.proc is None and not fenced:
+                # adopted from a dead predecessor, this router owns the
+                # tier now (a fenced one never touches it again)
+                self._signal_adopted(r, signal.SIGTERM, timeout=10.0)
         for r in self._replicas:
             if r.proc is not None:
                 try:
@@ -1096,6 +1121,7 @@ class Router:
             raise ValueError(f"mirror fraction must be in (0, 1], got "
                              f"{fraction}")
         with self._mu:
+            self._refuse_if_stopped("start_mirror")
             self._mirror = (int(replica_id), float(fraction))
             self._mirror_acc = 0.0
             # per-session gauge: a previous rollout's first-divergence
@@ -1213,6 +1239,7 @@ class Router:
         scenario).  The death is then DETECTED like any other — probe/
         conn-EOF/proc-poll — so the full failover + respawn machinery
         runs; nothing is short-circuited."""
+        self._refuse_if_stopped("kill_replica")
         self._kill_replica(int(replica_id))
 
     def _kill_replica(self, target: int) -> None:
@@ -1221,7 +1248,7 @@ class Router:
             rep.proc.kill()
         elif self._kill_hook is not None:
             self._kill_hook(target)
-        else:
+        elif not self._signal_adopted(rep, signal.SIGKILL):
             log.error("router: chaos wants replica %d killed but the "
                       "router neither owns its process nor has a "
                       "kill_hook", target)
@@ -1638,6 +1665,12 @@ class Router:
         rep.host = str(ann.get("host", "127.0.0.1"))
         rep.port = int(ann["port"])
         rep.announced_pid = ann.get("pid")
+        rep.announced_checkpoint = ann.get("checkpoint")
+        if rep.proc is None:
+            # an adopted replica: its next generation follows the one
+            # it announces, not this router's count from zero
+            rep.generation = max(rep.generation,
+                                 int(ann.get("generation", 0) or 0))
         # reader threads are daemons that exit with their connection —
         # NOT retained (a long-lived router reconnects on every heal/
         # respawn, and a list of dead Thread objects is a slow leak)
@@ -1869,6 +1902,51 @@ class Router:
             return   # one chain per heal: warmth, not a transfer storm
 
     # -- rollout control surface (serve/rollout.py drives these) --------
+    @property
+    def stopped(self) -> bool:
+        """True once the router stopped, or died: a crash hook's freeze
+        sets the same latch.  A rollout controller driving this router
+        stops with it and leaves the persisted state to a successor."""
+        return self._stopping
+
+    def _refuse_if_stopped(self, what: str) -> None:
+        if self._stopping:
+            raise RuntimeError(f"router is stopped: {what} refused")
+
+    def _signal_adopted(self, rep: _Replica, sig: int,
+                        timeout: float = 0.0) -> bool:
+        """Signal a replica this router ADOPTED (a predecessor spawned
+        it: no process handle here) by the pid its announce names, when
+        this router can spawn its successor, the replica runs on this
+        host and the announce still names that pid (a later generation
+        rewrites it: a stale pid is never signalled); wait up to
+        ``timeout`` for it to stop, then SIGKILL.  False when it cannot
+        be reached that way."""
+        pid = rep.announced_pid
+        if (self._spawn is None or not pid or int(pid) == os.getpid()
+                or rep.host not in _LOCAL_HOSTS
+                or (read_announce(self.rendezvous_dir, rep.id)
+                    or {}).get("pid") != pid):
+            return False
+        try:
+            os.kill(int(pid), sig)
+        except OSError:
+            return True     # already gone
+        deadline = time.monotonic() + timeout
+        while timeout > 0:
+            try:
+                os.kill(int(pid), 0)
+            except OSError:
+                break       # exited (and reaped by its parent)
+            if time.monotonic() > deadline:
+                try:
+                    os.kill(int(pid), signal.SIGKILL)
+                except OSError:
+                    pass
+                break
+            time.sleep(0.05)
+        return True
+
     def set_replica_version(self, replica_id: int, version: str) -> None:
         """Label the model version replica ``replica_id`` serves.
         Version-affine placement matches requests to it (all replicas
@@ -1899,6 +1977,7 @@ class Router:
         mirrored canary traffic — a new-checkpoint canary must never
         answer a real client until the gate passes."""
         with self._mu:
+            self._refuse_if_stopped("set_shadow")
             self._replicas[replica_id].shadow_only = bool(shadow)
 
     def hold_replica(self, replica_id: int) -> None:
@@ -1907,6 +1986,7 @@ class Router:
         auto-respawn parks (hold_respawn), and its prefix-owner
         entries re-home to the warmest sibling."""
         with self._mu:
+            self._refuse_if_stopped("hold_replica")
             rep = self._replicas[replica_id]
             rep.draining = True
             rep.hold_respawn = True
@@ -1918,6 +1998,7 @@ class Router:
         """Return a held replica to service (``shadow=True`` = canary
         posture: healthy and heartbeating but shadow-only)."""
         with self._mu:
+            self._refuse_if_stopped("release_replica")
             rep = self._replicas[replica_id]
             rep.draining = False
             rep.hold_respawn = False
@@ -1941,7 +2022,8 @@ class Router:
             trace.event("replica_drain", replica=replica_id,
                         inflight=len(rep.inflight))
             deadline = time.monotonic() + timeout
-            while rep.inflight and time.monotonic() < deadline:
+            while (rep.inflight and not self._stopping
+                   and time.monotonic() < deadline):
                 self._mu.wait(timeout=0.05)
             return not rep.inflight
 
@@ -1953,6 +2035,7 @@ class Router:
         tiers (tests) just close the transport."""
         rep = self._replicas[replica_id]
         with self._mu:
+            self._refuse_if_stopped("terminate_replica")
             rep.healthy = False
             # park the prober's reconnect too: between this terminate
             # and the successor's announce, the OLD endpoint (or its
@@ -1969,13 +2052,16 @@ class Router:
                             if rid == rep.id]:
                     req.active.pop(wid, None)
                 self._requeue_locked(req, reason="planned_restart")
-        if rep.proc is not None and rep.proc.poll() is None:
-            rep.proc.terminate()
-            try:
-                rep.proc.wait(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                rep.proc.kill()
-                rep.proc.wait()
+        if rep.proc is not None:
+            if rep.proc.poll() is None:
+                rep.proc.terminate()
+                try:
+                    rep.proc.wait(timeout=timeout)
+                except subprocess.TimeoutExpired:
+                    rep.proc.kill()
+                    rep.proc.wait()
+        else:
+            self._signal_adopted(rep, signal.SIGTERM, timeout)
 
     def spawn_replica(self, replica_id: int) -> None:
         """Spawn a held replica's next generation (proc mode).  The
@@ -1990,6 +2076,7 @@ class Router:
         from dtf_tpu_torch.serve.replica import announce_path
         rep = self._replicas[replica_id]
         with self._mu:
+            self._refuse_if_stopped("spawn_replica")
             for path in (heartbeat_path(self.rendezvous_dir, rep.id),
                          announce_path(self.rendezvous_dir, rep.id)):
                 try:
@@ -2024,6 +2111,13 @@ class Router:
         proc = self._replicas[replica_id].proc
         return None if proc is None else proc.poll()
 
+    def replica_announced_checkpoint(self,
+                                     replica_id: int) -> Optional[str]:
+        """The checkpoint replica ``replica_id``'s announce says it
+        serves ("" = the flag-configured one; None = not said)."""
+        with self._mu:
+            return self._replicas[replica_id].announced_checkpoint
+
     def replica_draining(self, replica_id: int) -> bool:
         with self._mu:
             return self._replicas[replica_id].draining
@@ -2036,13 +2130,12 @@ class Router:
                        if o == replica_id)
 
     def rollout(self, new_checkpoint: str, **kw):
-        """The router's rollout control-surface op in the JAX package
-        (a zero-downtime rolling rollout onto ``new_checkpoint``).  Its
-        state machine, ``serve/rollout.py``, is not ported yet."""
-        raise NotImplementedError(
-            "Router.rollout runs the rollout controller "
-            "(serve/rollout.py), which is not ported to dtf_tpu_torch "
-            "yet")
+        """The router's rollout control-surface op: run a zero-downtime
+        rolling rollout of the whole tier onto ``new_checkpoint`` (see
+        serve/rollout.py for the state machine).  Returns the final
+        RolloutState."""
+        from dtf_tpu_torch.serve.rollout import RolloutController
+        return RolloutController(self, new_checkpoint, **kw).run()
 
     def fence(self) -> None:
         """Mark this router superseded (serve/ha.py LeaseKeeper's

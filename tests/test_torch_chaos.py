@@ -123,8 +123,9 @@ def test_unported_kinds_parse_but_refuse_to_arm(spec, subsystem):
         # ported since (ps_drop with the async parameter server; the
         # fleet's replica_kill, net_partition, slow_replica and
         # page_fetch_stall with serve/router.py, serve/engine.py and
-        # serve/migrate.py): it arms, and fires at its point as the JAX
-        # injector does
+        # serve/migrate.py; router_kill and lease_stall with serve/ha.py,
+        # rollout_kill with serve/rollout.py): it arms, and fires at its
+        # point as the JAX injector does
         inj = chaos.configure(spec, rank=0)
         assert chaos.enabled() and [str(s) for s in inj.specs] == [
             str(s) for s in chaos.parse_spec(spec)]
@@ -135,11 +136,9 @@ def test_unported_kinds_parse_but_refuse_to_arm(spec, subsystem):
             assert _fleet_probes(chaos, spec) == _fleet_probes(jax_chaos,
                                                                spec)
         return
-    # router_kill and lease_stall fire in serve/ha.py, rollout_kill in
-    # serve/rollout.py: still not ported, each named
-    where = {"rollout_kill": "serve/rollout.py", "router_kill": "serve/ha.py",
-             "lease_stall": "serve/ha.py"}.get(kind, "")
-    with pytest.raises(ValueError, match=f"{subsystem}.*{where}.*not ported"):
+    # device_loss fires in elastic training: still not ported, named
+    assert list(chaos.NOT_PORTED) == ["device_loss"]
+    with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
         chaos.configure(spec)
     assert not chaos.enabled()
 
@@ -149,14 +148,20 @@ def _fleet_probes(mod, spec, rank=0):
     process of replica ``rank``: replica_kill over dispatches 1-5
     (routed to replica 1), net_partition of replicas 0 and 1 over 10
     ticks (traffic from tick 3), slow_replica and page_fetch_stall three
-    times each."""
+    times each, router_kill over dispatches 1-5, lease_stall over 6
+    renewals, rollout_kill in the canary phase (on replica 0) then the
+    rolling one (on replica 1), twice."""
     mod.configure(spec, rank=rank)
     try:
         return ([mod.replica_kill(seq, 1) for seq in range(1, 6)],
                 [mod.net_partition(r, tick >= 3)
                  for tick in range(10) for r in (0, 1)],
                 [mod.slow_replica() for _ in range(3)],
-                [mod.page_fetch_stall() for _ in range(3)])
+                [mod.page_fetch_stall() for _ in range(3)],
+                [mod.router_kill(seq) for seq in range(1, 6)],
+                [mod.lease_stall() for _ in range(6)],
+                [mod.rollout_kill(phase, rid) for _ in range(2)
+                 for phase, rid in (("canary", 0), ("rolling", 1))])
     finally:
         mod.disable()
 
@@ -166,15 +171,20 @@ def _fleet_probes(mod, spec, rank=0):
     "net_partition@replica1:6", "net_partition@replica0:ticks:2",
     "slow_replica@replica0:2.5", "slow_replica@replica1:3",
     "page_fetch_stall@replica0:0.5", "page_fetch_stall@replica1:0.25",
+    "router_kill@req:3", "lease_stall@2", "lease_stall@ticks:4",
+    "rollout_kill@phase:canary", "rollout_kill@replica0:phase:rolling",
 ])
 def test_fleet_kinds_fire_as_jax(spec, tmp_path):
-    """The four fleet kinds fire at the same probe calls as the JAX
-    injector's; the router-side kinds (replica_kill, net_partition) in
-    any process, the replica-side ones (slow_replica, page_fetch_stall)
-    only in the process whose rank is their replica; each firing is one
+    """The fleet kinds fire at the same probe calls as the JAX
+    injector's; the router-side kinds (replica_kill, net_partition,
+    router_kill, lease_stall, rollout_kill) in any process, the
+    replica-side ones (slow_replica, page_fetch_stall) only in the
+    process whose rank is their replica; each firing is one
     injected_fault record."""
     (armed,) = chaos.parse_spec(spec)
-    router_side = armed.kind in ("replica_kill", "net_partition")
+    router_side = armed.kind in ("replica_kill", "net_partition",
+                                 "router_kill", "lease_stall",
+                                 "rollout_kill")
     for rank in (0, 1):
         got = _fleet_probes(chaos, spec, rank)
         assert got == _fleet_probes(jax_chaos, spec, rank), rank

@@ -106,12 +106,12 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         _check_ported_flags(flags)
         return
     if subsystem == "serving fleet":
-        # the router and replica flags are ported since (cli/router_main
-        # and cli/replica_main); the HA pair's and the rollout's still
-        # name their subsystem
-        _check_fleet_flags([f for f in flags if f not in
-                            ("rollout_checkpoint", "router_ha")])
-        flags = ["rollout_checkpoint", "router_ha"]
+        # ported since: the router and replica flags (cli/router_main and
+        # cli/replica_main), then the HA pair's (serve/ha.py) and the
+        # rollout's (serve/rollout.py)
+        _check_fleet_flags([f for f in flags if f not in HA_ROLLOUT_FLAGS])
+        _check_ha_rollout_flags([f for f in flags if f in HA_ROLLOUT_FLAGS])
+        return
     for name in flags:
         assert subsystem in NOT_PORTED[name], name
         with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
@@ -144,6 +144,49 @@ def _check_fleet_flags(flags):
                 ["--router_prefill_replicas", "1", "--router_placement",
                  "random"],
                 ["--router_hedge_s", "-1"], ["--serve_host", ""]):
+        with pytest.raises(ValueError):
+            parse_flags(bad)
+        with pytest.raises(ValueError):
+            jax_parse_flags(bad)
+
+
+HA_ROLLOUT_FLAGS = ("router_ha", "router_standby", "router_lease_ttl_s",
+                    "router_journal_fsync_s", "rollout_checkpoint",
+                    "rollout_canary_requests", "rollout_mirror_fraction",
+                    "rollout_max_divergence", "rollout_warm_timeout_s",
+                    "rollout_state")
+HA_ROLLOUT_ARGV = ["--router_standby", "--router_ha", "--rendezvous_dir",
+                   "/tmp/r", "--router_lease_ttl_s", "1.5",
+                   "--router_journal_fsync_s", "0", "--rollout_checkpoint",
+                   "/tmp/ckpt", "--rollout_canary_requests", "3",
+                   "--rollout_mirror_fraction", "0.5",
+                   "--rollout_max_divergence", "0.25",
+                   "--rollout_warm_timeout_s", "30", "--rollout_state",
+                   "/tmp/r/state.json"]
+
+
+def _check_ha_rollout_flags(flags):
+    """The ten HA and rollout flags parse with the JAX package's
+    defaults, values and validation."""
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    got, want = parse_flags(HA_ROLLOUT_ARGV), jax_parse_flags(HA_ROLLOUT_ARGV)
+    assert set(flags) <= set(HA_ROLLOUT_FLAGS)
+    for name in HA_ROLLOUT_FLAGS:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+        assert getattr(got, name) == getattr(want, name), name
+    assert (got.router_standby, got.router_lease_ttl_s,
+            got.rollout_mirror_fraction) == (True, 1.5, 0.5)
+    for bad in (["--router_lease_ttl_s", "0"],
+                ["--router_journal_fsync_s", "-1"],
+                ["--router_standby"],
+                ["--rollout_canary_requests", "0"],
+                ["--rollout_mirror_fraction", "0"],
+                ["--rollout_max_divergence", "1.5"],
+                ["--rollout_warm_timeout_s", "0"],
+                ["--rollout_checkpoint", "/c", "--serve_temperature", "0.5"],
+                ["--rollout_checkpoint", "/c", "--router_replicas", "1"]):
         with pytest.raises(ValueError):
             parse_flags(bad)
         with pytest.raises(ValueError):

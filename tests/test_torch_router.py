@@ -288,11 +288,42 @@ def test_router_prefix_affinity_routes_shared_prompts_together(tmp_path):
 
 
 def test_rollout_raises_naming_its_subsystem(tmp_path):
-    """The rollout controller is not ported: the router's control-surface
-    op says where it lives instead of doing half a rollout."""
-    router = Router(1, str(tmp_path / "rdv"))
-    with pytest.raises(NotImplementedError, match="serve/rollout.py"):
+    """``Router.rollout`` runs the rollout controller (serve/rollout.py):
+    a 1-replica tier is refused by the controller's own rule, named in
+    its ``RolloutError``; a 2-replica tier rolls onto an identical
+    checkpoint through the op and ends DONE, token-exact."""
+    from dtf_tpu_torch.serve.rollout import RolloutError
+    router = Router(1, str(tmp_path / "one"))
+    with pytest.raises(RolloutError, match="1-replica"):
         router.rollout("/some/checkpoint")
+
+    router, reps = make_tier(tmp_path, 2)
+
+    def hook(rid, ckpt):
+        reps[rid].kill()
+        reps[rid] = FakeReplica(rid, router.rendezvous_dir).start()
+
+    stop = threading.Event()
+
+    def pump():     # live greedy traffic: the canary gate's mirror
+        while not stop.wait(0.03):
+            router.submit(np.arange(6, dtype=np.int32), max_new_tokens=4)
+
+    traffic = threading.Thread(target=pump, daemon=True)
+    traffic.start()
+    try:
+        state = router.rollout(
+            "ckpt_new", old_checkpoint="ckpt_old", canary_requests=1,
+            restart_hook=hook, warm_timeout_s=8.0, gate_timeout_s=20.0,
+            poll_s=0.02, state_path=str(tmp_path / "state.json"))
+        stop.set()
+        traffic.join(timeout=5)
+        assert state.phase == "DONE" and sorted(state.rolled) == [0, 1]
+        p = np.arange(5, dtype=np.int32)
+        assert router.generate(p, max_new_tokens=4).tokens == oracle(p, 4)
+    finally:
+        stop.set()
+        stop_tier(router, reps)
 
 
 def test_placement_literal_parity_with_config():

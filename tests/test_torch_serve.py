@@ -453,6 +453,7 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.cli.replica_main; "
             "import dtf_tpu_torch.serve.router, dtf_tpu_torch.serve.migrate; "
             "import dtf_tpu_torch.serve.replica, dtf_tpu_torch.serve.journal; "
+            "import dtf_tpu_torch.serve.ha, dtf_tpu_torch.serve.rollout; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")
