@@ -261,9 +261,15 @@ Phases, each printing one JSON object per line (the card's
   The training phase 6 also holds the ledger's train_step MFU within 20%
   of its own formula's.
  13. fleet    -- the serving fleet: two ``cli.replica_main`` processes on
-                 the card, spawned by ``serve.router.replica_spawner``
-                 with ``cli.router_main``'s replica command, behind the
-                 port's ``Router`` (affinity); transformer_tpu, random
+                 the card, forked with ``cli.router_main``'s replica
+                 command by a pre-imported spawner (``ReplicaForkServer``,
+                 ``multiprocessing``'s forkserver:
+                 one process that imports torch and the replica's
+                 modules, touches no CUDA and forks each replica, under
+                 ``serve.router.replica_spawner``'s contract; it
+                 imports while phase 12 runs), behind the
+                 port's ``Router`` (affinity); transformer_tpu at 6 of
+                 its 12 layers (``FLEET_LAYERS``, every width kept), random
                  weights from ``--seed``, page 16, chunk 64; 16 requests
                  of 4 families (a 256-token system prompt, a tail of
                  U[1, 128]), 32 new tokens, each consumed through its
@@ -316,7 +322,32 @@ Phases, each printing one JSON object per line (the card's
                  tokens/s and TTFT during A->B.  K1 and K4 counted in the
                  replica processes: the tier's first processes at the
                  end of the HA stages (a SIGUSR1 snapshot), then every
-                 process at its exit.
+                 process at its exit.  The replicas fork from phase
+                 13's spawner.
+ 15. zero_stages -- ZeRO (``train/zero.py``): ``cli.lm_main``,
+                 transformer_tpu at full width, bf16 compute on f32
+                 parameters, AdamW, S 2048, 6 steps: two ranks sharing
+                 the card over gloo at stages 0-3, the four runs at
+                 once: losses bit-identical, each rank's bytes in use
+                 at its update (the CUDA allocator's count) falling
+                 stage by stage, beside the parameter, gradient and
+                 optimizer bytes of its tensors and the 16N/12N/10N/8N
+                 formula, peak memory, 12 K1 and 12 K3 a step; then at
+                 once: stage 3 at world 1 on NCCL against ``off`` bit
+                 for bit, a stage-3 two-rank run killed by
+                 ``crash@step:4`` and resumed by the launcher under
+                 stage 1 from the canonical checkpoint (losses bit for
+                 bit), ``--zero_wire bf16`` within 5e-2 of the fp32
+                 wire, and a stage-3 two-rank run with ``--zero_probe``
+                 (the step and its comm-off twin in turns: exposed
+                 communication no more than the serialized collectives
+                 plus the timings' spread).
+  Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
+  with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
+  none's; --remat's peak memory below none's); phase 7 trains ResNet-50
+  with ``--remat`` beside the plain run.  The host's speed is probed
+  first (a Python loop, a numpy sort, a bare ``import torch`` in a
+  child) and printed beside every ``phase_time`` line.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -328,8 +359,9 @@ serving (and, as ``launches_recovery_serve``, with K1,
 serving phase 9's checkpoint; as ``launches_prefix``, with K1, phase
 12's bursts with and without sharing; as ``launches_fleet``, with K1,
 phase 13's replica processes; as ``launches_ha`` and
-``launches_rollout``, with K1, phase 14's) -- and, last, the device
-line.
+``launches_rollout``, with K1, phase 14's); K1 and K3 also as
+``launches_remat`` (phase 6's arms) and ``launches_zero`` (phase 15's
+rank 0 of stage 0) -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -338,9 +370,12 @@ exits 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -433,16 +468,60 @@ class Timer:
         return statistics.median(out)
 
 
-class PhaseClock:
-    """Seconds each phase took, one ``phase_time`` line as it ends: the
-    script's time limit is shared by every phase."""
+def host_probe() -> dict:
+    """The host's speed, measured once at the start, so that phase times
+    of runs on different hosts can be compared: a fixed pure-Python loop
+    (5,000,000 additions), a numpy sort of 4,000,000 float64 values from
+    a fixed seed, and a bare ``import torch`` in a child process (with
+    this run's bytecode cache, as every process the script starts)."""
+    import numpy as np
+    t = time.perf_counter()
+    acc = 0
+    for i in range(5_000_000):
+        acc += i
+    loop_s = time.perf_counter() - t
+    values = np.random.default_rng(0).random(4_000_000)
+    t = time.perf_counter()
+    np.sort(values)
+    sort_s = time.perf_counter() - t
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch"], check=True,
+                   timeout=300)
+    return {"py_loop_s": loop_s, "np_sort_s": sort_s,
+            "import_torch_s": time.perf_counter() - t}
 
-    def __init__(self):
+
+def card_clocks() -> dict:
+    """The card's SM clock (and its maximum), temperature and power draw
+    now, as ``nvidia-smi`` reads them: a slow phase on a throttled card
+    shows here, not in the host probe."""
+    keys = ("clocks.sm", "clocks.max.sm", "temperature.gpu", "power.draw")
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=" + ",".join(keys),
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()[0]
+    def value(v: str):
+        try:
+            return float(v)
+        except ValueError:       # "[N/A]" where the card does not say
+            return v.strip()
+
+    return dict(zip(keys, map(value, out.split(","))))
+
+
+class PhaseClock:
+    """Seconds each phase took, one ``phase_time`` line as it ends (with
+    the host probe and the card's clocks beside it): the script's time
+    limit is shared by every phase."""
+
+    def __init__(self, host: dict):
         self.t = time.perf_counter()
+        self.host = host
 
     def done(self, phase: str) -> None:
         now = time.perf_counter()
-        emit({"phase": "phase_time", "of": phase, "s": now - self.t})
+        emit({"phase": "phase_time", "of": phase, "s": now - self.t,
+              "host": self.host, "card": card_clocks()})
         self.t = now
 
 
@@ -1510,6 +1589,80 @@ def train_bf16(torch, seed: int, split: bool = False, steps: int = 30):
     return out
 
 
+REMAT_LOSS_RTOL = 5e-3   # phase 6's bf16 loss gate (train_bf16_parity)
+
+
+def rel_gap(a, b) -> float:
+    """The largest |a - b| / |b| over two loss lists."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def train_remat_arms(torch, seed: int, none: dict) -> dict:
+    """Phase 6's remat arms: the ``train`` run's ``lm_main`` (bf16,
+    8 x 2048, AdamW, the same steps) with ``--remat_policy dots`` and
+    with ``--remat``, the counters zeroed just before and read just
+    after each.  Gates: 12, 12 and 24 K1 launches a step under none,
+    dots and remat, 12 K3; losses within ``REMAT_LOSS_RTOL`` of the
+    none arm's (bit-identity printed); --remat's peak memory below
+    none's."""
+    from dtf_tpu_torch.cli import lm_main
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    b = TRAIN_SHAPE[0]
+    steps, log_steps = none["steps"], none["log_steps"]
+    argv = ["--use_synthetic_data", "--device", "cuda",
+            "--model", "transformer_tpu", "--dtype", "bf16",
+            "--batch_size", str(b), "--train_steps", str(steps),
+            "--log_steps", str(log_steps), "--seed", str(seed),
+            "--skip_checkpoint"]
+
+    def brief(run, launches, peak):
+        losses = [v for _, v in run["losses"]]
+        return {"step_s_p50": run["step_s_p50"],
+                "peak_memory_bytes": peak, "losses": losses,
+                "launches_per_step": {k: launches[k] / steps
+                                      for k in ("K1", "K3")}}
+
+    arms = {"none": brief(none, none["launches"],
+                          none["peak_memory_bytes"])}
+    launches = {"none": none["launches"]}
+    for arm, flags in (("dots", ["--remat_policy", "dots"]),
+                       ("remat", ["--remat"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, pa)
+        stats = lm_main.main(argv + flags)
+        torch.cuda.synchronize()
+        launches[arm] = kernel_counts(fa, pa)
+        arms[arm] = brief({"losses": stats["train_loss_log"],
+                           "step_s_p50": statistics.median(
+                               stats["window_step_s"])},
+                          launches[arm], torch.cuda.max_memory_allocated())
+        torch.cuda.empty_cache()
+    ref = arms["none"]["losses"]
+    for arm in ("dots", "remat"):
+        arms[arm]["loss_rel_gap_to_none"] = rel_gap(arms[arm]["losses"],
+                                                   ref)
+        arms[arm]["losses_bit_identical_to_none"] = (
+            arms[arm]["losses"] == ref)
+    line = {"phase": "train_remat", "model": "transformer_tpu",
+            "dtype": "bf16", "batch": b, "seq": TRAIN_SHAPE[1],
+            "steps": steps, "tol": REMAT_LOSS_RTOL, "arms": arms}
+    emit(line)
+    want = {"none": 12, "dots": 12, "remat": 24}
+    if not (all(arms[a]["launches_per_step"] == {"K1": k1, "K3": 12}
+                for a, k1 in want.items())
+            and all(arms[a]["loss_rel_gap_to_none"] <= REMAT_LOSS_RTOL
+                    for a in ("dots", "remat"))
+            and arms["remat"]["peak_memory_bytes"]
+            < arms["none"]["peak_memory_bytes"]):
+        raise AssertionError(f"train_remat: {line}")
+    return {"line": line, "launches": launches,
+            "run": f"train with --remat_policy dots and with --remat, "
+                   f"{steps} steps each (phase 6)"}
+
+
 def device_time(prof, kinds, steps: int, wall: float):
     """A profiled window's device time per step: summed by kind (the
     first ``kinds`` entry, (label, tag or tags), whose tag a kernel's name
@@ -1969,6 +2122,24 @@ def train_imagenet(torch, seed: int, card: str):
             note = f"batch halved to {batch}: 2x did not fit"
             if batch < 32:
                 raise
+    # the selective remat policy (conv outputs and BN statistics saved,
+    # the normalize/ReLU chains recomputed) on the same run
+    remat, _ = vision_run(
+        torch, imagenet_main.main, argv + ["--train_steps", "30", "--remat"],
+        "train_imagenet_remat", card, batch, flops, model="resnet50",
+        dtype="bf16", steps=30, remat="conv_out + bn_stats saved")
+    losses = [[v for _, v in run["losses"]] for run in (remat, line)]
+    gate = {"phase": "resnet_remat_gate", "card": card,
+            "loss_rel_gap_to_off": rel_gap(*losses),
+            "losses_bit_identical_to_off": losses[0] == losses[1],
+            "tol": REMAT_LOSS_RTOL,
+            "step_s_p50": {"off": line["step_s_p50"],
+                           "remat": remat["step_s_p50"]},
+            "peak_memory_bytes": {"off": line["peak_memory_bytes"],
+                                  "remat": remat["peak_memory_bytes"]}}
+    emit(gate)
+    if gate["loss_rel_gap_to_off"] > REMAT_LOSS_RTOL:
+        raise AssertionError(f"resnet remat: {gate}")
     # the probe's loss runs off to inf/NaN on raw 0-255 pixels, as the
     # JAX model's does: the NaN guard would end the run it times
     trivial, _ = vision_run(
@@ -2254,7 +2425,7 @@ def train_resnet(torch, timer, seed: int, card: str):
 # results: the per-step losses, the synced step times, the launches and
 # a digest of the trained parameters and buffers
 DP_RANK = r"""
-import hashlib, json, sys, time
+import hashlib, json, os, sys, time
 sys.path.insert(0, @ROOT@)
 import torch
 from dtf_tpu_torch.cli import runner
@@ -2263,6 +2434,8 @@ from dtf_tpu_torch.ops import flash_attention as fa
 from dtf_tpu_torch.runtime.mesh import initialize
 
 spec = json.loads(sys.argv[1])
+if os.environ.get("DTF_RESTART_GENERATION", "0") != "0":
+    spec["argv"] = spec["argv"] + spec.get("argv_restart", [])
 kept = {}
 build = runner.build_training
 def keep(cfg, rt=None):
@@ -2294,6 +2467,11 @@ print("DP_RESULT=" + json.dumps({
     "window_step_s": stats["window_step_s"], "wall_s": wall,
     "launches": {"K1": fa.launches, "K2a": fa.launches_dq,
                  "K2b": fa.launches_dkdv, "K3": fa.launches_fused},
+    "zero_stage": trainer.zero_stage,
+    "resident": stats.get("resident_bytes"),
+    "zero_probe": stats.get("zero_probe"),
+    "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                          if torch.cuda.is_available() else 0),
     "digest": digest.hexdigest()}))
 """.replace("@ROOT@", repr(ROOT))
 DP_TIMEOUT_S = 300
@@ -4151,6 +4329,203 @@ sys.exit(replica_main.main(sys.argv[1:]))
 """
 
 
+# the modules the replicas' forkserver imports once, before it forks
+REPLICA_PRELOAD = ["numpy", "torch", "dtf_tpu_torch.cli.replica_main",
+                   "dtf_tpu_torch.cli.serve_main",
+                   "dtf_tpu_torch.serve.replica", "dtf_tpu_torch.serve.engine",
+                   "dtf_tpu_torch.ops.flash_attention",
+                   "dtf_tpu_torch.ops.paged_attention",
+                   "dtf_tpu_torch.models.transformer",
+                   "dtf_tpu_torch.obs.prom", "dtf_tpu_torch.chaos",
+                   "dtf_tpu_torch.obs.trace"]
+
+
+def fleet_replica_child(argv, env: dict, cwd: str, log: str,
+                        layers: int) -> None:
+    """A replica's body, forked from the forkserver: its log on stdout
+    and stderr, the tier's cwd, environment and argv, transformer_tpu
+    at ``layers``, then ``FLEET_REPLICA`` with its exit handlers (a
+    multiprocessing child ends with ``os._exit``)."""
+    import atexit
+    import traceback
+
+    import torch
+    if torch.cuda.is_initialized():
+        raise SystemExit("replica: CUDA initialised before the fork")
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    os.chdir(cwd)
+    os.environ.clear()
+    os.environ.update(env)
+    from dtf_tpu_torch.models import registry
+    ctor, classes, l2 = registry._REGISTRY["transformer_tpu"]
+    registry._REGISTRY["transformer_tpu"] = (
+        functools.partial(ctor, num_layers=layers), classes, l2)
+    sys.argv = ["replica"] + list(argv)
+    code = 0
+    try:
+        exec(compile(FLEET_REPLICA, "<replica>", "exec"),
+             {"__name__": "__main__"})
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (1 if e.code else 0)
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    raise SystemExit(code)
+
+
+def _forkserver_ready() -> None:
+    """The first child: it returns once the forkserver has imported."""
+
+
+class ForkedReplica:
+    """A Popen-like handle on a replica forked by the forkserver: the
+    pid is the replica's own (its announce names it)."""
+
+    def __init__(self, proc):
+        self._proc = proc
+        self.pid = proc.pid
+
+    @property
+    def returncode(self):
+        return self._proc.exitcode
+
+    def poll(self):
+        return self._proc.exitcode
+
+    def wait(self, timeout=None):
+        self._proc.join(timeout)
+        if self._proc.exitcode is None:
+            raise subprocess.TimeoutExpired(f"replica {self.pid}", timeout)
+        return self._proc.exitcode
+
+    def send_signal(self, sig) -> None:
+        if self._proc.exitcode is None:
+            try:
+                os.kill(self.pid, sig)
+            except ProcessLookupError:
+                pass
+
+    def terminate(self) -> None:
+        import signal
+        self.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        import signal
+        self.send_signal(signal.SIGKILL)
+
+
+class ReplicaForkServer:
+    """The pre-imported spawner of phases 13 and 14: ``multiprocessing``'s
+    forkserver, which imports torch and the replica's modules
+    (``REPLICA_PRELOAD``) once, touches no CUDA, and forks each replica
+    from there, so a replica's start pays for its card and model, not
+    for its imports.  It is a process of its own: no child inherits the
+    smoke's threads or sockets.  ``start`` launches it (it imports while
+    phase 12 runs); ``spawner(...)`` keeps
+    ``serve.router.replica_spawner``'s contract -- the tier's environment
+    (``DTF_PROCESS_ID``, ``DTF_HEARTBEAT_DIR``,
+    ``DTF_RESTART_GENERATION``, ``DTF_SERVE_CHECKPOINT`` from
+    ``checkpoint_map``), the logs ``replica{K}[.retry{G}].log`` -- with
+    each replica running :func:`fleet_replica_child`."""
+
+    def __init__(self):
+        import multiprocessing
+        self.ctx = multiprocessing.get_context("forkserver")
+        # the module of the child's body first: run as a script, this
+        # one is __main__, imported once there and not again per child
+        self.ctx.set_forkserver_preload(
+            [fleet_replica_child.__module__] + REPLICA_PRELOAD)
+        self.spawned = 0
+        self._ready_s = None
+
+    def start(self) -> "ReplicaForkServer":
+        from multiprocessing import forkserver
+        self.t0 = time.perf_counter()
+        forkserver.ensure_running()
+        return self
+
+    def ready(self) -> float:
+        """Seconds from the start until a first child ran (the
+        forkserver answers once its imports are done)."""
+        if self._ready_s is None:
+            proc = self.ctx.Process(target=_forkserver_ready, daemon=True)
+            proc.start()
+            proc.join(300)
+            if proc.exitcode != 0:
+                raise AssertionError(
+                    f"replica forkserver: first child exit {proc.exitcode}")
+            self._ready_s = time.perf_counter() - self.t0
+        return self._ready_s
+
+    def spawner(self, cmd_args, rendezvous_dir: str, env_extra=None,
+                extra_flags=None, checkpoint_map=None):
+        rendezvous_dir = os.path.abspath(rendezvous_dir)
+
+        def spawn(replica_id: int, generation: int) -> ForkedReplica:
+            env = dict(os.environ)
+            env["DTF_PROCESS_ID"] = str(replica_id)
+            env["DTF_HEARTBEAT_DIR"] = rendezvous_dir
+            env["DTF_RESTART_GENERATION"] = str(generation)
+            env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+            env.update(env_extra or {})
+            ckpt = (checkpoint_map or {}).get(replica_id, "")
+            if ckpt:
+                env["DTF_SERVE_CHECKPOINT"] = ckpt
+            suffix = f".retry{generation}" if generation else ""
+            argv = list(cmd_args) + ["--replica_id", str(replica_id)]
+            if extra_flags is not None:
+                argv += [str(f) for f in (extra_flags(replica_id) or [])]
+            log = os.path.join(rendezvous_dir,
+                               f"replica{replica_id}{suffix}.log")
+            self.ready()
+            # daemonic: one left running when the smoke exits is ended
+            proc = self.ctx.Process(
+                target=fleet_replica_child, daemon=True,
+                args=(argv, env, ROOT, log, FLEET_LAYERS))
+            proc.start()
+            self.spawned += 1
+            return ForkedReplica(proc)
+
+        return spawn
+
+    def stop(self) -> None:
+        """End the forkserver; its children are the routers' to stop."""
+        from multiprocessing import forkserver
+        stop = getattr(forkserver._forkserver, "_stop", None)
+        if stop is not None:
+            stop()
+
+
+@contextlib.contextmanager
+def fleet_depth():
+    """``transformer_tpu`` at ``FLEET_LAYERS`` of its 12 layers, every
+    width kept, in this process while phases 13-14 run (their
+    references and exports); each forked replica applies the same
+    (:func:`fleet_replica_child`)."""
+    from dtf_tpu_torch.models import registry
+    kept = registry._REGISTRY["transformer_tpu"]
+    ctor, classes, l2 = kept
+    registry._REGISTRY["transformer_tpu"] = (
+        functools.partial(ctor, num_layers=FLEET_LAYERS), classes, l2)
+    try:
+        yield
+    finally:
+        registry._REGISTRY["transformer_tpu"] = kept
+
+
+# phases 13-14 run transformer_tpu at 6 of its 12 layers, every width
+# kept, so the whole script ends within 1050 s of its 1200 s limit on a
+# slow host (1069 s there at 12 layers, PERF.md); their gates do not
+# depend on depth
+FLEET_LAYERS = 6
+
+
 def fleet_prompts(seed: int):
     """16 requests of 4 families (a 256-token system prompt each, then a
     tail of U[1, 128] tokens), the family heads first; then 4 cold
@@ -4292,10 +4667,10 @@ def fleet_trace(path: str) -> dict:
 
 
 def fleet_run(seed: int, card: str, prompts, cold, *, dtype: str,
-              prefill: int, kill: bool) -> dict:
+              prefill: int, kill: bool, forks) -> dict:
     """Two replica_main processes on the card behind an in-process port
-    Router, spawned by the port's replica_spawner with router_main's
-    replica command; affinity placement; every request consumed through
+    Router, forked by ``forks`` with router_main's replica command;
+    affinity placement; every request consumed through
     its token stream.  ``kill``: replica_kill@req:6 mid-burst, then the
     respawned replica serves cold prompts.  ``prefill``: the family
     heads prefill on replica 0, their chains migrate to replica 1, and
@@ -4310,7 +4685,7 @@ def fleet_run(seed: int, card: str, prompts, cold, *, dtype: str,
     from dtf_tpu_torch.cli import router_main
     from dtf_tpu_torch.config import parse_flags
     from dtf_tpu_torch.obs import trace
-    from dtf_tpu_torch.serve.router import Router, replica_spawner
+    from dtf_tpu_torch.serve.router import Router
 
     root = tempfile.mkdtemp(prefix=f"fleet_{dtype}_{prefill}_")
     cfg = parse_flags(fleet_argv(seed, dtype, root)[1:],
@@ -4318,9 +4693,8 @@ def fleet_run(seed: int, card: str, prompts, cold, *, dtype: str,
     cmd = router_main.replica_command(cfg, random_init=True)
     assert cmd[1:3] == ["-m", "dtf_tpu_torch.cli.replica_main"], cmd
     metrics = [free_port(), free_port()]
-    spawn = replica_spawner([sys.executable, "-c", FLEET_REPLICA] + cmd[3:],
-                            root, extra_flags=lambda rid: [
-                                "--metrics_port", str(metrics[rid])])
+    spawn = forks.spawner(cmd[3:], root, extra_flags=lambda rid: [
+        "--metrics_port", str(metrics[rid])])
     tdir = os.path.join(root, "trace")
     trace.configure(tdir, stream="router")
     router = Router(2, root, spawn=spawn, page_size=16,
@@ -4431,16 +4805,18 @@ def fleet_run(seed: int, card: str, prompts, cold, *, dtype: str,
     return line
 
 
-def serve_fleet(torch, seed: int, card: str) -> dict:
-    """Phase 13 (see the module docstring)."""
+def serve_fleet(torch, seed: int, card: str, forks) -> dict:
+    """Phase 13 (see the module docstring); ``forks`` forks the replica
+    processes (:class:`ReplicaForkServer`)."""
     prompts, cold = fleet_prompts(seed)
     ref = fleet_reference(torch, seed, prompts + cold)
+    emit({"phase": "replica_forkserver", "ready_s": forks.ready()})
     colo = fleet_run(seed, card, prompts, cold, dtype="fp32", prefill=0,
-                     kill=True)
+                     kill=True, forks=forks)
     dis = fleet_run(seed, card, prompts, cold, dtype="fp32", prefill=1,
-                    kill=False)
+                    kill=False, forks=forks)
     dis16 = fleet_run(seed, card, prompts, cold, dtype="bf16", prefill=1,
-                      kill=False)
+                      kill=False, forks=forks)
     n = len(prompts)
 
     def k(run, rank, kernel):
@@ -4502,8 +4878,10 @@ def serve_fleet(torch, seed: int, card: str) -> dict:
 HA_TTL = 1.0            # the leader lease's time to live, seconds
 HA_PUMP_SHARE = 0.25    # live traffic: this share of the baseline burst's
                         # request rate, offered one request at a time
-HA_COLD_EVERY = 10      # A->B: one of phase 13's cold prompts every this
-                        # many of the pump's requests, each sent once
+HA_COLD_EVERY = 3       # A->B: one of phase 13's cold prompts every this
+                        # many of the pump's requests, each sent once (all
+                        # four inside the rollout: a replica forked by the
+                        # pre-imported spawner swaps in seconds)
 HA_LOSS_WINDOW_S = 1.0  # a failed migration's replica_lost follows it
 HA_ALLOW = ("injected_fault", "stale_epoch", "router_fenced")
 # the JAX rollout smoke's allowlist, and migration_failed: a replica the
@@ -4765,10 +5143,11 @@ def ha_launches(root: str) -> dict:
 
 
 def serve_ha_rollout(torch, seed: int, card: str, prompts, ref, cold,
-                     cold_ref, argv=None) -> dict:
+                     cold_ref, forks, argv=None) -> dict:
     """Phase 14 (see the module docstring): phase 13's prompts and cold
     prompts with the engine's tokens for each.  ``argv`` replaces
-    ``fleet_argv`` (a small CPU tier for a debugging run)."""
+    ``fleet_argv`` (a small CPU tier for a debugging run); ``forks``
+    forks the replica processes (:class:`ReplicaForkServer`)."""
     import concurrent.futures
     import shutil
     import signal
@@ -4784,7 +5163,7 @@ def serve_ha_rollout(torch, seed: int, card: str, prompts, ref, cold,
     from dtf_tpu_torch.serve.rollout import (RolloutController,
                                              RolloutState,
                                              default_state_path)
-    from dtf_tpu_torch.serve.router import Router, replica_spawner
+    from dtf_tpu_torch.serve.router import Router
 
     t_phase = time.time()
     root = tempfile.mkdtemp(prefix="ha_rollout_")
@@ -4817,9 +5196,8 @@ def serve_ha_rollout(torch, seed: int, card: str, prompts, ref, cold,
             ha_freeze(box[0])
             crashed.set()
             raise SystemExit
-        spawn = replica_spawner(
-            [sys.executable, "-c", FLEET_REPLICA] + cmd[3:], root,
-            env_extra={"DTF_TRACE_DIR": tdirs[trace_key]},
+        spawn = forks.spawner(
+            cmd[3:], root, env_extra={"DTF_TRACE_DIR": tdirs[trace_key]},
             checkpoint_map=ckpt_map)
         router = Router(
             2, root, spawn=spawn, checkpoint_map=ckpt_map, page_size=16,
@@ -5273,6 +5651,215 @@ def serve_ha_rollout(torch, seed: int, card: str, prompts, ref, cold,
     return {"line": line, "launches_ha": ha_k, "launches_rollout": rolled}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: ZeRO stages 1-3 (train/zero.py, the Trainer's stages)
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS = 6
+ZERO_PROBE_STEPS = 2     # the probe run's training steps; the probe's 8
+ZERO_BATCH = 4           # global: 2 a rank, 8 ranks on the card at once
+ZERO_WIRE_LOSS_RTOL = 5e-2   # the bf16 scatter wire against fp32's
+ZERO_TIMEOUT_S = 600
+
+
+def zero_launch(spec: dict, world: int, root: str, what: str,
+                restarts: int = 0) -> list:
+    """The rank script under ``spec`` through the port's launcher:
+    ``world`` ranks on a file rendezvous, ``restarts`` restarts; every
+    rank's result line of the last attempt."""
+    from dtf_tpu_torch.cli.launch import launch_local
+
+    base = os.path.join(root, what.replace(" ", "_"))
+    rc = launch_local([sys.executable, "-c", DP_RANK, json.dumps(spec)],
+                      world, f"file://{base}.rendezvous", base + "_logs",
+                      timeout_s=ZERO_TIMEOUT_S, max_restarts=restarts,
+                      restart_backoff_s=0.1, teardown_grace=30)
+    texts = []
+    for rank in range(world):
+        names = sorted(n for n in os.listdir(base + "_logs")
+                       if n.startswith(f"log{rank}"))
+        with open(os.path.join(base + "_logs", names[-1])) as f:
+            texts.append(f.read())
+    if rc:
+        raise AssertionError(f"{what}: launcher exit {rc}\n" + "\n".join(
+            t[-3000:] for t in texts))
+    return dp_results(texts, what)
+
+
+def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
+    """Phase 15: ``lm_main`` trains transformer_tpu at full width, bf16
+    compute on f32 parameters, AdamW, S 2048, ``ZERO_STEPS`` steps:
+      (a) two ranks sharing the card over gloo (CUDA tensors) at ZeRO
+          stages 0, 1, 2 and 3 -- the four runs at once.  Losses
+          bit-identical across the stages; each rank's bytes in use at
+          its update (the allocator's count) strictly falling from
+          stage 0 to 3; K1 and K3 12 a step;
+      (b) stage 3 at world 1 over NCCL (``reduce_scatter_tensor``,
+          ``all_gather_into_tensor``) against ``off``, bit for bit;
+      (c) a stage-3 two-rank run killed by ``crash@step:4`` after its
+          step-4 checkpoint, restarted by the launcher under stage 1
+          from the canonical checkpoint: losses bit for bit (a);
+      (d) ``--zero_wire bf16`` at stage 2: losses within
+          ``ZERO_WIRE_LOSS_RTOL`` of the fp32 wire's;
+      (e) stage 3 at two ranks with ``--zero_probe``: exposed
+          communication no more than the serialized collectives plus
+          the probe's spread of timings.
+    (b) to (e) go at once after (a).  ``model_argv`` replaces
+    the device and model flags (a small CPU run for debugging)."""
+    import tempfile
+
+    argv = (model_argv or ["--device", "cuda", "--model",
+                           "transformer_tpu", "--dtype", "bf16"]) + [
+            "--use_synthetic_data", "--batch_size",
+            str(ZERO_BATCH), "--train_steps", str(ZERO_STEPS),
+            "--log_steps", "1", "--seed", str(seed), "--skip_checkpoint",
+            "--step_time_guard_factor", "0"]
+    two = argv + ["--distribution_strategy", "multi_worker_mirrored"]
+
+    def spec(args, backend="gloo", **kw):
+        return {"main": "lm_main", "defaults": "LM_DEFAULTS",
+                "backend": backend, "argv": args, **kw}
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        started = {st: overlapped(
+            zero_launch, spec(two + ["--zero_stage", str(st)]), 2, root,
+            f"zero stage {st}") for st in range(4)}
+        stages = dict(zip(started, gathered(list(started.values()))))
+        stages_s = time.time() - t0
+        ckpt = [a for a in two if a != "--skip_checkpoint"]
+        ckpt += ["--model_dir", os.path.join(root, "crash_model"),
+                 "--trace_dir", os.path.join(root, "crash_trace"),
+                 "--checkpoint_steps", "4", "--resume",
+                 "--fault", "crash@step:4"]
+        t0 = time.time()
+        runs = gathered([
+            overlapped(dp_run, spec(argv + ["--distribution_strategy",
+                                             "off", "--zero_stage", "3"],
+                                    backend=None), None, root,
+                       "zero off stage3"),
+            overlapped(zero_launch, spec(argv + [
+                "--distribution_strategy", "multi_worker_mirrored",
+                "--zero_stage", "3"], backend=None), 1, root,
+                "zero nccl world1"),
+            overlapped(zero_launch, spec(ckpt + ["--zero_stage", "3"],
+                                         argv_restart=["--zero_stage",
+                                                       "1"]),
+                       2, root, "zero crash", restarts=1),
+            overlapped(zero_launch, spec(two + ["--zero_stage", "2",
+                                                "--zero_wire", "bf16"]),
+                       2, root, "zero wire bf16"),
+            overlapped(zero_launch, spec(two + [
+                "--zero_stage", "3", "--zero_probe", "--train_steps",
+                str(ZERO_PROBE_STEPS)]), 2, root, "zero probe")])
+        rest_s = time.time() - t0
+        crash_losses = trace_losses(os.path.join(root, "crash_trace"))
+    off, nccl, crash, wire, probed = runs
+    ref = stages[0][0]["losses"]
+    n = stages[0][0]["resident"]["n"]
+    # each rank's bytes in use at its update, stage by stage
+    at_update = [[stages[st][rank]["resident"]["allocated_at_update"]
+                  for st in range(4)] for rank in range(2)]
+    lines = []
+    for st in range(4):
+        r = stages[st]
+        lines.append({
+            "stage": st, "backend": r[0]["backend"],
+            "replicas": r[0]["replicas"], "losses": r[0]["losses"],
+            "ranks_bit_identical": (r[0]["digest"] == r[1]["digest"]
+                                    and r[0]["losses"] == r[1]["losses"]),
+            "losses_bit_identical_to_stage0": r[0]["losses"] == ref,
+            "resident": [x["resident"] for x in r],
+            "peak_memory_bytes": [x["peak_memory_bytes"] for x in r],
+            "step_s_p50": statistics.median(r[0]["window_step_s"]),
+            "launches": r[0]["launches"]})
+    probe = probed[0]["zero_probe"] or {}
+    line = {
+        "phase": "zero_stages", "card": card, "model": "transformer_tpu",
+        "dtype": "bf16 compute, f32 parameters", "optimizer": "adamw",
+        "seq": TRAIN_SHAPE[1], "global_batch": ZERO_BATCH,
+        "per_rank_batch": ZERO_BATCH // 2, "steps": ZERO_STEPS, "n": n,
+        "formula": "what a rank holds at its update, world 2: params + "
+                   "the gradient + AdamW moments = 4N + 4N (the flat "
+                   "all-reduced mean) + 8N (16N), 4N + 4N (that mean, "
+                   "which the slices view) + 4N (12N), 4N + 2N + 4N "
+                   "(10N), 2N + 2N + 4N (8N; the full parameters freed "
+                   "before the update); the allocator's count "
+                   "(allocated_at_update) adds the batch and whatever "
+                   "else is live",
+        "formula_bytes": [16 * n, 12 * n, 10 * n, 8 * n],
+        "allocated_at_update": at_update,
+        "stages": lines, "stages_wall_s": stages_s,
+        "zero_probe": probe,
+        "exposed_comm_ms_per_step": 1e3 * probe.get("exposed_s", math.nan),
+        "nocomm_step_ms": 1e3 * probe.get("nocomm_step_s", math.nan),
+        "serialized_comm_ms": 1e3 * probe.get("serialized_s", math.nan),
+        "probe_noise_ms": 1e3 * probe.get("noise_s", math.nan),
+        "probe_launches": probed[0]["launches"],
+        "nccl_world1_stage3": {
+            "backend": nccl[0]["backend"], "losses": nccl[0]["losses"],
+            "losses_bit_identical_to_off": nccl[0]["losses"]
+            == off[0]["losses"],
+            "params_bit_identical_to_off": nccl[0]["digest"]
+            == off[0]["digest"],
+            "step_s_p50_off": statistics.median(off[0]["window_step_s"]),
+            "step_s_p50_nccl": statistics.median(nccl[0]["window_step_s"]),
+            "peak_memory_bytes": nccl[0]["peak_memory_bytes"],
+            "launches": nccl[0]["launches"]},
+        "crash_resume": {
+            "fault": "crash@step:4 under stage 3, resumed under stage 1",
+            "losses": crash_losses,
+            "resumed_stage": crash[0]["zero_stage"],
+            "losses_bit_identical": crash_losses == {
+                i + 1: [v] for i, v in enumerate(ref)},
+            "launches_resumed": crash[0]["launches"]},
+        "zero_wire_bf16": {
+            "losses": wire[0]["losses"], "tol": ZERO_WIRE_LOSS_RTOL,
+            "loss_rel_gap_to_fp32": rel_gap(wire[0]["losses"],
+                                            stages[2][0]["losses"])},
+        "rest_wall_s": rest_s}
+    emit(line)
+    k = 12 * ZERO_STEPS
+    # the probe run: its steps, then the step and its twin, a warm-up
+    # and three timed of each
+    k_probe = 12 * (ZERO_PROBE_STEPS + 8)
+    gates = {
+        "stages_bit_identical": all(
+            x["ranks_bit_identical"] and x["losses_bit_identical_to_stage0"]
+            and x["replicas"] == 2 for x in lines),
+        "resident_falling": all(
+            a is not None and b is not None and a > b
+            for seq in at_update for a, b in zip(seq, seq[1:])),
+        "launches": all(
+            x["launches"]["K1"] == x["launches"]["K3"] == k
+            for x in lines) and (
+            probed[0]["launches"]["K1"] == probed[0]["launches"]["K3"]
+            == k_probe),
+        "nccl_world1_equals_off": (
+            nccl[0]["backend"] == "nccl" and nccl[0]["replicas"] == 1
+            and line["nccl_world1_stage3"]["losses_bit_identical_to_off"]
+            and line["nccl_world1_stage3"]["params_bit_identical_to_off"]),
+        "crash_resume_bit_identical": (
+            line["crash_resume"]["losses_bit_identical"]
+            and crash[0]["zero_stage"] == 1),
+        "zero_wire_bf16": line["zero_wire_bf16"]["loss_rel_gap_to_fp32"]
+        <= ZERO_WIRE_LOSS_RTOL,
+        "probe_exposed_within_serialized": (
+            math.isfinite(line["exposed_comm_ms_per_step"])
+            and line["exposed_comm_ms_per_step"]
+            <= line["serialized_comm_ms"] + line["probe_noise_ms"]),
+        "finite": all(math.isfinite(v) for v in ref)}
+    emit({"phase": "zero_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"zero_stages: {gates}")
+    line["launches_zero"] = {kern: stages[0][0]["launches"][kern]
+                             for kern in ("K1", "K3")}
+    line["launches_zero_run"] = (f"rank 0 of the stage-0 two-rank run, "
+                                 f"{ZERO_STEPS} steps (phase 15); each "
+                                 f"stage's ranks alike")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5314,8 +5901,11 @@ def main(argv=None) -> int:
           "build_s_per_source": _build.build_seconds,
           "ptxas": {n: _build.ptxas_report(n) for n in _build.SOURCES}})
 
+    host = host_probe()
+    emit({"phase": "host_probe", **host})
+
     # phase 2: each kernel against its plain version
-    clock = PhaseClock()
+    clock = PhaseClock(host)
     gen = torch.Generator().manual_seed(args.seed)
     timer = Timer(torch)
     k1 = check_flash(torch, timer, gen)
@@ -5334,6 +5924,7 @@ def main(argv=None) -> int:
     train32 = check_training_f32(torch, args.seed)
     check_training_bf16(torch, args.seed)
     train = train_bf16(torch, args.seed)
+    remat = train_remat_arms(torch, args.seed, train)
     # the split pair's path at the training shape, beside K3's
     train_split = train_bf16(torch, args.seed, split=True, steps=20)
     profile_train_step(torch, args.seed)
@@ -5368,6 +5959,10 @@ def main(argv=None) -> int:
                  "(phase 11)")
     clock.done("11")
 
+    # phases 13 and 14 fork their replicas from one pre-imported
+    # spawner, which imports while phase 12 runs
+    forks = ReplicaForkServer().start()
+
     # phase 12: serving as the JAX package serves by default (K1 on
     # first chunks without a hit, K4 on everything else)
     prefix = serve_prefix(torch, args.seed, card)
@@ -5385,7 +5980,8 @@ def main(argv=None) -> int:
     # phase 13: the serving fleet -- replica processes sharing the card
     # (K1 on each replica's first chunks without a hit, K4 on the rest,
     # the decode replica's over migrated pages)
-    fleet = serve_fleet(torch, args.seed, card)
+    with fleet_depth():
+        fleet = serve_fleet(torch, args.seed, card, forks)
     fleet_run_name = ("phase 13 fleet, two replica_main processes: "
                       "colocated f32 (16 requests, replica_kill@req:6, 4 "
                       "after the respawn), disaggregated f32 and bf16 (16 "
@@ -5396,9 +5992,13 @@ def main(argv=None) -> int:
     # phase 14: the fleet's HA pair and rollouts on the same replica
     # processes (K1 and K4 in each, the canary and every restarted
     # generation included)
-    ha_roll = serve_ha_rollout(torch, args.seed, card, fleet["prompts"],
-                               fleet["reference"], fleet["cold"],
-                               fleet["cold_reference"])
+    try:
+        with fleet_depth():
+            ha_roll = serve_ha_rollout(
+                torch, args.seed, card, fleet["prompts"], fleet["reference"],
+                fleet["cold"], fleet["cold_reference"], forks)
+    finally:
+        forks.stop()
     ha_run = ("phase 14, two replica_main processes on exports A/B/C: "
               "the HA stages (a 16-request baseline, router_kill@req:5 "
               "and the takeover, an epoch-3 force-take, lease_stall@4)")
@@ -5408,6 +6008,10 @@ def main(argv=None) -> int:
                    "live traffic; counts from the processes' exits (a "
                    "SIGKILLed one's lost)")
     clock.done("14")
+
+    # phase 15: ZeRO stages 1-3 (K1 and K3 in every rank process)
+    zero = zero_stages(torch, args.seed, card)
+    clock.done("15")
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5472,7 +6076,12 @@ def main(argv=None) -> int:
               launches_ha=ha_roll["launches_ha"]["K1"],
               launches_ha_run=ha_run,
               launches_rollout=ha_roll["launches_rollout"]["K1"],
-              launches_rollout_run=rollout_run),
+              launches_rollout_run=rollout_run,
+              launches_remat={a: n["K1"]
+                              for a, n in remat["launches"].items()},
+              launches_remat_run=remat["run"],
+              launches_zero=zero["launches_zero"]["K1"],
+              launches_zero_run=zero["launches_zero_run"]),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -5501,6 +6110,11 @@ def main(argv=None) -> int:
               launches_recovery_run=rec_run,
               launches_async=ps["lm"]["launches"]["K3"],
               launches_async_run=ps_lm_run,
+              launches_remat={a: n["K3"]
+                              for a, n in remat["launches"].items()},
+              launches_remat_run=remat["run"],
+              launches_zero=zero["launches_zero"]["K3"],
+              launches_zero_run=zero["launches_zero_run"],
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

@@ -108,8 +108,17 @@ def run_replica(cfg, random_init: bool = False,
     warm = np.full((min(page, engine.max_seq_len - 2),), 1, np.int32)
     engine.submit(warm, max_new_tokens=2).result(timeout=600)
     log.info("replica %d: warm", replica_id)
+    done = threading.Event()
+
+    def _stop():
+        # async-signal-minimal: one lock-free engine call + one event
+        engine.begin_drain()
+        done.set()
+
+    # an adopting router on another host cannot signal this process:
+    # its epoch-fenced stop op does what SIGTERM does
     server = ReplicaServer(engine, replica_id, cfg.rendezvous_dir,
-                           host=cfg.serve_host)
+                           host=cfg.serve_host, on_stop=_stop)
 
     # --metrics_port: this replica's engine registry (queue depth,
     # prefix hits, decode-step MFU ledger gauges) as a live Prometheus
@@ -125,12 +134,8 @@ def run_replica(cfg, random_init: bool = False,
                                "draining": engine.draining,
                                "outstanding": engine.outstanding})
 
-    done = threading.Event()
-
     def _on_sigterm(signum, frame):
-        # async-signal-minimal: one lock-free engine call + one event
-        engine.begin_drain()
-        done.set()
+        _stop()
         os.write(2, b"replica: SIGTERM - draining\n")
 
     try:

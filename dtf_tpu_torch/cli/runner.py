@@ -183,17 +183,25 @@ def build_model_for(cfg, spec, device, bn_group=None):
     name = "trivial" if cfg.use_trivial_model else cfg.model
     model_kw = {}
     if is_vision(name):
-        if cfg.remat:
-            if name == "resnet50":
-                raise NotImplementedError(
-                    "--remat on resnet50 is the selective conv_out/bn_stats "
-                    "policy, which is not ported to dtf_tpu_torch yet")
-            raise ValueError(f"--remat is implemented for the transformer "
-                             f"families and resnet50, not {name!r}")
+        if cfg.remat or cfg.remat_policy:
+            if name != "resnet50":
+                flag = "--remat" if cfg.remat else "--remat_policy"
+                raise ValueError(f"{flag} is implemented for the transformer "
+                                 f"families and resnet50, not {name!r}")
+            # vision remat is the selective conv_out/bn_stats policy
+            # (models/resnet.py) -- there is no full-remat or "dots"
+            # variant to select
+            if cfg.remat_policy:
+                raise ValueError(
+                    "--remat_policy applies to the transformer families; "
+                    "resnet50 takes plain --remat (selective "
+                    "conv_out/bn_stats policy)")
+            model_kw["remat"] = True
         if name == "trivial":
             model_kw["in_features"] = math.prod(spec.image_shape)
     else:
         model_kw["remat"] = cfg.remat
+        model_kw["remat_policy"] = cfg.remat_policy
     model, l2 = build_model(name, num_classes=spec.num_classes,
                             dtype=cfg.compute_dtype, bn_group=bn_group,
                             **model_kw)
@@ -268,6 +276,10 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
         trace.flush()
         raise SystemExit(preemption.EXIT_PREEMPTED)
     finally:
+        # the trace on disk before the signal handlers go: a launcher
+        # tearing the group down after another rank's crash SIGTERMs
+        # this one, and from restore() on that kills it where it stands
+        trace.flush()
         if metrics_server is not None:
             metrics_server.shutdown()
         if poller is not None:
@@ -317,7 +329,8 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
     cb = CheckpointCallback(cfg.model_dir, trainer.checkpoint_payload,
                             every_steps=cfg.checkpoint_steps,
                             host_state_fn=host_state_fn,
-                            keep=cfg.checkpoint_keep, runtime=rt)
+                            keep=cfg.checkpoint_keep, runtime=rt,
+                            collective=trainer.zero)
     if not cfg.resume:
         return cb, state, 0
     payload = cb.ckpt.restore()
@@ -375,9 +388,14 @@ def _run(cfg, rt: MeshRuntime) -> dict:
     # the one stream of the run, positioned at the restored step
     stream = train_fn(start_step=resumed_step)
     prefetched = DevicePrefetcher(stream, trainer.device, buffer_size=2)
+    # fit holds the only reference to the initial state, which it
+    # replaces step by step: one kept here would keep the initial
+    # optimizer state (the moments' size in zeros) alive all run
+    initial = [state]
+    del state
     try:
         state, stats = trainer.fit(
-            state, prefetched,
+            initial.pop(), prefetched,
             eval_iter_fn=None if cfg.skip_eval else eval_fn,
             callbacks=callbacks)
     finally:

@@ -11,7 +11,9 @@ the vision families only, behind the JAX loss-scale rule), the seed,
 the device, the training fields of ``cli/lm_main.py``,
 ``cli/cifar_main.py`` and ``cli/imagenet_main.py`` (dataset, input wire
 and layout, batch, steps, optimizer, loss scaling, accumulation,
-clipping, logging, remat, ``use_tensor_lr``, ``stop_threshold``,
+clipping, logging, remat and ``remat_policy``, ZeRO (``zero_stage``,
+``optimizer_sharding``, ``zero_wire``, ``zero_probe``),
+``use_tensor_lr``, ``stop_threshold``,
 ``enable_tensorboard``, ``profile_steps``), the ImageNet input flags
 (``input_service``, ``input_num_shards``, ``input_workers``, the
 decode cache, ``input_fast_dct``, ``input_scaled_decode``,
@@ -43,7 +45,7 @@ tracing and watchdogs (``trace_dir``, ``nan_guard``,
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (model parallelism, ZeRO, the router's HA pair, ...) raise with a
+yet (model parallelism, ring attention, the planner, ...) raise with a
 message that says so; any other unknown flag raises too.
 """
 
@@ -74,11 +76,8 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
 _MP = "model parallelism (tensor, pipeline and expert)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
-    "zero_stage": "ZeRO", "optimizer_sharding": "ZeRO",
-    "zero_wire": "ZeRO", "zero_probe": "ZeRO",
     "model_parallelism": "tensor/pipeline/expert parallelism",
     "seq_parallelism": "ring attention",
-    "remat_policy": "selective remat (use --remat)",
     "plan": "the planner", "plan_mesh": "the planner",
     "plan_cache": "the planner",
     **{name: _MP for name in ("shard_lm_head", "num_experts",
@@ -162,6 +161,20 @@ class Config:
     skip_eval: bool = False
     report_accuracy_metrics: bool = True
     remat: bool = False                 # recompute each block in backward
+    # selective remat (implies --remat): "dots" saves the matmul and
+    # attention outputs and recomputes the elementwise ops
+    remat_policy: Optional[str] = None
+    # ZeRO on the data axis (train/zero.py, train/loop.py): 1 shards the
+    # optimizer state, 2 the gradients too, 3 the parameters too;
+    # --optimizer_sharding is the stage-1 shorthand
+    zero_stage: int = 0
+    optimizer_sharding: bool = False
+    # the stage-2/3 gradient reduce-scatter's wire: fp32 | bf16 (the
+    # wire and its sum in bf16; the slices stay float32)
+    zero_wire: str = "fp32"
+    # after training, time the step's twin without its ZeRO collectives
+    # (stages 2-3): the exposed communication
+    zero_probe: bool = False
     use_tensor_lr: bool = False         # PiecewiseConstantDecayWithWarmup
     stop_threshold: Optional[float] = None  # stop once eval top-1 >= it
     enable_tensorboard: bool = False    # scalar event files in model_dir
@@ -508,6 +521,31 @@ class Config:
         if self.fault:
             from dtf_tpu_torch.chaos import parse_spec
             parse_spec(self.fault)              # raises on a bad spec
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(
+                f"zero_stage must be 0, 1, 2 or 3, got {self.zero_stage}")
+        if self.optimizer_sharding and self.zero_stage >= 2:
+            raise ValueError(
+                "--optimizer_sharding is the ZeRO stage-1 shorthand and "
+                "contradicts --zero_stage >= 2 -- pass only --zero_stage")
+        if self.zero_probe and self.zero_stage < 2:
+            raise ValueError(
+                "--zero_probe measures the stage-2/3 collectives; it "
+                "needs --zero_stage 2 or 3")
+        if self.zero_wire not in ("fp32", "bf16"):
+            raise ValueError(
+                f"unknown zero_wire {self.zero_wire!r}; choose fp32 "
+                f"or bf16")
+        if self.zero_wire == "bf16" and self.zero_stage_effective < 2:
+            raise ValueError(
+                "--zero_wire bf16 rides the stage-2/3 grad "
+                "reduce-scatter; it needs --zero_stage 2 or 3")
+
+    @property
+    def zero_stage_effective(self) -> int:
+        """The ZeRO stage a run executes: --zero_stage when set, else 1
+        under the --optimizer_sharding shorthand, else 0."""
+        return self.zero_stage or (1 if self.optimizer_sharding else 0)
 
     @property
     def compute_dtype(self) -> torch.dtype:

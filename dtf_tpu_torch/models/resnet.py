@@ -33,9 +33,20 @@ convolutions, N(0, 0.01) classifier).
 
 Sync BN (the JAX package's ``bn_axis``) is ``bn_group``: a process
 group over which each BatchNorm averages its batch statistics
-(``parallel/collectives.py``).  Not ported: the selective remat policy
-(``RESNET_REMAT_POLICY``) and the fp8-residual probe
-(``Fp8ResidConv``).
+(``parallel/collectives.py``).
+
+``remat=True`` is ``RESNET_REMAT_POLICY``, applied to each bottleneck
+block in training only (``nn.remat(BottleneckBlock, ...)``): a selective
+checkpoint policy (:func:`resnet_remat_context`) saves the convolution
+outputs and BatchNorm's batch statistics and recomputes the
+normalize/ReLU chains in the backward, so no convolution runs again.
+The policy names aten ops where the CPU and cuDNN agree: a convolution
+reaches the dispatcher as ``aten.convolution`` on both, the statistics
+as ``aten.mean.dim``.  The recompute moves no running statistics (each
+BatchNorm updates its buffers in the first forward only); under sync
+BN it averages the saved statistics over the group again, every rank
+in the same order.  Not ported: the fp8-residual probe
+(``Fp8ResidConv``), which has no flag in the JAX package either.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from dtf_tpu_torch.models.initializers import variance_scaling_
@@ -52,6 +64,24 @@ from dtf_tpu_torch.parallel.collectives import all_reduce_mean_grad
 
 BATCH_NORM_DECAY = 0.9
 BATCH_NORM_EPSILON = 1e-5
+
+# RESNET_REMAT_POLICY's names, as aten ops: "conv_out" and "bn_stats"
+REMAT_SAVED_OPS = (torch.ops.aten.convolution.default,
+                   torch.ops.aten.mean.dim)
+
+
+def _resnet_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in REMAT_SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def resnet_remat_context():
+    """``context_fn`` of the selective policy for
+    ``torch.utils.checkpoint``: conv outputs and batch statistics
+    saved, everything else recomputed."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_resnet_policy)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -148,7 +178,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = True):
+        """``update_stats`` False (a remat recompute) leaves the running
+        buffers as they are."""
         if self.training:
             # flax _compute_stats: reductions in at least float32, the
             # fast variance with its negative-roundoff clamp
@@ -161,10 +193,11 @@ class BatchNorm(nn.Module):
             var = torch.clamp_min(mean2 - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1 - m) * var)
+                if update_stats:
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         shape = (1, -1, 1, 1)
@@ -212,9 +245,10 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_channels: int, filters: Sequence[int],
                  strides: int = 1, projection: bool = False,
-                 dtype=torch.float32, bn_group=None):
+                 dtype=torch.float32, bn_group=None, remat: bool = False):
         super().__init__()
         f1, f2, f3 = filters
+        self.remat = remat
 
         def bn(n):
             return BatchNorm(n, BATCH_NORM_DECAY, BATCH_NORM_EPSILON,
@@ -233,11 +267,25 @@ class BottleneckBlock(nn.Module):
             self.bn_proj = bn(f3)
 
     def forward(self, x):
-        y = F.relu(self.bn_a(self.conv_a(x)))
-        y = F.relu(self.bn_b(self.conv_b(y)))
-        y = self.bn_c(self.conv_c(y))
-        shortcut = (self.bn_proj(self.conv_proj(x)) if self.projection
-                    else x)
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._forward(x, True)
+        # the first call is the forward, the second the backward's
+        # recompute, which must not move the running statistics again
+        first = [True]
+
+        def run(x):
+            update, first[0] = first[0], False
+            return self._forward(x, update)
+
+        return torch.utils.checkpoint.checkpoint(
+            run, x, use_reentrant=False, context_fn=resnet_remat_context)
+
+    def _forward(self, x, update: bool):
+        y = F.relu(self.bn_a(self.conv_a(x), update))
+        y = F.relu(self.bn_b(self.conv_b(y), update))
+        y = self.bn_c(self.conv_c(y), update)
+        shortcut = (self.bn_proj(self.conv_proj(x), update)
+                    if self.projection else x)
         return F.relu(y + shortcut.to(y.dtype))
 
 
@@ -248,7 +296,8 @@ class ResNet50(nn.Module):
               ((256, 256, 1024), 6, 2), ((512, 512, 2048), 3, 2))
 
     def __init__(self, num_classes: int = 1001, dtype=torch.float32,
-                 stem_space_to_depth: bool = True, bn_group=None):
+                 stem_space_to_depth: bool = True, bn_group=None,
+                 remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
@@ -262,7 +311,8 @@ class ResNet50(nn.Module):
                 name = f"stage{s}_block{b}"
                 self.add_module(name, BottleneckBlock(
                     cin, filters, strides=stride if b == 0 else 1,
-                    projection=b == 0, dtype=dtype, bn_group=bn_group))
+                    projection=b == 0, dtype=dtype, bn_group=bn_group,
+                    remat=remat))
                 self.block_names.append(name)
                 cin = filters[-1]
         self.fc = Dense(cin, num_classes, dtype=dtype)

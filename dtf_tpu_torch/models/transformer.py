@@ -45,8 +45,17 @@ reused until the weight changes (:func:`cast`).
 
 ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the counterpart of ``nn.remat(Block)``),
-so the flash forward runs twice per block and step.  The selective
-``remat_policy`` is not ported yet.
+so the flash forward runs twice per block and step.
+``remat_policy="dots"`` (:func:`remat_context`) is the JAX package's
+selective policy: every matmul output is saved and the elementwise ops
+(LayerNorm, GELU, bias adds, residual sums) are recomputed.  A
+selective checkpoint policy sees aten ops only, and the flash forward
+is a ctypes launch inside an autograd Function, so a policy could not
+save its ``o`` and ``lse``: the block is checkpointed in two regions
+around the attention instead (LayerNorm and the qkv projection; the
+output projection and the MLP), and ``_FlashAttention``, outside both,
+saves q, k, v, o and lse itself -- K1 runs once a block and step, as
+under the JAX policy's ``flash_out``/``flash_lse`` names.
 
 Ring attention (``seq_axis``) and tensor parallelism (``model_axis``)
 are not ported yet.
@@ -54,6 +63,7 @@ are not ported yet.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
@@ -67,6 +77,29 @@ from dtf_tpu_torch.ops.paged_attention import (cached_attention,
                                                write_pages)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
+
+# the ops whose outputs "dots" saves: F.linear reaches the dispatcher as
+# one of these on the CPU and on CUDA (jax's checkpoint_dots saves
+# every dot_general)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(name: str):
+    """The ``context_fn`` of a named selective policy for
+    ``torch.utils.checkpoint`` (the JAX package's ``remat_policy``)."""
+    if name == "dots":
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    raise ValueError(f"unknown remat_policy {name!r}; choose 'dots'")
 
 
 def cast(p: torch.Tensor, dtype) -> torch.Tensor:
@@ -113,15 +146,22 @@ class CausalSelfAttention(nn.Module):
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model, bias=False)
 
-    def forward(self, x, cache_index=None, block_table=None,
-                flash_prefill: bool = False,
-                window_pages: Optional[int] = None, layer_cache=None):
+    def project(self, x):
+        """q, k, v: contiguous [B, S, H, Dh] each, the kernels' layout."""
         b, s, d = x.shape
         h = self.num_heads
         qkv = dense(self.qkv, x, self.compute_dtype).view(b, s, 3, h,
                                                           d // h)
-        # contiguous [B, S, H, Dh] each: the kernels' layout
-        q, k, v = (t.contiguous() for t in qkv.unbind(2))
+        return tuple(t.contiguous() for t in qkv.unbind(2))
+
+    def output(self, o):
+        b, s = o.shape[:2]
+        return dense(self.out, o.reshape(b, s, -1), self.compute_dtype)
+
+    def forward(self, x, cache_index=None, block_table=None,
+                flash_prefill: bool = False,
+                window_pages: Optional[int] = None, layer_cache=None):
+        q, k, v = self.project(x)
         if layer_cache is None:
             o = flash_attention(q, k, v, causal=True)
         elif "cached_key" in layer_cache:
@@ -137,6 +177,7 @@ class CausalSelfAttention(nn.Module):
             # write-then-attend.  Prefill chunks (S a page multiple,
             # page-aligned starts by engine construction) write whole
             # pages; decode steps (S = 1) write token rows
+            s = q.shape[1]
             aligned = s > 1 and s % pool_k.shape[1] == 0
             write_pages(pool_k, k, block_table, cache_index, aligned)
             write_pages(pool_v, v, block_table, cache_index, aligned)
@@ -148,7 +189,7 @@ class CausalSelfAttention(nn.Module):
                 o = paged_attention_auto(q, pool_k, pool_v, block_table,
                                          cache_index,
                                          window_pages=window_pages)
-        return dense(self.out, o.reshape(b, s, d), self.compute_dtype)
+        return self.output(o)
 
 
 def _contiguous_attention(q, k, v, layer_cache, cache_index):
@@ -190,9 +231,30 @@ class Block(nn.Module):
         x = x + self.attn(layer_norm(self.ln1, x, dt), cache_index,
                           block_table, flash_prefill, window_pages,
                           layer_cache)
+        return self._mlp(x)
+
+    def _mlp(self, x):
+        dt = self.compute_dtype
         h = F.gelu(dense(self.fc1, layer_norm(self.ln2, x, dt), dt),
                    approximate="tanh")
         return x + dense(self.fc2, h, dt)
+
+    def _attn_in(self, x):
+        return self.attn.project(layer_norm(self.ln1, x, self.compute_dtype))
+
+    def _attn_out_mlp(self, x, o):
+        return self._mlp(x + self.attn.output(o))
+
+    def selective(self, x, context_fn):
+        """The training forward under a selective policy: two
+        checkpointed regions around the flash attention, which saves
+        its own residuals (see the module's docstring)."""
+        ckpt = torch.utils.checkpoint.checkpoint
+        q, k, v = ckpt(self._attn_in, x, use_reentrant=False,
+                       context_fn=context_fn)
+        o = flash_attention(q, k, v, causal=True)
+        return ckpt(self._attn_out_mlp, x, o, use_reentrant=False,
+                    context_fn=context_fn)
 
 
 class TransformerLM(nn.Module):
@@ -207,10 +269,9 @@ class TransformerLM(nn.Module):
                  max_seq_len: int = 2048, dtype=torch.float32,
                  remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported yet; use "
-                f"remat=True (every block recomputed)")
+        # a named policy implies remat (the JAX package's rule)
+        self.remat_context = (None if remat_policy is None
+                              else remat_context(remat_policy))
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -218,7 +279,7 @@ class TransformerLM(nn.Module):
         self.d_ff = d_ff
         self.max_seq_len = max_seq_len
         self.compute_dtype = dtype
-        self.remat = remat
+        self.remat = remat or remat_policy is not None
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq_len, d_model))
         for i in range(num_layers):
@@ -264,7 +325,9 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embed[pos].to(dt)
         remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            if remat:
+            if remat and self.remat_context is not None:
+                x = block.selective(x, self.remat_context)
+            elif remat:
                 x = torch.utils.checkpoint.checkpoint(block, x,
                                                       use_reentrant=False)
             else:

@@ -65,6 +65,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dtf_ps_port.restype = ctypes.c_int
     lib.dtf_ps_wait.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.dtf_ps_stop.argtypes = [ctypes.c_void_p]
+    lib.dtf_ps_quiesce.argtypes = [ctypes.c_void_p]
     lib.dtf_ps_snapshot.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     lib.dtf_ps_snapshot.restype = ctypes.c_int
     lib.dtf_ps_restore.argtypes = [ctypes.c_void_p, ctypes.c_char_p]

@@ -142,6 +142,7 @@ struct PsServer {
   std::condition_variable cv;
   int done_count = 0;
   bool stopping = false;
+  bool quiesced = false;         // dtf_ps_quiesce ran
 
   std::thread accept_thread;
   std::vector<std::thread> conn_threads;
@@ -541,11 +542,15 @@ int dtf_ps_restore(void* handle, const char* path) {
   return 0;
 }
 
-// Stops accepting, joins all threads, frees the handle.
-void dtf_ps_stop(void* handle) {
+// Stops accepting, shuts every connection down and joins its thread:
+// once it returns no push can land, and the state stays readable for a
+// final dtf_ps_snapshot.  Idempotent.
+void dtf_ps_quiesce(void* handle) {
   auto* s = static_cast<PsServer*>(handle);
   {
     std::lock_guard<std::mutex> lk(s->state_mu);
+    if (s->quiesced) return;
+    s->quiesced = true;
     s->stopping = true;
   }
   s->cv.notify_all();
@@ -565,7 +570,12 @@ void dtf_ps_stop(void* handle) {
   // untrack its fd
   for (auto& t : threads)
     if (t.joinable()) t.join();
-  delete s;
+}
+
+// Quiesces (if not yet) and frees the handle.
+void dtf_ps_stop(void* handle) {
+  dtf_ps_quiesce(handle);
+  delete static_cast<PsServer*>(handle);
 }
 
 }  // extern "C"

@@ -5,13 +5,26 @@ The JAX package's collectives run inside ``shard_map`` over a mesh axis
 name; here the axis is a ``torch.distributed`` process group and a
 replica is a process.  Each function takes the group (``None``: world
 1, and the function is the identity), works in place on one tensor and
-returns it.  Only ``all_reduce`` and ``broadcast`` run, so the gloo
-backend serves CUDA tensors too.
+returns it (``all_gather`` and ``reduce_scatter`` return new
+tensors).
 
   reference mechanism                     -> here
   -------------------------------------------------------------------
   NCCL ring allreduce (Horovod)           -> all_reduce_sum / _mean
   hvd.BroadcastGlobalVariablesCallback(0) -> broadcast_from(root=0)
+  lax.all_gather(tiled=True) over 'data'  -> all_gather
+  lax.psum_scatter(tiled=True) over 'data'-> reduce_scatter
+
+``all_gather`` and ``reduce_scatter`` (ZeRO's, ``train/zero.py``) pick
+the call by the group's backend, never by what fails: NCCL takes
+``all_gather_into_tensor`` and ``reduce_scatter_tensor``.  gloo has no
+reduce-scatter for CUDA tensors, and the two ranks that share one card
+run on gloo (``runtime/mesh.py``), so on gloo ``reduce_scatter`` is an
+``all_reduce`` followed by the rank's own slice -- for CPU tensors too,
+so the CPU tests run the path the card's ranks run -- and
+``all_gather`` is the list form of ``all_gather``, which gloo has for
+both devices.  A sum of two ranks' values does not depend on their
+order, so at world 2 either form gives the reduce-scatter's bits.
 
 :func:`all_reduce_mean_grad` is the differentiable form that sync
 BatchNorm needs: the mean forward, and in backward the sum of the
@@ -19,8 +32,7 @@ cotangents over the group divided by its size -- ``lax.pmean``'s
 transpose under ``shard_map``.
 
 Not ported yet: ``axis_size``/``axis_index`` (``MeshRuntime`` holds the
-rank and size), ``all_gather``, ``reduce_scatter``, ``ring_shift`` and
-the tensor-parallel ``tp_region`` / ``tp_psum``, which wait for model
+rank and size), ``ring_shift`` and the tensor-parallel ``tp_region`` / ``tp_psum``, which wait for model
 parallelism.
 """
 
@@ -54,6 +66,42 @@ def broadcast_from(x: torch.Tensor, group: Optional[dist.ProcessGroup],
         dist.broadcast(x, src=dist.get_global_rank(group, root),
                        group=group)
     return x
+
+
+def all_gather(x: torch.Tensor,
+               group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The group's ``x`` (1-d, one per rank) concatenated in rank
+    order: ``lax.all_gather(x, axis=0, tiled=True)``."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    if dist.get_backend(group) == "nccl":
+        out = x.new_empty((n * x.numel(),))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def reduce_scatter(x: torch.Tensor,
+                   group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """This rank's slice of the group's elementwise sum of ``x`` (1-d,
+    its length a multiple of the group's size):
+    ``lax.psum_scatter(x, scatter_dimension=0, tiled=True)``."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    k = x.numel() // n
+    if dist.get_backend(group) == "nccl":
+        out = x.new_empty((k,))
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+        return out
+    # gloo: an all-reduce, then the rank's own slice
+    total = x.clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    rank = dist.get_rank(group)
+    return total[rank * k:(rank + 1) * k].clone()
 
 
 class _AllReduceMean(torch.autograd.Function):

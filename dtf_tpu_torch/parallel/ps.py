@@ -339,6 +339,18 @@ class PsServer:
         else:
             self._py.restore(path)
 
+    def quiesce(self) -> None:
+        """Stop taking pushes: no new connection, every live one shut
+        down and its thread joined.  Every push acknowledged before it
+        returns is in the state, which stays readable for a final
+        :meth:`snapshot`; a push after it is refused, not acknowledged
+        (the worker's reconnect path handles it)."""
+        if self._native:
+            lib, handle = self._native
+            lib.dtf_ps_quiesce(handle)
+        elif self._py:
+            self._py.stop()
+
     def stop(self) -> None:
         if self._native:
             lib, handle = self._native
@@ -1008,6 +1020,17 @@ class _SnapshotLoop:
         self._snap()  # final state, so a clean stop loses nothing
 
 
+def _stop_store(server: PsServer, snap) -> None:
+    """The PS rank's shutdown: pushes stop first, then the final
+    snapshot dump, then the store goes.  In the other order a push
+    landing between the dump and the stop would be acknowledged and then
+    lost on restore (the JAX package's order, a fault it keeps)."""
+    server.quiesce()
+    if snap:
+        snap.stop()  # final dump: a clean OR preempted stop
+    server.stop()
+
+
 def _serve_with_snapshots(cfg, port: int):
     """PS-rank store construction with the fault-tolerance ordering:
     bind paused → restore the snapshot (no worker INIT can race it;
@@ -1048,9 +1071,7 @@ def run_async(cfg) -> dict:
             stats["ps_store"] = server.store
             return stats
         finally:
-            if snap:
-                snap.stop()
-            server.stop()
+            _stop_store(server, snap)
 
     if not cfg.coordinator_address or cfg.process_id is None:
         raise ValueError("async parameter_server needs coordinator_address "
@@ -1094,10 +1115,8 @@ def run_async(cfg) -> dict:
                     raise preemption.Preempted(0, signum)
             version = _store_version(server.port)
         finally:
-            if snap:
-                snap.stop()  # final dump: a clean OR preempted stop
             store = server.store
-            server.stop()    # loses nothing
+            _stop_store(server, snap)    # loses nothing
         log.info("PS rank done: version %d (ps_store: %s)", version, store)
         return {"ps_store": store, "ps_version": version}
     return _worker(cfg, cfg.coordinator_address,

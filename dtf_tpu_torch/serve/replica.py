@@ -35,6 +35,13 @@ speaks a newline-delimited-JSON wire protocol over TCP:
                                         (deadline, failover, losing
                                         hedge)
     {"op":"drain"}                      stop admissions, finish in-flight
+    {"op":"stop","epoch":E}             the port's own op: drain and exit
+                                        (a replica_main process), sent
+                                        only by a router that adopted
+                                        this replica and cannot signal
+                                        it (another host); refused
+                                        without an epoch, and fenced
+                                        like every controller op
     {"op":"stats"}                      request a stats snapshot
     {"op":"reset_measurement"}          zero decode-gap/peak stats
                                         (warmup exclusion)
@@ -121,7 +128,7 @@ import queue as queue_mod
 import socket
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -186,8 +193,12 @@ class ReplicaServer:
     def __init__(self, engine, replica_id: int, rendezvous_dir: str,
                  host: str = "127.0.0.1", port: int = 0,
                  result_timeout_s: float = 600.0,
-                 announce_host: Optional[str] = None):
+                 announce_host: Optional[str] = None,
+                 on_stop: Optional[Callable[[], None]] = None):
         self.engine = engine
+        # what an epoch-fenced {"op": "stop"} does (replica_main: what
+        # its SIGTERM does); None refuses the op
+        self.on_stop = on_stop
         self.replica_id = int(replica_id)
         self.rendezvous_dir = os.path.abspath(rendezvous_dir)
         self.result_timeout_s = float(result_timeout_s)
@@ -373,6 +384,8 @@ class ReplicaServer:
                         h.cancel()
                 elif op == "drain":
                     self.engine.begin_drain()
+                elif op == "stop":
+                    self._handle_stop(ep, outq)
                 elif op == "stats":
                     stats = self._stats()
                     stats["tag"] = msg.get("tag", "")
@@ -447,6 +460,24 @@ class ReplicaServer:
         return out
 
     # -- KV-page migration (serve/migrate.py) --------------------------
+    def _handle_stop(self, epoch: Optional[int], outq) -> None:
+        """An adopting router's stop (its epoch already passed the
+        fence): drain and exit, as SIGTERM does.  Without an epoch, or
+        with no stop action here, it is refused."""
+        if epoch is None or self.on_stop is None:
+            log.error("replica %d: refusing stop (epoch %s, %s)",
+                      self.replica_id, epoch,
+                      "no stop action" if self.on_stop is None
+                      else "unfenced")
+            outq.put({"op": "error", "id": None,
+                      "error": "stop refused: it needs a fencing epoch "
+                               "and a replica process to end"})
+            return
+        log.warning("replica %d: stop from the router of epoch %d",
+                    self.replica_id, epoch)
+        trace.event("replica_stop", replica=self.replica_id, epoch=epoch)
+        self.on_stop()
+
     def _handle_page_fetch(self, msg: dict, outq, exports: dict) -> None:
         """Serve one window of a chain export — or release the hold.
         Runs on the wire thread; the engine methods marshal their pool/

@@ -51,7 +51,7 @@ interrupted canary proved nothing), ROLLING resumes forward from the
 persisted ``rolled`` set, ROLLED_BACK finishes the rollback.  Both
 directions are deterministic — no state is reconstructed by guessing.
 
-Three changes from the JAX controller: a controller whose router has
+Four changes from the JAX controller: a controller whose router has
 stopped (or died) writes no more state and stops — the persisted state
 belongs to the successor that resumes it; a resumed ROLLING replaces a
 ``rolled`` replica whose announce names another checkpoint than the
@@ -59,7 +59,10 @@ new one (the predecessor died between recording it rolled and
 restarting it: the old process stands, drained), not only one that is
 down; and a rollback judges a dead replica outside ``rolled`` after
 the rolled ones are home, so the prober's respawn of it is kept, not
-replaced a second time.
+replaced a second time; and a replacement is persisted
+(``RolloutState.replacing``) before it is spawned, so a resumed ROLLING
+waits up to the warm timeout for that generation's announce instead of
+starting a second process for the replica.
 
 Chaos composes: ``rollout_kill@phase:<canary|rolling>`` SIGKILLs a
 replica while the rollout works in that phase, and ``ckpt_truncate``
@@ -114,6 +117,12 @@ class RolloutState:
     diverged: int = 0
     first_divergence_pos: int = -1
     updated_ts: float = 0.0
+    # the port's own field (a loader drops what it does not know, both
+    # ways): the replacement spawned and not yet seen standing,
+    # {"replica": R, "generation": G}, persisted BEFORE the spawn so a
+    # successor resuming the rollout waits for that generation's
+    # announce instead of starting a second process for R
+    replacing: dict = dataclasses.field(default_factory=dict)
 
     def advance(self, phase: str, reason: str = "") -> None:
         """Validated phase transition — an illegal edge is a bug in the
@@ -309,11 +318,39 @@ class RolloutController:
             else:
                 r.replica_checkpoints.pop(rid, None)
             r.set_replica_version(rid, version)
+            self.state.replacing = {"replica": rid,
+                                    "generation": self._generation(rid) + 1}
+            self._persist()
             r.spawn_replica(rid)
         ok = self._wait_healthy(rid, self.warm_timeout_s)
         if ok:
+            self.state.replacing = {}
             r.release_replica(rid, shadow=shadow)
         return ok
+
+    def _generation(self, rid: int) -> int:
+        with self.router._mu:
+            return self.router._replicas[rid].generation
+
+    def _await_replacement(self, rid: int) -> bool:
+        """Resume: when the dead controller had spawned ``rid``'s
+        replacement (``state.replacing``), wait up to the warm timeout
+        for that generation's announce to stand on the new checkpoint.
+        True when it does: no second process is started."""
+        pending = self.state.replacing
+        if self.restart_hook is not None or pending.get("replica") != rid:
+            return False
+        gen = int(pending.get("generation", 0))
+        log.warning("rollout: awaiting replica %d's generation %d, "
+                    "spawned before the resume", rid, gen)
+        deadline = time.monotonic() + self.warm_timeout_s
+        while time.monotonic() < deadline and not self.router.stopped:
+            if self._stands_on_new(rid) and self._generation(rid) >= gen:
+                self.state.replacing = {}
+                self._persist()
+                return True
+            time.sleep(self.poll_s)
+        return False
 
     # -- rollback -------------------------------------------------------
     def _rollback(self, reason: str) -> RolloutState:
@@ -560,7 +597,8 @@ class RolloutController:
                 # already targeted at the new checkpoint — make sure it
                 # actually stands (the death may have struck mid-restart,
                 # or before the restart, leaving the old process drained)
-                if not self._stands_on_new(rid):
+                if not (self._stands_on_new(rid)
+                        or self._await_replacement(rid)):
                     if not self._replace(rid, self.state.new_checkpoint,
                                          self.new_version):
                         return self._rollback(

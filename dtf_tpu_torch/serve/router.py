@@ -671,6 +671,9 @@ class Router:
             self._mu.notify_all()
         with self._mu:
             fenced = self._fenced
+            if not fenced:
+                for r in self._replicas:
+                    self._stop_unsignalable_locked(r)
         for r in self._replicas:
             self._close_conn(r)
             if r.proc is not None and r.proc.poll() is None:
@@ -1913,6 +1916,26 @@ class Router:
         if self._stopping:
             raise RuntimeError(f"router is stopped: {what} refused")
 
+    def _stop_unsignalable_locked(self, rep: _Replica) -> None:
+        """An ADOPTED replica this router owns (it can spawn the
+        successor) but cannot signal -- its announce names another
+        host, so its pid means nothing here -- gets the port's
+        epoch-fenced ``{"op": "stop"}`` on its connection: it drains and
+        exits, as SIGTERM makes it.  The JAX router only disconnects
+        such a replica, which then serves on beside its successor."""
+        if (self._spawn is None or rep.proc is not None
+                or rep.host in _LOCAL_HOSTS or rep.wfile is None):
+            return
+        try:
+            send_msg(rep.wfile, rep.wlock, {"op": "stop",
+                                            "epoch": self.epoch})
+        except (OSError, ValueError):
+            return
+        log.warning("router: stop sent to adopted replica %d on %s "
+                    "(epoch %d)", rep.id, rep.host, self.epoch)
+        trace.event("replica_stop_sent", replica=rep.id, host=rep.host,
+                    epoch=self.epoch)
+
     def _signal_adopted(self, rep: _Replica, sig: int,
                         timeout: float = 0.0) -> bool:
         """Signal a replica this router ADOPTED (a predecessor spawned
@@ -2043,6 +2066,7 @@ class Router:
             # spawn_replica / allow_reconnect lifts it.
             rep.reconnect_block = True
             self._m_health[rep.id].set(0)
+            self._stop_unsignalable_locked(rep)
             self._close_conn(rep)
             # anything still in flight (drain timed out) fails over
             stranded = list(rep.inflight.values())

@@ -498,15 +498,19 @@ class CheckpointCallback:
           end, delete all but the newest `keep` verified steps
 
     ``state_fn(state)`` turns the loop's TrainState into the payload (a
-    flat dict of CPU tensors; ``Trainer.checkpoint_payload``).
+    flat dict of CPU tensors; ``Trainer.checkpoint_payload``).  With
+    ``collective`` (ZeRO, whose payload is gathered from every rank's
+    slices) every rank calls it and the writer writes the result.
     """
 
     def __init__(self, model_dir: str, state_fn: Callable[[object], dict],
                  max_to_keep: int = 3, every_steps: int = 0,
-                 host_state_fn=None, keep: int = 0, runtime=None):
+                 host_state_fn=None, keep: int = 0, runtime=None,
+                 collective: bool = False):
         self.ckpt = Checkpointer(model_dir, max_to_keep=max_to_keep,
                                  runtime=runtime)
         self.state_fn = state_fn
+        self.collective = collective
         self.every_steps = int(every_steps or 0)
         self.host_state_fn = host_state_fn
         self.keep = int(keep or 0)
@@ -519,8 +523,12 @@ class CheckpointCallback:
         return payload
 
     def _save(self, state, step: int) -> None:
-        self.ckpt.save(lambda: self.state_fn(state), step=step,
-                       host_state=self._host(step))
+        if self.collective:
+            payload = self.state_fn(state)
+            payload_fn = lambda: payload  # noqa: E731
+        else:
+            payload_fn = lambda: self.state_fn(state)  # noqa: E731
+        self.ckpt.save(payload_fn, step=step, host_state=self._host(step))
 
     def on_batch_end(self, batch: int, logs=None):
         if not self.every_steps or not logs or "state" not in logs:

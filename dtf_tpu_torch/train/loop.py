@@ -69,7 +69,36 @@ its synced per-step wall time; the summary goes to the trace at the
 end and into the stats as ``ledger``.  ``DTF_LEDGER=0`` turns it off,
 as in the JAX loop.
 
-Not ported yet: ZeRO and TP/EP/PP; the flags that ask for them raise
+ZeRO (``--zero_stage``, ``--optimizer_sharding``; ``train/zero.py``
+has the layout) shards the weight update over the data axis, each
+parameter leaf cut into nd padded flat slices, rank r holding slice r:
+  - stage 1 keeps the flat all-reduce above, then updates this rank's
+    slices of the parameters with its slices of the optimizer state and
+    all-gathers the parameters back;
+  - stage 2 reduce-scatters each micro-batch's gradients into float32
+    slices (``--zero_wire bf16``: the wire and its sum in bf16) and
+    accumulates them in slices; the BN buffers, loss, accuracy and latch
+    still ride one flat all-reduce;
+  - stage 3 also keeps the parameters as slices: it all-gathers them
+    into the model at the start of each step (and of an eval) and frees
+    the full tensors once the gradients are in slices, before the
+    update.
+Clipping's global norm sums the slices' squares over the group; a
+dynamic scale's finite verdict counts non-finite slices over the group.
+The padding stays zero under AdamW and the Keras SGD.  Checkpoints
+always hold the stage-0 payload (:meth:`Trainer.canonical_state`), and a
+restore re-slices it into the run's own stage and world
+(:meth:`Trainer.staged_state`), so a checkpoint holds no topology.
+``--zero_probe`` times, after training and on copies of the state, the
+step and its twin with the ZeRO collectives stubbed out, in turns: the
+step minus its twin is the exposed communication.  Each step records
+what the rank holds at its update -- the parameters, the gradient the
+update reads and the optimizer state, and on the card the allocator's
+count (:meth:`Trainer.zero_resident_bytes`).  At two ranks each stage's
+losses are stage 0's bit for bit: a sum of two values does not depend
+on their order.
+
+Not ported yet: TP/EP/PP; the flags that ask for them raise
 (``config/flags.py``).
 """
 
@@ -98,8 +127,10 @@ from dtf_tpu_torch.parallel.collectives import (all_reduce_mean,
                                                 all_reduce_sum)
 from dtf_tpu_torch.runtime.mesh import MeshRuntime
 from dtf_tpu_torch.train import preemption
+from dtf_tpu_torch.train import zero as zero_lib
 from dtf_tpu_torch.train import schedules as sched_lib
-from dtf_tpu_torch.train.optimizer import apply_updates, build_optimizer
+from dtf_tpu_torch.train.optimizer import (AdamWState, KerasSGDState,
+                                           apply_updates, build_optimizer)
 from dtf_tpu_torch.utils.logs import TimeHistory, build_stats
 
 log = logging.getLogger("dtf_tpu_torch")
@@ -107,6 +138,16 @@ log = logging.getLogger("dtf_tpu_torch")
 # TF2 LossScaleOptimizer dynamic defaults (the JAX package's values)
 DYNAMIC_SCALE_INIT = 2.0 ** 15
 DYNAMIC_GROWTH_INTERVAL = 2000
+
+
+def _set_storage(p: torch.Tensor, t: torch.Tensor) -> None:
+    """``p.data = t``, and the compute-dtype copy that
+    ``models/transformer.py cast`` keeps on ``p`` dropped: a swap of
+    ``.data`` keeps ``p``'s version counter, and the allocator may give
+    the new storage the old one's address, so the copy's key would not
+    see the change."""
+    p.data = t
+    p.__dict__.pop("_compute_copy", None)
 
 
 @dataclasses.dataclass
@@ -203,27 +244,183 @@ class Trainer:
         # the BN running statistics (the models' only buffers), which
         # the replicas average after each step
         self.bn_buffers = list(model.buffers())
+        # the model's parameters, in place (stage 3 swaps their storage)
+        self.params = list(model.parameters())
+        # ZeRO (train/zero.py): the stage, the slice grid and this
+        # rank's place on it, the reduce-scatter's wire
+        self.zero_stage = cfg.zero_stage_effective
+        self.zero = self.zero_stage >= 1
+        self.zero_wire = zero_lib.wire_dtype(cfg.zero_wire)
+        self.nd, self.idx = replicas, self.rt.rank
+        self._shapes = [tuple(p.shape) for p in self.params]
+        self._channels_last = [
+            p.dim() == 4 and not p.is_contiguous()
+            and p.is_contiguous(memory_format=torch.channels_last)
+            for p in self.params]
+        # stage 3: whether the model holds its full parameters now
+        self._materialized = True
+        # --zero_probe's measurements, once taken
+        self.zero_probe_result: Optional[dict] = None
+        # what the last step held at its update (zero_resident_bytes)
+        self._held: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
     def init_state(self) -> TrainState:
-        params = list(self.model.parameters())
-        return TrainState(
-            step=0, params=params, opt_state=self.tx.init(params),
+        params = self.params
+        scale = dict(
             loss_scale=DYNAMIC_SCALE_INIT if self.dynamic_scale else None,
             good_steps=0 if self.dynamic_scale else None)
+        if not self.zero:
+            return TrainState(step=0, params=params,
+                              opt_state=self.tx.init(params), **scale)
+        # the optimizer's state over this rank's slices, from zeros
+        opt_state = self.tx.init([zero_lib.slice_zeros(p, self.nd)
+                                  for p in params])
+        return self.staged_state(TrainState(step=0, params=params,
+                                            opt_state=opt_state, **scale),
+                                 sliced_opt=True)
+
+    # ------------------------------------------------------------------
+    # ZeRO's layouts.  A checkpoint always holds the stage-0 form --
+    # full parameters and optimizer state -- so a checkpoint saved at any
+    # stage restores into any other stage and world, and serves through
+    # the bridge.  The conversions are per-leaf gathers and slices; the
+    # padding is zeros in every supported optimizer's state, so dropping
+    # it on save and re-creating it on restore is exact.
+    # ------------------------------------------------------------------
+    def _gather_params(self, slices, comm_off: bool = False) -> None:
+        """Stage 3: the model's parameters from their slices."""
+        group = self.rt.group
+        with torch.no_grad():
+            for p, s, shape, cl in zip(self.params, slices, self._shapes,
+                                       self._channels_last):
+                full = zero_lib.gather_leaf(s, shape, s.dtype, self.nd,
+                                            group, comm_off)
+                if cl:
+                    full = full.contiguous(memory_format=torch.channels_last)
+                _set_storage(p, full)
+        self._materialized = True
+
+    def _free_params(self) -> None:
+        """Stage 3: drop the model's full parameters (the slices in the
+        TrainState are the parameters between steps)."""
+        for p in self.params:
+            _set_storage(p, p.data.new_empty((0,)))
+        self._materialized = False
+
+    def materialize(self, state: TrainState) -> None:
+        """Stage 3: put the full parameters back into the model (every
+        rank; a collective).  A no-op at other stages."""
+        if self.zero_stage == 3 and not self._materialized:
+            self._gather_params(state.params)
+
+    @staticmethod
+    def _opt_map(opt, fn):
+        """``opt`` with ``fn(i, t)`` applied to each moment of leaf i."""
+        if isinstance(opt, AdamWState):
+            return AdamWState(count=opt.count,
+                              mu=[fn(i, t) for i, t in enumerate(opt.mu)],
+                              nu=[fn(i, t) for i, t in enumerate(opt.nu)])
+        if isinstance(opt, KerasSGDState):
+            return KerasSGDState(velocity=[fn(i, t) for i, t in
+                                           enumerate(opt.velocity)])
+        raise ValueError(f"no ZeRO layout for optimizer state "
+                         f"{type(opt).__name__}")
+
+    @staticmethod
+    def moments(opt) -> List[torch.Tensor]:
+        """The optimizer state's per-leaf tensors (AdamW's mu and nu, the
+        Keras SGD velocity)."""
+        if isinstance(opt, AdamWState):
+            return list(opt.mu) + list(opt.nu)
+        return list(opt.velocity)
+
+    def canonical_state(self, state: TrainState) -> TrainState:
+        """The stage-0 (checkpoint) form of a live TrainState: full
+        parameters and optimizer state.  Identity without ZeRO; a
+        collective under it, which every rank calls."""
+        if not self.zero:
+            return state
+        group = self.rt.group
+
+        def gather(i, s):
+            return zero_lib.gather_leaf(s, self._shapes[i], s.dtype,
+                                        self.nd, group)
+
+        if self.zero_stage == 3:
+            params = [gather(i, s) for i, s in enumerate(state.params)]
+        else:
+            params = self.params
+        return dataclasses.replace(
+            state, params=params,
+            opt_state=self._opt_map(state.opt_state, gather))
+
+    def staged_state(self, canonical: TrainState,
+                     sliced_opt: bool = False) -> TrainState:
+        """A canonical TrainState (whose parameters are the model's,
+        loaded) placed into this run's stage: the optimizer state cut
+        into this rank's slices (unless ``sliced_opt``), and at stage 3
+        the parameters too, the model's full tensors freed."""
+        if not self.zero:
+            return canonical
+        opt = canonical.opt_state
+        if not sliced_opt:
+            opt = self._opt_map(opt, lambda i, t: zero_lib.slice_leaf(
+                t, self.nd, self.idx))
+        params = canonical.params
+        if self.zero_stage == 3:
+            params = [zero_lib.slice_leaf(p.detach(), self.nd, self.idx)
+                      for p in self.params]
+            self._free_params()
+        return dataclasses.replace(canonical, params=params, opt_state=opt)
 
     def checkpoint_payload(self, state: TrainState) -> dict:
         """The checkpoint payload of ``state``: the JAX TrainState's
-        leaves keyed by flax path, as CPU tensors."""
-        return state_to_flat(self.model, state)
+        leaves keyed by flax path, as CPU tensors, in the stage-0 layout
+        whatever the run's ZeRO stage (a collective under ZeRO)."""
+        if not self.zero:
+            return state_to_flat(self.model, state)
+        canonical = self.canonical_state(state)
+        if self.zero_stage == 3 and not self._materialized:
+            # the model's full parameters for the payload, then freed
+            with torch.no_grad():
+                for p, full in zip(self.params, canonical.params):
+                    _set_storage(p, full)
+            try:
+                return state_to_flat(self.model, canonical)
+            finally:
+                self._free_params()
+        return state_to_flat(self.model, canonical)
 
     def restore_state(self, payload: dict) -> TrainState:
         """Load a checkpoint payload into the model (in place) and
-        return its TrainState, the optimizer's moments on the device."""
-        return state_from_flat(payload, self.model)
+        return its TrainState, the optimizer's moments on the device,
+        placed into this run's ZeRO stage."""
+        if not self.zero:
+            return state_from_flat(payload, self.model)
+        self._check_canonical(payload)
+        if not self._materialized:
+            with torch.no_grad():
+                for p, shape in zip(self.params, self._shapes):
+                    _set_storage(p, p.data.new_empty(shape))
+            self._materialized = True
+        return self.staged_state(state_from_flat(payload, self.model))
+
+    def _check_canonical(self, payload: dict) -> None:
+        """A payload that verified but cannot be placed into this run's
+        layout (another optimizer's state) raises."""
+        want = ("opt_state/adam/count" if self.cfg.optimizer == "adamw"
+                else "opt_state/velocity/")
+        if not any(k.startswith(want) for k in payload):
+            have = sorted({k.split("/")[1] for k in payload
+                           if k.startswith("opt_state/")})
+            raise ValueError(
+                f"checkpoint does not fit the canonical ZeRO checkpoint "
+                f"layout of this run: optimizer {self.cfg.optimizer!r} "
+                f"needs {want!r}, the payload holds opt_state {have}")
 
     # ------------------------------------------------------------------
     def _clip(self, grads):
@@ -259,7 +456,10 @@ class Trainer:
         with torch.no_grad():
             for b, v in zip(self.bn_buffers, views[n:-1]):
                 b.copy_(v)
-        return views[:n], views[-1][0], views[-1][1], views[-1][2]
+        # the tail copied out: a view would keep the whole flat buffer
+        # alive for as long as the step's metrics are
+        tail = views[-1].clone()
+        return views[:n], tail[0], tail[1], tail[2]
 
     def _inputs(self, images):
         """The batch as the model takes it: NHWC, normalized."""
@@ -269,19 +469,53 @@ class Trainer:
             images = self.normalize_fn(images)
         return images
 
-    def train_step(self, state: TrainState, images, labels):
+    def _grads(self):
+        return [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                else p.grad for p in self.params]
+
+    def _scatter(self, grads, comm_off: bool):
+        return [zero_lib.scatter_leaf(g, self.nd, self.rt.group, comm_off,
+                                      self.idx, self.zero_wire)
+                for g in grads]
+
+    def _clip_slices(self, slices):
+        """Clipping to the global norm of the gradient held in slices:
+        each rank's squares summed over the group."""
+        clip = self.cfg.clip_grad_norm
+        if not clip:
+            return slices
+        sumsq = torch.stack([s.square().sum() for s in slices]).sum()
+        norm = all_reduce_sum(sumsq, self.rt.group).sqrt()
+        factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+        return [s * factor for s in slices]
+
+    def train_step(self, state: TrainState, images, labels,
+                   comm_off: bool = False):
         """One optimizer step on the batch (images, labels) -- device
-        tensors; returns (new state, metrics)."""
+        tensors; returns (new state, metrics).  ``comm_off``: the
+        ``--zero_probe`` twin, its ZeRO collectives stubbed (garbage
+        results, never state)."""
         model = self.model
         model.train()
         images = self._inputs(images)
         scale = state.loss_scale if self.dynamic_scale else self.loss_scale
+        unscale = self.dynamic_scale or scale != 1.0
+        stage = self.zero_stage
+        # what the rank holds between steps: the state alone
+        between = self._allocated()
+        if stage == 3:
+            self._gather_params(state.params, comm_off)
+        params = self.params
         # a skipped step keeps the BN running statistics too
         buffers = list(model.buffers()) if self.dynamic_scale else []
         kept = [b.clone() for b in buffers]
-        for p in state.params:
+        for p in params:
             p.grad = None
         loss_sum = acc_sum = 0.0
+        # stages 2-3 with micro-batches: each one's gradients scattered
+        # into the float32 slices of the accumulation carry
+        carry = None
+        per_chunk = stage >= 2 and self.grad_accum > 1
         for imgs, lbls in zip(images.chunk(self.grad_accum),
                               labels.chunk(self.grad_accum)):
             logits = model(imgs)
@@ -293,21 +527,48 @@ class Trainer:
                 acc_sum = acc_sum + (logits.detach().argmax(-1)
                                      == lbls).float().mean()
             del logits, loss
+            if per_chunk:
+                part = self._scatter(self._grads(), comm_off)
+                carry = part if carry is None else [
+                    a + b for a, b in zip(carry, part)]
+                for p in params:
+                    p.grad = None
         step_loss = loss_sum / self.grad_accum
         step_acc = acc_sum / self.grad_accum
-        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                 else p.grad for p in state.params]
-        if self.grad_accum > 1:
-            grads = [g / self.grad_accum for g in grads]
-        if self.dynamic_scale or scale != 1.0:
-            grads = [g / scale for g in grads]
+        slices = None
+        if per_chunk:
+            slices = [s / self.grad_accum for s in carry]
+            if unscale:
+                slices = [s / scale for s in slices]
+            grads = []
+        else:
+            grads = self._grads()
+            if self.grad_accum > 1:
+                grads = [g / self.grad_accum for g in grads]
+            if unscale:
+                grads = [g / scale for g in grads]
+            if stage >= 2:
+                slices, grads = self._scatter(grads, comm_off), []
+        for p in params:
+            p.grad = None
+        if stage == 3:
+            # the update reads the slices alone
+            self._free_params()
         preempt = None
         if self.rt.group is not None:
+            # stages 2-3: the BN buffers, loss, accuracy and latch alone
             grads, step_loss, step_acc, preempt = self._all_reduce_step(
                 grads, step_loss, step_acc)
-        grads = self._clip(grads)
-        for p in state.params:
-            p.grad = None
+        # the gradient this rank holds at its update: at stage 1 the
+        # replicas' full mean, which its slices view
+        held_grads = slices if stage >= 2 else grads
+        if stage == 1:
+            slices = [zero_lib.slice_view(g, self.nd, self.idx)
+                      for g in grads]
+        if self.zero:
+            grads = slices = self._clip_slices(slices)
+        else:
+            grads = self._clip(grads)
 
         new_scale, new_good = state.loss_scale, state.good_steps
         finite = True
@@ -324,11 +585,27 @@ class Trainer:
             else:
                 new_scale, new_good = max(scale * 0.5, 1.0), 0
         opt_state = state.opt_state
-        if finite:
+        self._held = dict(self._held_bytes(state, held_grads),
+                          allocated_between_steps=between)
+        if finite and not self.zero:
             updates, opt_state = self.tx.update(grads, state.opt_state,
                                                 state.params,
                                                 step=state.step)
             apply_updates(state.params, updates)
+        elif finite:
+            # this rank's slices updated with its slices of the state
+            p_slices = (state.params if stage == 3 else
+                        [zero_lib.slice_leaf(p.detach(), self.nd, self.idx)
+                         for p in params])
+            updates, opt_state = self.tx.update(slices, state.opt_state,
+                                                p_slices, step=state.step)
+            apply_updates(p_slices, updates)
+            if stage < 3:
+                with torch.no_grad():
+                    for p, s in zip(params, p_slices):
+                        p.copy_(zero_lib.gather_leaf(
+                            s, p.shape, p.dtype, self.nd, self.rt.group,
+                            comm_off))
         else:
             with torch.no_grad():
                 for b, k in zip(buffers, kept):
@@ -345,6 +622,41 @@ class Trainer:
                           opt_state=opt_state, loss_scale=new_scale,
                           good_steps=new_good), metrics
 
+    def _allocated(self) -> Optional[int]:
+        """The CUDA allocator's bytes in use on this rank's card (None
+        on the CPU)."""
+        dev = self.device
+        if dev.type != "cuda":
+            return None
+        return torch.cuda.memory_allocated(dev)
+
+    def _held_bytes(self, state: TrainState, grads) -> dict:
+        """What the rank holds at the update, counted from the tensors:
+        its parameters (full in the model, and stage 3's slices), the
+        gradient ``grads`` the update reads, and the optimizer state;
+        on the card the allocator's count beside."""
+        params = zero_lib.nbytes(self.params)
+        if self.zero_stage == 3:
+            params += zero_lib.nbytes(state.params)
+        return {"param_bytes": params, "grad_bytes": zero_lib.nbytes(grads),
+                "optimizer_bytes": zero_lib.nbytes(
+                    self.moments(state.opt_state)),
+                "allocated_at_update": self._allocated()}
+
+    def zero_resident_bytes(self, state: TrainState) -> dict:
+        """A rank's training state in bytes, as the last step held it at
+        its update (``_held_bytes``) with the allocator's count as that
+        step began (between steps), and ``n``, the parameter count.
+        Before any step, the parameters and optimizer state of ``state``
+        and no gradient."""
+        numels = [int(np.prod(s)) for s in self._shapes]
+        held = self._held or dict(self._held_bytes(state, []),
+                                  allocated_between_steps=self._allocated())
+        total = (held["param_bytes"] + held["grad_bytes"]
+                 + held["optimizer_bytes"])
+        return {"stage": self.zero_stage, "replicas": self.nd,
+                "n": sum(numels), **held, "total_bytes": total}
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, state: TrainState, eval_iter: Iterator,
@@ -354,7 +666,16 @@ class Trainer:
         top-1) over exactly the unmasked examples (top-1 None under
         --report_accuracy_metrics false), or None for an empty
         iterator.  Units: tokens for sequence data, examples else."""
-        del state
+        freed = self.zero_stage == 3 and not self._materialized
+        if freed:
+            self._gather_params(state.params)
+        try:
+            return self._evaluate(eval_iter, heartbeat)
+        finally:
+            if freed:
+                self._free_params()
+
+    def _evaluate(self, eval_iter: Iterator, heartbeat):
         model = self.model
         model.eval()
         dev = self.device
@@ -422,6 +743,7 @@ class Trainer:
             _call(cb, "on_train_begin", None)
         eval_output = None
         metrics = None
+        last_batch = None
         # data parallelism: the previous step's all-reduced latch
         pending_preempt = None
         global_step = resumed_step
@@ -449,6 +771,7 @@ class Trainer:
                         _call(cb, "on_batch_begin", batch_idx, None)
                     profiler.before_step(global_step)
                     images, labels = next(train_iter)
+                    last_batch = (images, labels)
                     with trace.span("step", step=global_step):
                         if count_pending:
                             # its wall sits in the first window, which
@@ -574,6 +897,12 @@ class Trainer:
         log.info("train wall time: %.1fs (%d steps)", time.time() - t0,
                  global_step)
         trace.event("train_end", step=global_step, wall_s=time.time() - t0)
+        if (self.zero_stage >= 2 and cfg.zero_probe
+                and last_batch is not None):
+            self.zero_probe_result = self._zero_probe(state, last_batch,
+                                                      ledger)
+        # the caller gets the trained weights in the model
+        self.materialize(state)
         ledger.emit_summary()
         trace.flush()
         stats = build_stats(history, eval_output, time_cb)
@@ -584,7 +913,94 @@ class Trainer:
             stats["profile_trace"] = profiler.path
         if eval_output is not None:
             stats["eval_count"] = self.eval_count
+        if self.zero_probe_result is not None:
+            stats["zero_probe"] = dict(self.zero_probe_result)
+        stats["resident_bytes"] = self.zero_resident_bytes(state)
         return state, stats
+
+    def _zero_probe(self, state: TrainState, batch, ledger) -> dict:
+        """--zero_probe: the ZeRO-2/3 communication as measured numbers,
+        after training.  The serialized wall of one reduce-scatter and
+        one all-gather of the parameter-shaped tree (median of 3, after
+        a warm-up), and the step and its twin with those collectives
+        stubbed, both on copies of the state (their results are
+        garbage), timed in turns under the same conditions (median of 3
+        each, after one warm-up each): exposed = max(0, step - twin).
+        ``noise_s`` is the sum of the timed series' spreads (max - min).
+        Every rank runs it (the collectives are the group's)."""
+        dev = self.device
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def wall(fn) -> float:
+            sync()
+            t0 = time.monotonic()
+            fn()
+            sync()
+            return time.monotonic() - t0
+
+        def median(walls) -> float:
+            return sorted(walls)[len(walls) // 2]
+
+        full = [torch.zeros(shape, device=dev) for shape in self._shapes]
+        group = self.rt.group
+        slices = self._scatter(full, False)
+        scatters, gathers = ([wall(fn) for _ in range(4)][1:] for fn in (
+            lambda: self._scatter(full, False),
+            lambda: [zero_lib.gather_leaf(s, shape, s.dtype, self.nd, group)
+                     for s, shape in zip(slices, self._shapes)]))
+        del full, slices
+        # the step and its twin run on copies: the live state, the
+        # model's parameters (stage 2 writes them) and buffers are put
+        # back
+        saved = [b.clone() for b in self.model.buffers()]
+        if self.zero_stage == 2:
+            saved += [p.detach().clone() for p in self.params]
+        copy = dataclasses.replace(
+            state, params=[p.clone() for p in state.params],
+            opt_state=self._opt_map(state.opt_state,
+                                    lambda i, t: t.clone()))
+        runs = {off: (lambda off=off: float(self.train_step(
+            copy, *batch, comm_off=off)[1]["loss"])) for off in (False, True)}
+        steps = {False: [], True: []}
+        for r in range(4):
+            for off, fn in runs.items():
+                w = wall(fn)
+                if r:
+                    steps[off].append(w)
+        with torch.no_grad():
+            for t, v in zip(list(self.model.buffers()) + (
+                    self.params if self.zero_stage == 2 else []), saved):
+                t.copy_(v)
+        scatter_s, gather_s = median(scatters), median(gathers)
+        step_s, nocomm_s = median(steps[False]), median(steps[True])
+        serialized_s = self.grad_accum * scatter_s + gather_s
+        exposed_s = max(0.0, step_s - nocomm_s)
+        spread = lambda w: max(w) - min(w)
+        noise_s = (spread(steps[False]) + spread(steps[True])
+                   + self.grad_accum * spread(scatters) + spread(gathers))
+        param_bytes = 4 * sum(int(np.prod(s)) for s in self._shapes)
+        for name, w in (("zero_scatter", scatter_s),
+                        ("zero_gather", gather_s)):
+            ledger.register(name, flops=0.0, bytes_accessed=param_bytes)
+            ledger.observe(name, w)
+        out = {"zero_stage": self.zero_stage, "scatter_wall_s": scatter_s,
+               "gather_wall_s": gather_s, "serialized_s": serialized_s,
+               "step_s": step_s, "nocomm_step_s": nocomm_s,
+               "exposed_s": exposed_s, "noise_s": noise_s,
+               "exposed_frac": (exposed_s / serialized_s
+                                if serialized_s > 0 else 0.0),
+               "window_step_s": (median(self.window_step_s)
+                                 if self.window_step_s else None)}
+        trace.event("zero_overlap", **out)
+        if self.rt.is_coordinator:
+            log.info("zero_probe: step %.2f ms, comm-off twin %.2f ms, "
+                     "exposed comm %.2f ms vs %.2f ms serialized "
+                     "(noise %.2f ms)", step_s * 1e3, nocomm_s * 1e3,
+                     exposed_s * 1e3, serialized_s * 1e3, noise_s * 1e3)
+        return out
 
     def _preempt_signal(self, pending) -> Optional[int]:
         """The signal to stop on at this step boundary, or None.  One

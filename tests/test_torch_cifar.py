@@ -254,6 +254,10 @@ def test_vision_mains_raise_without_cuda(main):
      "not ported"),
 ])
 def test_imagenet_main_refuses_what_is_not_ported(argv, error, match):
+    if "--remat" in argv:
+        # ported since: --remat on resnet50 is the selective policy; a
+        # named policy there is what both packages refuse
+        argv, error = argv + ["--remat_policy", "dots"], ValueError
     with pytest.raises(error, match=match):
         imagenet_main.main(argv + ["--device", "cpu", "--batch_size", "2"])
 

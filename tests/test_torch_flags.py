@@ -105,6 +105,11 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         # the JAX package's defaults and validation
         _check_ported_flags(flags)
         return
+    if subsystem == "ZeRO":
+        # ported since (train/zero.py, the Trainer's stages): they parse,
+        # with the JAX package's defaults and validation
+        _check_zero_flags(flags + ["optimizer_sharding"])
+        return
     if subsystem == "serving fleet":
         # ported since: the router and replica flags (cli/router_main and
         # cli/replica_main), then the HA pair's (serve/ha.py) and the
@@ -210,6 +215,31 @@ def _check_ported_flags(flags):
                 parse_flags(bad)
             with pytest.raises(ValueError, match="metrics_port"):
                 jax_parse_flags(bad)
+
+
+def _check_zero_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+    for argv in (["--zero_stage", "3", "--zero_wire", "bf16",
+                  "--zero_probe"], ["--optimizer_sharding"],
+                 ["--zero_stage", "2"]):
+        got, want = parse_flags(argv), jax_parse_flags(argv)
+        for name in flags + ["zero_stage_effective"]:
+            assert getattr(got, name) == getattr(want, name), (argv, name)
+    for bad, match in ((["--zero_stage", "4"], "zero_stage"),
+                       (["--optimizer_sharding", "--zero_stage", "2"],
+                        "optimizer_sharding"),
+                       (["--zero_probe"], "zero_probe"),
+                       (["--zero_wire", "fp8"], "zero_wire"),
+                       (["--zero_wire", "bf16", "--optimizer_sharding"],
+                        "zero_wire")):
+        with pytest.raises(ValueError, match=match):
+            parse_flags(bad)
+        with pytest.raises(ValueError, match=match):
+            jax_parse_flags(bad)
 
 
 def _check_ps_flags(flags):

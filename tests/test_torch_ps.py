@@ -582,6 +582,50 @@ def test_run_async_snapshot_dir_e2e(tmp_path, tiny_cifar):
     assert snap_version() == 4
 
 
+def test_final_snapshot_keeps_every_acknowledged_push(store, tmp_path,
+                                                      tiny_cifar,
+                                                      monkeypatch):
+    """A push that arrives while the PS rank shuts down -- here right
+    after its final snapshot dump -- is either acknowledged and in the
+    restored store, or refused.  The JAX package's order (dump, then
+    stop the store) acknowledges it and loses it on restore; the port
+    stops taking pushes before the dump."""
+    from dtf_tpu_torch.cli.runner import run
+    snap_dir = str(tmp_path / "snaps")
+    acked = []
+    real_snap = ps_lib._SnapshotLoop._snap
+
+    def snap_then_push(loop):
+        out = real_snap(loop)
+        if loop._stop.is_set():
+            # the final dump has landed: a late worker pushes now
+            try:
+                c = ps_lib.PsClient(_addr(loop.server),
+                                    connect_timeout=0.5)
+                try:
+                    n = c.info()[1]
+                    acked.append(c.push(0.1, np.ones(n, np.float32)))
+                finally:
+                    c.close()
+            except (OSError, ValueError):
+                pass      # refused: not acknowledged, nothing owed
+        return out
+
+    monkeypatch.setattr(ps_lib._SnapshotLoop, "_snap", snap_then_push)
+    stats = run(_async_cfg(ps_snapshot_dir=snap_dir))
+    srv = ps_lib.PsServer(port=0)
+    try:
+        srv.restore(os.path.join(snap_dir, "ps_store.snap"))
+        c = ps_lib.PsClient(_addr(srv))
+        restored = c.info()[2]
+        c.close()
+    finally:
+        srv.stop()
+    assert restored == max([stats["ps_version"]] + acked), (
+        f"acknowledged pushes up to version "
+        f"{max([stats['ps_version']] + acked)}, restored {restored}")
+
+
 def test_run_async_single_process_demo(tiny_cifar):
     from dtf_tpu_torch.cli.runner import run
     stats = run(_async_cfg(skip_eval=False))

@@ -28,6 +28,7 @@ from dtf_tpu import chaos as jax_chaos
 from dtf_tpu_torch import chaos
 from dtf_tpu_torch.serve.rollout import (RolloutController, RolloutError,
                                          RolloutState, _truncate_checkpoint)
+from dtf_tpu_torch.serve.router import Router
 from test_torch_router import PORT, FakeReplica, _jax_pkg, oracle, stop_tier
 
 torch.set_num_threads(1)
@@ -654,3 +655,107 @@ def test_checkpoint_override_beats_serve_params_npz(tmp_path, monkeypatch):
     for name, want in q.state_dict().items():
         assert torch.equal(got[name], want), name
     assert not torch.equal(got["embed.weight"], p.state_dict()["embed.weight"])
+
+
+# ---------------------------------------------------------------------------
+# a resumed ROLLING must not start a second process for one replica
+# ---------------------------------------------------------------------------
+
+_ENV_LOCK = threading.Lock()
+
+
+class _SpawnedFake:
+    """A Popen-like handle over a fake replica that announces ``delay``
+    seconds after its spawn, with the generation and checkpoint a
+    spawned ``replica_main`` would announce."""
+
+    def __init__(self, rid, rdir, generation, checkpoint, delay):
+        self.pid = os.getpid()
+        self.returncode = None
+        self.rep = None
+        self._dead = threading.Event()
+
+        def come_up():
+            if self._dead.wait(delay):
+                return
+            with _ENV_LOCK:
+                saved = {k: os.environ.get(k) for k in (
+                    "DTF_RESTART_GENERATION", "DTF_SERVE_CHECKPOINT")}
+                os.environ["DTF_RESTART_GENERATION"] = str(generation)
+                os.environ["DTF_SERVE_CHECKPOINT"] = checkpoint
+                try:
+                    self.rep = FakeReplica(rid, rdir).start()
+                finally:
+                    for k, v in saved.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+
+        self._thread = threading.Thread(target=come_up, daemon=True)
+        self._thread.start()
+
+    def poll(self):
+        return self.returncode
+
+    def wait(self, timeout=None):
+        self.kill()
+        return self.returncode
+
+    def terminate(self):
+        self.kill()
+
+    def kill(self):
+        self._dead.set()
+        self._thread.join(timeout=10)
+        if self.rep is not None:
+            self.rep.kill()
+        self.returncode = -9
+
+
+def test_resume_waits_for_the_spawned_replacement(tmp_path):
+    """The dead router's controller had persisted ROLLING with replica 1
+    rolled and spawned its replacement (generation 1), which has not
+    announced when the successor resumes.  The successor waits for that
+    generation's announce and spawns nothing: one process a replica.
+    (The JAX controller, and the port's before the repair, started a
+    second process for replica 1.)"""
+    rdir = str(tmp_path / "rdv")
+    os.makedirs(rdir)
+    procs = [_SpawnedFake(0, rdir, 1, NEW_SAME, 0.0),
+             _SpawnedFake(1, rdir, 1, NEW_SAME, 1.5)]
+    spawned = []
+    router = None
+
+    def spawn(rid, gen):
+        spawned.append((rid, gen))
+        procs.append(_SpawnedFake(rid, rdir, gen, router.replica_checkpoints
+                                  .get(rid, ""), 0.2))
+        return procs[-1]
+
+    path = str(tmp_path / "rollout_state.json")
+    with open(path, "w") as f:
+        json.dump({"phase": "ROLLING", "new_checkpoint": NEW_SAME,
+                   "old_checkpoint": OLD, "canary": 0, "order": [0, 1],
+                   "rolled": [0, 1],
+                   "replacing": {"replica": 1, "generation": 1}}, f)
+    try:
+        router = Router(2, rdir, spawn=spawn, epoch=2,
+                        probe_interval_s=0.05, health_timeout_s=0.4,
+                        deadline_s=30.0, replica_inflight=32, page_size=8)
+        router.start(adopt=True)
+        t0 = time.monotonic()
+        while not router.replica_healthy(0) and time.monotonic() - t0 < 30:
+            time.sleep(0.02)
+        assert router.replica_healthy(0)
+        state = RolloutController.resume(router, path, warm_timeout_s=8.0,
+                                         drain_timeout_s=5.0, poll_s=0.02)
+        assert state.phase == "DONE" and sorted(state.rolled) == [0, 1]
+        assert spawned == [], f"second processes spawned: {spawned}"
+        assert router.replica_healthy(1)
+        assert RolloutState.load(path).replacing == {}
+    finally:
+        if router is not None:
+            router.stop(drain=False)
+        for p in procs:
+            p.kill()

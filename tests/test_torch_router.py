@@ -1127,3 +1127,68 @@ def test_router_main_subprocess_replicas_kill_respawn(tmp_path):
     assert again.tokens == want[0]
     assert all(r.redispatches == 0 or not r.diverged for r in results)
 
+
+
+# ---------------------------------------------------------------------------
+# an adopted replica on another host: the epoch-fenced stop op
+# ---------------------------------------------------------------------------
+
+def test_adopted_replica_on_another_host_is_stopped_by_epoch(tmp_path):
+    """A ``replica_main`` process announcing a routable ``--serve_host``
+    (127.0.0.2: dialable here, not a loopback name, so its pid means
+    nothing to a router) is adopted by an epoch-3 router that owns the
+    tier.  A stop carrying a stale epoch is refused and the process
+    lives; the router's terminate sends its own epoch's stop, and the
+    process drains and exits 0.  The JAX router only disconnects it."""
+    import json
+    import socket
+
+    rdv = str(tmp_path / "rdv")
+    os.makedirs(rdv)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dtf_tpu_torch.cli.replica_main",
+         "--serve_random_init", "--device", "cpu", "--model",
+         "transformer_small", "--num_classes", "64",
+         "--serve_max_seq_len", "64", "--heartbeat_secs", "0.2",
+         "--rendezvous_dir", rdv, "--replica_id", "0",
+         "--serve_host", "127.0.0.2"],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    router = None
+    try:
+        deadline = time.monotonic() + 120
+        while read_announce(rdv, 0) is None and proc.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        ann = read_announce(rdv, 0)
+        assert ann is not None and ann["host"] == "127.0.0.2", ann
+        # the tier's epoch is 3 (an earlier controller's op); a stop
+        # from epoch 2 is stale
+        with socket.create_connection(("127.0.0.2", ann["port"]),
+                                      timeout=10) as conn:
+            rfile = conn.makefile("r")
+            conn.sendall(b'{"op": "stats", "epoch": 3}\n')
+            assert json.loads(rfile.readline())["op"] == "stats"
+            conn.sendall(b'{"op": "stop", "epoch": 2}\n')
+            reply = json.loads(rfile.readline())
+            assert reply["op"] == "stale_epoch" and reply["current"] == 3
+        time.sleep(0.5)
+        assert proc.poll() is None, "a stale-epoch stop ended the replica"
+
+        def no_spawn(rid, gen):
+            raise AssertionError("the adopted tier must not be respawned")
+
+        router = Router(1, rdv, spawn=no_spawn, epoch=3,
+                        probe_interval_s=0.05, health_timeout_s=5.0,
+                        deadline_s=30.0)
+        router.start(wait_s=30, adopt=True)
+        router.hold_replica(0)
+        router.terminate_replica(0, timeout=1.0)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if router is not None:
+            router.stop(drain=False)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -447,6 +447,7 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.runtime.mesh, dtf_tpu_torch.cli.launch; "
             "import dtf_tpu_torch.parallel.collectives; "
             "import dtf_tpu_torch.chaos, dtf_tpu_torch.train.checkpoint; "
+            "import dtf_tpu_torch.train.zero; "
             "import dtf_tpu_torch.cli.trace_main; "
             "import dtf_tpu_torch.obs.ledger, dtf_tpu_torch.obs.prom; "
             "import dtf_tpu_torch.cli.router_main; "

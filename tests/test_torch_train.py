@@ -348,8 +348,16 @@ def test_remat_recomputes_each_block_with_the_same_gradients(monkeypatch):
         assert len(calls) == DIMS["num_layers"] * (2 if remat else 1)
     for a, b in zip(*grads):
         assert torch.allclose(a, b, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        TransformerLM(**DIMS, remat_policy="dots")
+    # the selective policy (ported since): one attention per block, and
+    # an unknown name raises the JAX message
+    torch.manual_seed(0)
+    model = TransformerLM(**DIMS, remat_policy="dots")
+    calls.clear()
+    model(toks).square().mean().backward()
+    assert len(calls) == DIMS["num_layers"]
+    with pytest.raises(ValueError, match="unknown remat_policy 'x'; "
+                                         "choose 'dots'"):
+        TransformerLM(**DIMS, remat_policy="x")
 
 
 # ---------------------------------------------------------------------------
@@ -530,8 +538,12 @@ def test_flags_parse_the_jax_training_names():
                                   "--model_parallelism", "--num_experts",
                                   "--remat_policy", "--plan"])
 def test_flags_of_unported_features_raise(flag):
-    with pytest.raises(ValueError, match="not ported"):
-        parse_flags([flag, "1"])
+    if flag in ("--zero_stage", "--remat_policy"):
+        # ported since (ZeRO, the selective remat policy): they parse
+        assert getattr(parse_flags([flag, "1"]), flag[2:]) in (1, "1")
+    else:
+        with pytest.raises(ValueError, match="not ported"):
+            parse_flags([flag, "1"])
     with pytest.raises(ValueError, match="unknown flag"):
         parse_flags(["--no_such_flag", "1"])
 
