@@ -44,7 +44,12 @@ Phases, each printing one JSON object per line (the card's
                  attention in float32 (q scaled by 4, [1, 2048, 6, 128],
                  causal and full): K1, K2a, K2b and K3 and their plain
                  versions against the plain versions run in float64,
-                 each kernel within its f32 gate of float64.
+                 each kernel within its f32 gate of float64.  Then the
+                 tensor-parallel shard's shapes (odd head counts no
+                 other case launches): K1 and K3 bf16 at
+                 [2, 2048, 3, 128] causal and K4 bf16 at decode
+                 [8, 1, 3, 128], each against its plain version under
+                 the same tolerances, twice bit for bit, timed.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -120,15 +125,16 @@ Phases, each printing one JSON object per line (the card's
                  launches (counters zeroed just before its run) and a
                  digest of its trained weights:
      dp_world1_cifar / dp_world1_lm -- ``cli.cifar_main`` (resnet56,
-                 bf16, batch 128) and ``cli.lm_main`` (transformer_tpu,
-                 bf16, batch 8 x 2048), 20 steps each, with
+                 bf16, batch 128) and ``cli.lm_main`` (transformer_tpu
+                 at ``DP_LM_LAYERS`` (6) of its 12 layers, every width
+                 kept, bf16, batch 8 x 2048), 20 steps each, with
                  ``--distribution_strategy off`` in a plain process and
                  ``multi_worker_mirrored`` through ``cli/launch.py`` with
                  one rank, so an NCCL group exists and the gradient
                  all-reduce runs, in turns (off, NCCL, NCCL, off):
                  losses and weights bit for bit, both step times (the
-                 per-step cost of data parallelism), 12 K1 and 12 K3
-                 launches a step on the LM's path;
+                 per-step cost of data parallelism), one K1 and one K3
+                 launch a layer and step on the LM's path;
      dp_two_ranks -- resnet20, float32, global batch 32, 3 steps on
                  CIFAR files it writes (each rank its file shard), sync
                  BN off and on: two ranks sharing the card over gloo
@@ -217,8 +223,9 @@ Phases, each printing one JSON object per line (the card's
                  version 20, the store's rank touched no card; steps/s,
                  images/s, the pull and push spans' p50 and share, wire
                  bytes, peak memory;
-     ps_lm      -- transformer_tpu b8 x 2048 bf16 as one worker, 3 steps:
-                 12 K1 and 12 K3 launches a step, its parameter count;
+     ps_lm      -- transformer_tpu b8 x 2048 bf16 at ``DP_LM_LAYERS`` of
+                 its 12 layers as one worker, 3 steps: one K1 and one K3
+                 launch a layer and step, its parameter count;
      ps_faults  -- ``ps_drop@version:3`` (a reconnect, every step done,
                  version 8), and the store's rank SIGTERMed while it
                  serves under ``--ps_snapshot_dir`` (that job's
@@ -342,12 +349,34 @@ Phases, each printing one JSON object per line (the card's
                  (the step and its comm-off twin in turns: exposed
                  communication no more than the serialized collectives
                  plus the timings' spread).
+ 16. tensor_parallel -- ``--model_parallelism`` / ``--serve_tp``
+                 (``runtime/mesh.py``'s grid, ``models/partition.py``,
+                 the shard-local transformer, ``TensorParallelLM``):
+                 transformer_tpu at full size, 3 of 6 heads, d_ff 1536
+                 and (``--shard_lm_head``) 16384 of the vocabulary a
+                 shard.  (a) ``cli.lm_main`` over two gloo ranks sharing
+                 the card (data 1 x model 2), S 2048, batch 2, AdamW:
+                 f32 3 steps against the ``off`` world-1 run within
+                 ``TP_LOSS_RTOL``, ``--shard_lm_head`` against the plain
+                 TP run, the TP run's step-2 checkpoint resumed at mp 1
+                 against its step 3; bf16 6 steps timed alone beside the
+                 world-1 run (step p50, peak memory a rank, 12 K1 and 12
+                 K3 a step a rank).  (b) the engine in this process at
+                 ``--serve_tp 2``, both shards on the one card: f32
+                 greedy, 16 requests token-exact with ``serve_tp 1``;
+                 (a)'s f32 checkpoint served at 2 and 1, token-exact;
+                 phase 4's bf16 burst at ``serve_tp 2``, its tokens/s,
+                 TTFT p50 and decode-step p50 beside phase 4's at
+                 ``serve_tp 1`` (K1 and K4 at 3 heads, two shards'
+                 launches a layer).  (c) ``cli.serve_main --serve_tp 2``
+                 on a one-card machine exits non-zero naming the count.
   Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
   with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
   none's; --remat's peak memory below none's); phase 7 trains ResNet-50
   with ``--remat`` beside the plain run.  The host's speed is probed
-  first (a Python loop, a numpy sort, a bare ``import torch`` in a
-  child) and printed beside every ``phase_time`` line.
+  first (a Python loop, a numpy sort, and a bare ``import torch`` in a
+  child beside the kernels' build) and printed beside every
+  ``phase_time`` line.
 
 Then the ``{"kernels": [...]}`` line -- each kernel's main case (every
 case is on its own phase-2 line), its design and its launches from the
@@ -361,7 +390,10 @@ serving phase 9's checkpoint; as ``launches_prefix``, with K1, phase
 phase 13's replica processes; as ``launches_ha`` and
 ``launches_rollout``, with K1, phase 14's); K1 and K3 also as
 ``launches_remat`` (phase 6's arms) and ``launches_zero`` (phase 15's
-rank 0 of stage 0) -- and, last, the device line.
+rank 0 of stage 0); K1, K3 and K4 as ``launches_tp`` (phase 16: rank 0
+of the bf16 TP run, and the bf16 ``serve_tp 2`` engine's two shards),
+with ``tp_case``, phase 2's case at the shard's shape -- and, last, the
+device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -390,6 +422,9 @@ PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 CUDA_CORE_F32_FLOPS = 67e12          # f32 FMA on the CUDA cores
 L2_BYTES = 50e6
 TRAIN_SHAPE = (8, 2048, 6, 128)      # transformer_tpu at batch 8
+# a tensor-parallel rank's attention: transformer_tpu's 6 heads over
+# model_parallelism 2, at phase 16's batch 2
+TP_SHAPE = (2, 2048, 3, 128)
 
 
 def emit(obj) -> None:
@@ -433,7 +468,9 @@ class Timer:
     launches, so the events bracket back-to-back device work, not the
     host's Python between launches.  Each launch takes the next of
     ``copies`` input sets, so a working set smaller than the L2 is not
-    served from it."""
+    served from it.  The median of ``trials`` trials, or of three where
+    every one of the first three took 10 ms a call or more (a plain
+    version: tens of milliseconds, steady from trial to trial)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -465,15 +502,20 @@ class Timer:
             e.record()
             e.synchronize()
             out.append(s.elapsed_time(e) / reps)
+            if len(out) == 3 and min(out) >= 10.0:
+                break
         return statistics.median(out)
 
 
-def host_probe() -> dict:
+def host_probe():
     """The host's speed, measured once at the start, so that phase times
     of runs on different hosts can be compared: a fixed pure-Python loop
     (5,000,000 additions), a numpy sort of 4,000,000 float64 values from
     a fixed seed, and a bare ``import torch`` in a child process (with
-    this run's bytecode cache, as every process the script starts)."""
+    this run's bytecode cache, as every process the script starts: the
+    child writes it).  The child starts here and runs beside the
+    kernels' build; the returned function waits for it and gives the
+    three readings."""
     import numpy as np
     t = time.perf_counter()
     acc = 0
@@ -485,10 +527,18 @@ def host_probe() -> dict:
     np.sort(values)
     sort_s = time.perf_counter() - t
     t = time.perf_counter()
-    subprocess.run([sys.executable, "-c", "import torch"], check=True,
-                   timeout=300)
-    return {"py_loop_s": loop_s, "np_sort_s": sort_s,
-            "import_torch_s": time.perf_counter() - t}
+    child = subprocess.Popen([sys.executable, "-c", "import torch"])
+    ended = overlapped(lambda: (child.wait(timeout=300),
+                                time.perf_counter() - t))
+
+    def readings() -> dict:
+        rc, import_s = ended.result()
+        if rc:
+            raise RuntimeError(f"import torch: exit {rc}")
+        return {"py_loop_s": loop_s, "np_sort_s": sort_s,
+                "import_torch_s": import_s}
+
+    return readings
 
 
 def card_clocks() -> dict:
@@ -1100,6 +1150,132 @@ def check_paged(torch, timer, gen):
     return cases
 
 
+def check_tp_kernels(torch, timer, gen):
+    """K1, K3 and K4 at a tensor-parallel shard's shapes, bf16 (the
+    route phase 16 times): K1 and K3 at ``TP_SHAPE`` causal, K4 at a
+    decode step [8, 1, 3, 128] over check_paged's rows -- head counts
+    no other case launches.  Each against its plain version under the
+    same tolerances, run twice bit for bit, timed with its bound and
+    its library call (SDPA's forward and backward; none for K4)."""
+    import torch.nn.functional as F
+
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    dtype, dname = torch.bfloat16, "bfloat16"
+    b, s, h, d = TP_SHAPE
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(TP_SHAPE, generator=gen).to("cuda", dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, causal=True)
+    again, _ = fa.flash_forward(q, k, v, causal=True)
+    po, plse = fa.flash_forward_plain(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    err, tol, ratio = compare(torch, o, po)
+    lse_err = float((lse - plse).abs().max())
+    lse_tol = 1e-5 * max(1.0, float(plse.abs().max()))
+    same = torch.equal(o, again)
+    if not (ratio <= 1.0 and lse_err <= lse_tol and same):
+        raise AssertionError(f"K1 {dname} {TP_SHAPE}: o err {err} ({ratio} "
+                             f"of tol), lse err {lse_err} (tol {lse_tol}), "
+                             f"bit-identical twice: {same}")
+    elem = q.element_size()
+    qkvo = q.numel() * elem
+    pairs = b * h * s * (s + 1) / 2
+    copies = rotated((q, k, v), 3 * qkvo)
+    tq = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
+    cases = {"K1": {
+        "shape": list(TP_SHAPE), "causal": True, "dtype": dname,
+        "design": route(dname), "max_abs_err": err, "tol": tol,
+        "err_over_tol": ratio, "lse_err": lse_err, "bit_identical": same,
+        "ms": timer.ms(lambda q_, k_, v_: fa.flash_forward(
+            q_, k_, v_, causal=True), copies),
+        "plain_ms": timer.ms(lambda q_, k_, v_: fa.flash_forward_plain(
+            q_, k_, v_, causal=True, scale=scale), copies[:1]),
+        "library_ms": timer.ms(
+            lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=True), tq),
+        **bounds(4 * d * pairs, 4 * qkvo + lse.numel() * 4, dname)}}
+    del copies, tq
+
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, s).contiguous()
+    args = (q, k, v, do, lse, delta)
+    kw = dict(causal=True, scale=scale)
+    outs = fa.flash_bwd_fused(*args, **kw)
+    again = fa.flash_bwd_fused(*args, **kw)
+    plain = fa.flash_bwd_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    res = [grad_tolerance(torch, a, r) for a, r in zip(outs, plain)]
+    worst = max(res, key=lambda x: x[2])
+    same = all(torch.equal(a, b_) for a, b_ in zip(outs, again))
+    if not (worst[2] <= 1.0 and same):
+        raise AssertionError(f"K3 {dname} {TP_SHAPE}: {res}, bit-identical "
+                             f"twice: {same}")
+    copies = rotated(args, 4 * qkvo)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                       for t in (q, k, v, do))
+    ref_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    cases["K3"] = {
+        "shape": list(TP_SHAPE), "causal": True, "dtype": dname,
+        "design": route(dname), "max_abs_err": max(x[0] for x in res),
+        "tol": worst[1], "err_over_tol": worst[2], "bit_identical": same,
+        "ms": timer.ms(lambda *a: fa.flash_bwd_fused(*a, **kw), copies),
+        "plain_ms": timer.ms(lambda *a: fa.flash_bwd_fused_plain(*a, **kw),
+                             copies[:1]),
+        "library_ms": timer.ms(
+            lambda: torch.autograd.grad(ref_o, (qt, kt, vt), dot,
+                                        retain_graph=True), [()]),
+        # S and dP, then dq, dk and dv: 2 D operations each a pair
+        **bounds(2 * d * 5 * pairs, 4 * qkvo + b * h * s * 8 + 3 * qkvo,
+                 dname)}
+    del q, k, v, do, o, lse, delta, args, outs, again, plain, copies, \
+        qt, kt, vt, dot, ref_o
+
+    pages, page, m = 1025, 16, 128
+    lengths = [1, 15, 16, 17, 1000, 2047, 0, 0]
+    table = torch.zeros(len(lengths), m, dtype=torch.int32)
+    perm = torch.randperm(pages - 1, generator=gen) + 1
+    used = 0
+    for row, n_tok in enumerate(lengths):
+        n = -(-n_tok // page)
+        table[row, :n] = perm[used:used + n]
+        used += n
+    index = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    pool_k, pool_v = (torch.randn(pages, page, h, d,
+                                  generator=gen).to("cuda", dtype)
+                      for _ in range(2))
+    tab_c, idx_c = table.cuda(), index.cuda()
+    q = torch.randn(len(lengths), 1, h, d, generator=gen).to("cuda", dtype)
+    o = pa.paged_flash_decode(q, pool_k, pool_v, tab_c, idx_c)
+    again = pa.paged_flash_decode(q, pool_k, pool_v, tab_c, idx_c)
+    po = pa.paged_flash_decode_reference(q, pool_k, pool_v, tab_c, idx_c)
+    torch.cuda.synchronize()
+    err, tol, ratio = compare(torch, o, po)
+    same = torch.equal(o, again)
+    if not (ratio <= 1.0 and same):
+        raise AssertionError(f"K4 {dname} [8, 1, {h}, {d}]: err {err} "
+                             f"({ratio} of tol), bit-identical: {same}")
+    keys = [min(int(i) + 1, m * page) for i in index.tolist()]
+    nbytes = (2 * sum(keys) * h * d * elem + 2 * q.numel() * elem
+              + table.numel() * 4 + index.numel() * 4)
+    copies = rotated((q, pool_k, pool_v, tab_c, idx_c),
+                     2 * sum(keys) * h * d * elem)
+    cases["K4"] = {
+        "case": "decode", "shape": list(q.shape), "dtype": dname,
+        "design": k4_route(dname, 1), "row_keys": keys,
+        "max_abs_err": err, "tol": tol, "err_over_tol": ratio,
+        "bit_identical": same,
+        "ms": timer.ms(pa.paged_flash_decode, copies),
+        "plain_ms": timer.ms(pa.paged_flash_decode_reference, copies[:1]),
+        "library_ms": None, **bounds(4 * h * d * sum(keys), nbytes, dname)}
+    del pool_k, pool_v, copies
+    for name, case in cases.items():
+        emit({"phase": "kernels_tp", "kernel": name, **case})
+    torch.cuda.empty_cache()
+    return cases
+
+
 def check_serving_f32(torch, seed: int):
     """Greedy engine tokens == teacher-forced argmax, full width, f32;
     sampled requests replay token for token; and the kernels' launches
@@ -1186,10 +1362,16 @@ def check_serving_f32(torch, seed: int):
     return per_call
 
 
-def serve_bf16(torch, seed: int, per_call):
+def serve_bf16(torch, seed: int, per_call, serve_tp: int = 1,
+               devices=None) -> dict:
     """The main path, through the serving entry point a user runs, in
-    bf16 with the counters zeroed just before and read just after."""
+    bf16 with the counters zeroed just before and read just after: 16
+    requests, prompts up to 512 tokens, 64 new, 8 slots.  At
+    ``serve_tp`` > 1 (phase 16) the same traffic through ``serve`` on
+    the shards' ``devices``, each shard launching what one model does.
+    Returns the stats and the launches."""
     from dtf_tpu_torch.cli import serve_main
+    from dtf_tpu_torch.config import parse_flags
     from dtf_tpu_torch.ops import flash_attention as fa
     from dtf_tpu_torch.ops import paged_attention as pa
 
@@ -1198,27 +1380,43 @@ def serve_bf16(torch, seed: int, per_call):
             "--model", "transformer_tpu", "--dtype", "bf16",
             "--seed", str(seed), "--serve_max_batch", "8",
             "--serve_requests", str(n_req), "--serve_prompt_len", "512",
-            "--serve_max_new_tokens", str(n_new)]
+            "--serve_max_new_tokens", str(n_new),
+            "--serve_tp", str(serve_tp)]
+    torch.cuda.empty_cache()
     reset_counts(fa, pa)
-    out = serve_main.main(argv)
+    if serve_tp == 1:
+        out = serve_main.main(argv)
+    else:
+        # serve_main's CLI puts shard k on cuda:k; two shards sharing
+        # one card are named here
+        out = quiet(functools.partial(
+            serve_main.serve, parse_flags(argv[1:]), random_init=True,
+            devices=devices))
     launches = kernel_counts(fa, pa)
     if not (out["requests"] == n_req and out["shed"] == 0
             and out["new_tokens"] == out["streamed_tokens"]
-            == n_req * n_new):
+            == n_req * n_new and out["tp"] == serve_tp):
         raise AssertionError(f"serving run incomplete: {out}")
     # every request has one first chunk (K1); every other chunk and
     # every decode step attends over pages (K4), each as many times as
-    # phase 3 counted in one such call
-    want = {"K1": per_call["first_chunk"]["K1"] * n_req,
+    # phase 3 counted in one such call, on every shard
+    want = {"K1": per_call["first_chunk"]["K1"] * n_req * serve_tp,
             "K2a": 0, "K2b": 0, "K3": 0,
-            "K4": per_call["decode_step"]["K4"] * out["decode_steps"]
-            + per_call["continuation_chunk"]["K4"]
-            * (out["prefill_chunks"] - n_req)}
+            "K4": serve_tp * (
+                per_call["decode_step"]["K4"] * out["decode_steps"]
+                + per_call["continuation_chunk"]["K4"]
+                * (out["prefill_chunks"] - n_req))}
     if launches != want or min(launches["K1"], launches["K4"]) <= 0:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
-    emit({"phase": "serve", "model": "transformer_tpu", "dtype": "bf16",
-          **out, "launches": launches})
-    return launches
+        raise AssertionError(f"serve_tp {serve_tp}: kernel launches "
+                             f"{launches}, expected {want}")
+    emit({"phase": "serve" if serve_tp == 1 else "serve_tp",
+          "model": "transformer_tpu", "dtype": "bf16", **out,
+          "launches": launches})
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            **{k: out[k] for k in ("tokens_per_second", "ttft_p50_s",
+                                   "decode_step_p50_s", "latency_p50_s",
+                                   "decode_steps")}}
 
 
 def kernel_counts(fa, pa):
@@ -2436,11 +2634,24 @@ from dtf_tpu_torch.runtime.mesh import initialize
 spec = json.loads(sys.argv[1])
 if os.environ.get("DTF_RESTART_GENERATION", "0") != "0":
     spec["argv"] = spec["argv"] + spec.get("argv_restart", [])
+if spec.get("layers"):
+    import functools
+    from dtf_tpu_torch.models import registry
+    ctor, classes, l2 = registry._REGISTRY["transformer_tpu"]
+    registry._REGISTRY["transformer_tpu"] = (
+        functools.partial(ctor, num_layers=spec["layers"]), classes, l2)
 kept = {}
 build = runner.build_training
 def keep(cfg, rt=None):
     out = build(cfg, rt)
     kept["trainer"] = out[0]
+    if spec.get("go"):
+        # started early (the process group joined, the model built and
+        # placed); the steps wait for the caller's go, so their times
+        # are their own
+        while not os.path.exists(spec["go"]):
+            time.sleep(0.05)
+        kept["t0"] = time.perf_counter()
     return out
 runner.build_training = keep
 main = __import__("dtf_tpu_torch.cli." + spec["main"], fromlist=["main"])
@@ -2454,13 +2665,14 @@ t0 = time.perf_counter()
 stats = run()
 if torch.cuda.is_available():
     torch.cuda.synchronize()
-wall = time.perf_counter() - t0
+wall = time.perf_counter() - kept.get("t0", t0)
 trainer = kept["trainer"]
 digest = hashlib.sha256()
 for t in trainer.model.state_dict().values():
     digest.update(t.detach().float().cpu().contiguous().numpy().tobytes())
 print("DP_RESULT=" + json.dumps({
     "rank": trainer.rt.rank, "replicas": trainer.rt.num_replicas,
+    "model_parallelism": trainer.rt.model_parallelism,
     "backend": trainer.rt.backend, "device": str(trainer.rt.device),
     "threads": torch.get_num_threads(),
     "losses": [v for _, v in stats["train_loss_log"]],
@@ -2475,6 +2687,10 @@ print("DP_RESULT=" + json.dumps({
     "digest": digest.hexdigest()}))
 """.replace("@ROOT@", repr(ROOT))
 DP_TIMEOUT_S = 300
+# phase 8's world-1 LM arms and phase 11's LM worker run transformer_tpu
+# at 6 of its 12 layers, every width kept, to make room for phase 16
+# within the script's budget; none of their gates depends on depth
+DP_LM_LAYERS = 6
 
 
 def dp_results(texts, what: str):
@@ -2519,7 +2735,7 @@ def dp_run(spec: dict, world, root: str, what: str):
 
 
 def dp_world_one(torch, card: str, root: str, main: str, defaults: str,
-                 argv, phase: str, **extra):
+                 argv, phase: str, layers=None, **extra):
     """``main`` with ``--distribution_strategy off`` in a plain process
     and with ``multi_worker_mirrored`` through the launcher with one
     rank (a real NCCL group), in turns: off, NCCL, NCCL, off.  Every
@@ -2530,14 +2746,15 @@ def dp_world_one(torch, card: str, root: str, main: str, defaults: str,
     for turn, strategy in enumerate(("off", "multi_worker_mirrored",
                                      "multi_worker_mirrored", "off")):
         spec = {"main": main, "defaults": defaults, "backend": None,
-                "argv": argv + ["--distribution_strategy", strategy]}
+                "argv": argv + ["--distribution_strategy", strategy],
+                "layers": layers}
         torch.cuda.empty_cache()
         runs.append((strategy, dp_run(spec, arms[strategy], root,
                                       f"{phase} {strategy} {turn}")[0]))
     windows = {s: [w for name, r in runs if name == s
                    for w in r["window_step_s"]] for s in arms}
     one = runs[1][1]
-    line = {"phase": phase, "card": card, **extra,
+    line = {"phase": phase, "card": card, **extra, "layers": layers,
             "backend": one["backend"], "replicas": one["replicas"],
             "turns": [name for name, _ in runs],
             "step_s_p50_off": statistics.median(windows["off"]),
@@ -2657,9 +2874,10 @@ def train_data_parallel(torch, seed: int, card: str):
              "transformer_tpu", "--dtype", "bf16", "--batch_size", str(b),
              "--train_steps", str(steps), "--log_steps", "1", "--seed",
              str(seed), "--skip_checkpoint"],
-            "dp_world1_lm", model="transformer_tpu", dtype="bf16", batch=b,
-            seq=TRAIN_SHAPE[1], steps=steps)
-        want = {"K1": 12 * steps, "K2a": 0, "K2b": 0, "K3": 12 * steps}
+            "dp_world1_lm", layers=DP_LM_LAYERS, model="transformer_tpu",
+            dtype="bf16", batch=b, seq=TRAIN_SHAPE[1], steps=steps)
+        n = DP_LM_LAYERS * steps
+        want = {"K1": n, "K2a": 0, "K2b": 0, "K3": n}
         if lm["launches_nccl_world1"] != want:
             raise AssertionError(f"dp_world1_lm launches "
                                  f"{lm['launches_nccl_world1']}, expected "
@@ -3631,9 +3849,10 @@ def ps_reference(torch, seed: int, card: str, root: str) -> list:
 
 
 def ps_lm(torch, seed: int, card: str) -> dict:
-    """transformer_tpu b8 x 2048 bf16 as one async worker, 3 steps: K1
-    and K3 launch 12 times a step (counted as phases 6 and 9 count
-    them); the parameters' exact count and the bytes a pull moves."""
+    """transformer_tpu b8 x 2048 bf16 at ``DP_LM_LAYERS`` of its layers
+    as one async worker, 3 steps: K1 and K3 launch once a layer and step
+    (counted as phases 6 and 9 count them); the parameters' exact count
+    and the bytes a pull moves."""
     from dtf_tpu_torch.cli.lm_main import LM_DEFAULTS
     from dtf_tpu_torch.cli.runner import run
     from dtf_tpu_torch.config import parse_flags
@@ -3650,13 +3869,15 @@ def ps_lm(torch, seed: int, card: str) -> dict:
     torch.cuda.empty_cache()
     fa.launches = fa.launches_dq = fa.launches_dkdv = fa.launches_fused = 0
     t0 = time.perf_counter()
-    stats = quiet(run, cfg)
+    with fleet_depth(DP_LM_LAYERS):
+        stats = quiet(run, cfg)
     wall = time.perf_counter() - t0
     launches = {"K1": fa.launches, "K2a": fa.launches_dq,
                 "K2b": fa.launches_dkdv, "K3": fa.launches_fused}
     wire = stats["ps_client"]
     params = wire["ps_client_pull_bytes"] // wire["ps_client_pulls"] // 4
     line = {"phase": "ps_lm", "card": card, "model": "transformer_tpu",
+            "layers": DP_LM_LAYERS,
             "dtype": "bf16", "batch": TRAIN_SHAPE[0], "seq": TRAIN_SHAPE[1],
             "steps": steps, "launches": launches, "params": params,
             "pull_bytes": 4 * params, "version": stats["ps_version"],
@@ -3665,7 +3886,8 @@ def ps_lm(torch, seed: int, card: str) -> dict:
             "peak_memory_bytes": stats["peak_memory_bytes"],
             "wall_s": wall}
     emit(line)
-    want = {"K1": 12 * steps, "K2a": 0, "K2b": 0, "K3": 12 * steps}
+    n = DP_LM_LAYERS * steps
+    want = {"K1": n, "K2a": 0, "K2b": 0, "K3": n}
     if not (launches == want and line["version"] == steps
             and all(map(math.isfinite, line["losses"]))):
         raise AssertionError(f"ps_lm: {line}, expected launches {want}")
@@ -4503,16 +4725,17 @@ class ReplicaForkServer:
 
 
 @contextlib.contextmanager
-def fleet_depth():
-    """``transformer_tpu`` at ``FLEET_LAYERS`` of its 12 layers, every
-    width kept, in this process while phases 13-14 run (their
-    references and exports); each forked replica applies the same
-    (:func:`fleet_replica_child`)."""
+def fleet_depth(layers=None):
+    """``transformer_tpu`` at ``layers`` (``FLEET_LAYERS``) of its 12
+    layers, every width kept, in this process while phases 13-14 run
+    (their references and exports; each forked replica applies the
+    same, :func:`fleet_replica_child`) or phase 11's LM worker."""
     from dtf_tpu_torch.models import registry
     kept = registry._REGISTRY["transformer_tpu"]
     ctor, classes, l2 = kept
     registry._REGISTRY["transformer_tpu"] = (
-        functools.partial(ctor, num_layers=FLEET_LAYERS), classes, l2)
+        functools.partial(ctor, num_layers=layers or FLEET_LAYERS),
+        classes, l2)
     try:
         yield
     finally:
@@ -4756,10 +4979,16 @@ def fleet_run(seed: int, card: str, prompts, cold, *, dtype: str,
         line["respawns"] = router.metrics.get(
             "router_replica_respawns_total").value
         if kill:
+            # the router counts a respawn when its probe sees the killed
+            # process gone, which can come after a fast burst has ended:
+            # wait for it and for both replicas healthy, then read it
+            respawns = router.metrics.get("router_replica_respawns_total")
             deadline = time.time() + 300
-            while time.time() < deadline and not all(
-                    router.replica_healthy(r) for r in (0, 1)):
+            while time.time() < deadline and not (
+                    respawns.value >= 1 and all(
+                        router.replica_healthy(r) for r in (0, 1))):
                 time.sleep(0.2)
+            line["respawns"] = respawns.value
             before = [router.replica_completed(r) for r in (0, 1)]
             extra = range(len(prompts), len(prompts) + len(cold))
             results.update(burst(extra, cold))
@@ -5860,6 +6089,291 @@ def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
     return line
 
 
+# phase 16: tensor parallelism (runtime/mesh.py's grid, models/partition.py,
+# the shard-local transformer, TensorParallelLM)
+# ---------------------------------------------------------------------------
+
+TP_BATCH = 2             # global at data 1: TP_SHAPE's batch
+TP_STEPS_F32 = 3
+TP_STEPS_BF16 = 6
+# f32 losses: the TP run against world 1, --shard_lm_head against the
+# plain TP run, the mp-1 resume against the mp-2 run.  One function with
+# each block's sums split over two shards (the row-parallel partials,
+# the collective softmax): float32 rounding, ~1e-6 relative after three
+# AdamW steps; 20x tighter than the JAX test's rtol 2e-3
+TP_LOSS_RTOL = 1e-4
+TP_SERVE_REQUESTS = 16
+TP_SERVE_NEW = 32
+TP_CKPT_REQUESTS = 8
+TP_CKPT_NEW = 16
+
+
+def tp_lm_argv(seed: int, dtype: str, steps: int) -> list:
+    return ["--use_synthetic_data", "--device", "cuda", "--model",
+            "transformer_tpu", "--dtype", dtype, "--batch_size",
+            str(TP_BATCH), "--train_steps", str(steps), "--log_steps", "1",
+            "--seed", str(seed), "--step_time_guard_factor", "0"]
+
+
+def tp_prompts(seed: int, n: int):
+    import numpy as np
+    rng = np.random.default_rng(seed + 16)
+    return [rng.integers(0, 32768, (int(rng.integers(1, 257)),)).astype(
+        np.int32) for _ in range(n)]
+
+
+def tp_serve_tokens(torch, cfg, prompts, n_new: int, devices=None):
+    """Greedy tokens of ``prompts`` from the engine serve_main builds
+    for ``cfg`` (random weights from its seed unless it names a
+    ``model_dir``), on ``devices`` at ``serve_tp`` > 1; and the heads of
+    each shard's KV pool."""
+    from dtf_tpu_torch.cli.serve_main import build_serving_engine
+
+    model, engine = build_serving_engine(cfg, random_init=not cfg.model_dir,
+                                         devices=devices)
+    try:
+        handles = [engine.submit(p, max_new_tokens=n_new) for p in prompts]
+        tokens = [h.result(timeout=600).tokens for h in handles]
+    finally:
+        engine.stop(drain=False)
+    if engine.failed is not None:
+        raise RuntimeError("engine failed") from engine.failed
+    heads = [int(c[0]["paged_key"].shape[2]) for c in engine._cache]
+    del model, engine
+    torch.cuda.empty_cache()
+    return tokens, heads
+
+
+def tp_cli_refusal(seed: int) -> dict:
+    """``cli.serve_main --serve_tp 2`` as a user runs it on this machine:
+    with fewer cards than shards it must exit non-zero, naming the
+    count, and never stack the shards on one card."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.cli.serve_main",
+         "--serve_random_init", "--model", "transformer_tpu",
+         "--serve_tp", "2", "--seed", str(seed), "--serve_requests", "1"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    lines = (proc.stderr or proc.stdout).strip().splitlines()
+    return {"exit_code": proc.returncode,
+            "message": lines[-1] if lines else ""}
+
+
+def tp_lm_here(torch, argv) -> dict:
+    """``lm_main``'s run of ``argv`` in this process (no process to
+    start): its losses and window step times, the kernels' launches
+    between a reset just before and a read just after, and the bytes it
+    allocated at its peak above what was allocated before it."""
+    from dtf_tpu_torch.cli import runner
+    from dtf_tpu_torch.cli.lm_main import LM_DEFAULTS
+    from dtf_tpu_torch.config import parse_flags
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    cfg = parse_flags(argv, defaults=LM_DEFAULTS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(fa, pa)
+    stats = quiet(runner.run, cfg)
+    torch.cuda.synchronize()
+    out = {"losses": [v for _, v in stats["train_loss_log"]],
+           "window_step_s": stats["window_step_s"],
+           "launches": kernel_counts(fa, pa),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+           "replicas": 1, "model_parallelism": 1}
+    del stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel(torch, seed: int, card: str, per_call,
+                    serve1: dict) -> dict:
+    """Phase 16 (see the module's docstring): (a) TP training against
+    world 1 and itself, (b) TP serving against serve_tp 1, (c) the
+    CLI's refusal on one card.  The correctness runs go at once (their
+    gates are their own); the timed runs go alone after them, the TP
+    ranks started beforehand and held until then.  The world-1 runs go
+    in this process: no process to start.  The bf16 burst at serve_tp
+    2 is phase 4's (``per_call`` its launches a model call), held
+    beside phase 4's serve_tp 1 numbers (``serve1``)."""
+    import tempfile
+
+    from dtf_tpu_torch.config import Config
+
+    def spec(args, backend="gloo", **kw):
+        return {"main": "lm_main", "defaults": "LM_DEFAULTS",
+                "backend": backend, "argv": args, **kw}
+
+    f32 = tp_lm_argv(seed, "fp32", TP_STEPS_F32)
+    bf16 = tp_lm_argv(seed, "bf16", TP_STEPS_BF16)
+    grid = ["--distribution_strategy", "multi_worker_mirrored",
+            "--model_parallelism", "2"]
+    off = ["--distribution_strategy", "off"]
+    skip = ["--skip_checkpoint"]
+    two = [torch.device("cuda", 0)] * 2
+    serve_cfg = dict(model="transformer_tpu", dtype="fp32", seed=seed,
+                     device="cuda", serve_max_batch=8,
+                     serve_max_seq_len=512, model_dir="")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        ckpt = os.path.join(root, "tp_model")
+        go = os.path.join(root, "tp_bf16.go")
+        try:
+            futs = [
+                overlapped(zero_launch, spec(f32 + grid + [
+                    "--model_dir", ckpt, "--checkpoint_steps", "2"]), 2,
+                    root, "tp f32"),
+                overlapped(zero_launch, spec(f32 + grid + skip + [
+                    "--shard_lm_head"]), 2, root, "tp f32 vocab"),
+                overlapped(tp_cli_refusal, seed)]
+            # (b) meanwhile in this process: f32 greedy, serve_tp 2 and 1
+            prompts = tp_prompts(seed, TP_SERVE_REQUESTS)
+            one, heads1 = tp_serve_tokens(torch, Config(**serve_cfg),
+                                          prompts, TP_SERVE_NEW)
+            tp2, heads2 = tp_serve_tokens(
+                torch, Config(serve_tp=2, **serve_cfg), prompts,
+                TP_SERVE_NEW, two)
+            stamps = {"served_f32": time.time() - t0}
+            off32 = [tp_lm_here(torch, f32 + off + skip)]
+            stamps["off_f32"] = time.time() - t0
+            # the timed TP run's ranks start now (the runs that started
+            # with the phase done or past their start), build, and wait
+            # for their go
+            timed_tp = overlapped(zero_launch, spec(bf16 + grid + skip,
+                                                    go=go), 2, root,
+                                  "tp bf16")
+            # the TP run's step-2 checkpoint once it is sealed (hard
+            # links, its other steps left out), while the run goes on
+            manifest = os.path.join(ckpt, "checkpoints.meta",
+                                    "manifest_2.json")
+            while not os.path.exists(manifest):
+                if futs[0].done():
+                    futs[0].result()
+                    raise AssertionError("tp f32: no step-2 checkpoint")
+                time.sleep(0.2)
+            stamps["tp_f32_step2_sealed"] = time.time() - t0
+            keep = {"checkpoints": "2", "checkpoints.meta": "manifest_2.json"}
+            resume = os.path.join(root, "resume_model")
+            shutil.copytree(ckpt, resume, copy_function=os.link,
+                            ignore=lambda d, names: [
+                                n for n in names
+                                if os.path.basename(d) in keep
+                                and n != keep[os.path.basename(d)]])
+            # that checkpoint served at serve_tp 1 and 2, each on a
+            # thread, while this one resumes it at mp 1 with no save of
+            # its own
+            ck_prompts = prompts[:TP_CKPT_REQUESTS]
+            ck_cfg = dict(serve_cfg, model_dir=resume)
+            served = [overlapped(tp_serve_tokens, torch,
+                                 Config(serve_tp=n, **ck_cfg), ck_prompts,
+                                 TP_CKPT_NEW, two if n > 1 else None)
+                      for n in (1, 2)]
+            resumed = [tp_lm_here(torch, f32 + off + skip + [
+                "--model_dir", resume, "--resume"])]
+            stamps["resumed"] = time.time() - t0
+            (ck1, _), (ck2, ck_heads) = gathered(served)
+            stamps["served_checkpoint"] = time.time() - t0
+            tp32, vocab, cli = gathered(futs)
+        finally:
+            # the timed ranks run (and end) whatever happened here
+            with open(go, "w"):
+                pass
+        correct_s = time.time() - t0
+        # the timed runs, alone
+        t0 = time.time()
+        tpbf = timed_tp.result()
+        offbf = [tp_lm_here(torch, bf16 + off + skip)]
+        serve2 = serve_bf16(torch, seed, per_call, 2, two)
+        timed_s = time.time() - t0
+
+    ref = off32[0]["losses"]
+    gap_tp = rel_gap(tp32[0]["losses"], ref)
+    gap_vocab = rel_gap(vocab[0]["losses"], tp32[0]["losses"])
+    gap_resume = rel_gap(resumed[0]["losses"], tp32[0]["losses"][2:])
+    k_f32, k_bf16 = 12 * TP_STEPS_F32, 12 * TP_STEPS_BF16
+
+    def launches_ok(ranks, k):
+        return all(r["launches"]["K1"] == r["launches"]["K3"] == k
+                   and r["launches"]["K2a"] == r["launches"]["K2b"] == 0
+                   for r in ranks)
+
+    def grid_ok(ranks):
+        return ([r["model_parallelism"] for r in ranks] == [2, 2]
+                and [r["replicas"] for r in ranks] == [1, 1]
+                and ranks[0]["losses"] == ranks[1]["losses"])
+
+    line = {
+        "phase": "tensor_parallel", "card": card, "model": "transformer_tpu",
+        "model_parallelism": 2, "heads_per_shard": 3, "d_ff_per_shard":
+        1536, "vocab_per_shard": 16384, "seq": TP_SHAPE[1],
+        "global_batch": TP_BATCH, "optimizer": "adamw",
+        "loss_rtol": TP_LOSS_RTOL,
+        "train_f32": {"steps": TP_STEPS_F32, "losses_off": ref,
+                      "losses_tp": tp32[0]["losses"],
+                      "losses_shard_lm_head": vocab[0]["losses"],
+                      "loss_rel_gap_tp_to_off": gap_tp,
+                      "loss_rel_gap_shard_lm_head_to_tp": gap_vocab,
+                      "launches_tp_rank0": tp32[0]["launches"]},
+        "resume_mp1": {"from_step": 2, "losses": resumed[0]["losses"],
+                       "tp_losses": tp32[0]["losses"][2:],
+                       "loss_rel_gap": gap_resume,
+                       "replicas": resumed[0]["replicas"],
+                       "model_parallelism": resumed[0]["model_parallelism"]},
+        "train_bf16": {
+            "steps": TP_STEPS_BF16,
+            "step_s_p50_tp": [statistics.median(r["window_step_s"])
+                              for r in tpbf],
+            "step_s_p50_off": statistics.median(offbf[0]["window_step_s"]),
+            "peak_memory_bytes_tp": [r["peak_memory_bytes"] for r in tpbf],
+            "peak_memory_bytes_off": offbf[0]["peak_memory_bytes"],
+            "losses_tp": tpbf[0]["losses"], "losses_off": offbf[0]["losses"],
+            "launches_tp": [r["launches"] for r in tpbf],
+            "launches_off": offbf[0]["launches"]},
+        "serve_f32": {"requests": len(prompts), "new_tokens": TP_SERVE_NEW,
+                      "token_exact_tp2_vs_tp1": tp2 == one,
+                      "heads_per_shard": heads2, "heads_tp1": heads1},
+        "serve_checkpoint": {"step": 2, "requests": len(ck_prompts),
+                             "new_tokens": TP_CKPT_NEW,
+                             "token_exact_tp2_vs_tp1": ck2 == ck1,
+                             "heads_per_shard": ck_heads},
+        "serve_bf16": {"serve_tp_2": serve2, "serve_tp_1_phase4": serve1},
+        "cli_serve_tp2": {**cli, "cards": torch.cuda.device_count()},
+        "correct_wall_s": correct_s, "timed_wall_s": timed_s,
+        "correct_stamps_s": stamps,
+        "rank_wall_s": {"tp_f32": tp32[0]["wall_s"],
+                        "tp_f32_vocab": vocab[0]["wall_s"],
+                        "tp_bf16": tpbf[0]["wall_s"]}}
+    emit(line)
+    one_card = torch.cuda.device_count() < 2
+    gates = {
+        "tp_f32_vs_off": gap_tp <= TP_LOSS_RTOL and grid_ok(tp32),
+        "shard_lm_head_vs_tp": gap_vocab <= TP_LOSS_RTOL and grid_ok(vocab),
+        "resume_at_mp1": (gap_resume <= TP_LOSS_RTOL
+                          and len(resumed[0]["losses"]) == 1
+                          and resumed[0]["model_parallelism"] == 1),
+        "bf16_grid": grid_ok(tpbf),
+        "launches": (launches_ok(tp32, k_f32) and launches_ok(vocab, k_f32)
+                     and launches_ok(tpbf, k_bf16)
+                     and launches_ok(offbf, k_bf16)),
+        "serve_f32_token_exact": tp2 == one and heads2 == [3, 3],
+        "serve_checkpoint_token_exact": ck2 == ck1 and ck_heads == [3, 3],
+        "serve_bf16_launched": min(serve2["launches"]["K1"],
+                                   serve2["launches"]["K4"]) > 0,
+        "cli_refuses_serve_tp2": (not one_card) or (
+            cli["exit_code"] != 0
+            and "needs 2 devices, 1 attached" in cli["message"]),
+        "finite": all(math.isfinite(v) for v in
+                      ref + tpbf[0]["losses"] + vocab[0]["losses"])}
+    emit({"phase": "tensor_parallel_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"tensor_parallel: {gates}")
+    line["launches_tp"] = {"K1": tpbf[0]["launches"]["K1"],
+                           "K3": tpbf[0]["launches"]["K3"],
+                           "K4": serve2["launches"]["K4"]}
+    line["launches_tp_serve_K1"] = serve2["launches"]["K1"]
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5892,6 +6406,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    probe = host_probe()
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -5901,7 +6416,7 @@ def main(argv=None) -> int:
           "build_s_per_source": _build.build_seconds,
           "ptxas": {n: _build.ptxas_report(n) for n in _build.SOURCES}})
 
-    host = host_probe()
+    host = probe()
     emit({"phase": "host_probe", **host})
 
     # phase 2: each kernel against its plain version
@@ -5912,11 +6427,13 @@ def main(argv=None) -> int:
     _, bwd = check_backward(torch, timer, gen)
     k4 = check_paged(torch, timer, gen)
     check_peaked(torch, gen)
+    tp_cases = check_tp_kernels(torch, timer, gen)
     clock.done("2")
 
     # phases 3 and 4: the serving path
     per_call = check_serving_f32(torch, args.seed)
-    serve_launches = serve_bf16(torch, args.seed, per_call)
+    serve4 = serve_bf16(torch, args.seed, per_call)
+    serve_launches = serve4["launches"]
     decode_profile = profile_decode_step(torch, args.seed)
     clock.done("3-4")
 
@@ -6013,6 +6530,14 @@ def main(argv=None) -> int:
     zero = zero_stages(torch, args.seed, card)
     clock.done("15")
 
+    # phase 16: tensor parallelism (K1 and K3 at 3 heads in each rank,
+    # K1 and K4 at 3 heads in each serving shard)
+    tp = tensor_parallel(torch, args.seed, card, per_call, serve4)
+    tp_run = ("phase 16: K1/K3 rank 0 of lm_main --model_parallelism 2, "
+              "bf16, 6 steps; K4 (and launches_tp_serve for K1) the bf16 "
+              "serve_tp 2 engine's two shards, 16 requests")
+    clock.done("16")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -6081,7 +6606,10 @@ def main(argv=None) -> int:
                               for a, n in remat["launches"].items()},
               launches_remat_run=remat["run"],
               launches_zero=zero["launches_zero"]["K1"],
-              launches_zero_run=zero["launches_zero_run"]),
+              launches_zero_run=zero["launches_zero_run"],
+              launches_tp=tp["launches_tp"]["K1"],
+              launches_tp_serve=tp["launches_tp_serve_K1"],
+              launches_tp_run=tp_run, tp_case=tp_cases["K1"]),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -6115,6 +6643,8 @@ def main(argv=None) -> int:
               launches_remat_run=remat["run"],
               launches_zero=zero["launches_zero"]["K3"],
               launches_zero_run=zero["launches_zero_run"],
+              launches_tp=tp["launches_tp"]["K3"], launches_tp_run=tp_run,
+              tp_case=tp_cases["K3"],
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
@@ -6141,6 +6671,8 @@ def main(argv=None) -> int:
               launches_ha_run=ha_run,
               launches_rollout=ha_roll["launches_rollout"]["K4"],
               launches_rollout_run=rollout_run,
+              launches_tp=tp["launches_tp"]["K4"], launches_tp_run=tp_run,
+              tp_case=tp_cases["K4"],
               keys_per_split=k4[0]["keys_per_split"],
               chunk_case=k4_brief(k4_case("bfloat16", "chunk@1984")),
               f32_decode_case=k4_brief(k4_case("float32", "decode")),

@@ -1,6 +1,8 @@
 """Multi-process launcher and supervisor -- the PyTorch counterpart of
 ``dtf_tpu/cli/launch.py``: one command starts every rank of a
-data-parallel run, each told its place by the environment, and
+data-parallel run (or of a data x model grid under
+``--model_parallelism``: the ranks form it, ``runtime/mesh.py``), each
+told its place by the environment, and
 restarts the whole job when a rank fails.  It also starts the async
 parameter server (``--ps_mode async``): rank 0 serves the store on the
 coordinator's port and ranks 1..N are its workers.

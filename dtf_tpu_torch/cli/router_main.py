@@ -80,7 +80,7 @@ _FORWARD_FLAGS = (
     "export_dir", "serve_params_npz",
     "serve_max_batch", "serve_max_seq_len", "serve_queue_size",
     "serve_max_delay_ms", "kv_page_size", "kv_pool_pages",
-    "serve_prefill_chunk", "serve_prefix_sharing",
+    "serve_prefill_chunk", "serve_prefix_sharing", "serve_tp",
     "heartbeat_secs", "rendezvous_dir", "serve_host",
 )
 

@@ -30,7 +30,10 @@ comes first, before anything touches CUDA: it joins the process group
 of a data-parallel run and picks the rank's card.  ``--batch_size`` is global, except
 under ``horovod`` and ``parameter_server``, where it is per replica
 (:func:`effective_global_batch`); each process feeds its share, the
-global batch over the process count.  The synthetic stream is the JAX
+global batch over the data-parallel replicas (under
+``--model_parallelism`` every model rank of a replica reads its data
+index's share, and a transformer is the rank's model shard).  The
+synthetic stream is the JAX
 package's: every rank draws the same batch from ``--seed``.  CIFAR
 files are read by file shard, and the eval stride-sharded and masked.
 The benchmark log and "Run stats" come from the coordinator only, and
@@ -104,11 +107,14 @@ def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
     batches: its 1/process-count share of the global batch.  The train
     factory takes ``start_step``: a resumed run's stream starts at the
     restored step's batch."""
-    rank, count = runtime.rank, runtime.num_replicas
+    # a replica's share: every model rank of one replica reads the same
+    # batch, its data index's
+    rank, count = runtime.data_index, runtime.num_replicas
     if global_batch % count:
         raise ValueError(
             f"global batch_size {global_batch} must be divisible by the "
-            f"process count ({count})")
+            f"process count over the model axis ({count} data-parallel "
+            f"replicas)")
     host_batch = global_batch // count
     if cfg.use_synthetic_data or not cfg.data_dir:
         fns = (lambda start_step=0: synthetic_input_fn(
@@ -177,10 +183,17 @@ def _channels_first_factory(fn):
     return wrapped
 
 
-def build_model_for(cfg, spec, device, bn_group=None):
+def build_model_for(cfg, spec, device, bn_group=None, model_index=0):
     """(model on ``device`` with its seeded weights, l2 weight);
-    ``bn_group`` makes a vision model's BatchNorms sync BN."""
+    ``bn_group`` makes a vision model's BatchNorms sync BN.  Under
+    ``--model_parallelism`` a transformer is model shard
+    ``model_index`` (the rank's, ``MeshRuntime.model_index``): the full
+    model's seeded weights, cut by the partition rule."""
     name = "trivial" if cfg.use_trivial_model else cfg.model
+    mp = max(int(cfg.model_parallelism), 1)
+    if cfg.shard_lm_head and (mp == 1 or is_vision(name)):
+        raise ValueError("--shard_lm_head needs the plain transformer "
+                         "family with --model_parallelism > 1")
     model_kw = {}
     if is_vision(name):
         if cfg.remat or cfg.remat_policy:
@@ -206,7 +219,19 @@ def build_model_for(cfg, spec, device, bn_group=None):
                             dtype=cfg.compute_dtype, bn_group=bn_group,
                             **model_kw)
     if not is_vision(name):
-        return random_init(model, cfg.seed).to(device), l2
+        random_init(model, cfg.seed)
+        if mp > 1:
+            from dtf_tpu_torch.models.partition import shard_state_dict
+            full = model.state_dict()
+            model, _ = build_model(name, num_classes=spec.num_classes,
+                                   dtype=cfg.compute_dtype,
+                                   model_parallelism=mp,
+                                   model_index=model_index,
+                                   shard_vocab=cfg.shard_lm_head,
+                                   **model_kw)
+            model.load_state_dict(shard_state_dict(
+                full, mp, model_index, cfg.shard_lm_head))
+        return model.to(device), l2
     if device.type == "cuda":
         # cuDNN's default may pick weight-gradient algorithms that add
         # with atomics, and autotuning may pick another algorithm in a
@@ -228,8 +253,10 @@ def build_training(cfg, runtime: Optional[MeshRuntime] = None):
         spec = dataclasses.replace(spec, seq_len=cfg.seq_len)
     global_batch = effective_global_batch(cfg, rt)
     cfg = cfg.replace(batch_size=global_batch)
-    model, l2 = build_model_for(cfg, spec, rt.device,
-                                bn_group=rt.group if cfg.sync_bn else None)
+    model, l2 = build_model_for(
+        cfg, spec, rt.device,
+        bn_group=rt.data_group if cfg.sync_bn else None,
+        model_index=rt.model_index)
     trainer = Trainer(cfg, model, l2, spec,
                       normalize_fn=for_config(cfg, spec), runtime=rt)
     train_fn, eval_fn = make_input_fns(cfg, spec, global_batch, rt)
@@ -305,6 +332,7 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
         return None, state, 0
     spe = trainer.steps_per_epoch
     service = service_on(cfg, trainer.spec)
+    world = rt.num_replicas * rt.model_parallelism
 
     def host_state_fn(step):
         data = {"scheme": "position-derived", "dataset": cfg.dataset,
@@ -321,16 +349,15 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
                 "epoch": step // spe, "step_in_epoch": step % spe,
                 # which topology WROTE this step -- informational: the
                 # payload is topology-free
-                "topology": {"devices": rt.num_replicas,
-                             "replicas": rt.num_replicas,
-                             "processes": rt.num_replicas},
+                "topology": {"devices": world, "replicas": rt.num_replicas,
+                             "processes": world},
                 "data": data}
 
     cb = CheckpointCallback(cfg.model_dir, trainer.checkpoint_payload,
                             every_steps=cfg.checkpoint_steps,
                             host_state_fn=host_state_fn,
                             keep=cfg.checkpoint_keep, runtime=rt,
-                            collective=trainer.zero)
+                            collective=trainer.zero or trainer.tp)
     if not cfg.resume:
         return cb, state, 0
     payload = cb.ckpt.restore()
@@ -408,7 +435,12 @@ def _run(cfg, rt: MeshRuntime) -> dict:
             and not cfg.use_synthetic_data:
         from dtf_tpu_torch import native
         stats["input_decode"] = native.decode_path()
-    if cfg.export_dir and rt.is_coordinator:
+    if cfg.export_dir and trainer.tp:
+        # the full model's leaves, gathered from every shard
+        flat = trainer.inference_flat(state)
+        if rt.is_coordinator:
+            export_model(cfg.export_dir, trainer.model, flat=flat)
+    elif cfg.export_dir and rt.is_coordinator:
         export_model(cfg.export_dir, trainer.model)
     if not rt.is_coordinator:
         return stats

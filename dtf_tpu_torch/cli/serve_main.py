@@ -20,6 +20,11 @@ draining).  SIGTERM drains: admissions shed with ``retry_after``,
 in-flight requests finish, and the process exits 0.  ``--trace_dir``
 records each request's submit, admit and retire.
 
+``--serve_tp N`` serves tensor-parallel: one engine over N model shards
+(``serve/bridge.py place_for_serving``), shard k on ``cuda:k``; with
+fewer cards than N it exits naming the count (``--device cpu`` puts
+every shard on the CPU).  Paged cache only.
+
 Examples:
   # on the GPU, the flagship width in bf16:
   python -m dtf_tpu_torch.cli.serve_main --serve_random_init \\
@@ -58,38 +63,46 @@ log = logging.getLogger("dtf_tpu_torch")
 
 
 def build_serving_engine(cfg, random_init: bool = False,
-                         replica_rank=None):
+                         replica_rank=None, devices=None):
     """(model, engine) from a Config, on ``cfg.device`` -- shared by this
     main and the replica entry (cli/replica_main.py).  The engine beats
     a heartbeat when the launcher (or the serving router) exported
     DTF_HEARTBEAT_DIR: ``heartbeat_rank{replica_rank}.json``, the rank
-    from DTF_PROCESS_ID when None."""
+    from DTF_PROCESS_ID when None.  ``devices``: the ``--serve_tp``
+    shards' devices, named by a caller (default: one card a shard)."""
     if not cfg.model.startswith("transformer"):
         raise ValueError(f"serving is implemented for the transformer LM "
                          f"family, not {cfg.model!r}")
     device = resolve_device(cfg.device)
+    # --serve_tp N: the host's weights cut straight into N shards, one
+    # a device; never several on one card unless a caller names them
+    devices = (bridge.serving_devices(cfg.serve_tp, devices, device=device)
+               if cfg.serve_tp > 1 else [device])
     model, _ = build_model(cfg.model, num_classes=cfg.num_classes,
                            dtype=cfg.compute_dtype)
     if random_init:
         log.warning("--serve_random_init: serving random parameters -- "
                     "a pipeline smoke test, outputs are noise")
         bridge.random_init(model, cfg.seed)
+        model = bridge.place_for_serving(model, devices, cfg.serve_tp)
     else:
         try:
-            bridge.load_for_serving(model, cfg.serve_params_npz,
-                                    model_dir=cfg.model_dir,
-                                    export_dir=cfg.export_dir)
+            model = bridge.load_for_serving(
+                model, cfg.serve_params_npz, model_dir=cfg.model_dir,
+                export_dir=cfg.export_dir, devices=devices,
+                model_parallelism=cfg.serve_tp)
         except FileNotFoundError as e:
             raise FileNotFoundError(
                 f"no weights to serve ({e}): pass --serve_params_npz "
                 f"(flax params as .npz), --export_dir, a --model_dir "
                 f"holding checkpoints, or --serve_random_init") from e
-    model = model.to(device).eval()
+    model = model.eval()
     max_seq = cfg.serve_max_seq_len or model.max_seq_len
     bridge.serving_memory_plan(model, num_slots=cfg.serve_max_batch,
                                max_seq_len=max_seq,
                                kv_page_size=cfg.kv_page_size,
-                               kv_pool_pages=cfg.kv_pool_pages)
+                               kv_pool_pages=cfg.kv_pool_pages,
+                               model_parallelism=cfg.serve_tp)
     engine = ServeEngine(
         model, max_batch=cfg.serve_max_batch, max_seq_len=max_seq,
         max_delay_s=cfg.serve_max_delay_ms / 1000.0,
@@ -104,11 +117,12 @@ def build_serving_engine(cfg, random_init: bool = False,
     return model, engine
 
 
-def serve(cfg, random_init: bool = False) -> dict:
+def serve(cfg, random_init: bool = False, devices=None) -> dict:
     """Build model + engine from a Config, run the synthetic traffic
     demo and return the stats dict.  Library entry for tests and the
     smoke script."""
-    model, engine = build_serving_engine(cfg, random_init=random_init)
+    model, engine = build_serving_engine(cfg, random_init=random_init,
+                                         devices=devices)
 
     # SIGTERM (the preemption signal) drains: admissions shed, in-flight
     # work finishes, and the process exits 0.  The handler is minimal:
@@ -212,6 +226,7 @@ def serve(cfg, random_init: bool = False) -> dict:
         "prefix_sharing": engine.prefix_sharing,
         "prefix_hit_pages": m.get("serve_prefix_hit_pages_total").value,
         "drained": drained["signaled"],
+        "tp": cfg.serve_tp,
         "ledger": engine.ledger.summary(),
     }
     log.info("Serve stats: %s", out)

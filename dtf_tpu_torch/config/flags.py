@@ -44,9 +44,11 @@ tracing and watchdogs (``trace_dir``, ``nan_guard``,
 
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
-as an ``.npz``, see ``serve/bridge.py``).  Flags of features not ported
-yet (model parallelism, ring attention, the planner, ...) raise with a
-message that says so; any other unknown flag raises too.
+as an ``.npz``, see ``serve/bridge.py``).  Tensor parallelism's
+fields (``model_parallelism``, ``shard_lm_head``, ``serve_tp``) are
+the JAX package's, with its validation.  Flags of features not ported
+yet (ring attention, pipeline and expert parallelism, the planner, ...)
+raise with a message that says so; any other unknown flag raises too.
 """
 
 from __future__ import annotations
@@ -73,18 +75,15 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "batchnorm_spatial_persistent", "image_bytes_as_serving_input",
           "enable_eager", "verbose")
 
-_MP = "model parallelism (tensor, pipeline and expert)"
+_MP = "model parallelism (pipeline and expert)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
-    "model_parallelism": "tensor/pipeline/expert parallelism",
     "seq_parallelism": "ring attention",
     "plan": "the planner", "plan_mesh": "the planner",
     "plan_cache": "the planner",
-    **{name: _MP for name in ("shard_lm_head", "num_experts",
-                              "moe_capacity_factor", "moe_aux_weight",
-                              "moe_top_k", "num_microbatches",
-                              "pipeline_interleave")},
-    "serve_tp": "serving tensor parallelism",
+    **{name: _MP for name in ("num_experts", "moe_capacity_factor",
+                              "moe_aux_weight", "moe_top_k",
+                              "num_microbatches", "pipeline_interleave")},
 }
 
 # literal copy of serve/router.py PLACEMENTS: Config imports without the
@@ -135,6 +134,12 @@ class Config:
     process_id: Optional[int] = None
     process_count: Optional[int] = None
     sync_bn: bool = False               # cross-replica BatchNorm statistics
+    # tensor parallelism (runtime/mesh.py): ranks per model replica, the
+    # 'model' axis of a data x model grid of ranks
+    model_parallelism: int = 1
+    # column-parallel lm_head over 'model' (Megatron's vocab-parallel
+    # softmax): local logits and the collective cross-entropy
+    shard_lm_head: bool = False
 
     # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
     dataset: str = ""                   # lm | cifar10 | imagenet
@@ -237,6 +242,9 @@ class Config:
     # whole-prompt single chunk; None = 4 pages
     serve_prefill_chunk: Optional[int] = None
     serve_params_npz: str = ""          # flax params as .npz ("" = none)
+    # tensor-parallel serving: shards of one engine, one device each
+    # (serve/bridge.py serving_devices); needs the paged cache
+    serve_tp: int = 1
     # paged KV cache: tokens per page (0 = the contiguous per-slot
     # layout) and total pool pages incl. the scratch page (0 = the full
     # reservation, 1 + slots x pages-per-slot)
@@ -393,6 +401,16 @@ class Config:
             raise ValueError(
                 "kv_pool_pages / serve_prefill_chunk need the paged "
                 "cache (kv_page_size > 0)")
+        if self.serve_tp < 1:
+            raise ValueError(f"serve_tp must be >= 1, got {self.serve_tp}")
+        if self.serve_tp > 1 and not self.kv_page_size:
+            raise ValueError(
+                "serve_tp > 1 (tensor-parallel serving) needs the paged "
+                "KV cache (kv_page_size > 0) -- the page pool is the "
+                "layout that shards")
+        if self.model_parallelism < 1:
+            raise ValueError(f"model_parallelism must be >= 1, got "
+                             f"{self.model_parallelism}")
         if not 0 <= self.metrics_port <= 65535:
             raise ValueError(
                 f"metrics_port must be in [0, 65535] (0 = off), got "

@@ -155,11 +155,30 @@ def _to_flax(t: torch.Tensor, layout, model) -> torch.Tensor:
     if layout == "dense":
         return t.t()
     if layout in ("qkv", "qkv_bias"):
-        heads = (3, model.num_heads, model.d_model // model.num_heads)
+        # the heads from the tensor's size: a full qkv, or a
+        # tensor-parallel shard's H/mp heads
+        heads = (3, -1, model.d_model // model.num_heads)
         if layout == "qkv":                         # [3*H*Dh, d]
             return t.t().reshape(model.d_model, *heads)
         return t.reshape(heads)
     return t
+
+
+def _split(model, key: str):
+    """The partition rule's split of state-dict ``key`` in a
+    tensor-parallel shard (None elsewhere)."""
+    split = getattr(model, "split", None)
+    return None if split is None else split(key)
+
+
+def _local(t: torch.Tensor, model, key: str) -> torch.Tensor:
+    """The model's own part of the full tensor ``t`` of ``key``: its
+    shard under tensor parallelism, else ``t``."""
+    sp = _split(model, key)
+    if sp is None:
+        return t
+    from dtf_tpu_torch.models.partition import shard
+    return shard(t, sp, model.model_parallelism, model.model_index)
 
 
 def _tensor(leaf) -> torch.Tensor:
@@ -187,12 +206,15 @@ def _flat_from_tree(tree) -> dict:
 # flat flax state: {"params/block0/ln1/scale": tensor, ...}
 # ---------------------------------------------------------------------------
 
-def model_to_flat(model) -> Dict[str, torch.Tensor]:
+def model_to_flat(model, tensors: Optional[dict] = None
+                  ) -> Dict[str, torch.Tensor]:
     """``model``'s parameters and BN buffers in their flax layout as
     contiguous float32 CPU tensors keyed "params/<path>" and
     "batch_stats/<path>" (the layout change runs on the model's
-    device)."""
-    sd = model.state_dict()
+    device).  ``tensors`` ({state-dict key: tensor}) stand in for the
+    model's own: the full leaves of a tensor-parallel shard, gathered."""
+    sd = dict(model.state_dict())
+    sd.update(tensors or {})
     return {f"{coll}/{path}": _to_flax(sd[key].detach().float(), layout,
                                        model).contiguous().cpu()
             for key, coll, path, layout in leaves(model)}
@@ -201,7 +223,8 @@ def model_to_flat(model) -> Dict[str, torch.Tensor]:
 def model_from_flat(flat: dict, model, device=None) -> Dict[str, torch.Tensor]:
     """The state dict of ``model`` holding the "params/..." and
     "batch_stats/..." leaves of ``flat`` (tensors or numpy arrays), on
-    ``device`` (default: the CPU), in each leaf's dtype."""
+    ``device`` (default: the CPU), in each leaf's dtype.  ``flat`` is
+    the full model's: a tensor-parallel shard takes its part."""
     want = model.state_dict()
     sd = {}
     used = set()
@@ -210,7 +233,8 @@ def model_from_flat(flat: dict, model, device=None) -> Dict[str, torch.Tensor]:
         if name not in flat:
             raise KeyError(f"flax tree has no {path!r} in {coll}")
         used.add(name)
-        t = _from_flax(_tensor(flat[name]).to(device), layout, model)
+        t = _local(_from_flax(_tensor(flat[name]).to(device), layout,
+                              model), model, key)
         if tuple(t.shape) != tuple(want[key].shape):
             raise ValueError(f"{key}: flax {coll} {path!r} of shape "
                              f"{tuple(t.shape)} does not fit "
@@ -267,10 +291,11 @@ def to_flax_vision(model) -> Tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 def _param_leaves(model):
-    """[(index in model.parameters(), flax path, layout)]: the order of
-    ``TrainState.params`` and of the optimizer's moment lists."""
+    """[(index in model.parameters(), flax path, layout, key)]: the
+    order of ``TrainState.params`` and of the optimizer's moment
+    lists."""
     index = {name: i for i, (name, _) in enumerate(model.named_parameters())}
-    return [(index[key], path, layout)
+    return [(index[key], path, layout, key)
             for key, coll, path, layout in leaves(model)
             if coll == "params"]
 
@@ -278,15 +303,15 @@ def _param_leaves(model):
 def _moments_to_flat(model, prefix: str, tensors) -> dict:
     return {f"{prefix}/{path}": _to_flax(tensors[i].detach().float(), layout,
                                          model).contiguous().cpu()
-            for i, path, layout in _param_leaves(model)}
+            for i, path, layout, _ in _param_leaves(model)}
 
 
 def _moments_from_flat(model, prefix: str, flat: dict, device):
     params = list(model.parameters())
     out = [None] * len(params)
-    for i, path, layout in _param_leaves(model):
-        t = _from_flax(_tensor(flat[f"{prefix}/{path}"]).to(device), layout,
-                       model)
+    for i, path, layout, key in _param_leaves(model):
+        t = _local(_from_flax(_tensor(flat[f"{prefix}/{path}"]).to(device),
+                              layout, model), model, key)
         if tuple(t.shape) != tuple(params[i].shape):
             raise ValueError(f"{prefix}/{path} of shape {tuple(t.shape)} "
                              f"does not fit {tuple(params[i].shape)}")
@@ -297,10 +322,13 @@ def _moments_from_flat(model, prefix: str, flat: dict, device):
 def state_to_flat(model, state) -> Dict[str, torch.Tensor]:
     """The JAX ``TrainState`` of ``model`` and the port's ``state``
     (``train/loop.py`` TrainState) as a flat dict of CPU tensors keyed
-    by flax path: the checkpoint payload."""
+    by flax path: the checkpoint payload.  The parameters are
+    ``state.params`` (in ``model.parameters()`` order), the buffers the
+    model's."""
     from dtf_tpu_torch.train.optimizer import AdamWState, KerasSGDState
 
-    flat = model_to_flat(model)
+    names = [name for name, _ in model.named_parameters()]
+    flat = model_to_flat(model, dict(zip(names, state.params)))
     opt = state.opt_state
     if isinstance(opt, AdamWState):
         flat["opt_state/adam/count"] = torch.tensor(opt.count,
@@ -326,7 +354,9 @@ def state_from_flat(flat: dict, model):
     """Load the flat flax training state ``flat`` (tensors or numpy
     arrays) into ``model`` -- parameters and BN buffers, in place, so
     their tensors stay the ones the optimizer holds -- and return the
-    port's TrainState, its moments on the model's device."""
+    port's TrainState, its moments on the model's device.  ``flat`` is
+    the full model's: a tensor-parallel shard takes its part of every
+    parameter and moment."""
     from dtf_tpu_torch.train.loop import TrainState
     from dtf_tpu_torch.train.optimizer import AdamWState, KerasSGDState
 

@@ -1,8 +1,10 @@
 """Model registry + the L2-as-loss-term rule -- the vision and
 transformer LM entries of ``dtf_tpu/models/registry.py``, with the same
 names, default class counts and L2 weights: ResNet-50 v1.5, the CIFAR
-ResNet-(6n+2) family, the trivial input probe and the transformer LMs.
-The MoE and pipeline families are not ported yet.  Sync BN, the JAX
+ResNet-(6n+2) family, the trivial input probe and the transformer LMs
+(a tensor-parallel shard through the transformer's
+``model_parallelism``, ``model_index`` and ``shard_vocab``).  The MoE
+and pipeline families are not ported yet.  Sync BN, the JAX
 package's ``bn_axis``, is ``bn_group``: a process group for the BNs of
 every vision model but the trivial probe.
 
@@ -11,7 +13,11 @@ into the loss: every conv/dense kernel is penalized, plus the final
 classifier's bias (``fc``), never a normalization scale or bias.
 :func:`l2_weight_penalty` re-expresses that rule over torch parameter
 names: the ``weight`` of every Linear and Conv module (flax ``kernel``)
-and the ``bias`` of a module whose path has an ``fc`` component.
+and the ``bias`` of a module whose path has an ``fc`` component.  On a
+tensor-parallel shard (``model.model_group`` set) the sum of squares
+of the sharded leaves goes through ``tp_psum`` over the model group and
+each replicated leaf counts once, so the term and its gradient are the
+unsharded model's (the JAX rule with ``param_specs``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from dtf_tpu_torch.models import resnet, resnet_cifar, transformer, trivial
+from dtf_tpu_torch.parallel.collectives import tp_psum
 
 # reference weight-decay constants
 L2_IMAGENET = 1e-4
@@ -98,7 +105,15 @@ def l2_weight_penalty(model: nn.Module, l2_weight: float) -> torch.Tensor:
     dev = next(model.parameters()).device
     if not l2_weight:
         return torch.zeros((), dtype=torch.float32, device=dev)
+    group = getattr(model, "model_group", None)
     total = torch.zeros((), dtype=torch.float32, device=dev)
-    for _, p in penalized_parameters(model):
-        total = total + p.float().square().sum()
+    sharded = torch.zeros((), dtype=torch.float32, device=dev)
+    for name, p in penalized_parameters(model):
+        ss = p.float().square().sum()
+        if group is not None and model.split(name) is not None:
+            sharded = sharded + ss
+        else:
+            total = total + ss
+    if group is not None:
+        total = total + tp_psum(sharded, group)
     return l2_weight * total

@@ -57,8 +57,21 @@ output projection and the MLP), and ``_FlashAttention``, outside both,
 saves q, k, v, o and lse itself -- K1 runs once a block and step, as
 under the JAX policy's ``flash_out``/``flash_lse`` names.
 
-Ring attention (``seq_axis``) and tensor parallelism (``model_axis``)
-are not ported yet.
+Tensor parallelism (``model_parallelism`` > 1; the JAX ``model_axis``)
+is Megatron's layout (``models/partition.py``): a model shard holds
+H/mp heads of qkv and the matching input columns of ``out``, d_ff/mp of
+fc1 and of fc2's input, and (``shard_vocab``) V/mp rows of the
+``lm_head``; everything else is replicated.  In training each shard is
+one rank and ``model_group`` its model axis: each block enters its
+attention and its MLP through ``tp_region`` (identity forward, sum of
+the cotangent backward) and leaves through ``tp_psum`` (sum forward,
+identity backward), so the flash kernels run at [B, S, H/mp, Dh] and
+a sharded ``lm_head`` returns local logits [B, S, V/mp] for the
+collective cross-entropy (``train/loop.py``).  In serving one process
+drives every shard (:class:`TensorParallelLM`): the row-parallel
+partials of each block are summed in shard order on the first shard's
+device.  The head size is ``d_model // num_heads`` of the full model
+whatever the shard.  Ring attention (``seq_axis``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -71,7 +84,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from dtf_tpu_torch.models import partition
 from dtf_tpu_torch.ops.flash_attention import flash_attention
+from dtf_tpu_torch.parallel.collectives import tp_psum, tp_region
 from dtf_tpu_torch.ops.paged_attention import (cached_attention,
                                                paged_attention_auto,
                                                write_pages)
@@ -133,25 +148,36 @@ def layer_norm(ln: nn.LayerNorm, x, dtype):
                         ln.eps).to(dtype)
 
 
+def _local(n: int, mp: int, what: str) -> int:
+    if n % mp:
+        raise ValueError(f"{what} {n} not divisible by model_parallelism "
+                         f"{mp}")
+    return n // mp
+
+
 class CausalSelfAttention(nn.Module):
+    """``num_heads`` is the full model's; a tensor-parallel shard
+    (``model_parallelism`` mp) holds num_heads / mp of them."""
+
     def __init__(self, d_model: int, num_heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, model_parallelism: int = 1):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by "
                              f"num_heads {num_heads}")
-        self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
+        self.num_heads = _local(num_heads, model_parallelism, "num_heads")
         self.compute_dtype = dtype
+        width = self.num_heads * self.head_dim
         # flax DenseGeneral((3, H, Dh)): output features ordered (3, H, Dh)
-        self.qkv = nn.Linear(d_model, 3 * d_model)
-        self.out = nn.Linear(d_model, d_model, bias=False)
+        self.qkv = nn.Linear(d_model, 3 * width)
+        self.out = nn.Linear(width, d_model, bias=False)
 
     def project(self, x):
         """q, k, v: contiguous [B, S, H, Dh] each, the kernels' layout."""
-        b, s, d = x.shape
-        h = self.num_heads
-        qkv = dense(self.qkv, x, self.compute_dtype).view(b, s, 3, h,
-                                                          d // h)
+        b, s, _ = x.shape
+        qkv = dense(self.qkv, x, self.compute_dtype).view(
+            b, s, 3, self.num_heads, self.head_dim)
         return tuple(t.contiguous() for t in qkv.unbind(2))
 
     def output(self, o):
@@ -214,36 +240,57 @@ def _contiguous_attention(q, k, v, layer_cache, cache_index):
 
 
 class Block(nn.Module):
+    """One pre-LN block.  Under tensor parallelism (``model_group`` set)
+    its attention and MLP are shard-local between ``tp_region`` and
+    ``tp_psum``; :meth:`attn_partial` and :meth:`mlp_partial` are the
+    shard's row-parallel outputs before the sum, which
+    :class:`TensorParallelLM` sums itself."""
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, model_parallelism: int = 1):
         super().__init__()
         self.compute_dtype = dtype
+        self.model_group = None
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.attn = CausalSelfAttention(d_model, num_heads, dtype)
+        self.attn = CausalSelfAttention(d_model, num_heads, dtype,
+                                        model_parallelism)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        d_ff = _local(d_ff, model_parallelism, "d_ff")
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model, bias=False)
 
     def forward(self, x, cache_index=None, block_table=None,
                 flash_prefill: bool = False,
                 window_pages: Optional[int] = None, layer_cache=None):
-        dt = self.compute_dtype
-        x = x + self.attn(layer_norm(self.ln1, x, dt), cache_index,
-                          block_table, flash_prefill, window_pages,
-                          layer_cache)
+        x = x + tp_psum(self.attn_partial(x, cache_index, block_table,
+                                          flash_prefill, window_pages,
+                                          layer_cache), self.model_group)
         return self._mlp(x)
 
-    def _mlp(self, x):
+    def attn_partial(self, x, cache_index=None, block_table=None,
+                     flash_prefill: bool = False,
+                     window_pages: Optional[int] = None, layer_cache=None):
+        h = tp_region(layer_norm(self.ln1, x, self.compute_dtype),
+                      self.model_group)
+        return self.attn(h, cache_index, block_table, flash_prefill,
+                         window_pages, layer_cache)
+
+    def mlp_partial(self, x):
         dt = self.compute_dtype
-        h = F.gelu(dense(self.fc1, layer_norm(self.ln2, x, dt), dt),
-                   approximate="tanh")
-        return x + dense(self.fc2, h, dt)
+        h = tp_region(layer_norm(self.ln2, x, dt), self.model_group)
+        return dense(self.fc2, F.gelu(dense(self.fc1, h, dt),
+                                      approximate="tanh"), dt)
+
+    def _mlp(self, x):
+        return x + tp_psum(self.mlp_partial(x), self.model_group)
 
     def _attn_in(self, x):
-        return self.attn.project(layer_norm(self.ln1, x, self.compute_dtype))
+        return self.attn.project(tp_region(
+            layer_norm(self.ln1, x, self.compute_dtype), self.model_group))
 
     def _attn_out_mlp(self, x, o):
-        return self._mlp(x + self.attn.output(o))
+        return self._mlp(x + tp_psum(self.attn.output(o),
+                                     self.model_group))
 
     def selective(self, x, context_fn):
         """The training forward under a selective policy: two
@@ -262,13 +309,30 @@ class TransformerLM(nn.Module):
 
     Parameters are float32; ``dtype`` (float32 or bfloat16) is the
     compute dtype they are cast to at use, as flax's ``dtype`` with its
-    float32 ``param_dtype``."""
+    float32 ``param_dtype``.
+
+    ``model_parallelism`` mp > 1 builds model shard ``model_index`` of
+    mp (``shard_vocab``: the ``lm_head`` sharded too); the config
+    attributes stay the full model's.  :meth:`set_model_group` gives a
+    training shard its model axis."""
 
     def __init__(self, vocab_size: int, num_layers: int = 12,
                  d_model: int = 512, num_heads: int = 8, d_ff: int = 2048,
                  max_seq_len: int = 2048, dtype=torch.float32,
-                 remat: bool = False, remat_policy: Optional[str] = None):
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 model_parallelism: int = 1, model_index: int = 0,
+                 shard_vocab: bool = False):
         super().__init__()
+        mp = int(model_parallelism)
+        if not 0 <= model_index < mp:
+            raise ValueError(f"model_index {model_index} outside "
+                             f"0..{mp - 1}")
+        if shard_vocab and mp == 1:
+            raise ValueError("shard_vocab needs model_parallelism > 1")
+        self.model_parallelism = mp
+        self.model_index = int(model_index)
+        self.shard_vocab = bool(shard_vocab)
+        self.model_group = None
         # a named policy implies remat (the JAX package's rule)
         self.remat_context = (None if remat_policy is None
                               else remat_context(remat_policy))
@@ -284,9 +348,35 @@ class TransformerLM(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(max_seq_len, d_model))
         for i in range(num_layers):
             self.add_module(f"block{i}",
-                            Block(d_model, num_heads, d_ff, dtype))
+                            Block(d_model, num_heads, d_ff, dtype, mp))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.lm_head = nn.Linear(d_model, vocab_size)
+        vocab = (_local(vocab_size, mp, "vocab_size") if shard_vocab
+                 else vocab_size)
+        self.lm_head = nn.Linear(d_model, vocab)
+
+    def config(self) -> dict:
+        """The constructor's arguments (the full model's), so a twin or
+        another shard can be built."""
+        return dict(vocab_size=self.vocab_size, num_layers=self.num_layers,
+                    d_model=self.d_model, num_heads=self.num_heads,
+                    d_ff=self.d_ff, max_seq_len=self.max_seq_len,
+                    dtype=self.compute_dtype, shard_vocab=self.shard_vocab,
+                    model_parallelism=self.model_parallelism,
+                    model_index=self.model_index)
+
+    def split(self, name: str):
+        """The partition rule's sharded dimension of parameter ``name``
+        in this model (None: replicated, or no tensor parallelism)."""
+        if self.model_parallelism == 1:
+            return None
+        return partition.rule(name, self.shard_vocab)
+
+    def set_model_group(self, group) -> None:
+        """The training shard's model axis (a process group of its
+        model_parallelism ranks)."""
+        self.model_group = group
+        for block in self.blocks:
+            block.model_group = group
 
     @property
     def dtype(self) -> torch.dtype:
@@ -301,6 +391,37 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, cache_index=None, block_table=None,
                 cache=None, flash_prefill: bool = False,
                 window_pages: Optional[int] = None):
+        if self.model_parallelism > 1 and self.model_group is None:
+            raise ValueError(
+                "a tensor-parallel shard runs within its model group "
+                "(set_model_group) or under a TensorParallelLM")
+        x = self.embed_positions(tokens, cache_index, cache)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks):
+            if remat and self.remat_context is not None:
+                x = block.selective(x, self.remat_context)
+            elif remat:
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x, cache_index, block_table, flash_prefill,
+                          window_pages, None if cache is None else cache[i])
+        return self.head(x)
+
+    def head(self, x):
+        """The final LayerNorm and the ``lm_head``: float32 logits (a
+        vocabulary shard's under ``shard_vocab``)."""
+        dt = self.compute_dtype
+        h = layer_norm(self.ln_f, x, dt)
+        if self.shard_vocab:
+            # x is whole here (the last block left through tp_psum), but
+            # its cotangent comes back vocabulary-partial
+            h = tp_region(h, self.model_group)
+        return dense(self.lm_head, h, dt).float()
+
+    def embed_positions(self, tokens, cache_index=None, cache=None):
+        """Token embeddings plus positions, in the compute dtype: each
+        row's positions from ``cache_index`` when decoding."""
         b, s = tokens.shape
         dt = self.compute_dtype
         # flax Embed(dtype=...): the table cast, then the rows taken
@@ -323,14 +444,86 @@ class TransformerLM(nn.Module):
                 + torch.arange(s, device=tokens.device)[None, :],
                 max=self.max_seq_len - 1)
             x = x + self.pos_embed[pos].to(dt)
-        remat = self.remat and cache is None and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks):
-            if remat and self.remat_context is not None:
-                x = block.selective(x, self.remat_context)
-            elif remat:
-                x = torch.utils.checkpoint.checkpoint(block, x,
-                                                      use_reentrant=False)
-            else:
-                x = block(x, cache_index, block_table, flash_prefill,
-                          window_pages, None if cache is None else cache[i])
-        return dense(self.lm_head, layer_norm(self.ln_f, x, dt), dt).float()
+        return x
+
+
+class TensorParallelLM(nn.Module):
+    """A serving model whose mp shards (:class:`TransformerLM` built at
+    ``model_parallelism`` mp, shard k on ``devices[k]``) one process
+    drives in step -- the counterpart of the JAX decoder's shard_map
+    over the 'model' axis.  Each shard runs its own attention kernels
+    at H/mp heads over its own K/V pools (``cache[k]``, the shard's
+    per-layer list); each block's row-parallel partials come to the
+    first shard's device and are summed there in shard order, and the
+    sum goes back to every shard.  The first shard embeds and computes
+    the logits (replicated leaves: every shard holds the same ones).
+    No parameter or cache is replicated beyond the partition rule."""
+
+    def __init__(self, shards: List[TransformerLM]):
+        super().__init__()
+        mp = len(shards)
+        if mp < 2 or any(s.model_parallelism != mp or s.model_index != k
+                         for k, s in enumerate(shards)):
+            raise ValueError("TensorParallelLM needs the model_parallelism "
+                             "shards 0..mp-1 of one model, in order")
+        if shards[0].shard_vocab:
+            raise ValueError("decode does not compose with shard_vocab "
+                             "(the serving logits are whole)")
+        self.shards = nn.ModuleList(shards)
+        self.tp = mp
+        first = shards[0]
+        for name in ("vocab_size", "num_layers", "d_model", "num_heads",
+                     "d_ff", "max_seq_len", "compute_dtype"):
+            setattr(self, name, getattr(first, name))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype
+
+    @property
+    def pos_embed(self) -> torch.Tensor:
+        """The first shard's position table: where the engine's inputs
+        and the logits live."""
+        return self.shards[0].pos_embed
+
+    @property
+    def embed(self) -> nn.Embedding:
+        return self.shards[0].embed
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [s.pos_embed.device for s in self.shards]
+
+    def forward(self, tokens, cache_index=None, block_table=None,
+                cache=None, flash_prefill: bool = False,
+                window_pages: Optional[int] = None):
+        if cache is None or len(cache) != self.tp:
+            raise ValueError(f"a tensor-parallel model decodes over one "
+                             f"cache a shard ({self.tp})")
+        first = self.shards[0]
+        home = first.pos_embed.device
+        devs = self.devices
+        index = [None if cache_index is None else cache_index.to(d)
+                 for d in devs]
+        tables = [None if block_table is None else block_table.to(d)
+                  for d in devs]
+        x = first.embed_positions(tokens, cache_index, cache[0])
+        for i in range(self.num_layers):
+            blocks = [s.blocks[i] for s in self.shards]
+            parts = [b.attn_partial(x.to(d), index[k], tables[k],
+                                    flash_prefill, window_pages,
+                                    cache[k][i])
+                     for k, (b, d) in enumerate(zip(blocks, devs))]
+            x = x + _sum_in_order(parts, home)
+            parts = [b.mlp_partial(x.to(d))
+                     for b, d in zip(blocks, devs)]
+            x = x + _sum_in_order(parts, home)
+        return first.head(x)
+
+
+def _sum_in_order(parts, device):
+    """The shards' partials summed in shard order on ``device``."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total

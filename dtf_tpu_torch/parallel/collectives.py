@@ -1,5 +1,5 @@
-"""Collectives over the data axis -- the data-parallel subset of
-``dtf_tpu/parallel/collectives.py``.
+"""Collectives over the data and model axes -- the PyTorch
+counterpart of ``dtf_tpu/parallel/collectives.py``.
 
 The JAX package's collectives run inside ``shard_map`` over a mesh axis
 name; here the axis is a ``torch.distributed`` process group and a
@@ -31,9 +31,26 @@ BatchNorm needs: the mean forward, and in backward the sum of the
 cotangents over the group divided by its size -- ``lax.pmean``'s
 transpose under ``shard_map``.
 
+Tensor parallelism's pair (Megatron's f and g operators) are
+``torch.autograd.Function``s over the model group, the counterparts of
+the JAX ``custom_vjp``s:
+
+  tp_region  identity forward, all-reduce (sum) backward: a
+             column-parallel layer's input cotangent is partial, each
+             shard back-propagating only its slice of the weight, so
+             every parameter upstream (LayerNorm, embeddings) needs the
+             sum;
+  tp_psum    all-reduce (sum) forward, identity backward: the
+             row-parallel output.  Not a raw all-reduce in both
+             directions: that would multiply the upstream cotangent by
+             the axis size at every layer.
+
+Each takes the group (None: the identity both ways).  ``all_max`` is
+``lax.pmax`` (no gradient), ``gather_dim`` the model axis's tiled
+all-gather along one dimension (the checkpoint's full leaves).
+
 Not ported yet: ``axis_size``/``axis_index`` (``MeshRuntime`` holds the
-rank and size), ``ring_shift`` and the tensor-parallel ``tp_region`` / ``tp_psum``, which wait for model
-parallelism.
+ranks and sizes) and ``ring_shift``, which waits for ring attention.
 """
 
 from __future__ import annotations
@@ -122,3 +139,69 @@ def all_reduce_mean_grad(x: torch.Tensor,
     if group is None:
         return x
     return _AllReduceMean.apply(x, group)
+
+
+def all_max(x: torch.Tensor,
+            group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The group's elementwise maximum of ``x``, in place (no
+    gradient: ``lax.pmax``)."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def gather_dim(x: torch.Tensor, dim: int,
+               group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in rank order:
+    ``lax.all_gather(x, axis=dim, tiled=True)``."""
+    if group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the group's sum of ``x``."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _TpRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_sum(grad, ctx.group), None
+
+
+class _TpPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_region(x: torch.Tensor,
+              group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Enter a tensor-parallel region: identity forward, the group's sum
+    of the cotangent backward (Megatron's f)."""
+    if group is None:
+        return x
+    return _TpRegion.apply(x, group)
+
+
+def tp_psum(x: torch.Tensor,
+            group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Exit a tensor-parallel region: the group's sum forward, identity
+    backward (Megatron's g)."""
+    if group is None:
+        return x
+    return _TpPsum.apply(x, group)

@@ -1212,6 +1212,13 @@ def _worker(cfg, ps_address: str, worker_id: int, num_workers: int) -> dict:
             f"model {model_name!r} is not supported in async "
             "parameter-server mode; use --ps_mode sync (the SPMD "
             "reinterpretation) for MoE/pipeline families")
+    if cfg.shard_lm_head or cfg.model_parallelism > 1:
+        # no grid in the async loop: a silently dense head or an unused
+        # model axis would contradict what the flags promise
+        raise ValueError(
+            "--shard_lm_head/--model_parallelism/--seq_parallelism need "
+            "the SPMD path; async parameter-server workers are "
+            "single-device")
     if cfg.eval_only or cfg.clip_grad_norm:
         raise ValueError(
             "--eval_only/--clip_grad_norm/--optimizer_sharding are not "

@@ -1,12 +1,19 @@
-"""Process and device initialization for data parallelism -- the
-PyTorch counterpart of ``dtf_tpu/runtime/mesh.py``.
+"""Process and device initialization for data and tensor parallelism
+-- the PyTorch counterpart of ``dtf_tpu/runtime/mesh.py``.
 
 The JAX package runs one process over all of a host's chips and builds a
-``Mesh`` whose 'data' axis carries the replicas.  PyTorch's idiom is one
-process a device, so here a replica is a process: its rank is its
-position on the data axis, and the process group is the axis.  Only the
-'data' axis is ported; the 'seq' and 'model' axes wait for tensor,
-sequence and pipeline parallelism.
+``Mesh`` of axes ('data', 'seq', 'model').  PyTorch's idiom is one
+process a device (Megatron's too), so here the mesh is a grid of ranks:
+with ``--model_parallelism mp`` over ``n`` ranks, rank r sits at data
+index ``r // mp`` and model index ``r % mp`` -- the model axis
+innermost, as the JAX mesh reshapes its devices to (dp, sp, mp).  Each
+axis is a process group: ``data_group`` joins the ranks of one model
+index (the replicas of one shard: gradients and metrics average over
+it), ``model_group`` the ranks of one replica (the shards of one model:
+``tp_region``/``tp_psum`` reduce over it; None at mp 1), and ``group``
+every rank (barriers, checkpoint verdicts, every all-or-nothing
+decision).  At mp 1 the data group is the world.  The 'seq' axis waits
+for ring attention.
 
 Strategy -> runtime (the JAX package's names):
 
@@ -62,9 +69,10 @@ TIMEOUT_S = 300.0
 
 @dataclasses.dataclass
 class MeshRuntime:
-    """The data axis of one process: its rank among ``num_replicas``,
-    its device, and the process group (None at world 1 without a
-    named topology: every collective is then the identity)."""
+    """One process's place on the grid: its rank, the data axis's size
+    ``num_replicas`` (the replicas of the model), its device, and the
+    process groups (None at world 1 without a named topology: every
+    collective is then the identity)."""
 
     strategy: str
     num_replicas: int = 1
@@ -73,6 +81,23 @@ class MeshRuntime:
     device: torch.device = torch.device("cpu")
     group: Optional[dist.ProcessGroup] = None
     backend: Optional[str] = None
+    model_parallelism: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    def __post_init__(self):
+        if self.data_group is None and self.model_parallelism == 1:
+            self.data_group = self.group
+
+    @property
+    def data_index(self) -> int:
+        """This rank's replica: its input shard and its ZeRO slice."""
+        return self.rank // self.model_parallelism
+
+    @property
+    def model_index(self) -> int:
+        """This rank's model shard."""
+        return self.rank % self.model_parallelism
 
     @property
     def is_coordinator(self) -> bool:
@@ -82,7 +107,7 @@ class MeshRuntime:
         """Destroy the process group (idempotent)."""
         if self.group is not None and dist.is_initialized():
             dist.destroy_process_group()
-        self.group = None
+        self.group = self.data_group = self.model_group = None
 
 
 def local_device_count(device_type: str) -> int:
@@ -123,6 +148,11 @@ def initialize(cfg, backend: Optional[str] = None) -> MeshRuntime:
                 f"--distribution_strategy {strategy} runs one process, "
                 f"but the topology names {world}")
         world = None
+    mp = max(int(getattr(cfg, "model_parallelism", 1) or 1), 1)
+    if (world or 1) % mp:
+        raise ValueError(
+            f"{world or 1} devices not divisible by "
+            f"model_parallelism*seq_parallelism={mp}")
     if not world:
         dev = resolve_device(cfg.device)
         if strategy in LOCAL_STRATEGIES and mirrored_world(cfg) > 1:
@@ -155,11 +185,38 @@ def initialize(cfg, backend: Optional[str] = None) -> MeshRuntime:
         backend, init_method=_init_method(cfg.coordinator_address),
         world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
-    log.info("mesh initialized: strategy=%s replicas=%d rank=%d device=%s "
-             "backend=%s", strategy, world, rank, dev, backend)
-    return MeshRuntime(strategy=strategy, num_replicas=world, rank=rank,
-                       local_rank=local_rank, device=dev,
-                       group=dist.group.WORLD, backend=backend)
+    data_group, model_group = _grid_groups(world, mp, rank)
+    log.info("mesh initialized: strategy=%s replicas=%d model=%d rank=%d "
+             "device=%s backend=%s", strategy, world // mp, mp, rank, dev,
+             backend)
+    return MeshRuntime(strategy=strategy, num_replicas=world // mp,
+                       rank=rank, local_rank=local_rank, device=dev,
+                       group=dist.group.WORLD, backend=backend,
+                       model_parallelism=mp, data_group=data_group,
+                       model_group=model_group)
+
+
+def grid_ranks(world: int, mp: int):
+    """(data axis groups, model axis groups) of the grid as rank lists:
+    rank r at data index r // mp and model index r % mp."""
+    dp = world // mp
+    return ([[d * mp + m for d in range(dp)] for m in range(mp)],
+            [[d * mp + m for m in range(mp)] for d in range(dp)])
+
+
+def _grid_groups(world: int, mp: int, rank: int):
+    """This rank's (data group, model group): the world and None at mp
+    1; else new groups, which every rank creates in the same order."""
+    if mp == 1:
+        return dist.group.WORLD, None
+    data_axes, model_axes = grid_ranks(world, mp)
+    mine = {}
+    for name, axes in (("data", data_axes), ("model", model_axes)):
+        for ranks in axes:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine[name] = g
+    return mine["data"], mine["model"]
 
 
 def process_index() -> int:

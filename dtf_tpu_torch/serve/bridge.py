@@ -24,6 +24,18 @@ Four sources:
 Orbax checkpoints of the JAX package are not read here (the port
 imports no JAX package); ``convert.py`` carries a JAX state across.
 ``serving_memory_plan`` is the byte accounting serve_main logs.
+
+Placement is one decision per deployment, as in the JAX bridge:
+:func:`place_for_serving` moves the loaded model (its weights on the
+host) to its device at ``model_parallelism`` 1, and at N cuts it
+straight into the N shards of a :class:`~dtf_tpu_torch.models.
+transformer.TensorParallelLM` by the partition rule, each shard built
+at its own size and moved to its own device: no device ever holds a
+replicated copy of a sharded leaf.  :func:`serving_devices` is
+``serving_mesh``'s counterpart: N devices, ``cuda:0 .. cuda:N-1`` by
+default, and a ValueError naming the count when fewer cards are
+attached.  A caller may pass the device list itself (the CPU's, or one
+card named twice to run two shards there).
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from torch import nn
 
 from dtf_tpu_torch import convert
 from dtf_tpu_torch.models.initializers import variance_scaling_
+from dtf_tpu_torch.models.partition import shard_state_dict
 
 log = logging.getLogger("dtf_tpu_torch")
 
@@ -104,26 +117,78 @@ def load_inference_variables(model_dir: str = "", export_dir: str = "",
 
 
 def load_for_serving(model, npz_path: str = "", model_dir: str = "",
-                     export_dir: str = ""):
+                     export_dir: str = "", devices=None,
+                     model_parallelism: int = 1):
     """Load weights into ``model`` from flax params in ``npz_path``, else
-    from ``export_dir`` or ``model_dir``; returns the model."""
+    from ``export_dir`` or ``model_dir``; returns it placed by
+    :func:`place_for_serving` (as it is at the defaults)."""
     if npz_path:
         params = load_flax_npz(npz_path)
         log.info("serve bridge: loaded flax params from %s", npz_path)
     else:
         params = load_inference_variables(model_dir, export_dir)["params"]
     model.load_state_dict(convert.from_flax_params(params, model))
-    return model
+    return place_for_serving(model, devices, model_parallelism)
+
+
+def serving_devices(model_parallelism: int = 1, devices=None,
+                    device="cuda"):
+    """The ``model_parallelism`` devices of a serving deployment, one a
+    shard: ``devices`` when given, else every card of the host for a
+    ``cuda`` ``device`` (each shard on its own card) and the CPU for
+    each shard on the CPU.  Fewer devices than shards raise."""
+    mp = max(int(model_parallelism), 1)
+    if devices is None:
+        dev = torch.device(device)
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev] * mp)
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < mp:
+        raise ValueError(
+            f"serving model_parallelism {mp} needs {mp} devices, "
+            f"{len(devices)} attached")
+    return devices[:mp]
+
+
+def place_for_serving(model, devices=None, model_parallelism: int = 1):
+    """The loaded ``model`` (weights on the host) on its serving
+    device(s): moved whole at ``model_parallelism`` 1 (to
+    ``devices[0]``, else left where it is), else cut into that many
+    shards by the partition rule, shard k built at its size and moved
+    to ``devices[k]`` (:func:`serving_devices`), and returned as one
+    :class:`TensorParallelLM`."""
+    from dtf_tpu_torch.models.transformer import (TensorParallelLM,
+                                                  TransformerLM)
+
+    mp = max(int(model_parallelism), 1)
+    if mp == 1:
+        return model if devices is None else model.to(
+            torch.device(list(devices)[0]))
+    devices = serving_devices(mp, devices)
+    full = {k: v.detach() for k, v in model.state_dict().items()}
+    config = dict(model.config(), model_parallelism=mp, shard_vocab=False)
+    shards = []
+    for k, dev in enumerate(devices):
+        shard = TransformerLM(**dict(config, model_index=k))
+        shard.load_state_dict(shard_state_dict(full, mp, k))
+        shards.append(shard.to(dev))
+    log.info("serve bridge: %d tensor-parallel shards on %s", mp,
+             [str(d) for d in devices])
+    return TensorParallelLM(shards)
 
 
 def serving_memory_plan(model, *, num_slots: int, max_seq_len: int,
                         kv_page_size: int = 0,
-                        kv_pool_pages: int = 0) -> dict:
+                        kv_pool_pages: int = 0,
+                        model_parallelism: int = 1) -> dict:
     """Byte accounting of the KV cache: the contiguous layout reserves
     ``num_slots x max_seq_len`` tokens, the paged pool
     ``(kv_pool_pages - 1) x kv_page_size`` (``kv_pool_pages`` of 0 is
     the full reservation, 1 + slots x pages-per-slot; ``kv_page_size``
-    0 is the contiguous layout)."""
+    0 is the contiguous layout).  Tensor parallelism shards the pool's
+    head dimension: each of ``model_parallelism`` devices holds 1/mp of
+    every page (``kv_bytes_per_device``)."""
     head_dim = model.d_model // model.num_heads
     elem = torch.empty((), dtype=model.dtype).element_size()
     per_token = 2 * model.num_layers * model.num_heads * head_dim * elem
@@ -137,10 +202,15 @@ def serving_memory_plan(model, *, num_slots: int, max_seq_len: int,
             "kv_tokens_capacity": paged or contiguous,
             "pages_per_slot": pages_per_slot if kv_page_size else 0,
             "pool_pages": pool_pages if kv_page_size else 0}
+    mp = max(int(model_parallelism), 1)
+    plan["model_parallelism"] = mp
+    plan["kv_bytes_per_device"] = (paged or contiguous) * per_token // mp
     log.info("serving memory plan: %d slots x %d tokens; KV contiguous "
-             "%.1f MB%s", num_slots, max_seq_len,
+             "%.1f MB%s%s", num_slots, max_seq_len,
              plan["kv_bytes_contiguous"] / 2**20,
              (f", paged pool {plan['kv_bytes_paged'] / 2**20:.1f} MB "
               f"({pool_pages} pages x {kv_page_size} tokens)"
-              if kv_page_size else " (paged cache off)"))
+              if kv_page_size else " (paged cache off)"),
+             (f", TP={mp}: {plan['kv_bytes_per_device'] / 2**20:.1f} MB "
+              f"KV/device" if mp > 1 else ""))
     return plan

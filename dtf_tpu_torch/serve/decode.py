@@ -27,6 +27,9 @@ decoder:
       slabs per layer; prefill pads the prompt to max_seq_len and runs
       one dense masked pass into the slot's slab.
 
+Either way the cache is one list of those per-layer pools a model
+shard: a single list without tensor parallelism.
+
 The cache is written in place: where the JAX decoder donated the cache
 to each jitted step, PyTorch just updates the buffers, on the calling
 thread's current stream -- so a ``copy_page`` is ordered before any
@@ -59,6 +62,14 @@ block11, block2, ... -- with K before V in each layer
 (:class:`BF16Words`): numpy has no bfloat16 without ml_dtypes, which
 this package does not need.  Both copies are exact: no cast, no change
 of layout.
+
+Tensor parallelism (``serve_tp``; the JAX decoder's ``mesh``): the
+model is a :class:`~dtf_tpu_torch.models.transformer.TensorParallelLM`
+and each shard's pools hold H/mp heads on its shard's device, so every
+shard runs its own K1/K4 launches.  Paged cache only, as in the JAX decoder.  A page's payload
+joins the shards' heads in order (and :meth:`Decoder.write_page`
+splits them), so a page reads the same at every ``serve_tp`` and
+migrates between replicas of different ``serve_tp``.
 """
 
 from __future__ import annotations
@@ -148,7 +159,8 @@ class Decoder:
     (None = the full reservation, 1 + num_slots * pages-per-slot).  The
     cache lives on the model's device, in its compute dtype.
     ``ledger`` (obs/ledger.Ledger, paged only, as in the JAX decoder)
-    registers ``serve_decode_step`` and ``serve_prefill_chunk_c{len}``."""
+    registers ``serve_decode_step`` and ``serve_prefill_chunk_c{len}``.
+    A :class:`TensorParallelLM` ``model`` decodes over ``tp`` shards."""
 
     def __init__(self, model, *, num_slots: int, max_seq_len: int,
                  kv_page_size: Optional[int] = None,
@@ -161,6 +173,14 @@ class Decoder:
                 f"max_seq_len {max_seq_len} exceeds the model's position "
                 f"table ({model.max_seq_len})")
         self.paged = kv_page_size is not None
+        # the model shards (one without tensor parallelism)
+        self.shards = list(getattr(model, "shards", [model]))
+        self.tp = len(self.shards)
+        if self.tp > 1 and not self.paged:
+            raise ValueError(
+                "tensor-parallel decode needs the paged KV cache "
+                "(kv_page_size > 0) -- the page pool is the layout that "
+                "shards")
         if self.paged:
             self.page_size = int(kv_page_size)
             if self.page_size < 1:
@@ -188,18 +208,28 @@ class Decoder:
         ledger (the JAX engine drops a call that compiled)."""
         return len(self._execs)
 
-    def fresh_cache(self) -> List[dict]:
-        h = self.model.num_heads
-        dh = self.model.d_model // h
+    def fresh_cache(self) -> List[List[dict]]:
+        """One list of per-layer pools a model shard, on the shard's
+        device (one shard without tensor parallelism; under it each
+        shard's pools hold H/mp heads)."""
+        m = self.model
+        h = m.num_heads
+        dh = m.d_model // h
         if self.paged:
-            shape = (self.pool_pages, self.page_size, h, dh)
+            shape = (self.pool_pages, self.page_size, h // self.tp, dh)
             names = ("paged_key", "paged_value")
         else:
             shape = (self.num_slots, self.max_seq_len, h, dh)
             names = ("cached_key", "cached_value")
-        return [{name: torch.zeros(shape, dtype=self.model.dtype,
-                                   device=self.device) for name in names}
-                for _ in range(self.model.num_layers)]
+        return [[{name: torch.zeros(shape, dtype=m.dtype,
+                                    device=shard.pos_embed.device)
+                  for name in names} for _ in range(m.num_layers)]
+                for shard in self.shards]
+
+    def _model_cache(self, cache):
+        """The cache as the model takes it: a TensorParallelLM every
+        shard's layer list, a TransformerLM its one."""
+        return cache if self.tp > 1 else cache[0]
 
     @torch.no_grad()
     def copy_page(self, cache, src: int, dst: int):
@@ -210,9 +240,10 @@ class Decoder:
         reads ``dst``."""
         if not self.paged:
             raise RuntimeError("copy_page needs the paged cache")
-        for layer in cache:
-            for pool in layer.values():
-                pool[int(dst)].copy_(pool[int(src)])
+        for shard in cache:
+            for layer in shard:
+                for pool in layer.values():
+                    pool[int(dst)].copy_(pool[int(src)])
         return cache
 
     @torch.no_grad()
@@ -225,8 +256,11 @@ class Decoder:
         stream, which is synchronized before the bytes leave."""
         if not self.paged:
             raise RuntimeError("page migration needs the paged cache")
-        order = wire_leaf_order(len(cache))
-        rows = torch.stack([cache[i][name][int(page)] for i, name in order])
+        order = wire_leaf_order(len(cache[0]))
+        # each leaf's heads from every shard, in shard order
+        rows = torch.stack([torch.cat(
+            [c[i][name][int(page)].to(self.device) for c in cache], 1)
+            for i, name in order])
         if rows.dtype == torch.bfloat16:
             rows = rows.view(torch.int16)
         host = rows.cpu()
@@ -249,13 +283,14 @@ class Decoder:
         buffer is not needed once this returns."""
         if not self.paged:
             raise RuntimeError("page migration needs the paged cache")
-        order = wire_leaf_order(len(cache))
+        order = wire_leaf_order(len(cache[0]))
         if len(leaves) != len(order):
             raise ValueError(f"page payload has {len(leaves)} leaves, the "
                              f"cache {len(order)}")
-        pool0 = cache[0]["paged_key"]
+        pool0 = cache[0][0]["paged_key"]
         want = WIRE_DTYPES.get(pool0.dtype)
-        shape = tuple(pool0.shape[1:])
+        local = tuple(pool0.shape[1:])
+        shape = (local[0], local[1] * len(cache), local[2])
         for leaf in leaves:
             if wire_dtype(leaf) != want or tuple(np.shape(leaf)) != shape:
                 raise ValueError(
@@ -269,7 +304,9 @@ class Decoder:
         else:
             rows = torch.from_numpy(host).to(pool0.device)
         for row, (i, name) in zip(rows, order):
-            cache[i][name][int(page)].copy_(row)
+            # [page_size, H, Dh]: shard k's heads to shard k's pool
+            for c, part in zip(cache, row.chunk(len(cache), 1)):
+                c[i][name][int(page)].copy_(part)
         return cache
 
     def _int32(self, x):
@@ -289,9 +326,13 @@ class Decoder:
         m = self.model
         elem = torch.finfo(m.dtype).bits // 8
         if self._weights is None:
-            skip = {id(m.embed.weight), id(m.pos_embed)}
-            self._weights = sum(p.numel() for p in m.parameters()
-                                if id(p) not in skip)
+            # the first shard alone embeds and computes the logits
+            head = ("ln_f.", "lm_head.")
+            self._weights = sum(
+                p.numel() for k, s in enumerate(self.shards)
+                for n, p in s.named_parameters()
+                if n not in ("embed.weight", "pos_embed")
+                and not (k and n.startswith(head)))
         weights = self._weights
         b = len(index)
         kv_row = 2 * m.num_layers * m.d_model * elem
@@ -351,8 +392,8 @@ class Decoder:
         def call():
             return self.model(
                 self._int32(chunk), cache_index=self._int32([start]),
-                block_table=self._int32(block_row), cache=cache,
-                flash_prefill=first, window_pages=window)
+                block_table=self._int32(block_row),
+                cache=self._model_cache(cache), flash_prefill=first, window_pages=window)
 
         # one count per chunk length: the FLOPs outside attention do not
         # depend on where the chunk starts
@@ -384,7 +425,7 @@ class Decoder:
         padded = np.zeros((1, self.max_seq_len), np.int32)
         padded[0, :length] = prompt
         row = [{name: slab[slot:slot + 1] for name, slab in layer.items()}
-               for layer in cache]
+               for layer in cache[0]]
         logits = self.model(self._int32(padded),
                             cache_index=self._int32([0]), cache=row)
         last = logits[0, length - 1]
@@ -416,9 +457,11 @@ class Decoder:
                 live_pairs(index.tolist(), 1, cap),
                 self._decode_bytes(index.tolist()),
                 lambda: self.model(tok_t, cache_index=idx_t,
-                                   block_table=tables, cache=cache))
+                                   block_table=tables,
+                                   cache=self._model_cache(cache)))
         else:
-            logits = self.model(tok_t, cache_index=idx_t, cache=cache)
+            logits = self.model(tok_t, cache_index=idx_t,
+                                cache=self._model_cache(cache))
         last = logits[:, -1]
         toks = sample_tokens(last, temperature.tolist(), seeds.tolist(),
                              index.tolist())

@@ -76,7 +76,11 @@ Every one of them runs as a job on the engine thread
 registry and the cache keep one writer.  The ``slow_replica`` chaos
 probe stretches each decode step.
 
-Not ported yet: tensor-parallel decode.
+Tensor-parallel decode (``serve_tp``) is the decoder's: the engine
+serves a :class:`~dtf_tpu_torch.models.transformer.TensorParallelLM` as
+it serves one model (its scheduler and page pool unchanged), reports
+its ways on the ``serve_tp_ways`` gauge, and refuses it without the
+paged cache.
 """
 
 from __future__ import annotations
@@ -422,9 +426,10 @@ class ServeEngine:
     """Dynamic batcher over a :class:`~dtf_tpu_torch.serve.decode.Decoder`.
 
     ``model`` is a TransformerLM with its weights loaded, on the device
-    to serve from.  ``max_seq_len`` bounds prompt + generation per
-    request.  ``kv_page_size`` selects the paged cache (the default;
-    0/None = the contiguous per-slot layout); ``kv_pool_pages`` total
+    to serve from, or a TensorParallelLM over its shards' devices.
+    ``max_seq_len`` bounds prompt + generation per request.
+    ``kv_page_size`` selects the paged cache (the default; 0/None = the
+    contiguous per-slot layout); ``kv_pool_pages`` total
     pool pages incl. the scratch page (0/None = the full reservation);
     ``prefill_chunk`` the chunk in tokens (a page multiple; 0 = whole
     prompts as one chunk; None = 4 pages).  ``prefix_sharing`` (paged
@@ -474,6 +479,9 @@ class ServeEngine:
             self.prefix_sharing = bool(prefix_sharing)
             self.registry = PrefixRegistry(self.page_size)
         else:
+            if getattr(model, "tp", 1) > 1:
+                raise ValueError("tensor-parallel serving needs the paged "
+                                 "cache (kv_page_size > 0)")
             # an explicit pool or chunk size with the contiguous cache
             # is a contradiction, refused whatever its value
             if kv_pool_pages or prefill_chunk is not None:
@@ -522,6 +530,10 @@ class ServeEngine:
         # one decode step, host clock around work ending in the token
         # copy to the host (a device sync)
         self._m_step_time = m.histogram("serve_decode_step_s", unit="s")
+        # the decoder's tensor-parallel ways: tokens/s a card and TP
+        # scaling come from this and the step time
+        self._m_tp_ways = m.gauge("serve_tp_ways", unit="ways")
+        self._m_tp_ways.set(self.decoder.tp)
         # prefix sharing: pages shared instead of allocated, COW copies,
         # evictions and the live shared-holder count
         self._m_prefix_hits = m.counter("serve_prefix_hit_pages_total",

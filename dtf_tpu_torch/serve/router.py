@@ -1870,9 +1870,14 @@ class Router:
         prober routes here decodes against warm pages instead of
         re-prefilling the system prompt.  Pure efficiency — every
         skip condition just means the next miss re-prefills, exactly
-        the pre-prefetch behavior."""
+        the pre-prefetch behavior.  A held replica (draining: a
+        rollout's replacement or canary, which the controller may stop
+        at any moment) is not warmed: a pull into it can fail with no
+        replica lost."""
         if self.prefill_replicas and rep.role != "decode":
             return   # the prefill pool re-prefills by design
+        if rep.draining or rep.shadow_only:
+            return
         for deepest, (heat, digests, prompt) in sorted(
                 self._chain_heat.items(), key=lambda kv: -kv[1][0]):
             owner = self._prefix_owner.get(deepest)

@@ -421,11 +421,13 @@ class Checkpointer:
         return doomed
 
 
-def export_model(export_dir: str, model) -> str:
+def export_model(export_dir: str, model, flat: Optional[dict] = None
+                 ) -> str:
     """``--export_dir``: the inference variables (``params`` and
     ``batch_stats``, no optimizer state) as one ``torch.save`` file of
-    flax-keyed CPU tensors under ``<export_dir>/model/``.  Returns the
-    written path."""
+    flax-keyed CPU tensors under ``<export_dir>/model/``: ``model``'s,
+    or ``flat`` (a tensor-parallel run's full leaves, gathered).
+    Returns the written path."""
     from dtf_tpu_torch.convert import model_to_flat
 
     directory = os.path.abspath(os.path.join(export_dir, "model"))
@@ -434,7 +436,7 @@ def export_model(export_dir: str, model) -> str:
     tmp = f"{path}.tmp.{os.getpid()}"
     with trace.span("checkpoint_export"):
         with open(tmp, "wb") as f:
-            torch.save(model_to_flat(model), f)
+            torch.save(model_to_flat(model) if flat is None else flat, f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -499,8 +501,9 @@ class CheckpointCallback:
 
     ``state_fn(state)`` turns the loop's TrainState into the payload (a
     flat dict of CPU tensors; ``Trainer.checkpoint_payload``).  With
-    ``collective`` (ZeRO, whose payload is gathered from every rank's
-    slices) every rank calls it and the writer writes the result.
+    ``collective`` (ZeRO and tensor parallelism, whose payload is
+    gathered from every rank's slices and shards) every rank calls it
+    and the writer writes the result.
     """
 
     def __init__(self, model_dir: str, state_fn: Callable[[object], dict],

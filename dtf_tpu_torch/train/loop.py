@@ -98,7 +98,31 @@ count (:meth:`Trainer.zero_resident_bytes`).  At two ranks each stage's
 losses are stage 0's bit for bit: a sum of two values does not depend
 on their order.
 
-Not ported yet: TP/EP/PP; the flags that ask for them raise
+Tensor parallelism (``--model_parallelism``; ``runtime/mesh.py`` has
+the grid): the model is this rank's shard (``models/transformer.py``),
+and the step reduces over the right axis of each thing:
+  - gradients, BN buffers, loss and accuracy average over the data
+    group only (a replicated leaf's gradient is the same on every model
+    rank, thanks to ``tp_region``; a sharded one must not be averaged
+    with another shard's);
+  - the preemption latch, after riding the data all-reduce, is spread
+    over the model group, and a dynamic scale's finite verdict is
+    counted over every rank, so the shards of a replica stop, skip or
+    step together -- one left waiting in a ``tp_psum`` would hang;
+  - clipping's global norm sums the sharded leaves' squares over the
+    model group and counts each replicated leaf once (the L2 term
+    likewise, ``models/registry.py``);
+  - ``--shard_lm_head``: the logits are a vocabulary shard and the loss
+    is the collective softmax cross-entropy
+    (:func:`sharded_cross_entropy`), the accuracy the sharded argmax.
+ZeRO composes: each rank slices its *local* shard over the data group
+(the JAX layout: each (data, model) coordinate owns one slice of its
+model shard).  The checkpoint's canonical payload is the full model's:
+gathered over the data group, then over the model group through the
+partition rule, so a step restores at another mp, stage or world and
+serves at any ``--serve_tp``.
+
+Not ported yet: EP/PP; the flags that ask for them raise
 (``config/flags.py``).
 """
 
@@ -113,6 +137,7 @@ from typing import Any, Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from dtf_tpu_torch import chaos
@@ -123,8 +148,10 @@ from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.obs.ledger import Ledger, count_flops
 from dtf_tpu_torch.obs.watchdog import (Heartbeat, NanLossWatchdog,
                                         StepTimeWatchdog)
-from dtf_tpu_torch.parallel.collectives import (all_reduce_mean,
-                                                all_reduce_sum)
+from dtf_tpu_torch.models import partition
+from dtf_tpu_torch.parallel.collectives import (all_max, all_reduce_mean,
+                                                all_reduce_sum, gather_dim,
+                                                tp_psum)
 from dtf_tpu_torch.runtime.mesh import MeshRuntime
 from dtf_tpu_torch.train import preemption
 from dtf_tpu_torch.train import zero as zero_lib
@@ -171,6 +198,50 @@ def cross_entropy(logits, labels):
     """Mean CE with integer labels, in float32."""
     return F.cross_entropy(logits.flatten(0, -2).float(),
                            labels.flatten().long())
+
+
+def sharded_per_example_cross_entropy(local_logits, labels, group):
+    """Un-reduced CE over vocabulary-sharded logits (Megatron's
+    vocab-parallel softmax): a collective logsumexp over the model
+    group, the full vocabulary never on one rank.  The two sums are
+    ``tp_psum`` (sum forward, identity backward), which gives exactly
+    one loss replica's gradient; the max carries no gradient (it
+    cancels)."""
+    vloc = local_logits.shape[-1]
+    offset = dist.get_rank(group) * vloc
+    m = all_max(local_logits.detach().amax(-1).contiguous(), group)
+    sumexp = tp_psum(torch.exp(local_logits - m[..., None]).sum(-1), group)
+    lse = torch.log(sumexp) + m
+    local = labels.long() - offset
+    in_range = (local >= 0) & (local < vloc)
+    picked = local_logits.gather(
+        -1, local.clamp(0, vloc - 1)[..., None])[..., 0]
+    correct = tp_psum(torch.where(in_range, picked,
+                                  torch.zeros_like(picked)), group)
+    return lse - correct
+
+
+def sharded_cross_entropy(local_logits, labels, group):
+    """Mean CE over vocabulary-sharded logits."""
+    return sharded_per_example_cross_entropy(local_logits, labels,
+                                             group).mean()
+
+
+def sharded_argmax(local_logits, group):
+    """The global argmax over vocabulary-sharded logits (metrics only,
+    no gradient).  Ties go to the lowest global index, as an argmax of
+    the whole logits picks: within a shard argmax picks the first, and
+    across shards the minimum of the candidates does."""
+    local_logits = local_logits.detach()
+    vloc = local_logits.shape[-1]
+    offset = dist.get_rank(group) * vloc
+    local_max, local_arg = local_logits.max(-1)
+    best = all_max(local_max.clone(), group)
+    cand = torch.where(local_max == best, local_arg + offset,
+                       torch.full_like(local_arg, torch.iinfo(
+                           local_arg.dtype).max))
+    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=group)
+    return cand
 
 
 class Trainer:
@@ -251,7 +322,24 @@ class Trainer:
         self.zero_stage = cfg.zero_stage_effective
         self.zero = self.zero_stage >= 1
         self.zero_wire = zero_lib.wire_dtype(cfg.zero_wire)
-        self.nd, self.idx = replicas, self.rt.rank
+        self.nd, self.idx = replicas, self.rt.data_index
+        # tensor parallelism: the model axis, and each parameter's split
+        # under the partition rule (None: replicated).  A model that is
+        # not sharded (a vision model) is replicated over the model
+        # axis, as in the JAX package
+        mp = getattr(model, "model_parallelism", 1)
+        if mp > 1 and mp != self.rt.model_parallelism:
+            raise ValueError(
+                f"the model is a shard of {mp}, the runtime's model axis "
+                f"{self.rt.model_parallelism}")
+        self.tp = mp > 1
+        self.tp_group = self.rt.model_group if self.tp else None
+        if self.tp:
+            model.set_model_group(self.tp_group)
+        self.vocab_group = (self.tp_group
+                            if getattr(model, "shard_vocab", False) else None)
+        self._splits = [model.split(n) if self.tp else None
+                        for n, _ in model.named_parameters()]
         self._shapes = [tuple(p.shape) for p in self.params]
         self._channels_last = [
             p.dim() == 4 and not p.is_contiguous()
@@ -293,7 +381,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def _gather_params(self, slices, comm_off: bool = False) -> None:
         """Stage 3: the model's parameters from their slices."""
-        group = self.rt.group
+        group = self.rt.data_group
         with torch.no_grad():
             for p, s, shape, cl in zip(self.params, slices, self._shapes,
                                        self._channels_last):
@@ -340,23 +428,37 @@ class Trainer:
 
     def canonical_state(self, state: TrainState) -> TrainState:
         """The stage-0 (checkpoint) form of a live TrainState: full
-        parameters and optimizer state.  Identity without ZeRO; a
-        collective under it, which every rank calls."""
-        if not self.zero:
+        parameters and optimizer state -- gathered over the data group
+        (ZeRO), then over the model group (tensor parallelism), where
+        the parameters are no longer the model's.  Identity without
+        either; a collective under them, which every rank calls."""
+        if not self.zero and not self.tp:
             return state
-        group = self.rt.group
+        group = self.rt.data_group
 
         def gather(i, s):
-            return zero_lib.gather_leaf(s, self._shapes[i], s.dtype,
-                                        self.nd, group)
+            if self.zero:
+                s = zero_lib.gather_leaf(s, self._shapes[i], s.dtype,
+                                         self.nd, group)
+            return self._gather_model(i, s)
 
         if self.zero_stage == 3:
             params = [gather(i, s) for i, s in enumerate(state.params)]
         else:
-            params = self.params
+            params = [self._gather_model(i, p.detach())
+                      for i, p in enumerate(self.params)]
         return dataclasses.replace(
             state, params=params,
             opt_state=self._opt_map(state.opt_state, gather))
+
+    def _gather_model(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The full tensor of leaf ``i`` from the model group's shards
+        (the partition rule's split); ``t`` itself when replicated."""
+        split = self._splits[i]
+        if split is None:
+            return t
+        parts = gather_dim(t.unsqueeze(0), 0, self.tp_group)
+        return partition.unshard(list(parts), split)
 
     def staged_state(self, canonical: TrainState,
                      sliced_opt: bool = False) -> TrainState:
@@ -380,20 +482,17 @@ class Trainer:
     def checkpoint_payload(self, state: TrainState) -> dict:
         """The checkpoint payload of ``state``: the JAX TrainState's
         leaves keyed by flax path, as CPU tensors, in the stage-0 layout
-        whatever the run's ZeRO stage (a collective under ZeRO)."""
-        if not self.zero:
-            return state_to_flat(self.model, state)
-        canonical = self.canonical_state(state)
-        if self.zero_stage == 3 and not self._materialized:
-            # the model's full parameters for the payload, then freed
-            with torch.no_grad():
-                for p, full in zip(self.params, canonical.params):
-                    _set_storage(p, full)
-            try:
-                return state_to_flat(self.model, canonical)
-            finally:
-                self._free_params()
-        return state_to_flat(self.model, canonical)
+        of the full model whatever the run's ZeRO stage and model
+        parallelism (a collective under either)."""
+        return state_to_flat(self.model, self.canonical_state(state))
+
+    def inference_flat(self, state: TrainState) -> dict:
+        """The full model's inference variables (``--export_dir``), flat
+        and flax-keyed (a collective under ZeRO-3 or tensor
+        parallelism)."""
+        flat = self.checkpoint_payload(state)
+        return {k: v for k, v in flat.items()
+                if k.split("/")[0] in ("params", "batch_stats")}
 
     def restore_state(self, payload: dict) -> TrainState:
         """Load a checkpoint payload into the model (in place) and
@@ -427,10 +526,24 @@ class Trainer:
         clip = self.cfg.clip_grad_norm
         if not clip:
             return grads
-        norm = torch.stack([g.float().square().sum() for g in grads]
-                           ).sum().sqrt()
+        norm = self._sumsq(grads, self.tp_group).sqrt()
         factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
         return [g * factor for g in grads]
+
+    def _sumsq(self, tensors, sharded_group, replicated_group=None):
+        """The global sum of squares of per-leaf tensors: the sharded
+        leaves' summed over ``sharded_group``, the replicated leaves'
+        over ``replicated_group`` (None: this rank's alone)."""
+        parts = {True: [], False: []}
+        for t, split in zip(tensors, self._splits):
+            parts[split is not None].append(t.float().square().sum())
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for sharded, group in ((False, replicated_group),
+                               (True, sharded_group)):
+            if parts[sharded]:
+                ss = torch.stack(parts[sharded]).sum()
+                total = total + all_reduce_sum(ss, group)
+        return total
 
     def _all_reduce_step(self, grads, loss, acc):
         """The replicas' mean of the gradients, the BN running
@@ -449,7 +562,8 @@ class Trainer:
                                        device=self.device)])
         parts = grads + self.bn_buffers + [tail]
         flat = all_reduce_mean(
-            torch.cat([t.reshape(-1).float() for t in parts]), self.rt.group)
+            torch.cat([t.reshape(-1).float() for t in parts]),
+            self.rt.data_group)
         views = [v.view(t.shape) for v, t in zip(
             flat.split([t.numel() for t in parts]), parts)]
         n = len(grads)
@@ -459,7 +573,9 @@ class Trainer:
         # the tail copied out: a view would keep the whole flat buffer
         # alive for as long as the step's metrics are
         tail = views[-1].clone()
-        return views[:n], tail[0], tail[1], tail[2]
+        # the latch reaches the replica's other model ranks too
+        latch = all_max(tail[2:].clone(), self.rt.model_group)[0]
+        return views[:n], tail[0], tail[1], latch
 
     def _inputs(self, images):
         """The batch as the model takes it: NHWC, normalized."""
@@ -474,18 +590,18 @@ class Trainer:
                 else p.grad for p in self.params]
 
     def _scatter(self, grads, comm_off: bool):
-        return [zero_lib.scatter_leaf(g, self.nd, self.rt.group, comm_off,
-                                      self.idx, self.zero_wire)
+        return [zero_lib.scatter_leaf(g, self.nd, self.rt.data_group,
+                                      comm_off, self.idx, self.zero_wire)
                 for g in grads]
 
     def _clip_slices(self, slices):
         """Clipping to the global norm of the gradient held in slices:
-        each rank's squares summed over the group."""
+        the slices' squares summed over the data group, and a sharded
+        leaf's over the model group too."""
         clip = self.cfg.clip_grad_norm
         if not clip:
             return slices
-        sumsq = torch.stack([s.square().sum() for s in slices]).sum()
-        norm = all_reduce_sum(sumsq, self.rt.group).sqrt()
+        norm = self._sumsq(slices, self.rt.group, self.rt.data_group).sqrt()
         factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
         return [s * factor for s in slices]
 
@@ -519,12 +635,12 @@ class Trainer:
         for imgs, lbls in zip(images.chunk(self.grad_accum),
                               labels.chunk(self.grad_accum)):
             logits = model(imgs)
-            loss = (cross_entropy(logits, lbls)
+            loss = (self._cross_entropy(logits, lbls)
                     + l2_weight_penalty(model, self.l2_weight))
             (loss * scale).backward()
             loss_sum = loss_sum + loss.detach()
             if self.report_acc:
-                acc_sum = acc_sum + (logits.detach().argmax(-1)
+                acc_sum = acc_sum + (self._argmax(logits)
                                      == lbls).float().mean()
             del logits, loss
             if per_chunk:
@@ -604,8 +720,8 @@ class Trainer:
                 with torch.no_grad():
                     for p, s in zip(params, p_slices):
                         p.copy_(zero_lib.gather_leaf(
-                            s, p.shape, p.dtype, self.nd, self.rt.group,
-                            comm_off))
+                            s, p.shape, p.dtype, self.nd,
+                            self.rt.data_group, comm_off))
         else:
             with torch.no_grad():
                 for b, k in zip(buffers, kept):
@@ -621,6 +737,22 @@ class Trainer:
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state, loss_scale=new_scale,
                           good_steps=new_good), metrics
+
+    def _cross_entropy(self, logits, labels):
+        if self.vocab_group is not None:
+            return sharded_cross_entropy(logits, labels, self.vocab_group)
+        return cross_entropy(logits, labels)
+
+    def _per_example_cross_entropy(self, logits, labels):
+        if self.vocab_group is not None:
+            return sharded_per_example_cross_entropy(logits, labels,
+                                                     self.vocab_group)
+        return per_example_cross_entropy(logits, labels)
+
+    def _argmax(self, logits):
+        if self.vocab_group is not None:
+            return sharded_argmax(logits, self.vocab_group)
+        return logits.detach().argmax(-1)
 
     def _allocated(self) -> Optional[int]:
         """The CUDA allocator's bytes in use on this rank's card (None
@@ -691,18 +823,18 @@ class Trainer:
                     if len(batch) > 2 else
                     torch.ones(labels.shape[0], device=dev))
             logits = model(images)
-            per = per_example_cross_entropy(logits, labels)
+            per = self._per_example_cross_entropy(logits, labels)
             w = (mask[:, None] * torch.ones_like(per) if per.dim() == 2
                  else mask)
             loss_sum += float((per * w).sum())
             if self.report_acc:
-                correct += float(((logits.argmax(-1) == labels).float()
+                correct += float(((self._argmax(logits) == labels).float()
                                   * w).sum())
             count += float(w.sum())
         if self.rt.group is not None:
             loss_sum, correct, count = all_reduce_sum(torch.tensor(
                 [loss_sum, correct, count], dtype=torch.float64,
-                device=dev), self.rt.group).tolist()
+                device=dev), self.rt.data_group).tolist()
         self.eval_count = count
         if count == 0:
             return None
@@ -945,7 +1077,7 @@ class Trainer:
             return sorted(walls)[len(walls) // 2]
 
         full = [torch.zeros(shape, device=dev) for shape in self._shapes]
-        group = self.rt.group
+        group = self.rt.data_group
         slices = self._scatter(full, False)
         scatters, gathers = ([wall(fn) for _ in range(4)][1:] for fn in (
             lambda: self._scatter(full, False),

@@ -13,11 +13,14 @@ process group (``runtime/mesh.py``); None is world 1.
 The padding is zeros at init and stays zero under the optimizers the
 port has (SGD, momentum, AdamW: zero gradients in, zero updates out),
 which is what makes dropping and re-creating it across a checkpoint
-round trip exact.  Every leaf here is a replicated parameter or its
-optimizer moment; the step count stays whole in both layouts.  A leaf
-sharded over a model axis (tensor parallelism, MoE experts) has no
-layout here: the flags that would make one are refused as not ported
-(``config/flags.py NOT_PORTED``).
+round trip exact.  Every leaf here is a parameter of this rank's model
+or its optimizer moment; the step count stays whole in both layouts.
+Under tensor parallelism a leaf is the rank's model shard, and it is
+that local tensor which is sliced over the data group: each (data,
+model) coordinate owns one slice of its model shard, the JAX layout.
+MoE experts, sharded over a data axis, have no layout here: the flags
+that would make them are refused as not ported (``config/flags.py
+NOT_PORTED``).
 
 ``comm_off=True`` replaces each collective with a local op of the same
 output shape (the values are garbage).  It exists for one purpose: the

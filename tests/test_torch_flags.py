@@ -110,6 +110,16 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         # with the JAX package's defaults and validation
         _check_zero_flags(flags + ["optimizer_sharding"])
         return
+    if subsystem in ("model parallelism", "serving tensor parallelism"):
+        # ported since (tensor parallelism): --shard_lm_head,
+        # --model_parallelism and --serve_tp parse, with the JAX
+        # package's defaults and validation; pipeline and expert
+        # parallelism stay refused under their own flags
+        tp = [f for f in flags if f in TP_FLAGS]
+        _check_tp_flags(tp + (["model_parallelism"]
+                              if subsystem == "model parallelism" else []))
+        flags = [f for f in flags if f not in TP_FLAGS]
+        subsystem = "model parallelism"
     if subsystem == "serving fleet":
         # ported since: the router and replica flags (cli/router_main and
         # cli/replica_main), then the HA pair's (serve/ha.py) and the
@@ -214,6 +224,31 @@ def _check_ported_flags(flags):
             with pytest.raises(ValueError, match="metrics_port"):
                 parse_flags(bad)
             with pytest.raises(ValueError, match="metrics_port"):
+                jax_parse_flags(bad)
+
+
+TP_FLAGS = ("model_parallelism", "shard_lm_head", "serve_tp")
+
+
+def _check_tp_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+    argv = {"model_parallelism": ["--model_parallelism", "2"],
+            "shard_lm_head": ["--shard_lm_head"],
+            "serve_tp": ["--serve_tp", "2"]}
+    for name in flags:
+        got, want = parse_flags(argv[name]), jax_parse_flags(argv[name])
+        assert getattr(got, name) == getattr(want, name), name
+    if "serve_tp" in flags:
+        for bad, match in ((["--serve_tp", "0"], "serve_tp must be >= 1"),
+                           (["--serve_tp", "2", "--kv_page_size", "0"],
+                            "paged")):
+            with pytest.raises(ValueError, match=match):
+                parse_flags(bad)
+            with pytest.raises(ValueError, match=match):
                 jax_parse_flags(bad)
 
 

@@ -320,8 +320,8 @@ def main_pair(shards, tmp_path_factory):
         params = init["params"]
         build = runner.build_model_for
 
-        def jax_weights(cfg, spec, device, bn_group=None):
-            model, l2 = build(cfg, spec, device, bn_group)
+        def jax_weights(cfg, spec, device, bn_group=None, **kw):
+            model, l2 = build(cfg, spec, device, bn_group, **kw)
             model.load_state_dict(convert.from_flax_vision(params, {},
                                                            model))
             return model, l2

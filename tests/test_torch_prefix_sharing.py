@@ -555,7 +555,7 @@ def test_contiguous_decoder_token_exact_to_jax(pair):
     jdec = JaxDecoder(jmodel, params, num_slots=2, max_seq_len=SEQ)
     tdec = Decoder(tmodel, num_slots=2, max_seq_len=SEQ)
     jcache, tcache = jdec.fresh_cache(), tdec.fresh_cache()
-    assert tuple(tcache[0]["cached_key"].shape) == (2, SEQ, 2, 16)
+    assert tuple(tcache[0][0]["cached_key"].shape) == (2, SEQ, 2, 16)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, VOCAB, (n,)).astype(np.int32)
                for n in (9, 3)]
@@ -579,7 +579,7 @@ def test_contiguous_decoder_token_exact_to_jax(pair):
                                    rtol=2e-5)
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
         tokens, index = tt.numpy().astype(np.int32), index + 1
-    for i, layer in enumerate(tcache):
+    for i, layer in enumerate(tcache[0]):
         ref = np.asarray(jcache[f"block{i}"]["attn"]["cached_key"])
         np.testing.assert_allclose(layer["cached_key"].numpy(), ref,
                                    atol=2e-5, rtol=2e-5)

@@ -16,6 +16,7 @@ cpu`` spawns two ``replica_main`` processes, one is chaos-killed
 mid-burst and respawned, and every request resolves token-exact.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -1192,3 +1193,42 @@ def test_adopted_replica_on_another_host_is_stopped_by_epoch(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+class _Sink:
+    """A replica connection's write side that keeps what it was sent."""
+
+    def __init__(self):
+        self.sent = []
+
+    def write(self, data):
+        self.sent.append(json.loads(data))
+
+    def flush(self):
+        pass
+
+
+@pytest.mark.parametrize("held", [False, True])
+def test_heal_prefetch_skips_a_held_replica(tmp_path, held):
+    """The heal-time prefetch pulls the hottest chain into a replica
+    that comes back -- but not into one a rollout holds (its
+    replacement or canary, draining until released): the controller
+    may stop it mid-pull, failing a migration with no replica lost
+    (seen on the card in the HA/rollout phase)."""
+    router = Router(2, str(tmp_path / "r"))
+    try:
+        digests = ["d0", "d1"]
+        with router._mu:
+            owner, back = router._replicas[1], router._replicas[0]
+            owner.healthy, owner.port = True, 1234
+            back.healthy, back.wfile = True, _Sink()
+            back.draining = held
+            router._prefix_owner["d1"] = 1
+            router._chain_heat["d1"] = (5, digests, [1, 2, 3])
+            router._maybe_prefetch_locked(back)
+            migrations = dict(router._migrations)
+        assert bool(migrations) == (not held)
+        assert [m["op"] for m in back.wfile.sent] == (
+            [] if held else ["migrate_in"])
+    finally:
+        router.stop(drain=False)

@@ -349,8 +349,11 @@ def test_parse_flags_and_validation():
     assert cfg.serve_prefill_chunk is None
     assert cfg.compute_dtype == torch.bfloat16
     assert parse_flags([]).device == "cuda"
-    with pytest.raises(ValueError, match="tensor parallelism.*not ported"):
-        parse_flags(["--serve_tp", "2"])
+    # --serve_tp is ported since (tensor-parallel serving): it parses,
+    # and needs the paged cache, as in the JAX package
+    assert parse_flags(["--serve_tp", "2"]).serve_tp == 2
+    with pytest.raises(ValueError, match="tensor-parallel serving.*paged"):
+        parse_flags(["--serve_tp", "2", "--kv_page_size", "0"])
     with pytest.raises(ValueError, match="dtype"):
         Config(dtype="fp16")
     with pytest.raises(ValueError, match="multiple"):

@@ -113,8 +113,9 @@ def test_fresh_cache_shapes_match_jax(pair):
     jdec, tdec = _paged_pair(pair, 2)
     jcache = jdec.fresh_cache()
     tcache = tdec.fresh_cache()
-    assert len(tcache) == 2
-    for i, layer in enumerate(tcache):
+    # one model shard's list of layers
+    assert len(tcache) == 1 and len(tcache[0]) == 2
+    for i, layer in enumerate(tcache[0]):
         for name in ("paged_key", "paged_value"):
             ref = jcache[f"block{i}"]["attn"][name]
             assert tuple(layer[name].shape) == tuple(ref.shape)
@@ -171,7 +172,7 @@ def test_prefill_chunks_and_decode_steps_match_jax(pair):
                           tokens).astype(np.int32)
         index = index + np.isin(np.arange(2), live)
     # the pools themselves hold the same K/V (page 0 aside: scratch)
-    for i, layer in enumerate(tcache):
+    for i, layer in enumerate(tcache[0]):
         ref = np.asarray(jcache[f"block{i}"]["attn"]["paged_key"])
         _close(layer["paged_key"][1:], ref[1:])
 
@@ -281,7 +282,7 @@ def test_bf16_model_runs_paged_on_cpu():
     for model in (f32, bf16):
         dec = Decoder(model, num_slots=1, max_seq_len=SEQ, kv_page_size=PAGE)
         cache = dec.fresh_cache()
-        assert cache[0]["paged_key"].dtype == model.dtype
+        assert cache[0][0]["paged_key"].dtype == model.dtype
         row = np.arange(1, 1 + dec.pages_per_slot, dtype=np.int32)
         _, cache, first = dec.prefill_chunk(cache, np.arange(8), row, 0, 7,
                                             0.0)

@@ -74,8 +74,8 @@ build = runner.build_model_for
 weights = {}
 
 
-def with_weights(cfg, spec, device, bn_group=None):
-    model, l2 = build(cfg, spec, device, bn_group)
+def with_weights(cfg, spec, device, bn_group=None, **kw):
+    model, l2 = build(cfg, spec, device, bn_group, **kw)
     if weights.get("path"):
         model.load_state_dict(torch.load(weights["path"]))
     return model, l2
@@ -207,9 +207,9 @@ def test_layout_is_the_jax_layout(numel, nd):
 
 def test_replicated_sentinel_and_sharded_leaves():
     """The step count -- the JAX layout's replicated leaf -- stays whole
-    in the sliced optimizer state while the moments are sliced; a leaf
-    sharded over a model axis has no ZeRO layout in the port: the flags
-    that would make one are refused, naming the subsystem."""
+    in the sliced optimizer state while the moments are sliced; an
+    expert leaf has no ZeRO layout in the port: the flag that would
+    make one is refused, naming the subsystem."""
     from dtf_tpu_torch.train.loop import Trainer
     from dtf_tpu_torch.train.optimizer import AdamWState
     opt = AdamWState(count=3, mu=[torch.arange(3.0)],
@@ -218,9 +218,12 @@ def test_replicated_sentinel_and_sharded_leaves():
     assert sliced.count == 3
     assert torch.equal(sliced.mu[0], torch.tensor([2.0, 0.0]))
     assert torch.equal(sliced.nu[0], torch.tensor([3.0, 0.0]))
-    for flag in (["--model_parallelism", "2"], ["--num_experts", "4"]):
-        with pytest.raises(ValueError, match="expert.*not ported"):
-            parse_flags(["--zero_stage", "3"] + flag)
+    with pytest.raises(ValueError, match="expert.*not ported"):
+        parse_flags(["--zero_stage", "3", "--num_experts", "4"])
+    # tensor parallelism is ported since: a model-sharded leaf slices
+    # its local shard over the data axis (tests/test_torch_tp.py)
+    assert parse_flags(["--zero_stage", "3", "--model_parallelism",
+                        "2"]).model_parallelism == 2
 
 
 def test_collectives_without_a_group_are_the_identity():
