@@ -370,6 +370,36 @@ Phases, each printing one JSON object per line (the card's
                  ``serve_tp 1`` (K1 and K4 at 3 heads, two shards'
                  launches a layer).  (c) ``cli.serve_main --serve_tp 2``
                  on a one-card machine exits non-zero naming the count.
+ 17. elastic   -- elastic training (``train/elastic.py``, ``cli/launch.py
+                 --elastic``, the ``device_loss`` fault): ``cli.lm_main``
+                 transformer_tpu at ``DP_LM_LAYERS`` of its 12 layers,
+                 every width kept, bf16 compute on f32 parameters, AdamW,
+                 ZeRO-3, global batch ``ZERO_BATCH``, gloo ranks sharing
+                 the card, ``--resume --checkpoint_steps 2``, 12 steps.
+                 (a) 2 ranks under ``launch_local(elastic=True,
+                 min_devices=1)`` with ``host_loss@rank1:step:4``: one
+                 shrink (host_loss, 1 device), then, once step 6 is
+                 sealed, ``elastic_rejoin.json`` announces 2 devices and
+                 the job is drained and grown back; ``elastic_resume``
+                 (4, 1) then (>= 6, 2); every step trained once; exit 0.
+                 (b) the same 2-rank command with ``crash@step:4``: its
+                 steps 1-4 bit-identical to (a)'s.  (c) 1 rank resumed
+                 from a copy of (b)'s model dir: steps 5 to (a)'s grow
+                 step bit-identical to (a)'s.  (d) ``trace_main --check
+                 --allow injected_fault --allow host_loss`` clean on
+                 (a)'s trace, a bare ``--check`` not.  (e)
+                 ``device_loss@step:2``, 2 ranks, 6 steps: classified,
+                 resumed on 1 rank, every step once, its check clean.
+                 (f) ``cudaGetErrorString``'s texts on this card for the
+                 device-loss statuses the classifier lists classify as
+                 device loss; those of an illegal address and an
+                 unspecified launch failure, and a caught out-of-memory
+                 error, do not.  (b) then (c), and (e), run beside (a).
+                 The line: the loss-to-first-shrunken-step and
+                 announce-to-first-grown-step seconds, the step p50 at 2
+                 ranks and at 1, each seal's seconds, the checkpoint
+                 bytes a step; K1 and K3 one a layer and step in the
+                 grown attempt's rank and the device arm's resumed one.
   Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
   with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
   none's; --remat's peak memory below none's); phase 7 trains ResNet-50
@@ -392,8 +422,9 @@ phase 13's replica processes; as ``launches_ha`` and
 ``launches_remat`` (phase 6's arms) and ``launches_zero`` (phase 15's
 rank 0 of stage 0); K1, K3 and K4 as ``launches_tp`` (phase 16: rank 0
 of the bf16 TP run, and the bf16 ``serve_tp 2`` engine's two shards),
-with ``tp_case``, phase 2's case at the shard's shape -- and, last, the
-device line.
+with ``tp_case``, phase 2's case at the shard's shape; K1 and K3 as
+``launches_elastic`` (phase 17: rank 0 of the grown attempt) -- and,
+last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -402,6 +433,7 @@ exits 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import functools
 import json
@@ -2649,6 +2681,7 @@ def keep(cfg, rt=None):
         # started early (the process group joined, the model built and
         # placed); the steps wait for the caller's go, so their times
         # are their own
+        open(spec["go"] + ".ready", "w").close()
         while not os.path.exists(spec["go"]):
             time.sleep(0.05)
         kept["t0"] = time.perf_counter()
@@ -2734,23 +2767,59 @@ def dp_run(spec: dict, world, root: str, what: str):
     return dp_results(texts, what)
 
 
-def dp_world_one(torch, card: str, root: str, main: str, defaults: str,
-                 argv, phase: str, layers=None, **extra):
-    """``main`` with ``--distribution_strategy off`` in a plain process
-    and with ``multi_worker_mirrored`` through the launcher with one
-    rank (a real NCCL group), in turns: off, NCCL, NCCL, off.  Every
-    run's per-step losses and weights bit for bit the first's; each
-    arm's step-time p50 over its two runs' windows."""
+DP_TURNS = ("off", "multi_worker_mirrored", "multi_worker_mirrored", "off")
+
+
+def dp_world_one_start(root: str, main: str, defaults: str, argv,
+                       phase: str, layers=None) -> list:
+    """The four processes of :func:`dp_world_one`'s turns, started now:
+    ``main`` with ``--distribution_strategy off`` in a plain process and
+    with ``multi_worker_mirrored`` through the launcher with one rank (a
+    real NCCL group).  Each builds its model, then waits for its turn's
+    go, so no turn pays a process start and each turn's steps run
+    alone."""
     arms = {"off": None, "multi_worker_mirrored": 1}
-    runs = []
-    for turn, strategy in enumerate(("off", "multi_worker_mirrored",
-                                     "multi_worker_mirrored", "off")):
+    started = []
+    for turn, strategy in enumerate(DP_TURNS):
+        what = f"{phase} {strategy} {turn}"
+        go = os.path.join(root, what.replace(" ", "_") + ".go")
         spec = {"main": main, "defaults": defaults, "backend": None,
                 "argv": argv + ["--distribution_strategy", strategy],
-                "layers": layers}
-        torch.cuda.empty_cache()
-        runs.append((strategy, dp_run(spec, arms[strategy], root,
-                                      f"{phase} {strategy} {turn}")[0]))
+                "layers": layers, "go": go}
+        started.append((strategy, go, overlapped(
+            dp_run, spec, arms[strategy], root, what)))
+    return started
+
+
+def dp_wait_ready(started: list) -> None:
+    """Until every process of :func:`dp_world_one_start`'s lists has
+    built its model and waits for its go (or has ended), so no turn's
+    steps share the host with another process's start."""
+    while not all(os.path.exists(go + ".ready") or fut.done()
+                  for _, go, fut in started):
+        time.sleep(0.05)
+
+
+def dp_world_one(torch, card: str, started: list, phase: str, layers=None,
+                 **extra):
+    """The turns of :func:`dp_world_one_start`'s processes, one at a
+    time: off, NCCL, NCCL, off.  Every run's per-step losses and weights
+    bit for bit the first's; each arm's step-time p50 over its two runs'
+    windows."""
+    import concurrent.futures
+
+    arms = {"off": None, "multi_worker_mirrored": 1}
+    try:
+        for _, go, fut in started:
+            torch.cuda.empty_cache()
+            open(go, "w").close()
+            concurrent.futures.wait([fut])
+    finally:
+        # a turn that failed must not leave the others waiting
+        for _, go, _ in started:
+            open(go, "a").close()
+    runs = [(strategy, res[0]) for (strategy, _, _), res in zip(
+        started, gathered([fut for _, _, fut in started]))]
     windows = {s: [w for name, r in runs if name == s
                    for w in r["window_step_s"]] for s in arms}
     one = runs[1][1]
@@ -2858,24 +2927,36 @@ def train_data_parallel(torch, seed: int, card: str):
     from dtf_tpu_torch.data.cifar import write_binary_file
 
     steps = 20
+    b = TRAIN_SHAPE[0]
     with tempfile.TemporaryDirectory() as root:
-        cifar = dp_world_one(
-            torch, card, root, "cifar_main", "CIFAR_DEFAULTS",
+        # both arms' eight processes start together; their turns run
+        # one at a time
+        cifar_started = dp_world_one_start(
+            root, "cifar_main", "CIFAR_DEFAULTS",
             ["--use_synthetic_data", "--device", "cuda", "--model",
              "resnet56", "--dtype", "bf16", "--batch_size", "128",
              "--train_steps", str(steps), "--log_steps", "1",
              "--skip_eval", "--seed", str(seed), "--skip_checkpoint"],
-            "dp_world1_cifar", model="resnet56", dtype="bf16", batch=128,
-            steps=steps)
-        b = TRAIN_SHAPE[0]
-        lm = dp_world_one(
-            torch, card, root, "lm_main", "LM_DEFAULTS",
+            "dp_world1_cifar")
+        lm_started = dp_world_one_start(
+            root, "lm_main", "LM_DEFAULTS",
             ["--use_synthetic_data", "--device", "cuda", "--model",
              "transformer_tpu", "--dtype", "bf16", "--batch_size", str(b),
              "--train_steps", str(steps), "--log_steps", "1", "--seed",
              str(seed), "--skip_checkpoint"],
-            "dp_world1_lm", layers=DP_LM_LAYERS, model="transformer_tpu",
-            dtype="bf16", batch=b, seq=TRAIN_SHAPE[1], steps=steps)
+            "dp_world1_lm", layers=DP_LM_LAYERS)
+        dp_wait_ready(cifar_started + lm_started)
+        try:
+            cifar = dp_world_one(
+                torch, card, cifar_started, "dp_world1_cifar",
+                model="resnet56", dtype="bf16", batch=128, steps=steps)
+        finally:
+            # the LM's turns run (and their processes end) whatever the
+            # CIFAR arm's verdict
+            lm = dp_world_one(
+                torch, card, lm_started, "dp_world1_lm",
+                layers=DP_LM_LAYERS, model="transformer_tpu", dtype="bf16",
+                batch=b, seq=TRAIN_SHAPE[1], steps=steps)
         n = DP_LM_LAYERS * steps
         want = {"K1": n, "K2a": 0, "K2b": 0, "K3": n}
         if lm["launches_nccl_world1"] != want:
@@ -2914,6 +2995,12 @@ from dtf_tpu_torch.ops import flash_attention as fa
 from dtf_tpu_torch.ops import paged_attention as pa
 
 spec = json.loads(sys.argv[1])
+if spec.get("layers"):
+    import functools
+    from dtf_tpu_torch.models import registry
+    ctor, classes, l2 = registry._REGISTRY["transformer_tpu"]
+    registry._REGISTRY["transformer_tpu"] = (
+        functools.partial(ctor, num_layers=spec["layers"]), classes, l2)
 kept = {}
 build, checkpointing = runner.build_training, runner._checkpointing
 def keep_build(cfg, rt=None):
@@ -2978,13 +3065,14 @@ def trace_losses(trace_dir: str) -> dict:
 
 
 def recovery_run(root: str, what: str, main: str, argv, fault=None,
-                 serve=None, strategy: str = "off") -> dict:
+                 serve=None, strategy: str = "off", layers=None,
+                 spawn=None) -> dict:
     """``main`` under the port's launcher, one rank of ``strategy``,
     with sealed checkpoints every 2 steps into a fresh model dir and a
     trace; with ``fault``, ``--resume --fault <fault>`` and one restart.
     Returns the last attempt's result line, the losses of the trace,
     the supervisor's events and the run's directories."""
-    from dtf_tpu_torch.cli.launch import launch_local
+    from dtf_tpu_torch.cli.launch import launch_local, popen_rank
 
     base = os.path.join(root, what)
     model_dir, trace_dir = base + "_model", base + "_trace"
@@ -2996,7 +3084,7 @@ def recovery_run(root: str, what: str, main: str, argv, fault=None,
              "--distribution_strategy", strategy]
     if fault:
         flags += ["--resume", "--fault", fault]
-    spec = {"main": main, "argv": argv + flags}
+    spec = {"main": main, "argv": argv + flags, "layers": layers}
     if serve:
         spec.update(serve)
     t0 = time.time()
@@ -3005,7 +3093,8 @@ def recovery_run(root: str, what: str, main: str, argv, fault=None,
                       f"file://{base}.rendezvous", log_dir,
                       timeout_s=RECOVERY_TIMEOUT_S,
                       max_restarts=1 if fault else 0,
-                      restart_backoff_s=0.1, teardown_grace=30)
+                      restart_backoff_s=0.1, teardown_grace=30,
+                      spawn=spawn or popen_rank)
     wall = time.time() - t0
     logs = sorted(n for n in os.listdir(log_dir) if n.startswith("log0"))
     with open(os.path.join(log_dir, logs[-1])) as f:
@@ -3107,7 +3196,7 @@ def check_recovered(what: str, base: dict, run: dict, fault: str,
     return line
 
 
-def train_recovery(torch, seed: int, card: str):
+def train_recovery(torch, seed: int, card: str, spawn=None):
     """Phase 9: crash-exact recovery through the entry points.
 
     (a) ``lm_main`` transformer_tpu bf16 at batch 8 x 2048 under the
@@ -3172,32 +3261,35 @@ def train_recovery(torch, seed: int, card: str):
                    "resnet56", "--dtype", "bf16", "--batch_size", "128",
                    "--skip_eval", "--seed", str(seed)]
         rn_base_run = overlapped(recovery_run, root, "resnet_base",
-                                 "cifar_main", rn_argv)
+                                 "cifar_main", rn_argv, spawn=spawn)
         # one rank of a data-parallel run: the NCCL group, the flat
         # all-reduce, the barrier behind each save, the restore's
         # broadcast of the chosen step
         dp = "multi_worker_mirrored"
         lm_base, rn_base = gathered([
             overlapped(recovery_run, root, "lm_base", "lm_main", lm_argv,
-                       strategy=dp), rn_base_run])
+                       strategy=dp, layers=DP_LM_LAYERS, spawn=spawn),
+            rn_base_run])
         # the LM's faulted run alone: its save, restore and restart
         # times are the phase's measurements
         lm = recovery_run(root, "lm_crash", "lm_main", lm_argv,
                           fault="crash@step:4", strategy=dp,
                           serve={"serve_argv": serve_argv,
                                  "serve_prompts": prompts,
-                                 "serve_new": n_new})
+                                 "serve_new": n_new},
+                          layers=DP_LM_LAYERS)
         line = check_recovered("recovery_lm", lm_base, lm, "crash@step:4",
                                4, "crash")
         steps_run = RECOVERY_STEPS - 4
-        want = {"K1": 12 * steps_run, "K2a": 0, "K2b": 0,
-                "K3": 12 * steps_run, "K4": 0}
+        want = {"K1": DP_LM_LAYERS * steps_run, "K2a": 0, "K2b": 0,
+                "K3": DP_LM_LAYERS * steps_run, "K4": 0}
         if line["launches_resumed_process"] != want:
             raise AssertionError(f"recovery_lm: resumed process launched "
                                  f"{line['launches_resumed_process']}, "
                                  f"expected {want}")
         lines["lm"] = {"phase": "recovery_lm", "card": card,
-                       "model": "transformer_tpu", "dtype": "bf16",
+                       "model": "transformer_tpu", "layers": DP_LM_LAYERS,
+                       "dtype": "bf16",
                        "batch": b, "seq": TRAIN_SHAPE[1],
                        "distribution_strategy": dp, "ranks": 1, **line}
         emit(lines["lm"])
@@ -3206,15 +3298,17 @@ def train_recovery(torch, seed: int, card: str):
         # resnet56's crash run goes (no gate reads its times)
         rn_crash_run = overlapped(recovery_run, root, "resnet_crash",
                                   "cifar_main", rn_argv,
-                                  fault="crash@step:4")
-        reset_counts(fa, pa)
-        out = serve_main.main(serve_argv + [
-            "--model_dir", lm["model_dir"], "--serve_requests", "4",
-            "--serve_prompt_len", "64", "--serve_max_new_tokens",
-            str(n_new)])
-        served_launches = kernel_counts(fa, pa)
-        model, engine = build_serving_engine(parse_flags(
-            serve_argv + ["--model_dir", lm["model_dir"]]))
+                                  fault="crash@step:4", spawn=spawn)
+        # the checkpoint's depth, as the runs were cut
+        with fleet_depth(DP_LM_LAYERS):
+            reset_counts(fa, pa)
+            out = serve_main.main(serve_argv + [
+                "--model_dir", lm["model_dir"], "--serve_requests", "4",
+                "--serve_prompt_len", "64", "--serve_max_new_tokens",
+                str(n_new)])
+            served_launches = kernel_counts(fa, pa)
+            model, engine = build_serving_engine(parse_flags(
+                serve_argv + ["--model_dir", lm["model_dir"]]))
         try:
             handles = [engine.submit(np.asarray(p, np.int32),
                                      max_new_tokens=n_new) for p in prompts]
@@ -3254,7 +3348,8 @@ def train_recovery(torch, seed: int, card: str):
                           "batch": 128, **line}
             emit(lines[key])
 
-        # (e) the measurements, from the LM run (1.65 GB a step)
+        # (e) the measurements, from the LM run (~1.1 GB a step at
+        # DP_LM_LAYERS layers; 1.65 GB at 12)
         save = lm["result"]["timings"]["save"]
         restore = lm["result"]["timings"]["restore"]
         lines["measure"] = {
@@ -4493,7 +4588,10 @@ def serve_prefix(torch, seed: int, card: str) -> dict:
     from dtf_tpu_torch.serve.bridge import random_init
 
     rng = np.random.default_rng(seed + 12)
-    model, _ = build_model("transformer_tpu", dtype=torch.bfloat16)
+    # the bf16 bursts at FLEET_LAYERS of the 12 layers, every width kept
+    # (their gates count launches by the model's own depth)
+    with fleet_depth():
+        model, _ = build_model("transformer_tpu", dtype=torch.bfloat16)
     model = random_init(model, seed).cuda().eval()
     try:
         out = {"concurrency": prefix_concurrency(torch, model, rng),
@@ -4562,18 +4660,28 @@ REPLICA_PRELOAD = ["numpy", "torch", "dtf_tpu_torch.cli.replica_main",
                    "dtf_tpu_torch.obs.trace"]
 
 
-def fleet_replica_child(argv, env: dict, cwd: str, log: str,
-                        layers: int) -> None:
-    """A replica's body, forked from the forkserver: its log on stdout
-    and stderr, the tier's cwd, environment and argv, transformer_tpu
-    at ``layers``, then ``FLEET_REPLICA`` with its exit handlers (a
-    multiprocessing child ends with ``os._exit``)."""
+# what a launcher rank of phases 9 and 15-17 imports (DP_RANK,
+# RECOVERY_RANK): the forkserver imports it once for every such rank
+RANK_PRELOAD = ["dtf_tpu_torch.cli.runner", "dtf_tpu_torch.cli.lm_main",
+                "dtf_tpu_torch.cli.cifar_main", "dtf_tpu_torch.config",
+                "dtf_tpu_torch.runtime.mesh", "dtf_tpu_torch.train.loop",
+                "dtf_tpu_torch.train.checkpoint",
+                "dtf_tpu_torch.train.elastic", "torch.distributed"]
+
+
+def forked_main(name: str, script: str, argv, env: dict, cwd: str,
+                log: str, layers=None) -> None:
+    """A process's body, forked from the forkserver: its log on stdout
+    and stderr, the given cwd, environment and argv, transformer_tpu at
+    ``layers`` (all 12 for None), torch's threads as ``OMP_NUM_THREADS``
+    asks, then ``script`` as ``python -c`` runs it, with its exit
+    handlers (a multiprocessing child ends with ``os._exit``)."""
     import atexit
     import traceback
 
     import torch
     if torch.cuda.is_initialized():
-        raise SystemExit("replica: CUDA initialised before the fork")
+        raise SystemExit(f"{name}: CUDA initialised before the fork")
     fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
     os.dup2(fd, 1)
     os.dup2(fd, 2)
@@ -4581,15 +4689,17 @@ def fleet_replica_child(argv, env: dict, cwd: str, log: str,
     os.chdir(cwd)
     os.environ.clear()
     os.environ.update(env)
-    from dtf_tpu_torch.models import registry
-    ctor, classes, l2 = registry._REGISTRY["transformer_tpu"]
-    registry._REGISTRY["transformer_tpu"] = (
-        functools.partial(ctor, num_layers=layers), classes, l2)
-    sys.argv = ["replica"] + list(argv)
+    if env.get("OMP_NUM_THREADS"):
+        torch.set_num_threads(int(env["OMP_NUM_THREADS"]))
+    if layers:
+        from dtf_tpu_torch.models import registry
+        ctor, classes, l2 = registry._REGISTRY["transformer_tpu"]
+        registry._REGISTRY["transformer_tpu"] = (
+            functools.partial(ctor, num_layers=layers), classes, l2)
+    sys.argv = [name] + list(argv)
     code = 0
     try:
-        exec(compile(FLEET_REPLICA, "<replica>", "exec"),
-             {"__name__": "__main__"})
+        exec(compile(script, f"<{name}>", "exec"), {"__name__": "__main__"})
     except SystemExit as e:
         code = e.code if isinstance(e.code, int) else (1 if e.code else 0)
     except BaseException:
@@ -4599,6 +4709,14 @@ def fleet_replica_child(argv, env: dict, cwd: str, log: str,
     sys.stdout.flush()
     sys.stderr.flush()
     raise SystemExit(code)
+
+
+def fleet_replica_child(argv, env: dict, cwd: str, log: str,
+                        layers: int) -> None:
+    """A replica's body (``FLEET_REPLICA``), forked from the forkserver:
+    the tier's cwd, environment and argv, transformer_tpu at
+    ``layers``."""
+    forked_main("replica", FLEET_REPLICA, argv, env, cwd, log, layers)
 
 
 def _forkserver_ready() -> None:
@@ -4662,7 +4780,8 @@ class ReplicaForkServer:
         # the module of the child's body first: run as a script, this
         # one is __main__, imported once there and not again per child
         self.ctx.set_forkserver_preload(
-            [fleet_replica_child.__module__] + REPLICA_PRELOAD)
+            [fleet_replica_child.__module__] + REPLICA_PRELOAD
+            + RANK_PRELOAD)
         self.spawned = 0
         self._ready_s = None
 
@@ -4715,6 +4834,21 @@ class ReplicaForkServer:
             return ForkedReplica(proc)
 
         return spawn
+
+    def rank_spawn(self, cmd, env: dict, log_path: str) -> ForkedReplica:
+        """``cli.launch.launch_local``'s ``spawn``: a launcher rank
+        (``cmd`` is ``[python, "-c", script, *args]``) forked from here,
+        so its start pays for its card and model, not its imports."""
+        if cmd[1:2] != ["-c"]:
+            raise ValueError(f"a forked rank runs a python -c script, "
+                             f"not {cmd[:2]}")
+        self.ready()
+        proc = self.ctx.Process(
+            target=forked_main, daemon=True,
+            args=("rank", cmd[2], cmd[3:], env, ROOT, log_path))
+        proc.start()
+        self.spawned += 1
+        return ForkedReplica(proc)
 
     def stop(self) -> None:
         """End the forkserver; its children are the routers' to stop."""
@@ -5892,17 +6026,18 @@ ZERO_TIMEOUT_S = 600
 
 
 def zero_launch(spec: dict, world: int, root: str, what: str,
-                restarts: int = 0) -> list:
+                restarts: int = 0, spawn=None) -> list:
     """The rank script under ``spec`` through the port's launcher:
     ``world`` ranks on a file rendezvous, ``restarts`` restarts; every
     rank's result line of the last attempt."""
-    from dtf_tpu_torch.cli.launch import launch_local
+    from dtf_tpu_torch.cli.launch import launch_local, popen_rank
 
     base = os.path.join(root, what.replace(" ", "_"))
     rc = launch_local([sys.executable, "-c", DP_RANK, json.dumps(spec)],
                       world, f"file://{base}.rendezvous", base + "_logs",
                       timeout_s=ZERO_TIMEOUT_S, max_restarts=restarts,
-                      restart_backoff_s=0.1, teardown_grace=30)
+                      restart_backoff_s=0.1, teardown_grace=30,
+                      spawn=spawn or popen_rank)
     texts = []
     for rank in range(world):
         names = sorted(n for n in os.listdir(base + "_logs")
@@ -5915,14 +6050,16 @@ def zero_launch(spec: dict, world: int, root: str, what: str,
     return dp_results(texts, what)
 
 
-def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
-    """Phase 15: ``lm_main`` trains transformer_tpu at full width, bf16
-    compute on f32 parameters, AdamW, S 2048, ``ZERO_STEPS`` steps:
+def zero_stages(torch, seed: int, card: str, model_argv=None,
+                spawn=None) -> dict:
+    """Phase 15: ``lm_main`` trains transformer_tpu at full width and
+    ``DP_LM_LAYERS`` of its 12 layers, bf16 compute on f32 parameters,
+    AdamW, S 2048, ``ZERO_STEPS`` steps:
       (a) two ranks sharing the card over gloo (CUDA tensors) at ZeRO
           stages 0, 1, 2 and 3 -- the four runs at once.  Losses
           bit-identical across the stages; each rank's bytes in use at
           its update (the allocator's count) strictly falling from
-          stage 0 to 3; K1 and K3 12 a step;
+          stage 0 to 3; K1 and K3 one a layer and step;
       (b) stage 3 at world 1 over NCCL (``reduce_scatter_tensor``,
           ``all_gather_into_tensor``) against ``off``, bit for bit;
       (c) a stage-3 two-rank run killed by ``crash@step:4`` after its
@@ -5947,13 +6084,14 @@ def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
 
     def spec(args, backend="gloo", **kw):
         return {"main": "lm_main", "defaults": "LM_DEFAULTS",
-                "backend": backend, "argv": args, **kw}
+                "backend": backend, "argv": args, "layers": DP_LM_LAYERS,
+                **kw}
 
     with tempfile.TemporaryDirectory() as root:
         t0 = time.time()
         started = {st: overlapped(
             zero_launch, spec(two + ["--zero_stage", str(st)]), 2, root,
-            f"zero stage {st}") for st in range(4)}
+            f"zero stage {st}", spawn=spawn) for st in range(4)}
         stages = dict(zip(started, gathered(list(started.values()))))
         stages_s = time.time() - t0
         ckpt = [a for a in two if a != "--skip_checkpoint"]
@@ -5970,17 +6108,18 @@ def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
             overlapped(zero_launch, spec(argv + [
                 "--distribution_strategy", "multi_worker_mirrored",
                 "--zero_stage", "3"], backend=None), 1, root,
-                "zero nccl world1"),
+                "zero nccl world1", spawn=spawn),
             overlapped(zero_launch, spec(ckpt + ["--zero_stage", "3"],
                                          argv_restart=["--zero_stage",
                                                        "1"]),
-                       2, root, "zero crash", restarts=1),
+                       2, root, "zero crash", restarts=1, spawn=spawn),
             overlapped(zero_launch, spec(two + ["--zero_stage", "2",
                                                 "--zero_wire", "bf16"]),
-                       2, root, "zero wire bf16"),
+                       2, root, "zero wire bf16", spawn=spawn),
             overlapped(zero_launch, spec(two + [
                 "--zero_stage", "3", "--zero_probe", "--train_steps",
-                str(ZERO_PROBE_STEPS)]), 2, root, "zero probe")])
+                str(ZERO_PROBE_STEPS)]), 2, root, "zero probe",
+                spawn=spawn)])
         rest_s = time.time() - t0
         crash_losses = trace_losses(os.path.join(root, "crash_trace"))
     off, nccl, crash, wire, probed = runs
@@ -6005,6 +6144,7 @@ def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
     probe = probed[0]["zero_probe"] or {}
     line = {
         "phase": "zero_stages", "card": card, "model": "transformer_tpu",
+        "layers": DP_LM_LAYERS,
         "dtype": "bf16 compute, f32 parameters", "optimizer": "adamw",
         "seq": TRAIN_SHAPE[1], "global_batch": ZERO_BATCH,
         "per_rank_batch": ZERO_BATCH // 2, "steps": ZERO_STEPS, "n": n,
@@ -6048,10 +6188,10 @@ def zero_stages(torch, seed: int, card: str, model_argv=None) -> dict:
                                             stages[2][0]["losses"])},
         "rest_wall_s": rest_s}
     emit(line)
-    k = 12 * ZERO_STEPS
+    k = DP_LM_LAYERS * ZERO_STEPS
     # the probe run: its steps, then the step and its twin, a warm-up
     # and three timed of each
-    k_probe = 12 * (ZERO_PROBE_STEPS + 8)
+    k_probe = DP_LM_LAYERS * (ZERO_PROBE_STEPS + 8)
     gates = {
         "stages_bit_identical": all(
             x["ranks_bit_identical"] and x["losses_bit_identical_to_stage0"]
@@ -6187,7 +6327,7 @@ def tp_lm_here(torch, argv) -> dict:
 
 
 def tensor_parallel(torch, seed: int, card: str, per_call,
-                    serve1: dict) -> dict:
+                    serve1: dict, spawn=None) -> dict:
     """Phase 16 (see the module's docstring): (a) TP training against
     world 1 and itself, (b) TP serving against serve_tp 1, (c) the
     CLI's refusal on one card.  The correctness runs go at once (their
@@ -6222,9 +6362,10 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
             futs = [
                 overlapped(zero_launch, spec(f32 + grid + [
                     "--model_dir", ckpt, "--checkpoint_steps", "2"]), 2,
-                    root, "tp f32"),
+                    root, "tp f32", spawn=spawn),
                 overlapped(zero_launch, spec(f32 + grid + skip + [
-                    "--shard_lm_head"]), 2, root, "tp f32 vocab"),
+                    "--shard_lm_head"]), 2, root, "tp f32 vocab",
+                    spawn=spawn),
                 overlapped(tp_cli_refusal, seed)]
             # (b) meanwhile in this process: f32 greedy, serve_tp 2 and 1
             prompts = tp_prompts(seed, TP_SERVE_REQUESTS)
@@ -6241,7 +6382,7 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
             # for their go
             timed_tp = overlapped(zero_launch, spec(bf16 + grid + skip,
                                                     go=go), 2, root,
-                                  "tp bf16")
+                                  "tp bf16", spawn=spawn)
             # the TP run's step-2 checkpoint once it is sealed (hard
             # links, its other steps left out), while the run goes on
             manifest = os.path.join(ckpt, "checkpoints.meta",
@@ -6374,6 +6515,362 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 17: elastic training (train/elastic.py, cli/launch.py --elastic,
+# the device_loss fault)
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS = 12       # the supervised run's steps (the JAX smoke's 20)
+ELASTIC_LOSS_AT = 4      # the host loss, on a checkpoint boundary: an
+                         # exact-match fault a resume below it would fire
+                         # again
+ELASTIC_GROW_AFTER = 6   # capacity re-announced once this step is sealed
+ELASTIC_DEVICE_STEPS = 6     # the device-loss arm's steps, lost at 2
+# the launcher's SIGKILL after its teardown SIGTERM: long enough for the
+# grow drain's emergency seal of the ~1.1 GB world-1 payload (a seal of
+# 1.64 GB took 6.08 s alone, PERF.md), short for a survivor wedged in a
+# collective with the lost rank
+ELASTIC_TEARDOWN_S = 30.0
+ELASTIC_TIMEOUT_S = 600
+# the CUDA runtime's device-loss statuses (train/elastic.py's
+# vocabulary), and kernel bugs that must stay crashes
+CUDA_LOST_STATUSES = {"cudaErrorNoDevice": 100,
+                      "cudaErrorDevicesUnavailable": 46,
+                      "cudaErrorECCUncorrectable": 214}
+CUDA_BUG_STATUSES = {"cudaErrorIllegalAddress": 700,
+                     "cudaErrorLaunchFailure": 719}
+
+
+def cuda_error_strings(torch, codes: dict):
+    """({name: cudaGetErrorString(code)} from this card's runtime, the
+    binding used): torch's own binding of libcudart, else ctypes on the
+    runtime library beside torch or in the toolkit."""
+    try:
+        rt = torch.cuda.cudart()
+        return ({n: str(rt.cudaGetErrorString(rt.cudaError(c)))
+                 for n, c in codes.items()}, "torch.cuda.cudart")
+    except Exception:  # noqa: BLE001 -- a binding without the call
+        import ctypes
+        import glob
+        here = os.path.dirname(torch.__file__)
+        libs = sorted(glob.glob(os.path.join(
+            here, "..", "nvidia", "cuda_runtime", "lib", "libcudart.so*"))
+            + glob.glob("/usr/local/cuda/lib64/libcudart.so*"))
+        if not libs:
+            raise
+        lib = ctypes.CDLL(libs[0])
+        lib.cudaGetErrorString.restype = ctypes.c_char_p
+        lib.cudaGetErrorString.argtypes = [ctypes.c_int]
+        return ({n: lib.cudaGetErrorString(c).decode()
+                 for n, c in codes.items()}, libs[0])
+
+
+def elastic_classifier(torch) -> dict:
+    """(f): the texts this card's runtime gives the statuses the
+    classifier lists, wrapped as torch raises a CUDA error, classify as
+    device loss; an illegal address, an unspecified launch failure and
+    a caught out-of-memory error do not."""
+    from dtf_tpu_torch.train import elastic
+
+    texts, source = cuda_error_strings(
+        torch, {**CUDA_LOST_STATUSES, **CUDA_BUG_STATUSES})
+    cls = getattr(torch, "AcceleratorError", RuntimeError)
+    got = {n: elastic.is_device_loss(cls(
+        f"CUDA error: {t}\nCUDA kernel errors might be asynchronously "
+        f"reported at some other API call, so the stacktrace below might "
+        f"be incorrect.\n")) for n, t in texts.items()}
+    try:
+        torch.empty(1 << 42, dtype=torch.uint8, device="cuda")  # 4 TiB
+        oom = None
+    except torch.OutOfMemoryError as e:
+        oom = e
+    got["OutOfMemoryError"] = (None if oom is None
+                               else elastic.is_device_loss(oom))
+    ok = (all(got[n] for n in CUDA_LOST_STATUSES)
+          and not any(got[n] for n in CUDA_BUG_STATUSES)
+          and got["OutOfMemoryError"] is False)
+    return {"texts": texts, "source": source, "exception": cls.__name__,
+            "classified": got, "ok": ok}
+
+
+def elastic_argv(seed: int, root: str, name: str, steps: int,
+                 fault=None, model_argv=None) -> list:
+    """``lm_main`` at ``DP_LM_LAYERS`` layers (DP_RANK's hook), bf16 on
+    f32 parameters, AdamW, ZeRO-3, global batch ``ZERO_BATCH``, resumed
+    from sealed checkpoints every 2 steps."""
+    return (model_argv or ["--device", "cuda", "--model", "transformer_tpu",
+                           "--dtype", "bf16"]) + [
+            "--use_synthetic_data", "--batch_size", str(ZERO_BATCH),
+            "--train_steps", str(steps), "--log_steps", "1", "--seed",
+            str(seed), "--step_time_guard_factor", "0",
+            "--distribution_strategy", "multi_worker_mirrored",
+            "--zero_stage", "3", "--resume", "--checkpoint_steps", "2",
+            "--model_dir", os.path.join(root, name + "_model"),
+            "--trace_dir", os.path.join(root, name + "_trace")] + (
+        ["--fault", fault] if fault else [])
+
+
+def elastic_launch(root: str, name: str, argv, world: int, spawn=None,
+                   **kw) -> dict:
+    """DP_RANK over ``argv`` (gloo ranks sharing the card) under the
+    port's launcher; the exit code, the supervisor's events, the last
+    attempt's rank-0 result (None when it printed none) and the run's
+    directories."""
+    from dtf_tpu_torch.cli.launch import launch_local, popen_rank
+
+    base = os.path.join(root, name)
+    spec = {"main": "lm_main", "defaults": "LM_DEFAULTS", "backend": "gloo",
+            "argv": argv, "layers": DP_LM_LAYERS}
+    t0 = time.time()
+    rc = launch_local([sys.executable, "-c", DP_RANK, json.dumps(spec)],
+                      world, f"file://{base}.rendezvous", base + "_logs",
+                      timeout_s=ELASTIC_TIMEOUT_S, restart_backoff_s=0.1,
+                      teardown_grace=ELASTIC_TEARDOWN_S,
+                      spawn=spawn or popen_rank, **kw)
+    wall = time.time() - t0
+    with open(os.path.join(base + "_logs", "supervisor_events.jsonl")) as f:
+        events = [json.loads(ln) for ln in f if ln.strip()]
+    last = sorted(n for n in os.listdir(base + "_logs")
+                  if n.startswith("log0"))[-1]
+    with open(os.path.join(base + "_logs", last)) as f:
+        text = f.read()
+    result = (dp_results([text], name)[0] if "DP_RESULT=" in text
+              else None)
+    return {"rc": rc, "events": events, "result": result, "wall_s": wall,
+            "last_log": last, "tail": text[-3000:],
+            "model": base + "_model", "trace": base + "_trace"}
+
+
+def elastic_records(trace_dir: str, kind: str, name: str) -> list:
+    """Every rank's trace records of ``kind`` named ``name``."""
+    from dtf_tpu_torch.obs.trace import read_records
+
+    out = []
+    for f in sorted(os.listdir(trace_dir)):
+        if f.startswith("trace_rank"):
+            out += [r for r in read_records(os.path.join(trace_dir, f))
+                    if r.get("kind") == kind and r.get("name") == name]
+    return out
+
+
+def elastic_losses(trace_dir: str) -> dict:
+    """{step: [the distinct losses logged at it]} over every rank and
+    attempt."""
+    out: dict = {}
+    for r in elastic_records(trace_dir, "event", "train_loss"):
+        out.setdefault(int(r["step"]), set()).add(r["loss"])
+    return {k: sorted(v) for k, v in sorted(out.items())}
+
+
+def elastic_training(torch, seed: int, card: str, model_argv=None,
+                     spawn=None) -> dict:
+    """Phase 17 (see the module's docstring): (a) a host lost at step
+    ``ELASTIC_LOSS_AT`` of a 2-rank ZeRO-3 run under ``--elastic``,
+    resumed on 1 rank, grown back to 2 once capacity is re-announced;
+    (b) its prep twin (``crash@step:4``) and (c) a 1-rank oracle resumed
+    from a copy of (b)'s model dir, bit for bit with (a)'s prefix and
+    shrunken window; (d) ``trace_main --check``; (e) ``device_loss``;
+    (f) the classifier against this card's runtime.  (b) then (c), and
+    (e), go beside (a): the phase's critical path is (a).
+    ``model_argv`` replaces the device and model flags (a small CPU run
+    for debugging: every gate but (f) and the launch counts holds)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from dtf_tpu_torch.chaos import EXIT_INJECTED_CRASH
+    from dtf_tpu_torch.cli.trace_main import main as trace_main
+    from dtf_tpu_torch.train import elastic
+    from dtf_tpu_torch.train.checkpoint import PAYLOAD
+
+    classifier = (elastic_classifier(torch) if model_argv is None
+                  else {"ok": None})
+    argv = functools.partial(elastic_argv, model_argv=model_argv)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        run_logs = os.path.join(root, "run_logs")
+        os.makedirs(run_logs)
+        sealed = os.path.join(root, "run_model", "checkpoints.meta",
+                              f"manifest_{ELASTIC_GROW_AFTER}.json")
+        announced: dict = {}
+        stop = threading.Event()
+
+        def announcer():
+            # a healed host's agent: once the shrunken run has sealed
+            # step 6 (so a world-1 window exists), full capacity again
+            while not os.path.exists(sealed) and not stop.is_set():
+                time.sleep(0.05)
+            if not stop.is_set():
+                announced["ts"] = time.time()
+                elastic.announce_rejoin(run_logs, 2)
+
+        def prep_then_oracle():
+            prep = elastic_launch(root, "prep", argv(
+                seed, root, "prep", ELASTIC_STEPS,
+                f"crash@step:{ELASTIC_LOSS_AT}"), 2, spawn)
+            shutil.copytree(prep["model"], os.path.join(root,
+                                                        "oracle_model"))
+            oracle = elastic_launch(root, "oracle", argv(
+                seed, root, "oracle", ELASTIC_STEPS), 1, spawn)
+            return prep, oracle
+
+        th = threading.Thread(target=announcer, daemon=True)
+        th.start()
+        side = overlapped(prep_then_oracle)
+        device = overlapped(elastic_launch, root, "device",
+                            argv(seed, root, "device", ELASTIC_DEVICE_STEPS,
+                                 "device_loss@step:2"), 2, spawn,
+                            elastic=True, min_devices=1, max_restarts=1)
+        try:
+            run = elastic_launch(root, "run", argv(
+                seed, root, "run", ELASTIC_STEPS,
+                f"host_loss@rank1:step:{ELASTIC_LOSS_AT}"), 2, spawn,
+                elastic=True, min_devices=1, max_restarts=2)
+        finally:
+            stop.set()
+            th.join(timeout=10)
+        (prep, oracle), device = gathered([side, device])
+        phase_s = time.time() - t0
+        got = elastic_losses(run["trace"])
+        resumes = sorted({(int(r["step"]), int(r["devices"]))
+                          for r in elastic_records(run["trace"], "event",
+                                                   "elastic_resume")})
+        grow_step = resumes[1][0] if len(resumes) == 2 else None
+        windows = [r for r in elastic_records(run["trace"], "span",
+                                              "log_window")
+                   if r.get("rank") in (0, None)]
+        seals = [(int(r["step"]), r["dur_s"]) for r in elastic_records(
+            run["trace"], "span", "checkpoint_save")]
+        first_ts = {}     # each step's first train_loss, host clock
+        for r in elastic_records(run["trace"], "event", "train_loss"):
+            step = int(r["step"])
+            first_ts[step] = min(first_ts.get(step, r["ts"]), r["ts"])
+        lost_at = next((e["ts"] for e in run["events"]
+                        if e["event"] == "rank_exit"
+                        and e["classification"] == "host_loss"), None)
+        payload_bytes = os.path.getsize(os.path.join(
+            run["model"], "checkpoints", str(ELASTIC_STEPS), PAYLOAD))
+        checks = {
+            "run": quiet(trace_main, [run["trace"], "--check", "--allow",
+                                      "injected_fault", "--allow",
+                                      "host_loss"]),
+            "run_bare": quiet(trace_main, [run["trace"], "--check"]),
+            "device": quiet(trace_main, [device["trace"], "--check",
+                                         "--allow", "injected_fault",
+                                         "--allow", "device_loss"])}
+        device_losses = elastic_losses(device["trace"])
+        prep_losses = elastic_losses(prep["trace"])
+        oracle_losses = elastic_losses(oracle["trace"])
+
+    def world_of(step):
+        if step <= ELASTIC_LOSS_AT or (grow_step and step > grow_step):
+            return 2
+        return 1
+
+    def p50(world):
+        vals = [r["step_s"] for r in windows
+                if world_of(int(r["step"])) == world]
+        return statistics.median(vals) if vals else None
+
+    def events(run_, name):
+        return [e for e in run_["events"] if e["event"] == name]
+
+    shrinks = events(run, "elastic_shrink")
+    grows = events(run, "elastic_grow")
+    dev_shrinks = events(device, "elastic_shrink")
+    grown_steps = ELASTIC_STEPS - (grow_step or ELASTIC_STEPS)
+    want_launches = DP_LM_LAYERS * grown_steps
+    launches = (run["result"] or {}).get("launches", {})
+    dev_launches = (device["result"] or {}).get("launches", {})
+    line = {
+        "phase": "elastic", "card": card, "model": "transformer_tpu",
+        "layers": DP_LM_LAYERS, "dtype": "bf16 compute, f32 parameters",
+        "optimizer": "adamw", "zero_stage": 3, "global_batch": ZERO_BATCH,
+        "seq": TRAIN_SHAPE[1], "backend": "gloo, ranks sharing the card",
+        "rank_start": ("forked from the pre-imported spawner" if spawn
+                       else "a fresh process"),
+        "steps": ELASTIC_STEPS, "host_loss_at": ELASTIC_LOSS_AT,
+        "grow_after_seal_of": ELASTIC_GROW_AFTER,
+        "shrinks": shrinks, "grows": grows, "elastic_resumes": resumes,
+        "grow_step": grow_step,
+        "steps_after_announce_before_drain": (
+            grow_step - ELASTIC_GROW_AFTER if grow_step else None),
+        "tail_steps_left_at_drain": grown_steps,
+        "loss_to_first_shrunken_step_s": (
+            first_ts[ELASTIC_LOSS_AT + 1] - lost_at
+            if lost_at and ELASTIC_LOSS_AT + 1 in first_ts else None),
+        "announce_to_first_grown_step_s": (
+            first_ts[grow_step + 1] - announced["ts"]
+            if grow_step and grow_step + 1 in first_ts and announced
+            else None),
+        "step_s_p50_world2": p50(2), "step_s_p50_world1": p50(1),
+        "seal_s_by_step": seals,
+        "teardown_grace_s": ELASTIC_TEARDOWN_S,
+        "checkpoint_bytes_per_step": payload_bytes,
+        "losses": got, "trace_checks": checks,
+        "prep_exit": prep["rc"], "oracle_exit": oracle["rc"],
+        "prefix_bit_identical_to_prep": all(
+            got.get(s) == prep_losses.get(s)
+            for s in range(1, ELASTIC_LOSS_AT + 1)),
+        "shrunken_window_bit_identical_to_oracle": bool(grow_step) and all(
+            got.get(s) == oracle_losses.get(s)
+            for s in range(ELASTIC_LOSS_AT + 1, grow_step + 1)),
+        "device_loss": {"exit": device["rc"], "shrinks": dev_shrinks,
+                        "losses": device_losses,
+                        "launches_resumed": dev_launches},
+        "classifier": classifier,
+        "launches_resumed": launches,
+        "walls_s": {"run": run["wall_s"], "prep": prep["wall_s"],
+                    "oracle": oracle["wall_s"], "device": device["wall_s"],
+                    "phase_runs": phase_s}}
+    emit(line)
+    once = lambda losses, n: (  # noqa: E731
+        sorted(losses) == list(range(1, n + 1))
+        and all(len(v) == 1 for v in losses.values()))
+    gates = {
+        "run_exit_0": run["rc"] == 0,
+        "one_host_loss_shrink_to_1": (
+            len(shrinks) == 1 and shrinks[0]["classification"] == "host_loss"
+            and shrinks[0]["total_devices"] == 1),
+        "grew_back": len(grows) == 1 and grows[0]["total_devices"] == 2,
+        "resumes": (len(resumes) == 2
+                    and resumes[0] == (ELASTIC_LOSS_AT, 1)
+                    and resumes[1][0] >= ELASTIC_GROW_AFTER
+                    and resumes[1][1] == 2),
+        "every_step_once": once(got, ELASTIC_STEPS),
+        "prep_crashed_at_4": prep["rc"] == EXIT_INJECTED_CRASH,
+        "prefix_bit_identical": line["prefix_bit_identical_to_prep"],
+        "oracle_exit_0": oracle["rc"] == 0,
+        "shrunken_window_bit_identical":
+            line["shrunken_window_bit_identical_to_oracle"],
+        "trace_check_allowing_fault": checks["run"] == 0,
+        "trace_check_bare_fails": checks["run_bare"] != 0,
+        "device_loss_resumed": (
+            device["rc"] == 0 and len(dev_shrinks) == 1
+            and dev_shrinks[0]["classification"] == "device_loss"
+            and dev_shrinks[0]["total_devices"] == 1
+            and once(device_losses, ELASTIC_DEVICE_STEPS)
+            and checks["device"] == 0),
+        "classifier_on_this_runtime": classifier["ok"],
+        "launches_resumed": (
+            grown_steps > 0 and launches.get("K1") == want_launches
+            and launches.get("K3") == want_launches
+            and dev_launches.get("K1") == dev_launches.get("K3")
+            == DP_LM_LAYERS * (ELASTIC_DEVICE_STEPS - 2)),
+        "finite": all(math.isfinite(v[0]) for v in got.values())}
+    emit({"phase": "elastic_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"elastic: {gates}\nrun: {run['tail']}\n"
+                             f"prep: {prep['tail']}\noracle: "
+                             f"{oracle['tail']}\ndevice: {device['tail']}")
+    line["launches_elastic"] = {k: launches[k] for k in ("K1", "K3")}
+    line["launches_elastic_run"] = (
+        f"rank 0 of the grown attempt (world 2) of the elastic run, steps "
+        f"{grow_step + 1}-{ELASTIC_STEPS}, {DP_LM_LAYERS} layers "
+        f"(phase 17)")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6451,6 +6948,13 @@ def main(argv=None) -> int:
     resnet_step_s = train_resnet(torch, timer, args.seed, card)
     clock.done("7")
 
+    # the launcher ranks of phases 9 and 15-17 and the replicas of
+    # phases 13-14 fork from one pre-imported spawner, which imports
+    # beside phase 8's processes' own imports (before any timed turn);
+    # it ends with this process
+    forks = ReplicaForkServer().start()
+    atexit.register(forks.stop)
+
     # phase 8: data parallelism (K1 and K3 on the LM's path)
     dp = train_data_parallel(torch, args.seed, card)
     dp_run_name = ("lm_main multi_worker_mirrored, one rank on NCCL, "
@@ -6459,7 +6963,7 @@ def main(argv=None) -> int:
 
     # phase 9: recovery (K1 and K3 in the resumed LM run, K1 and K4
     # serving its checkpoint)
-    rec = train_recovery(torch, args.seed, card)
+    rec = train_recovery(torch, args.seed, card, spawn=forks.rank_spawn)
     rec_run = ("lm_main resumed after crash@step:4, steps 5-8, one "
                "process (phase 9)")
     rec_serve_run = "serve_main --model_dir, 4 requests (phase 9)"
@@ -6475,10 +6979,6 @@ def main(argv=None) -> int:
     ps_lm_run = ("lm_main --ps_mode async, one worker, 3 steps "
                  "(phase 11)")
     clock.done("11")
-
-    # phases 13 and 14 fork their replicas from one pre-imported
-    # spawner, which imports while phase 12 runs
-    forks = ReplicaForkServer().start()
 
     # phase 12: serving as the JAX package serves by default (K1 on
     # first chunks without a hit, K4 on everything else)
@@ -6509,13 +7009,10 @@ def main(argv=None) -> int:
     # phase 14: the fleet's HA pair and rollouts on the same replica
     # processes (K1 and K4 in each, the canary and every restarted
     # generation included)
-    try:
-        with fleet_depth():
-            ha_roll = serve_ha_rollout(
-                torch, args.seed, card, fleet["prompts"], fleet["reference"],
-                fleet["cold"], fleet["cold_reference"], forks)
-    finally:
-        forks.stop()
+    with fleet_depth():
+        ha_roll = serve_ha_rollout(
+            torch, args.seed, card, fleet["prompts"], fleet["reference"],
+            fleet["cold"], fleet["cold_reference"], forks)
     ha_run = ("phase 14, two replica_main processes on exports A/B/C: "
               "the HA stages (a 16-request baseline, router_kill@req:5 "
               "and the takeover, an epoch-3 force-take, lease_stall@4)")
@@ -6527,16 +7024,22 @@ def main(argv=None) -> int:
     clock.done("14")
 
     # phase 15: ZeRO stages 1-3 (K1 and K3 in every rank process)
-    zero = zero_stages(torch, args.seed, card)
+    zero = zero_stages(torch, args.seed, card, spawn=forks.rank_spawn)
     clock.done("15")
 
     # phase 16: tensor parallelism (K1 and K3 at 3 heads in each rank,
     # K1 and K4 at 3 heads in each serving shard)
-    tp = tensor_parallel(torch, args.seed, card, per_call, serve4)
+    tp = tensor_parallel(torch, args.seed, card, per_call, serve4,
+                         spawn=forks.rank_spawn)
     tp_run = ("phase 16: K1/K3 rank 0 of lm_main --model_parallelism 2, "
               "bf16, 6 steps; K4 (and launches_tp_serve for K1) the bf16 "
               "serve_tp 2 engine's two shards, 16 requests")
     clock.done("16")
+
+    # phase 17: elastic training (K1 and K3 in every rank of every
+    # attempt; counted in the grown attempt's rank 0)
+    el = elastic_training(torch, args.seed, card, spawn=forks.rank_spawn)
+    clock.done("17")
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6609,7 +7112,9 @@ def main(argv=None) -> int:
               launches_zero_run=zero["launches_zero_run"],
               launches_tp=tp["launches_tp"]["K1"],
               launches_tp_serve=tp["launches_tp_serve_K1"],
-              launches_tp_run=tp_run, tp_case=tp_cases["K1"]),
+              launches_tp_run=tp_run, tp_case=tp_cases["K1"],
+              launches_elastic=el["launches_elastic"]["K1"],
+              launches_elastic_run=el["launches_elastic_run"]),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -6645,6 +7150,8 @@ def main(argv=None) -> int:
               launches_zero_run=zero["launches_zero_run"],
               launches_tp=tp["launches_tp"]["K3"], launches_tp_run=tp_run,
               tp_case=tp_cases["K3"],
+              launches_elastic=el["launches_elastic"]["K3"],
+              launches_elastic_run=el["launches_elastic_run"],
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

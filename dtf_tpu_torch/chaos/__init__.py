@@ -38,6 +38,14 @@ Kinds that fire here, their observation points being ported:
                           checkpoint step before the next restore
                           (one-shot): the integrity manifest's fallback
                           to the previous verified step.
+  device_loss@step:N      the rank's card vanishes at the step-N
+                          boundary (exact match): the process exits
+                          EXIT_DEVICE_LOST (76) -- the host survives but
+                          its accelerator is gone.  Under ``launch.py
+                          --elastic`` the supervisor resumes on the
+                          surviving ranks at the last checkpoint instead
+                          of spending the crash budget
+                          (train/elastic.py).
   host_loss@[rankK:]step:N  the rank SIGKILLs itself at the step-N
                           boundary (exact match): the rank-exit pattern
                           of a vanished host, which the supervisor
@@ -90,9 +98,9 @@ Kinds that fire here, their observation points being ported:
                           rollout must roll back, token-exact on the
                           old model, losing no request.
 
-The one other kind of the grammar (``NOT_PORTED``: device_loss) parses,
-but :func:`configure` raises naming the subsystem that is not ported
-yet.
+Every kind of the grammar fires in the port (``NOT_PORTED`` is empty);
+a kind added to it would parse while :func:`configure` raises naming
+the subsystem that is not ported yet.
 
 Every fired fault emits a structured ``injected_fault`` anomaly record
 through ``obs.trace``, flushed before the process dies, so
@@ -153,9 +161,7 @@ _FLOAT_POINT = ("slow_replica", "page_fetch_stall")
 
 # kinds that parse but whose observation point lies in a subsystem the
 # port does not have yet: configure() refuses them, naming it
-NOT_PORTED = {
-    "device_loss": "elastic training (train/elastic.py)",
-}
+NOT_PORTED: dict = {}
 
 _injector: Optional["Injector"] = None
 _lock = threading.Lock()
@@ -329,6 +335,14 @@ class Injector:
                     # the preemption signal, delivered for real so the
                     # production handler path runs
                     os.kill(os.getpid(), signal.SIGTERM)
+            for spec in self._armed("device_loss"):
+                if step == spec.value:
+                    self._record(spec, step=step)
+                    # accelerator loss: the runtime is gone but the
+                    # host can still report it -- the distinct exit
+                    # code the elastic supervisor reshards on (no
+                    # atexit, no finally, like a runtime abort)
+                    os._exit(EXIT_DEVICE_LOST)
             for spec in self._armed("host_loss"):
                 if step == spec.value:
                     self._record(spec, step=step)

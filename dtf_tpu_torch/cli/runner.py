@@ -85,7 +85,7 @@ from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.runtime.mesh import (LOCAL_STRATEGIES, MeshRuntime,
                                         initialize, mirrored_world)
 from dtf_tpu_torch.serve.bridge import random_init
-from dtf_tpu_torch.train import Trainer, preemption
+from dtf_tpu_torch.train import Trainer, elastic, preemption
 from dtf_tpu_torch.train.checkpoint import CheckpointCallback, export_model
 from dtf_tpu_torch.utils.logs import build_stats
 
@@ -269,7 +269,9 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
     (``initialize(cfg, backend=...)``), else ``initialize(cfg)``; its
     process group is destroyed at the end either way.  A preemption
     (SIGTERM/SIGINT, or the metadata poller) ends in an emergency
-    checkpoint and ``SystemExit(EXIT_PREEMPTED)``."""
+    checkpoint and ``SystemExit(EXIT_PREEMPTED)``; a lost card
+    (``train/elastic.py``) in ``SystemExit(EXIT_DEVICE_LOST)``, touching
+    nothing on the card on the way out."""
     rt, poller, metrics_server = runtime, None, None
     try:
         trace.maybe_configure(cfg)
@@ -302,6 +304,19 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
                     p.step, preemption.EXIT_PREEMPTED)
         trace.flush()
         raise SystemExit(preemption.EXIT_PREEMPTED)
+    except Exception as e:  # noqa: BLE001 -- device-loss classification
+        if not (isinstance(e, elastic.DeviceLost)
+                or elastic.is_device_loss(e)):
+            raise
+        log.warning("accelerator lost at step %d (%s) -- exiting %d so an "
+                    "--elastic supervisor resumes on the surviving ranks",
+                    getattr(e, "step", -1), e, elastic.EXIT_DEVICE_LOST)
+        trace.flush()
+        # the CUDA context is dead and its error sticky: the process
+        # group's teardown below would touch the card and turn this exit
+        # into a traceback (a crash to the supervisor)
+        rt = None
+        raise SystemExit(elastic.EXIT_DEVICE_LOST)
     finally:
         # the trace on disk before the signal handlers go: a launcher
         # tearing the group down after another rank's crash SIGTERMs
@@ -401,6 +416,10 @@ def _run(cfg, rt: MeshRuntime) -> dict:
     trainer, state, train_fn, eval_fn = build_training(cfg, rt)
     cfg = trainer.cfg
     ckpt_cb, state, resumed_step = _checkpointing(cfg, trainer, rt, state)
+    # under --elastic (DTF_ELASTIC_DEVICES): the world joined must be the
+    # one the supervisor sized this attempt for; the resume point and
+    # its world go into the trace
+    elastic.note_elastic_resume(rt, resumed_step)
     if cfg.eval_only:
         eval_output = trainer.evaluate(state, eval_fn())
         stats = build_stats({}, eval_output, None)

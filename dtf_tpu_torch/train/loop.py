@@ -128,6 +128,7 @@ Not ported yet: EP/PP; the flags that ask for them raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -153,7 +154,7 @@ from dtf_tpu_torch.parallel.collectives import (all_max, all_reduce_mean,
                                                 all_reduce_sum, gather_dim,
                                                 tp_psum)
 from dtf_tpu_torch.runtime.mesh import MeshRuntime
-from dtf_tpu_torch.train import preemption
+from dtf_tpu_torch.train import elastic, preemption
 from dtf_tpu_torch.train import zero as zero_lib
 from dtf_tpu_torch.train import schedules as sched_lib
 from dtf_tpu_torch.train.optimizer import (AdamWState, KerasSGDState,
@@ -460,12 +461,33 @@ class Trainer:
         parts = gather_dim(t.unsqueeze(0), 0, self.tp_group)
         return partition.unshard(list(parts), split)
 
+    def _full_shape(self, i: int) -> tuple:
+        """The full model's shape of leaf ``i`` (this rank holds a model
+        shard of a split leaf)."""
+        shape = list(self._shapes[i])
+        split = self._splits[i]
+        if split is not None:
+            shape[split.dim] *= self.rt.model_parallelism
+        return tuple(shape)
+
     def staged_state(self, canonical: TrainState,
                      sliced_opt: bool = False) -> TrainState:
         """A canonical TrainState (whose parameters are the model's,
         loaded) placed into this run's stage: the optimizer state cut
         into this rank's slices (unless ``sliced_opt``), and at stage 3
-        the parameters too, the model's full tensors freed."""
+        the parameters too, the model's full tensors freed.  A world the
+        model cannot shard onto (an elastic resume's) is refused first,
+        naming the leaves."""
+        names = [n for n, _ in self.model.named_parameters()]
+        mp = self.rt.model_parallelism if self.tp else 1
+        problems = elastic.check_reshardable(
+            dict(zip(names, self._splits)),
+            {n: self._full_shape(i) for i, n in enumerate(names)},
+            {"data": self.nd, "model": mp})
+        if problems:
+            raise ValueError(
+                "model cannot shard onto this world (an elastic resume "
+                "must refuse, not garble): " + "; ".join(problems))
         if not self.zero:
             return canonical
         opt = canonical.opt_state
@@ -904,7 +926,8 @@ class Trainer:
                     profiler.before_step(global_step)
                     images, labels = next(train_iter)
                     last_batch = (images, labels)
-                    with trace.span("step", step=global_step):
+                    with device_loss_guard(global_step), \
+                            trace.span("step", step=global_step):
                         if count_pending:
                             # its wall sits in the first window, which
                             # is skipped
@@ -918,7 +941,9 @@ class Trainer:
                     global_step += 1
                     if global_step % cfg.log_steps == 0:
                         # the sync: the host waits for the step's loss
-                        loss_val = float(metrics["loss"])
+                        # (where an asynchronous device error surfaces)
+                        with device_loss_guard(global_step - 1):
+                            loss_val = float(metrics["loss"])
                         nan_guard.check(global_step, loss_val)
                         # the loss trajectory record: Python floats
                         # round-trip JSON exactly, so crash-exactness
@@ -1144,6 +1169,23 @@ class Trainer:
         if pending is None or not float(pending):
             return None
         return preemption.triggered() or int(signal.SIGTERM)
+
+
+@contextlib.contextmanager
+def device_loss_guard(step: int):
+    """Classify, never swallow: an exception that ``elastic.is_device_loss``
+    recognises becomes a ``device_lost`` anomaly and ``DeviceLost``
+    (the runner then exits ``EXIT_DEVICE_LOST`` touching nothing on the
+    card); any other is re-raised untouched, down its ordinary crash
+    path."""
+    try:
+        yield
+    except Exception as e:  # noqa: BLE001 -- re-raised below
+        if elastic.is_device_loss(e):
+            trace.anomaly("device_lost", step=step,
+                          error=f"{type(e).__name__}: {e}")
+            raise elastic.DeviceLost(step, e) from e
+        raise
 
 
 def _parse_profile_steps(profile_steps: Optional[str]):

@@ -119,28 +119,33 @@ def test_unported_kinds_parse_but_refuse_to_arm(spec, subsystem):
     chaos.parse_spec(spec)
     Config(fault=spec)                       # the flag's grammar check
     kind = spec.partition("@")[0]
-    if kind not in chaos.NOT_PORTED:
-        # ported since (ps_drop with the async parameter server; the
-        # fleet's replica_kill, net_partition, slow_replica and
-        # page_fetch_stall with serve/router.py, serve/engine.py and
-        # serve/migrate.py; router_kill and lease_stall with serve/ha.py,
-        # rollout_kill with serve/rollout.py): it arms, and fires at its
-        # point as the JAX injector does
-        inj = chaos.configure(spec, rank=0)
-        assert chaos.enabled() and [str(s) for s in inj.specs] == [
-            str(s) for s in chaos.parse_spec(spec)]
-        if kind == "ps_drop":
-            assert not chaos.ps_drop(2) and chaos.ps_drop(3)
-            assert not chaos.ps_drop(4)
-        else:
-            assert _fleet_probes(chaos, spec) == _fleet_probes(jax_chaos,
-                                                               spec)
-        return
-    # device_loss fires in elastic training: still not ported, named
-    assert list(chaos.NOT_PORTED) == ["device_loss"]
-    with pytest.raises(ValueError, match=f"{subsystem}.*not ported"):
-        chaos.configure(spec)
-    assert not chaos.enabled()
+    # every kind is ported since (ps_drop with the async parameter
+    # server; the fleet's replica_kill, net_partition, slow_replica and
+    # page_fetch_stall with serve/router.py, serve/engine.py and
+    # serve/migrate.py; router_kill and lease_stall with serve/ha.py,
+    # rollout_kill with serve/rollout.py; device_loss with elastic
+    # training, train/elastic.py): it arms, and fires at its point as
+    # the JAX injector does
+    assert kind not in chaos.NOT_PORTED and chaos.NOT_PORTED == {}
+    inj = chaos.configure(spec, rank=0)
+    assert chaos.enabled() and [str(s) for s in inj.specs] == [
+        str(s) for s in chaos.parse_spec(spec)]
+    if kind == "ps_drop":
+        assert not chaos.ps_drop(2) and chaos.ps_drop(3)
+        assert not chaos.ps_drop(4)
+    elif kind == "device_loss":
+        # fires at its exact step with exit 76, in a child: its step
+        # probe ends the process
+        chaos.step(3)                        # not its step: no exit
+        script = ("from dtf_tpu_torch import chaos\n"
+                  f"chaos.configure({spec!r}, rank=0)\n"
+                  "chaos.step(3)\n"
+                  "chaos.step(4)\n")
+        proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                              capture_output=True, timeout=60)
+        assert proc.returncode == chaos.EXIT_DEVICE_LOST == 76
+    else:
+        assert _fleet_probes(chaos, spec) == _fleet_probes(jax_chaos, spec)
 
 
 def _fleet_probes(mod, spec, rank=0):
@@ -427,10 +432,19 @@ def test_preemption_loop_backstop(tmp_path):
 
 
 def test_teardown_escalates_to_kill_for_stuck_rank(tmp_path):
+    # rank 1 fails only once rank 0 ignores SIGTERM (its marker): a
+    # SIGTERM that reached rank 0 before its handler would kill it
+    # outright, with no teardown_kill to see
+    marker = str(tmp_path / "ignoring")
     script = ("import os, signal, sys, time\n"
               "if os.environ['DTF_PROCESS_ID'] == '1':\n"
+              "    deadline = time.monotonic() + 20\n"
+              f"    while (not os.path.exists({marker!r})\n"
+              "           and time.monotonic() < deadline):\n"
+              "        time.sleep(0.01)\n"
               "    sys.exit(3)\n"
               "signal.signal(signal.SIGTERM, signal.SIG_IGN)\n"
+              f"open({marker!r}, 'w').close()\n"
               "time.sleep(600)\n")
     t0 = time.monotonic()
     rc = launch.launch_local([sys.executable, "-c", script], 2,

@@ -184,11 +184,20 @@ def test_mirrored_over_many_devices_starts_one_rank_a_device(monkeypatch):
 
 @pytest.mark.parametrize("option", list(launch.ELASTIC_OPTIONS)
                          + ["--devices_per_process", "--bogus"])
-def test_launcher_refuses_supervision_and_unknown_options(option):
-    """Elastic resizing is the supervision left unported."""
+def test_launcher_refuses_supervision_and_unknown_options(tmp_path, option):
+    """The elastic options parse (train/elastic.py is ported: --elastic
+    takes no value, and needs a world to shrink); one process a device
+    and an unknown option are still refused."""
+    logs = ["--log_dir", str(tmp_path / "logs")]
+    if option == "--elastic":
+        assert launch.main([option, "--num_processes", "2", *logs, "--",
+                            "true"]) == 0
+        return
+    if option in launch.ELASTIC_OPTIONS:
+        assert launch.main([option, "1", *logs, "--", "true"]) == 0
+        return
     match = {"--devices_per_process": "one process a device",
-             "--bogus": "unknown launcher option"}.get(
-                 option, "elastic resizing")
+             "--bogus": "unknown launcher option"}[option]
     with pytest.raises(ValueError, match=match):
         launch.main([option, "1", "--", "true"])
 
