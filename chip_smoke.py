@@ -400,6 +400,22 @@ Phases, each printing one JSON object per line (the card's
                  ranks and at 1, each seal's seconds, the checkpoint
                  bytes a step; K1 and K3 one a layer and step in the
                  grown attempt's rank and the device arm's resumed one.
+ 18. sequence_parallel -- ``--seq_parallelism`` (``runtime/mesh.py``'s
+                 seq axis, ``parallel/ring_attention.py``,
+                 ``parallel/collectives.py ring_shift``):
+                 ``cli.lm_main`` over two gloo ranks sharing the card
+                 (data 1 x seq 2 x model 1), transformer_tpu at full
+                 width and depth, S 2048 (1024 a rank), global batch 2,
+                 AdamW; every attention is ring attention over the two
+                 ranks (plain torch, f32 carry), K and V and their
+                 cotangents rotating through pinned host buffers.  (a)
+                 f32 3 steps against the ``off`` world-1 twin within
+                 ``SP_LOSS_RTOL``; (b) bf16 6 steps timed alone beside
+                 the world-1 run: step p50, peak memory a rank, the
+                 ring's calls and bytes a step equal to
+                 ``sp_ring_prediction`` (2 tensors x (2 forward + 1
+                 backward) rotations x 12 layers), K1 = K2a = K2b = K3
+                 = 0 on each seq rank, the two ranks' losses bit-equal.
   Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
   with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
   none's; --remat's peak memory below none's); phase 7 trains ResNet-50
@@ -423,8 +439,10 @@ phase 13's replica processes; as ``launches_ha`` and
 rank 0 of stage 0); K1, K3 and K4 as ``launches_tp`` (phase 16: rank 0
 of the bf16 TP run, and the bf16 ``serve_tp 2`` engine's two shards),
 with ``tp_case``, phase 2's case at the shard's shape; K1 and K3 as
-``launches_elastic`` (phase 17: rank 0 of the grown attempt) -- and,
-last, the device line.
+``launches_elastic`` (phase 17: rank 0 of the grown attempt); K1, K2a,
+K2b and K3 as ``launches_sp`` (phase 18: both seq ranks, 0 each: the
+attention rides the ring) beside ``launches_sp_twin`` (the world-1
+twin's) -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -2660,6 +2678,7 @@ sys.path.insert(0, @ROOT@)
 import torch
 from dtf_tpu_torch.cli import runner
 from dtf_tpu_torch.config import parse_flags
+from dtf_tpu_torch.obs.registry import default_registry
 from dtf_tpu_torch.ops import flash_attention as fa
 from dtf_tpu_torch.runtime.mesh import initialize
 
@@ -2694,6 +2713,9 @@ if spec["backend"]:
 else:
     run = lambda: main.main(spec["argv"])
 fa.launches = fa.launches_dq = fa.launches_dkdv = fa.launches_fused = 0
+reg = default_registry()
+ring0 = [reg.counter(n).value for n in ("ring_shift_calls",
+                                        "ring_shift_bytes")]
 t0 = time.perf_counter()
 stats = run()
 if torch.cuda.is_available():
@@ -2706,6 +2728,9 @@ for t in trainer.model.state_dict().values():
 print("DP_RESULT=" + json.dumps({
     "rank": trainer.rt.rank, "replicas": trainer.rt.num_replicas,
     "model_parallelism": trainer.rt.model_parallelism,
+    "seq_parallelism": trainer.rt.seq_parallelism,
+    "ring_shift": {"calls": reg.counter("ring_shift_calls").value - ring0[0],
+                   "bytes": reg.counter("ring_shift_bytes").value - ring0[1]},
     "backend": trainer.rt.backend, "device": str(trainer.rt.device),
     "threads": torch.get_num_threads(),
     "losses": [v for _, v in stats["train_loss_log"]],
@@ -3844,17 +3869,20 @@ def ps_one_worker(torch, seed: int, card: str, root: str) -> dict:
     return line
 
 
-def ps_launch(argv, root: str, what: str, world: int, main: str):
+def ps_launch(argv, root: str, what: str, world: int, main: str,
+              spawn=None):
     """``main`` under the port's launcher, 1 store + world - 1 workers
-    on a TCP coordinator; (results by rank, log dir, wall s)."""
-    from dtf_tpu_torch.cli.launch import free_address, launch_local
+    on a TCP coordinator, each rank started by ``spawn`` (default a
+    fresh process); (results by rank, log dir, wall s)."""
+    from dtf_tpu_torch.cli.launch import (free_address, launch_local,
+                                          popen_rank)
 
     log_dir = os.path.join(root, what)
     cmd = [sys.executable, "-c", PS_RANK,
            json.dumps({"main": main, "argv": argv})]
     t0 = time.perf_counter()
     rc = launch_local(cmd, world, free_address(), log_dir,
-                      timeout_s=PS_TIMEOUT_S)
+                      timeout_s=PS_TIMEOUT_S, spawn=spawn or popen_rank)
     wall = time.perf_counter() - t0
     if rc:
         texts = []
@@ -3880,11 +3908,13 @@ def span_ms(trace_dir: str, ranks) -> dict:
     return out
 
 
-def ps_reference(torch, seed: int, card: str, root: str) -> list:
+def ps_reference(torch, seed: int, card: str, root: str,
+                 spawn=None) -> list:
     """The reference's deployment shape on the one card: 1 store + 2
     resnet50 workers at the reference's per-worker --batch_size 192 in
     its default fp32, 10 synthetic steps each, through the launcher, on
-    the fp32 wire and then the bf16 one."""
+    the fp32 wire and then the bf16 one (the ranks started by
+    ``spawn``: forked, their rates are the same after the start)."""
     lines = []
     steps, batch = 10, 192
     for wire in ("fp32", "bf16"):
@@ -3899,7 +3929,7 @@ def ps_reference(torch, seed: int, card: str, root: str) -> list:
                 "--trace_dir", trace_dir]
         torch.cuda.empty_cache()
         results, log_dir, wall = ps_launch(argv, root, what, 3,
-                                           "imagenet_main")
+                                           "imagenet_main", spawn)
         store, workers = results[0], results[1:]
         with open(os.path.join(log_dir, "log0.log")) as f:
             ps_done = "PS rank done" in f.read()
@@ -4121,17 +4151,18 @@ def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
     return line
 
 
-def async_ps(torch, seed: int, card: str) -> dict:
+def async_ps(torch, seed: int, card: str, spawn=None) -> dict:
     """Phase 11: the store, the reference's shape through the launcher
-    on both wires, then one worker twice, the LM worker's kernels and
-    the two faults, the preempted job beside the in-process runs."""
+    on both wires (its ranks started by ``spawn``), then one worker
+    twice, the LM worker's kernels and the two faults, the preempted job
+    (a launcher process of its own) beside the in-process runs."""
     import concurrent.futures
     import tempfile
 
     out = {"store": ps_store_case(seed, card)}
     with tempfile.TemporaryDirectory() as root:
         # the reference's shape alone: its rates are the measurement
-        out["reference"] = ps_reference(torch, seed, card, root)
+        out["reference"] = ps_reference(torch, seed, card, root, spawn)
         # the preempted job in its processes while the in-process runs
         # go: each is gated on its own versions, losses and launches,
         # and no gate reads a time
@@ -4660,10 +4691,13 @@ REPLICA_PRELOAD = ["numpy", "torch", "dtf_tpu_torch.cli.replica_main",
                    "dtf_tpu_torch.obs.trace"]
 
 
-# what a launcher rank of phases 9 and 15-17 imports (DP_RANK,
-# RECOVERY_RANK): the forkserver imports it once for every such rank
+# what a launcher rank of phases 9, 11 and 15-18 imports (DP_RANK,
+# RECOVERY_RANK, PS_RANK): the forkserver imports it once for every
+# such rank
 RANK_PRELOAD = ["dtf_tpu_torch.cli.runner", "dtf_tpu_torch.cli.lm_main",
-                "dtf_tpu_torch.cli.cifar_main", "dtf_tpu_torch.config",
+                "dtf_tpu_torch.cli.cifar_main",
+                "dtf_tpu_torch.cli.imagenet_main",
+                "dtf_tpu_torch.parallel.ps", "dtf_tpu_torch.config",
                 "dtf_tpu_torch.runtime.mesh", "dtf_tpu_torch.train.loop",
                 "dtf_tpu_torch.train.checkpoint",
                 "dtf_tpu_torch.train.elastic", "torch.distributed"]
@@ -6870,6 +6904,140 @@ def elastic_training(torch, seed: int, card: str, model_argv=None,
         f"(phase 17)")
     return line
 
+# ---------------------------------------------------------------------------
+# phase 18: sequence parallelism (runtime/mesh.py's seq axis,
+# parallel/ring_attention.py, parallel/collectives.py ring_shift)
+# ---------------------------------------------------------------------------
+
+SP_STEPS_F32 = 3
+SP_STEPS_BF16 = 6
+# f32 losses of the ring (blockwise f32, the sequence split over two
+# ranks) against world 1 (K1/K3 split TF32): float32 rounding, ~1e-6
+# relative after three AdamW steps; the gate TP's phase 16 holds
+SP_LOSS_RTOL = 1e-4
+
+
+def sp_ring_prediction(layers: int, sp: int, batch: int, seq: int,
+                       heads: int, head_dim: int, itemsize: int) -> dict:
+    """The ring's traffic a training step as ``ring_attention`` makes
+    it: per layer K and V rotated ``sp`` times forward (the last result
+    unused, so autograd sends nothing back for it) and ``sp - 1`` times
+    backward, each rotation this rank's [batch, seq / sp, heads,
+    head_dim] shard."""
+    calls = layers * 2 * (sp + sp - 1)
+    return {"calls": calls, "bytes": calls * batch * (seq // sp) * heads
+            * head_dim * itemsize}
+
+
+def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
+    """Phase 18 (see the module's docstring): ``lm_main`` at
+    ``--seq_parallelism 2`` on two gloo ranks sharing the card (data 1 x
+    seq 2 x model 1), transformer_tpu at full width and depth, S 2048
+    (1024 a rank), global batch 2, AdamW: (a) f32, 3 steps, against the
+    world-1 twin in this process; (b) bf16, 6 steps, timed alone beside
+    the world-1 run: step p50, each rank's peak memory, the ring's
+    calls and bytes a step against :func:`sp_ring_prediction`, and no
+    K1-K3 launch on a seq rank (the attention rides the ring)."""
+    import tempfile
+
+    def spec(args, **kw):
+        return {"main": "lm_main", "defaults": "LM_DEFAULTS",
+                "backend": "gloo", "argv": args, **kw}
+
+    f32 = tp_lm_argv(seed, "fp32", SP_STEPS_F32)
+    bf16 = tp_lm_argv(seed, "bf16", SP_STEPS_BF16)
+    grid = ["--distribution_strategy", "multi_worker_mirrored",
+            "--seq_parallelism", "2", "--skip_checkpoint"]
+    off = ["--distribution_strategy", "off", "--skip_checkpoint"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        go = os.path.join(root, "sp_bf16.go")
+        try:
+            sp32 = overlapped(zero_launch, spec(f32 + grid), 2, root,
+                              "sp f32", spawn=spawn)
+            off32 = tp_lm_here(torch, f32 + off)
+            # the timed run's ranks start now, build, and wait for their
+            # go until the f32 run is done
+            timed = overlapped(zero_launch, spec(bf16 + grid, go=go), 2,
+                               root, "sp bf16", spawn=spawn)
+            sp32 = sp32.result()
+        finally:
+            # the timed ranks run (and end) whatever happened here
+            with open(go, "w"):
+                pass
+        correct_s = time.time() - t0
+        t0 = time.time()
+        spbf = timed.result()
+        offbf = tp_lm_here(torch, bf16 + off)
+        timed_s = time.time() - t0
+
+    b, s, h, d = TP_BATCH, TRAIN_SHAPE[1], TRAIN_SHAPE[2], TRAIN_SHAPE[3]
+    want = sp_ring_prediction(12, 2, b, s, h, d, 2)
+    want32 = sp_ring_prediction(12, 2, b, s, h, d, 4)
+    per_step = [{k: r["ring_shift"][k] / SP_STEPS_BF16
+                 for k in ("calls", "bytes")} for r in spbf]
+    gap = rel_gap(sp32[0]["losses"], off32["losses"])
+    zero = {"K1": 0, "K2a": 0, "K2b": 0, "K3": 0}
+    line = {
+        "phase": "sequence_parallel", "card": card,
+        "model": "transformer_tpu", "layers": 12, "seq_parallelism": 2,
+        "seq": s, "seq_per_rank": s // 2, "global_batch": b,
+        "optimizer": "adamw", "backend": "gloo (two ranks share the card; "
+        "the ring's K/V and their cotangents ride pinned host buffers)",
+        "loss_rtol": SP_LOSS_RTOL,
+        "train_f32": {"steps": SP_STEPS_F32, "losses_sp": sp32[0]["losses"],
+                      "losses_off": off32["losses"],
+                      "loss_rel_gap_sp_to_off": gap,
+                      "ring_shift_per_step": [
+                          {k: r["ring_shift"][k] / SP_STEPS_F32
+                           for k in ("calls", "bytes")} for r in sp32],
+                      "ring_shift_predicted": want32,
+                      "launches_sp": [r["launches"] for r in sp32]},
+        "train_bf16": {
+            "steps": SP_STEPS_BF16,
+            "step_s_p50_sp": [statistics.median(r["window_step_s"])
+                              for r in spbf],
+            "step_s_p50_off": statistics.median(offbf["window_step_s"]),
+            "peak_memory_bytes_sp": [r["peak_memory_bytes"] for r in spbf],
+            "peak_memory_bytes_off": offbf["peak_memory_bytes"],
+            "losses_sp": [r["losses"] for r in spbf],
+            "losses_off": offbf["losses"],
+            "ring_shift_per_step": per_step,
+            "ring_shift_predicted": want,
+            "launches_sp": [r["launches"] for r in spbf],
+            "launches_off": offbf["launches"]},
+        "correct_wall_s": correct_s, "timed_wall_s": timed_s,
+        "rank_wall_s": {"sp_f32": sp32[0]["wall_s"],
+                        "sp_bf16": spbf[0]["wall_s"]}}
+    line["train_bf16"]["slowdown_sp_to_off"] = (
+        line["train_bf16"]["step_s_p50_sp"][0]
+        / line["train_bf16"]["step_s_p50_off"])
+    emit(line)
+    k_off = 12 * SP_STEPS_BF16
+    gates = {
+        "sp_f32_vs_off": gap <= SP_LOSS_RTOL,
+        "grid": all(r["seq_parallelism"] == 2 and r["replicas"] == 1
+                    for r in sp32 + spbf),
+        "ranks_bit_equal": (sp32[0]["losses"] == sp32[1]["losses"]
+                            and spbf[0]["losses"] == spbf[1]["losses"]),
+        "ring_traffic_as_predicted": (
+            all(p == want for p in per_step)
+            and all({k: r["ring_shift"][k] / SP_STEPS_F32
+                     for k in ("calls", "bytes")} == want32 for r in sp32)),
+        "no_flash_kernel_on_sp_ranks": all(
+            r["launches"] == zero for r in sp32 + spbf),
+        "twin_launches": (offbf["launches"]["K1"] == k_off
+                          and offbf["launches"]["K3"] == k_off),
+        "finite": all(math.isfinite(v) for v in
+                      sp32[0]["losses"] + spbf[0]["losses"])}
+    emit({"phase": "sequence_parallel_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"sequence_parallel: {gates}")
+    line["launches_sp"] = {k: [r["launches"][k] for r in spbf]
+                           for k in zero}
+    line["launches_sp_twin"] = offbf["launches"]
+    return line
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6948,7 +7116,7 @@ def main(argv=None) -> int:
     resnet_step_s = train_resnet(torch, timer, args.seed, card)
     clock.done("7")
 
-    # the launcher ranks of phases 9 and 15-17 and the replicas of
+    # the launcher ranks of phases 9, 11 and 15-18 and the replicas of
     # phases 13-14 fork from one pre-imported spawner, which imports
     # beside phase 8's processes' own imports (before any timed turn);
     # it ends with this process
@@ -6974,8 +7142,9 @@ def main(argv=None) -> int:
     train_imagenet_input(torch, args.seed, card, resnet_step_s)
     clock.done("10")
 
-    # phase 11: the async parameter server (K1 and K3 in the LM worker)
-    ps = async_ps(torch, args.seed, card)
+    # phase 11: the async parameter server (K1 and K3 in the LM worker;
+    # the reference-shape ranks forked from the spawner)
+    ps = async_ps(torch, args.seed, card, spawn=forks.rank_spawn)
     ps_lm_run = ("lm_main --ps_mode async, one worker, 3 steps "
                  "(phase 11)")
     clock.done("11")
@@ -7040,6 +7209,14 @@ def main(argv=None) -> int:
     # attempt; counted in the grown attempt's rank 0)
     el = elastic_training(torch, args.seed, card, spawn=forks.rank_spawn)
     clock.done("17")
+
+    # phase 18: sequence parallelism (no flash kernel on a seq rank: the
+    # attention rides the ring; K1 and K3 in the world-1 twin)
+    sp = sequence_parallel(torch, args.seed, card, spawn=forks.rank_spawn)
+    sp_run = ("phase 18: both ranks of lm_main --seq_parallelism 2, bf16, "
+              "6 steps (launches_sp), and its world-1 twin "
+              "(launches_sp_twin)")
+    clock.done("18")
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -7114,7 +7291,10 @@ def main(argv=None) -> int:
               launches_tp_serve=tp["launches_tp_serve_K1"],
               launches_tp_run=tp_run, tp_case=tp_cases["K1"],
               launches_elastic=el["launches_elastic"]["K1"],
-              launches_elastic_run=el["launches_elastic_run"]),
+              launches_elastic_run=el["launches_elastic_run"],
+              launches_sp=sp["launches_sp"]["K1"],
+              launches_sp_twin=sp["launches_sp_twin"]["K1"],
+              launches_sp_run=sp_run),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -7124,13 +7304,19 @@ def main(argv=None) -> int:
               step_ms_f32=train32["step_ms"]),
         entry("K2a", "dtf_tpu_torch/csrc/flash_bwd_dq_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a"],
-              train_split["launches"]["K2a"], split_run),
+              train_split["launches"]["K2a"], split_run,
+              launches_sp=sp["launches_sp"]["K2a"],
+              launches_sp_twin=sp["launches_sp_twin"]["K2a"],
+              launches_sp_run=sp_run),
         entry("K2a f32", "dtf_tpu_torch/csrc/flash_bwd_dq_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a float32"],
               split32["K2a"], split32_run),
         entry("K2b", "dtf_tpu_torch/csrc/flash_bwd_tc.cuh",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b"],
-              train_split["launches"]["K2b"], split_run),
+              train_split["launches"]["K2b"], split_run,
+              launches_sp=sp["launches_sp"]["K2b"],
+              launches_sp_twin=sp["launches_sp_twin"]["K2b"],
+              launches_sp_run=sp_run),
         entry("K2b f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b float32"],
               split32["K2b"], split32_run),
@@ -7152,6 +7338,9 @@ def main(argv=None) -> int:
               tp_case=tp_cases["K3"],
               launches_elastic=el["launches_elastic"]["K3"],
               launches_elastic_run=el["launches_elastic_run"],
+              launches_sp=sp["launches_sp"]["K3"],
+              launches_sp_twin=sp["launches_sp_twin"]["K3"],
+              launches_sp_run=sp_run,
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

@@ -1,7 +1,8 @@
 """Multi-process launcher and supervisor -- the PyTorch counterpart of
 ``dtf_tpu/cli/launch.py``: one command starts every rank of a
-data-parallel run (or of a data x model grid under
-``--model_parallelism``: the ranks form it, ``runtime/mesh.py``), each
+data-parallel run (or of a data x seq x model grid under
+``--seq_parallelism`` and ``--model_parallelism``: the ranks form it,
+``runtime/mesh.py``; the world is dp x sp x mp), each
 told its place by the environment, and
 restarts the whole job when a rank fails.  It also starts the async
 parameter server (``--ps_mode async``): rank 0 serves the store on the

@@ -32,7 +32,11 @@ under ``horovod`` and ``parameter_server``, where it is per replica
 (:func:`effective_global_batch`); each process feeds its share, the
 global batch over the data-parallel replicas (under
 ``--model_parallelism`` every model rank of a replica reads its data
-index's share, and a transformer is the rank's model shard).  The
+index's share, and a transformer is the rank's model shard; under
+``--seq_parallelism`` every seq rank of a replica reads the replica's
+batch and keeps its own columns of a sequence batch, tokens and labels
+alike: seq rank i the columns [i S/sp, (i+1) S/sp), the labels as the
+stream made them, never shifted across a shard's edge).  The
 synthetic stream is the JAX
 package's: every rank draws the same batch from ``--seed``.  CIFAR
 files are read by file shard, and the eval stride-sharded and masked.
@@ -171,7 +175,25 @@ def make_input_fns(cfg, spec, global_batch: int, runtime: MeshRuntime):
     if cfg.data_format == "channels_first" and not spec.is_sequence:
         # batches flow NCHW from here on; the Trainer transposes back
         fns = tuple(_channels_first_factory(fn) for fn in fns)
+    if spec.is_sequence and runtime.seq_parallelism > 1:
+        fns = tuple(_seq_columns_factory(fn, runtime.seq_index,
+                                         runtime.seq_parallelism)
+                    for fn in fns)
     return fns
+
+
+def _seq_columns_factory(fn, index: int, sp: int):
+    """The stream of ``fn`` with each batch's tokens and labels cut to
+    seq rank ``index``'s columns of ``sp``; a per-example mask stays
+    whole."""
+    def wrapped(*args, **kw):
+        for batch in fn(*args, **kw):
+            tokens, labels = (np.asarray(x) for x in batch[:2])
+            n = tokens.shape[1] // sp
+            cols = slice(index * n, (index + 1) * n)
+            yield (np.ascontiguousarray(tokens[:, cols]),
+                   np.ascontiguousarray(labels[:, cols])) + tuple(batch[2:])
+    return wrapped
 
 
 def _channels_first_factory(fn):
@@ -253,6 +275,11 @@ def build_training(cfg, runtime: Optional[MeshRuntime] = None):
         spec = dataclasses.replace(spec, seq_len=cfg.seq_len)
     global_batch = effective_global_batch(cfg, rt)
     cfg = cfg.replace(batch_size=global_batch)
+    name = "trivial" if cfg.use_trivial_model else cfg.model
+    if name.startswith("pipeline_transformer") and cfg.seq_parallelism > 1:
+        raise ValueError(
+            "pipeline_transformer does not compose with seq_parallelism; "
+            "use the plain transformer for ring attention")
     model, l2 = build_model_for(
         cfg, spec, rt.device,
         bn_group=rt.data_group if cfg.sync_bn else None,
@@ -347,7 +374,7 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
         return None, state, 0
     spe = trainer.steps_per_epoch
     service = service_on(cfg, trainer.spec)
-    world = rt.num_replicas * rt.model_parallelism
+    world = rt.num_replicas * rt.seq_parallelism * rt.model_parallelism
 
     def host_state_fn(step):
         data = {"scheme": "position-derived", "dataset": cfg.dataset,

@@ -45,9 +45,10 @@ tracing and watchdogs (``trace_dir``, ``nan_guard``,
 Two fields are new: ``device`` (``cuda`` or ``cpu``; the port never
 picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Tensor parallelism's
-fields (``model_parallelism``, ``shard_lm_head``, ``serve_tp``) are
-the JAX package's, with its validation.  Flags of features not ported
-yet (ring attention, pipeline and expert parallelism, the planner, ...)
+fields (``model_parallelism``, ``shard_lm_head``, ``serve_tp``) and
+sequence parallelism's (``seq_parallelism``: ring attention over the
+'seq' axis) are the JAX package's, with its validation.  Flags of
+features not ported yet (pipeline and expert parallelism, the planner)
 raise with a message that says so; any other unknown flag raises too.
 """
 
@@ -78,7 +79,6 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
 _MP = "model parallelism (pipeline and expert)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
-    "seq_parallelism": "ring attention",
     "plan": "the planner", "plan_mesh": "the planner",
     "plan_cache": "the planner",
     **{name: _MP for name in ("num_experts", "moe_capacity_factor",
@@ -137,6 +137,9 @@ class Config:
     # tensor parallelism (runtime/mesh.py): ranks per model replica, the
     # 'model' axis of a data x model grid of ranks
     model_parallelism: int = 1
+    # sequence parallelism (parallel/ring_attention.py): ranks per
+    # replica's ring, the 'seq' axis of a data x seq x model grid
+    seq_parallelism: int = 1
     # column-parallel lm_head over 'model' (Megatron's vocab-parallel
     # softmax): local logits and the collective cross-entropy
     shard_lm_head: bool = False
@@ -411,6 +414,9 @@ class Config:
         if self.model_parallelism < 1:
             raise ValueError(f"model_parallelism must be >= 1, got "
                              f"{self.model_parallelism}")
+        if self.seq_parallelism < 1:
+            raise ValueError(f"seq_parallelism must be >= 1, got "
+                             f"{self.seq_parallelism}")
         if not 0 <= self.metrics_port <= 65535:
             raise ValueError(
                 f"metrics_port must be in [0, 65535] (0 = off), got "

@@ -71,7 +71,20 @@ collective cross-entropy (``train/loop.py``).  In serving one process
 drives every shard (:class:`TensorParallelLM`): the row-parallel
 partials of each block are summed in shard order on the first shard's
 device.  The head size is ``d_model // num_heads`` of the full model
-whatever the shard.  Ring attention (``seq_axis``) is not ported yet.
+whatever the shard.
+
+Sequence parallelism (``--seq_parallelism``; the JAX ``seq_axis``):
+:meth:`TransformerLM.set_seq_group` gives a training rank its seq group,
+and the rank's tokens are its columns of the sequence (``seq_index`` x
+S_local onward).  Every attention then runs ``parallel.ring_attention``
+over the group in place of the flash kernels -- K and V rotate around
+the ring, each query attending to the whole global sequence -- and the
+positions added are the rank's own (``pos_embed[offset : offset +
+S_local]``).  Heads never cross the ring, so the shard-local tensor
+parallel blocks compose with it; under ``remat_policy="dots"`` the two
+checkpointed regions surround the ring.  Decode with a seq group is
+refused (the JAX message): serving drops the group, as the JAX decoder
+drops ``seq_axis``.
 """
 
 from __future__ import annotations
@@ -80,6 +93,7 @@ import functools
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -87,6 +101,7 @@ from torch import nn
 from dtf_tpu_torch.models import partition
 from dtf_tpu_torch.ops.flash_attention import flash_attention
 from dtf_tpu_torch.parallel.collectives import tp_psum, tp_region
+from dtf_tpu_torch.parallel.ring_attention import ring_attention
 from dtf_tpu_torch.ops.paged_attention import (cached_attention,
                                                paged_attention_auto,
                                                write_pages)
@@ -168,6 +183,8 @@ class CausalSelfAttention(nn.Module):
         self.head_dim = d_model // num_heads
         self.num_heads = _local(num_heads, model_parallelism, "num_heads")
         self.compute_dtype = dtype
+        # the seq group of sequence parallelism (None: the whole sequence)
+        self.seq_group = None
         width = self.num_heads * self.head_dim
         # flax DenseGeneral((3, H, Dh)): output features ordered (3, H, Dh)
         self.qkv = nn.Linear(d_model, 3 * width)
@@ -184,12 +201,24 @@ class CausalSelfAttention(nn.Module):
         b, s = o.shape[:2]
         return dense(self.out, o.reshape(b, s, -1), self.compute_dtype)
 
+    def attend(self, q, k, v):
+        """Causal self-attention of the training forward: the ring over
+        the seq group under sequence parallelism, else the flash
+        kernels."""
+        if self.seq_group is not None:
+            return ring_attention(q, k, v, self.seq_group, causal=True)
+        return flash_attention(q, k, v, causal=True)
+
     def forward(self, x, cache_index=None, block_table=None,
                 flash_prefill: bool = False,
                 window_pages: Optional[int] = None, layer_cache=None):
+        if layer_cache is not None and self.seq_group is not None:
+            raise ValueError(
+                "decode mode (KV cache) does not compose with seq_axis "
+                "sharding (ring attention)")
         q, k, v = self.project(x)
         if layer_cache is None:
-            o = flash_attention(q, k, v, causal=True)
+            o = self.attend(q, k, v)
         elif "cached_key" in layer_cache:
             if cache_index is None:
                 raise ValueError("decode needs cache_index [B] int32")
@@ -294,12 +323,13 @@ class Block(nn.Module):
 
     def selective(self, x, context_fn):
         """The training forward under a selective policy: two
-        checkpointed regions around the flash attention, which saves
-        its own residuals (see the module's docstring)."""
+        checkpointed regions around the attention (the flash kernels or
+        the ring), which saves its own residuals (see the module's
+        docstring)."""
         ckpt = torch.utils.checkpoint.checkpoint
         q, k, v = ckpt(self._attn_in, x, use_reentrant=False,
                        context_fn=context_fn)
-        o = flash_attention(q, k, v, causal=True)
+        o = self.attn.attend(q, k, v)
         return ckpt(self._attn_out_mlp, x, o, use_reentrant=False,
                     context_fn=context_fn)
 
@@ -333,6 +363,7 @@ class TransformerLM(nn.Module):
         self.model_index = int(model_index)
         self.shard_vocab = bool(shard_vocab)
         self.model_group = None
+        self.seq_group = None
         # a named policy implies remat (the JAX package's rule)
         self.remat_context = (None if remat_policy is None
                               else remat_context(remat_policy))
@@ -377,6 +408,22 @@ class TransformerLM(nn.Module):
         self.model_group = group
         for block in self.blocks:
             block.model_group = group
+
+    def set_seq_group(self, group) -> None:
+        """The training rank's seq group (sequence parallelism; None:
+        the whole sequence on this rank): every attention becomes ring
+        attention over it, and the positions start at this rank's
+        columns."""
+        self.seq_group = group
+        for block in self.blocks:
+            block.attn.seq_group = group
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's place on the seq ring (0 without one)."""
+        if self.seq_group is None:
+            return 0
+        return dist.get_rank(self.seq_group)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -427,10 +474,12 @@ class TransformerLM(nn.Module):
         # flax Embed(dtype=...): the table cast, then the rows taken
         x = F.embedding(tokens, cast(self.embed.weight, dt))
         if cache is None:
-            if s > self.max_seq_len:
-                raise ValueError(f"sequence {s} exceeds max_seq_len "
-                                 f"{self.max_seq_len}")
-            x = x + self.pos_embed[:s].to(dt)
+            # a seq rank's columns start at its place on the ring
+            offset = self.seq_index * s
+            if offset + s > self.max_seq_len:
+                raise ValueError(f"sequence {offset + s} exceeds "
+                                 f"max_seq_len {self.max_seq_len}")
+            x = x + self.pos_embed[offset:offset + s].to(dt)
         else:
             if cache_index is None:
                 raise ValueError("decode needs cache_index [B] int32")

@@ -1,1 +1,2 @@
-"""Collectives over a process group (data parallelism)."""
+"""Collectives over a process group (data, sequence and tensor
+parallelism), ring attention, and the async parameter server."""

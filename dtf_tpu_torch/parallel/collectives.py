@@ -49,8 +49,20 @@ Each takes the group (None: the identity both ways).  ``all_max`` is
 ``lax.pmax`` (no gradient), ``gather_dim`` the model axis's tiled
 all-gather along one dimension (the checkpoint's full leaves).
 
-Not ported yet: ``axis_size``/``axis_index`` (``MeshRuntime`` holds the
-ranks and sizes) and ``ring_shift``, which waits for ring attention.
+``ring_shift`` (``lax.ppermute`` around the seq ring, the building
+block of ``parallel/ring_attention.py``) is an autograd Function over
+the seq group: shard i's tensor goes to shard (i + shift) % n, and the
+backward sends the cotangent the other way, as autodiff through
+``ppermute`` does.  Each rank posts its receive and its send together
+(``batch_isend_irecv``) and waits for both, so no two ranks wait on each
+other.  gloo moves CPU tensors only: a CUDA tensor on a gloo group (the
+ranks that share one card) rides through a pinned host buffer each way,
+as the model axis's all-reduces ride gloo through the host.  Every call
+adds one to the default registry's ``ring_shift_calls`` and its
+payload's bytes to ``ring_shift_bytes`` (``obs/registry.py``).
+
+Not ported: ``axis_size``/``axis_index`` (``MeshRuntime`` holds the
+ranks and sizes).
 """
 
 from __future__ import annotations
@@ -59,6 +71,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from dtf_tpu_torch.obs.registry import default_registry
 
 
 def all_reduce_sum(x: torch.Tensor,
@@ -205,3 +219,46 @@ def tp_psum(x: torch.Tensor,
     if group is None:
         return x
     return _TpPsum.apply(x, group)
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """``x`` from the rank ``shift`` places behind on the group's ring;
+    this rank's ``x`` goes to the rank ``shift`` places ahead."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    reg = default_registry()
+    reg.counter("ring_shift_calls").inc()
+    reg.counter("ring_shift_bytes", "bytes").inc(x.numel() * x.element_size())
+    x = x.contiguous()
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    send = x.cpu().pin_memory() if host else x
+    recv = torch.empty_like(send, pin_memory=host)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.irecv, recv, src, group),
+        dist.P2POp(dist.isend, send, dst, group)])
+    for r in reqs:
+        r.wait()
+    return recv.to(x.device) if host else recv
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -ctx.shift), None, None
+
+
+def ring_shift(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+               shift: int = 1) -> torch.Tensor:
+    """Rotate shards around the group's ring: rank i's ``x`` lands on
+    rank (i + shift) % n (a new tensor; differentiable, the cotangent
+    rotating back).  None: the identity."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _RingShift.apply(x, group, shift)

@@ -1212,7 +1212,8 @@ def _worker(cfg, ps_address: str, worker_id: int, num_workers: int) -> dict:
             f"model {model_name!r} is not supported in async "
             "parameter-server mode; use --ps_mode sync (the SPMD "
             "reinterpretation) for MoE/pipeline families")
-    if cfg.shard_lm_head or cfg.model_parallelism > 1:
+    if (cfg.shard_lm_head or cfg.model_parallelism > 1
+            or cfg.seq_parallelism > 1):
         # no grid in the async loop: a silently dense head or an unused
         # model axis would contradict what the flags promise
         raise ValueError(

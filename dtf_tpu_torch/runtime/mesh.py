@@ -1,19 +1,25 @@
-"""Process and device initialization for data and tensor parallelism
--- the PyTorch counterpart of ``dtf_tpu/runtime/mesh.py``.
+"""Process and device initialization for data, sequence and tensor
+parallelism -- the PyTorch counterpart of ``dtf_tpu/runtime/mesh.py``.
 
 The JAX package runs one process over all of a host's chips and builds a
 ``Mesh`` of axes ('data', 'seq', 'model').  PyTorch's idiom is one
 process a device (Megatron's too), so here the mesh is a grid of ranks:
-with ``--model_parallelism mp`` over ``n`` ranks, rank r sits at data
-index ``r // mp`` and model index ``r % mp`` -- the model axis
-innermost, as the JAX mesh reshapes its devices to (dp, sp, mp).  Each
-axis is a process group: ``data_group`` joins the ranks of one model
-index (the replicas of one shard: gradients and metrics average over
-it), ``model_group`` the ranks of one replica (the shards of one model:
-``tp_region``/``tp_psum`` reduce over it; None at mp 1), and ``group``
-every rank (barriers, checkpoint verdicts, every all-or-nothing
-decision).  At mp 1 the data group is the world.  The 'seq' axis waits
-for ring attention.
+with ``--seq_parallelism sp`` and ``--model_parallelism mp`` over ``n``
+ranks, rank r sits at data index ``r // (sp * mp)``, seq index
+``(r // mp) % sp`` and model index ``r % mp`` -- the JAX mesh's
+``reshape(dp, sp, mp)``, the model axis innermost.  Each axis is a
+process group: ``data_group`` joins the ranks of one (seq, model) pair
+(the replicas: ZeRO slices over it), ``seq_group`` the ranks of one
+(data, model) pair (the ring of ring attention; None at sp 1),
+``model_group`` the ranks of one (data, seq) pair (the shards of one
+model: ``tp_region``/``tp_psum`` reduce over it; None at mp 1).  Two
+more join two axes: ``reduce_group`` the ranks of one model index (data
+x seq: the batch-splitting axes, over which gradients, the loss and the
+eval sums reduce -- the JAX ``reduce_axes``), and ``slice_group`` the
+ranks of one seq index (data x model: each holds distinct ZeRO slices,
+so a global norm of slices sums over it).  ``group`` is every rank
+(barriers, checkpoint verdicts, every all-or-nothing decision).  At mp
+1 and sp 1 the data group is the world.
 
 Strategy -> runtime (the JAX package's names):
 
@@ -51,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import logging
+import os
 from typing import Optional
 
 import torch
@@ -63,8 +70,17 @@ log = logging.getLogger("dtf_tpu_torch")
 SINGLE_DEVICE = ("off", "one_device")
 LOCAL_STRATEGIES = ("mirrored", "tpu")
 # how long the rendezvous and each collective wait for a peer before
-# raising: a dead rank fails its peers instead of hanging them
+# raising: a dead rank fails its peers instead of hanging them.  The
+# environment's TIMEOUT_ENV (seconds) overrides it for a run, so a test's
+# ranks fail well inside the test's own limit
 TIMEOUT_S = 300.0
+TIMEOUT_ENV = "DTF_COLLECTIVE_TIMEOUT_S"
+
+
+def collective_timeout_s() -> float:
+    """The process group's timeout: ``TIMEOUT_ENV`` when set, else
+    ``TIMEOUT_S``."""
+    return float(os.environ.get(TIMEOUT_ENV) or TIMEOUT_S)
 
 
 @dataclasses.dataclass
@@ -84,15 +100,31 @@ class MeshRuntime:
     model_parallelism: int = 1
     data_group: Optional[dist.ProcessGroup] = None
     model_group: Optional[dist.ProcessGroup] = None
+    seq_parallelism: int = 1
+    seq_group: Optional[dist.ProcessGroup] = None
+    reduce_group: Optional[dist.ProcessGroup] = None
+    slice_group: Optional[dist.ProcessGroup] = None
 
     def __post_init__(self):
-        if self.data_group is None and self.model_parallelism == 1:
+        one_axis = self.seq_parallelism == 1
+        if (self.data_group is None and self.model_parallelism == 1
+                and one_axis):
             self.data_group = self.group
+        if self.reduce_group is None and one_axis:
+            self.reduce_group = self.data_group
+        if self.slice_group is None and one_axis:
+            self.slice_group = self.group
 
     @property
     def data_index(self) -> int:
         """This rank's replica: its input shard and its ZeRO slice."""
-        return self.rank // self.model_parallelism
+        return self.rank // (self.model_parallelism * self.seq_parallelism)
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's place on the seq ring: its columns of the
+        sequence."""
+        return (self.rank // self.model_parallelism) % self.seq_parallelism
 
     @property
     def model_index(self) -> int:
@@ -108,6 +140,7 @@ class MeshRuntime:
         if self.group is not None and dist.is_initialized():
             dist.destroy_process_group()
         self.group = self.data_group = self.model_group = None
+        self.seq_group = self.reduce_group = self.slice_group = None
 
 
 def local_device_count(device_type: str) -> int:
@@ -149,10 +182,11 @@ def initialize(cfg, backend: Optional[str] = None) -> MeshRuntime:
                 f"but the topology names {world}")
         world = None
     mp = max(int(getattr(cfg, "model_parallelism", 1) or 1), 1)
-    if (world or 1) % mp:
+    sp = max(int(getattr(cfg, "seq_parallelism", 1) or 1), 1)
+    if (world or 1) % (mp * sp):
         raise ValueError(
             f"{world or 1} devices not divisible by "
-            f"model_parallelism*seq_parallelism={mp}")
+            f"model_parallelism*seq_parallelism={mp * sp}")
     if not world:
         dev = resolve_device(cfg.device)
         if strategy in LOCAL_STRATEGIES and mirrored_world(cfg) > 1:
@@ -184,39 +218,52 @@ def initialize(cfg, backend: Optional[str] = None) -> MeshRuntime:
     dist.init_process_group(
         backend, init_method=_init_method(cfg.coordinator_address),
         world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
-    data_group, model_group = _grid_groups(world, mp, rank)
-    log.info("mesh initialized: strategy=%s replicas=%d model=%d rank=%d "
-             "device=%s backend=%s", strategy, world // mp, mp, rank, dev,
-             backend)
-    return MeshRuntime(strategy=strategy, num_replicas=world // mp,
+        timeout=datetime.timedelta(seconds=collective_timeout_s()), **kw)
+    groups = _grid_groups(world, mp, sp, rank)
+    log.info("mesh initialized: strategy=%s replicas=%d seq=%d model=%d "
+             "rank=%d device=%s backend=%s", strategy, world // (mp * sp),
+             sp, mp, rank, dev, backend)
+    return MeshRuntime(strategy=strategy, num_replicas=world // (mp * sp),
                        rank=rank, local_rank=local_rank, device=dev,
                        group=dist.group.WORLD, backend=backend,
-                       model_parallelism=mp, data_group=data_group,
-                       model_group=model_group)
+                       model_parallelism=mp, seq_parallelism=sp, **groups)
 
 
-def grid_ranks(world: int, mp: int):
-    """(data axis groups, model axis groups) of the grid as rank lists:
-    rank r at data index r // mp and model index r % mp."""
-    dp = world // mp
-    return ([[d * mp + m for d in range(dp)] for m in range(mp)],
-            [[d * mp + m for m in range(mp)] for d in range(dp)])
+def grid_ranks(world: int, mp: int, sp: int = 1) -> dict:
+    """The grid's process groups as rank lists, by name (``data``,
+    ``seq``, ``model``, ``reduce`` = data x seq, ``slice`` = data x
+    model): rank r at data index r // (sp * mp), seq index (r // mp) % sp
+    and model index r % mp, each list in rank order."""
+    dp = world // (mp * sp)
+    at = lambda d, s, m: (d * sp + s) * mp + m
+    D, S, M = range(dp), range(sp), range(mp)
+    return {
+        "data": [[at(d, s, m) for d in D] for s in S for m in M],
+        "seq": [[at(d, s, m) for s in S] for d in D for m in M],
+        "model": [[at(d, s, m) for m in M] for d in D for s in S],
+        "reduce": [[at(d, s, m) for d in D for s in S] for m in M],
+        "slice": [[at(d, s, m) for d in D for m in M] for s in S],
+    }
 
 
-def _grid_groups(world: int, mp: int, rank: int):
-    """This rank's (data group, model group): the world and None at mp
-    1; else new groups, which every rank creates in the same order."""
-    if mp == 1:
-        return dist.group.WORLD, None
-    data_axes, model_axes = grid_ranks(world, mp)
+def _grid_groups(world: int, mp: int, sp: int, rank: int) -> dict:
+    """This rank's groups as ``MeshRuntime`` fields: the world for an
+    axis group that spans it, None for an axis of size 1, else new
+    groups, which every rank creates in the same order."""
+    sizes = {"data": world // (mp * sp), "seq": sp, "model": mp,
+             "reduce": world // mp, "slice": world // sp}
     mine = {}
-    for name, axes in (("data", data_axes), ("model", model_axes)):
-        for ranks in axes:
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                mine[name] = g
-    return mine["data"], mine["model"]
+    for name, axes in grid_ranks(world, mp, sp).items():
+        if sizes[name] == 1 and name in ("seq", "model"):
+            mine[name] = None
+        elif sizes[name] == world:
+            mine[name] = dist.group.WORLD
+        else:
+            for ranks in axes:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[name] = g
+    return {f"{name}_group": g for name, g in mine.items()}
 
 
 def process_index() -> int:

@@ -160,11 +160,16 @@ class Decoder:
     cache lives on the model's device, in its compute dtype.
     ``ledger`` (obs/ledger.Ledger, paged only, as in the JAX decoder)
     registers ``serve_decode_step`` and ``serve_prefill_chunk_c{len}``.
-    A :class:`TensorParallelLM` ``model`` decodes over ``tp`` shards."""
+    A :class:`TensorParallelLM` ``model`` decodes over ``tp`` shards.
+    A model trained under sequence parallelism decodes whole: its seq
+    group is dropped (ring attention does not compose with the KV
+    cache), as ``make_decode_model`` strips the JAX ``seq_axis``."""
 
     def __init__(self, model, *, num_slots: int, max_seq_len: int,
                  kv_page_size: Optional[int] = None,
                  kv_pool_pages: Optional[int] = None, ledger=None):
+        if getattr(model, "seq_group", None) is not None:
+            model.set_seq_group(None)
         self.model = model
         self.num_slots = int(num_slots)
         self.max_seq_len = int(max_seq_len)

@@ -44,7 +44,15 @@ Divergences from the JAX package, on purpose:
   - :func:`check_reshardable` reads the port's shard description: the
     partition rule's ``Split`` of each leaf (``models/partition.py``)
     and its full shape, over ``{"data": dp, "model": mp}``.  The port
-    has no expert leaves (expert parallelism is not ported).
+    has no expert leaves (expert parallelism is not ported), and
+    nothing is sharded over the seq axis (parameters and ZeRO slices are
+    replicated over it), so it has nothing there to check.
+  - The world the supervisor sizes is dp x sp x mp
+    (:func:`note_elastic_resume`).  A shrink to a world that mp x sp
+    does not divide is refused by ``runtime/mesh.py initialize`` with
+    the JAX message, as the JAX re-mesh refuses it
+    (``dtf_tpu/runtime/mesh.py:179-182``): the rank exits as a crash,
+    loudly, never training mis-sharded.
   - :func:`replan_for_surviving` refuses: ``--plan auto`` needs the
     planner, which is not ported.
 """
@@ -168,14 +176,19 @@ def note_elastic_resume(runtime, resumed_step: int) -> None:
     want = os.environ.get(DEVICES_ENV)
     if not want:
         return
-    have = runtime.num_replicas * runtime.model_parallelism
+    # the grid's world: data x seq x model.  A shrink that leaves a world
+    # mp * sp does not divide never gets here: runtime/mesh.py initialize
+    # refuses it first with the JAX message (dtf_tpu/runtime/mesh.py
+    # 179-182), as the JAX package's re-mesh on the survivors does
+    have = (runtime.num_replicas * runtime.model_parallelism
+            * runtime.seq_parallelism)
     if int(want) != have:
         raise RuntimeError(
             f"elastic supervisor sized this attempt for {want} "
             f"device(s) but the runtime joined a world of {have} -- the "
             f"relaunch topology does not match the supervisor's "
             f"accounting (a stale DTF_PROCESS_COUNT? another "
-            f"--model_parallelism?); refusing to train mis-sharded")
+            f"--model_parallelism or --seq_parallelism?); refusing to train mis-sharded")
     if resumed_step:
         trace.event("elastic_resume", step=int(resumed_step),
                     devices=have, replicas=runtime.num_replicas)

@@ -122,6 +122,19 @@ gathered over the data group, then over the model group through the
 partition rule, so a step restores at another mp, stage or world and
 serves at any ``--serve_tp``.
 
+Sequence parallelism (``--seq_parallelism``; ``runtime/mesh.py``'s
+seq axis): a sequence model's attention is ring attention over the seq
+group (``models/transformer.py set_seq_group``), and each seq rank
+trains on its columns of the replica's batch (``cli/runner.py``).  The
+batch is split over data x seq, so gradients, BN buffers, the loss, the
+accuracy and the latch average over ``reduce_group`` (the JAX
+``reduce_axes``), and the eval sums too; the latch then spreads over the
+model group, so it reaches the whole grid.  Parameters and ZeRO slices
+are replicated over seq: the slices are cut over the data group alone,
+a stage-2/3 gradient is reduce-scattered over it and then averaged over
+the seq group (``train/zero.py``), and the global norm of slices sums
+over ``slice_group`` (data x model), so no seq rank's copy counts twice.
+
 Not ported yet: EP/PP; the flags that ask for them raise
 (``config/flags.py``).
 """
@@ -281,6 +294,11 @@ class Trainer:
             raise ValueError(
                 f"per-replica batch {self.global_batch // replicas} must "
                 f"be divisible by grad_accum_steps ({self.grad_accum})")
+        sp = self.rt.seq_parallelism
+        if spec.is_sequence and spec.seq_len % sp:
+            raise ValueError(
+                f"seq_len {spec.seq_len} must be divisible by "
+                f"seq_parallelism ({sp})")
         self.steps_per_epoch = spec.num_train // self.global_batch
         if self.steps_per_epoch == 0:
             raise ValueError(
@@ -339,6 +357,10 @@ class Trainer:
             model.set_model_group(self.tp_group)
         self.vocab_group = (self.tp_group
                             if getattr(model, "shard_vocab", False) else None)
+        # sequence parallelism: a sequence model's attention rides the
+        # seq ring (a vision model's batch is replicated over seq)
+        if spec.is_sequence and self.rt.seq_group is not None:
+            model.set_seq_group(self.rt.seq_group)
         self._splits = [model.split(n) if self.tp else None
                         for n, _ in model.named_parameters()]
         self._shapes = [tuple(p.shape) for p in self.params]
@@ -585,7 +607,7 @@ class Trainer:
         parts = grads + self.bn_buffers + [tail]
         flat = all_reduce_mean(
             torch.cat([t.reshape(-1).float() for t in parts]),
-            self.rt.data_group)
+            self.rt.reduce_group)
         views = [v.view(t.shape) for v, t in zip(
             flat.split([t.numel() for t in parts]), parts)]
         n = len(grads)
@@ -595,8 +617,9 @@ class Trainer:
         # the tail copied out: a view would keep the whole flat buffer
         # alive for as long as the step's metrics are
         tail = views[-1].clone()
-        # the latch reaches the replica's other model ranks too
-        latch = all_max(tail[2:].clone(), self.rt.model_group)[0]
+        # the latch reaches the other model ranks too: the whole grid,
+        # set (1) when any rank latched, as the JAX psum's bool
+        latch = all_max((tail[2:] > 0).float(), self.rt.model_group)[0]
         return views[:n], tail[0], tail[1], latch
 
     def _inputs(self, images):
@@ -613,17 +636,20 @@ class Trainer:
 
     def _scatter(self, grads, comm_off: bool):
         return [zero_lib.scatter_leaf(g, self.nd, self.rt.data_group,
-                                      comm_off, self.idx, self.zero_wire)
+                                      comm_off, self.idx, self.zero_wire,
+                                      self.rt.seq_group)
                 for g in grads]
 
     def _clip_slices(self, slices):
         """Clipping to the global norm of the gradient held in slices:
         the slices' squares summed over the data group, and a sharded
-        leaf's over the model group too."""
+        leaf's over the model group too (the slice group: a seq rank's
+        slices are its ring peers')."""
         clip = self.cfg.clip_grad_norm
         if not clip:
             return slices
-        norm = self._sumsq(slices, self.rt.group, self.rt.data_group).sqrt()
+        norm = self._sumsq(slices, self.rt.slice_group,
+                           self.rt.data_group).sqrt()
         factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
         return [s * factor for s in slices]
 
@@ -856,7 +882,7 @@ class Trainer:
         if self.rt.group is not None:
             loss_sum, correct, count = all_reduce_sum(torch.tensor(
                 [loss_sum, correct, count], dtype=torch.float64,
-                device=dev), self.rt.data_group).tolist()
+                device=dev), self.rt.reduce_group).tolist()
         self.eval_count = count
         if count == 0:
             return None

@@ -18,6 +18,10 @@ or its optimizer moment; the step count stays whole in both layouts.
 Under tensor parallelism a leaf is the rank's model shard, and it is
 that local tensor which is sliced over the data group: each (data,
 model) coordinate owns one slice of its model shard, the JAX layout.
+Under sequence parallelism the slices are replicated over the seq axis:
+each seq rank of a (data, model) coordinate holds the same slice, and a
+gradient's slice is the data group's reduce-scatter averaged over the
+seq group (the JAX ``pmean`` over 'seq' after the ``psum_scatter``).
 MoE experts, sharded over a data axis, have no layout here: the flags
 that would make them are refused as not ported (``config/flags.py
 NOT_PORTED``).
@@ -35,7 +39,9 @@ from typing import Optional
 
 import torch
 
-from dtf_tpu_torch.parallel.collectives import all_gather, reduce_scatter
+from dtf_tpu_torch.parallel.collectives import (all_gather, all_reduce_mean,
+                                                reduce_scatter)
+
 
 def slice_len(numel: int, nd: int) -> int:
     """k: the length of each of the nd slices of a leaf of ``numel``."""
@@ -78,9 +84,11 @@ def gather_leaf(s: torch.Tensor, shape, dtype, nd: int, group,
 
 
 def scatter_leaf(g: torch.Tensor, nd: int, group, comm_off: bool = False,
-                 idx: int = 0, wire=torch.float32) -> torch.Tensor:
+                 idx: int = 0, wire=torch.float32,
+                 seq_group=None) -> torch.Tensor:
     """Reduce-scatter one full gradient leaf into this rank's float32
-    slice of the replicas' mean.
+    slice of the replicas' mean (over ``group``, the data axis, then
+    averaged over ``seq_group``, the seq axis; None: no seq axis).
 
     ``wire`` is the reduce-scatter's dtype (``--zero_wire``): bf16
     halves the stage-2/3 scatter volume, and the collective then also
@@ -91,7 +99,8 @@ def scatter_leaf(g: torch.Tensor, nd: int, group, comm_off: bool = False,
     if comm_off:
         k = flat.numel() // nd
         return flat[idx * k:(idx + 1) * k].float() / nd
-    return reduce_scatter(flat, group).float() / nd
+    return all_reduce_mean(reduce_scatter(flat, group).float() / nd,
+                           seq_group)
 
 
 def slice_zeros(p: torch.Tensor, nd: int) -> torch.Tensor:

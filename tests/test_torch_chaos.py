@@ -35,8 +35,13 @@ from dtf_tpu_torch.obs import trace, vocab
 from dtf_tpu_torch.obs.watchdog import Heartbeat
 from dtf_tpu_torch.train import preemption
 from dtf_tpu_torch.train.checkpoint import Checkpointer
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -378,13 +383,15 @@ def test_restart_recovers_from_transient_failure(tmp_path):
               f"(open(p, 'w').close(), sys.exit(3))")
     rc = launch.launch_local([sys.executable, "-c", script], 2,
                              launch.free_address(), str(tmp_path / "logs"),
-                             max_restarts=2, restart_backoff_s=0.01)
+                             max_restarts=2, restart_backoff_s=0.01,
+                             timeout_s=120)
     assert rc == 0 and marker.exists()
 
 
 def test_no_restart_without_flag(tmp_path):
     rc = launch.launch_local([sys.executable, "-c", "import sys; sys.exit(5)"],
-                             2, launch.free_address(), str(tmp_path / "logs"))
+                             2, launch.free_address(), str(tmp_path / "logs"),
+                             timeout_s=120)
     assert rc == 5
     assert _events(str(tmp_path / "logs"))[-1]["event"] == "give_up"
 
@@ -395,7 +402,8 @@ def test_preempted_restart_does_not_consume_budget(tmp_path):
                               [launch.EXIT_PREEMPTED, 3, 0])
     rc = launch.launch_local([sys.executable, "-c", script], 1,
                              launch.free_address(), str(tmp_path / "logs"),
-                             max_restarts=1, restart_backoff_s=0.01)
+                             max_restarts=1, restart_backoff_s=0.01,
+                             timeout_s=120)
     assert rc == 0
     restarts = [e for e in _events(str(tmp_path / "logs"))
                 if e["event"] == "restart"]
@@ -410,7 +418,8 @@ def test_unsupervised_preemption_does_not_restart(tmp_path):
     script = (f"import sys; open({str(marker)!r}, 'a').write('x'); "
               f"sys.exit({launch.EXIT_PREEMPTED})")
     rc = launch.launch_local([sys.executable, "-c", script], 1,
-                             launch.free_address(), str(tmp_path / "logs"))
+                             launch.free_address(), str(tmp_path / "logs"),
+                             timeout_s=120)
     assert rc == launch.EXIT_PREEMPTED
     assert marker.read_text() == "x"            # ran exactly once
     give_up = [e for e in _events(str(tmp_path / "logs"))
@@ -423,7 +432,7 @@ def test_preemption_loop_backstop(tmp_path):
         [sys.executable, "-c",
          f"import sys; sys.exit({launch.EXIT_PREEMPTED})"], 1,
         launch.free_address(), str(tmp_path / "logs"), max_restarts=1,
-        max_preemptions=3)
+        max_preemptions=3, timeout_s=120)
     assert rc == launch.EXIT_PREEMPTED
     ev = _events(str(tmp_path / "logs"))
     assert len([e for e in ev if e["event"] == "restart"]) == 3
@@ -449,7 +458,7 @@ def test_teardown_escalates_to_kill_for_stuck_rank(tmp_path):
     t0 = time.monotonic()
     rc = launch.launch_local([sys.executable, "-c", script], 2,
                              launch.free_address(), str(tmp_path / "logs"),
-                             teardown_grace=1.0)
+                             teardown_grace=1.0, timeout_s=120)
     assert rc == 3 and time.monotonic() - t0 < 30
     assert any(e["event"] == "teardown_kill" and e["rank"] == 0
                for e in _events(str(tmp_path / "logs")))
@@ -459,7 +468,7 @@ def test_crash_budget_is_per_window_with_backoff(tmp_path):
     rc = launch.launch_local(
         [sys.executable, "-c", "import sys; sys.exit(3)"], 1,
         launch.free_address(), str(tmp_path / "logs"), max_restarts=2,
-        restart_window_s=3600.0, restart_backoff_s=0.01)
+        restart_window_s=3600.0, restart_backoff_s=0.01, timeout_s=120)
     assert rc == 3
     ev = _events(str(tmp_path / "logs"))
     restarts = [e for e in ev if e["event"] == "restart"]
@@ -474,7 +483,7 @@ def test_crash_window_expiry_restores_budget(tmp_path):
     rc = launch.launch_local(
         [sys.executable, "-c", _counting_script(marker, [3, 3, 0])], 1,
         launch.free_address(), str(tmp_path / "logs"), max_restarts=1,
-        restart_window_s=0.001, restart_backoff_s=0.05)
+        restart_window_s=0.001, restart_backoff_s=0.05, timeout_s=120)
     assert rc == 0 and marker.read_text() == "3"
 
 
@@ -483,7 +492,8 @@ def test_heartbeat_kills_hung_rank_as_host_loss(tmp_path):
     t0 = time.monotonic()
     rc = launch.launch_local([sys.executable, "-c", script], 2,
                              launch.free_address(), str(tmp_path / "logs"),
-                             heartbeat_timeout=1.0, startup_grace=1.0)
+                             heartbeat_timeout=1.0, startup_grace=1.0,
+                             timeout_s=120)
     assert rc != 0 and time.monotonic() - t0 < 60
     ev = _events(str(tmp_path / "logs"))
     assert any(e["event"] == "heartbeat_lost" for e in ev)
@@ -504,7 +514,8 @@ def test_heartbeat_file_keeps_a_quiet_rank_alive(tmp_path):
               "    time.sleep(0.1)\n")
     rc = launch.launch_local([sys.executable, "-c", script], 1,
                              launch.free_address(), str(tmp_path / "logs"),
-                             heartbeat_timeout=2.0, startup_grace=1.0)
+                             heartbeat_timeout=2.0, startup_grace=1.0,
+                             timeout_s=120)
     assert rc == 0
 
 
@@ -512,14 +523,16 @@ def test_startup_grace_spares_slow_starter(tmp_path):
     script = "import time; time.sleep(3); print('compiled', flush=True)"
     rc = launch.launch_local([sys.executable, "-c", script], 1,
                              launch.free_address(), str(tmp_path / "logs"),
-                             heartbeat_timeout=1.0, startup_grace=30.0)
+                             heartbeat_timeout=1.0, startup_grace=30.0,
+                             timeout_s=120)
     assert rc == 0
 
 
 def test_unprompted_sigkill_is_host_loss(tmp_path):
     script = "import os, signal; os.kill(os.getpid(), signal.SIGKILL)"
     rc = launch.launch_local([sys.executable, "-c", script], 1,
-                             launch.free_address(), str(tmp_path / "logs"))
+                             launch.free_address(), str(tmp_path / "logs"),
+                             timeout_s=120)
     assert rc == -signal.SIGKILL
     exits = [e for e in _events(str(tmp_path / "logs"))
              if e["event"] == "rank_exit"]
@@ -541,7 +554,7 @@ def test_every_restart_gets_a_fresh_rendezvous(tmp_path, scheme):
                    else launch.free_address())
     rc = launch.launch_local([sys.executable, "-c", script], 1, coordinator,
                              str(tmp_path / "logs"), max_restarts=2,
-                             restart_backoff_s=0.01)
+                             restart_backoff_s=0.01, timeout_s=120)
     assert rc == 0
     rows = [line.split() for line in seen.read_text().splitlines()]
     assert [r[2] for r in rows] == ["0", "1", "2"]

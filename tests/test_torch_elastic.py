@@ -58,8 +58,13 @@ from dtf_tpu_torch.runtime.mesh import MeshRuntime
 from dtf_tpu_torch.train import elastic
 from dtf_tpu_torch.train.loop import device_loss_guard
 from test_torch_dp import CASES, _batches, _initial, _jax_spec, _np
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 180
@@ -282,6 +287,12 @@ def test_elastic_shrink_drops_a_rank_and_exports_the_survivors(tmp_path):
         "if n == '1':\n"
         "    sys.exit(0)\n"
         "if os.environ['DTF_PROCESS_ID'] == '1':\n"
+        # rank 0 has started (its marker written) before the loss: the
+        # launcher's teardown cannot reach it first
+        "    t0 = time.monotonic()\n"
+        f"    while not os.path.exists({str(seen)!r} + '0_2') and \\\n"
+        "            time.monotonic() - t0 < 30:\n"
+        "        time.sleep(0.01)\n"
         f"    sys.exit({launch.EXIT_DEVICE_LOST})\n"
         "time.sleep(60)\n")
     rc, logs = _launch([sys.executable, "-c", script], 2, tmp_path,
@@ -370,7 +381,7 @@ def test_elastic_at_one_rank_is_refused(tmp_path):
     """One process a device: a one-rank job has nothing to shrink."""
     with pytest.raises(ValueError, match="elastic"):
         launch.launch_local(["true"], 1, "localhost:0", str(tmp_path),
-                            elastic=True)
+                            elastic=True, timeout_s=60)
     with pytest.raises(ValueError, match="elastic"):
         launch.main(["--elastic", "--log_dir", str(tmp_path), "--",
                      "true"])

@@ -36,8 +36,13 @@ from dtf_tpu_torch.data import imagenet, pipeline, records
 from dtf_tpu_torch.native import jpeg as native_jpeg
 from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.testing.imagenet import make_jpeg, write_shards
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PER_FILE = 6
@@ -230,11 +235,12 @@ def test_legacy_train_pipeline(shards):
 
 
 _MAX_RANK = """
-import sys
+import datetime, sys
 import torch.distributed as dist
 from dtf_tpu_torch.data.pipeline import all_processes_max
 rank, url = int(sys.argv[1]), sys.argv[2]
-dist.init_process_group("gloo", init_method=url, world_size=2, rank=rank)
+dist.init_process_group("gloo", init_method=url, world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
 print("MAX=%d" % all_processes_max([3, 11][rank]))
 dist.destroy_process_group()
 """
@@ -248,7 +254,12 @@ def test_all_processes_max_over_two_gloo_ranks(tmp_path):
                                url], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for r in (0, 1)]
-    outs = [p.communicate(timeout=120) for p in procs]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=10)
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
         assert "MAX=11" in out

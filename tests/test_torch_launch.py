@@ -32,8 +32,13 @@ from dtf_tpu_torch.models import resnet_cifar
 from dtf_tpu_torch.runtime import mesh
 from dtf_tpu_torch.runtime.mesh import MeshRuntime
 from dtf_tpu_torch.train.loop import Trainer
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOPOLOGY = ("coordinator_address", "process_id", "process_count")

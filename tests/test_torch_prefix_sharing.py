@@ -717,7 +717,7 @@ def test_request_trace_records_and_heartbeat(pair, tmp_path):
         trace.disable()
     recs = trace.read_records(str(tmp_path / "t" / "trace_rank0.jsonl"))
     tid = hit.request.trace_id
-    assert tid and tid != "warm" and hit.result().trace_id == tid
+    assert tid and tid != "warm" and hit.result(timeout=10).trace_id == tid
 
     def names(t):
         return [r["name"] for r in recs if r.get("trace") == t
@@ -805,7 +805,7 @@ def test_serve_main_sigterm_drains_and_exits_zero(tmp_path):
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.communicate(timeout=10)
     assert proc.returncode == 0, err[-3000:]
     assert "SIGTERM - draining" in err
     assert "drained after SIGTERM" in err

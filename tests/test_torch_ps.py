@@ -38,8 +38,13 @@ from dtf_tpu_torch.native import ps as native_ps
 from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.parallel import ps as ps_lib
 from dtf_tpu_torch.train import preemption
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the one-worker parity gate: final losses and the stores' parameters
@@ -267,7 +272,7 @@ def test_concurrent_pushes_all_applied(server):
     for t in threads:
         t.join(timeout=60)
     assert c0.info()[2] == N * K
-    server.wait(N)  # all DONEs arrived
+    assert _done_arrives(server, 30, N), "the workers' DONEs never arrived"
     c0.close()
 
 
@@ -280,7 +285,8 @@ def test_wait_unblocks_on_done(server):
     assert not done.wait(0.2)
     c.done()
     assert done.wait(30)
-    t.join()
+    t.join(timeout=10)
+    assert not t.is_alive()
     c.close()
 
 
@@ -480,7 +486,7 @@ def test_done_survives_ps_restart(tmp_path):
     try:
         srv2.restore(path)
         client.done()  # reconnects and lands on the new incarnation
-        srv2.wait(1)
+        assert _done_arrives(srv2, 30), "the DONE never reached the restore"
         client.close()
     finally:
         srv2.stop()
@@ -656,7 +662,7 @@ def test_async_training_converges():
             t.start()
         for t in threads:
             t.join(timeout=120)
-        server.wait(2)
+        assert _done_arrives(server, 30, 2), "the workers' DONEs never arrived"
         _, w_final = c0.pull()
         assert float(np.mean((X @ w_final - y) ** 2)) < 1e-2
         c0.close()
@@ -710,7 +716,8 @@ def test_snapshot_persists_done_count(server, tmp_path):
     client.init(np.ones(3, np.float32))
     client.done()
     client.close()
-    server.wait(1)   # the DONE landed before the snapshot
+    # the DONE landed before the snapshot
+    assert _done_arrives(server, 30), "the DONE never arrived"
     server.snapshot(path)
     server.stop()
     srv2 = ps_lib.PsServer(port=0)
@@ -720,7 +727,8 @@ def test_snapshot_persists_done_count(server, tmp_path):
         t = threading.Thread(target=lambda: (srv2.wait(1), done.set()))
         t.start()
         assert done.wait(10), "restored store lost the DONE tally"
-        t.join()
+        t.join(timeout=10)
+        assert not t.is_alive()
     finally:
         srv2.stop()
 
@@ -832,7 +840,7 @@ def _snapshot_with_done(server, path):
     client.init(np.ones(3, np.float32))
     client.done()
     client.close()
-    server.wait(1)
+    assert _done_arrives(server, 30), "the DONE never arrived"
     server.snapshot(path)
 
 
@@ -1026,7 +1034,7 @@ def test_snapshots_restore_across_packages(server, tmp_path):
             c.push(0.1, rng.normal(size=17).astype(np.float32))
             c.done()
             c.close()
-            src.wait(1)
+            assert _done_arrives(src, 30), "the DONE never arrived"
             src.snapshot(path)
             dst.restore(path)
             dst.snapshot(path + ".again")
@@ -1202,7 +1210,7 @@ def test_two_worker_threads_apply_every_push(tiny_cifar):
             t.start()
         for t in threads:
             t.join(timeout=120)
-        srv.wait(2)
+        assert _done_arrives(srv, 30, 2), "the workers' DONEs never arrived"
         c = ps_lib.PsClient(_addr(srv))
         assert c.info()[2] == 5
         c.close()
@@ -1211,9 +1219,11 @@ def test_two_worker_threads_apply_every_push(tiny_cifar):
         srv.stop()
 
 
-def _done_arrives(srv, within: float) -> bool:
+def _done_arrives(srv, within: float, n: int = 1) -> bool:
+    """True once ``n`` DONEs reached the store, within ``within`` s (the
+    store's own wait has no bound: it runs in a daemon thread)."""
     done = threading.Event()
-    threading.Thread(target=lambda: (srv.wait(1), done.set()),
+    threading.Thread(target=lambda: (srv.wait(n), done.set()),
                      daemon=True).start()
     return done.wait(within)
 
@@ -1300,7 +1310,7 @@ def test_file_coordinator_is_refused(tmp_path):
     cmd = [sys.executable, "-c", "pass", "--ps_mode", "async"]
     with pytest.raises(ValueError, match="host:port"):
         launch.launch_local(cmd, 3, f"file://{tmp_path}/rdv",
-                            str(tmp_path / "logs"))
+                            str(tmp_path / "logs"), timeout_s=60)
     with pytest.raises(ValueError, match="host:port"):
         ps_lib.run_async(_async_cfg(process_count=3, process_id=0,
                                     coordinator_address="file:///x"))
@@ -1353,7 +1363,7 @@ def test_native_library_builds_without_libjpeg():
         pytest.skip("no C++ compiler here")
     assert native_ps.store_path() == "native"
     if shutil.which("ldd"):
-        out = subprocess.run(["ldd", native_ps.lib_path()],
+        out = subprocess.run(["ldd", native_ps.lib_path()], timeout=30,
                              capture_output=True, text=True)
         assert "libjpeg" not in out.stdout
 

@@ -574,12 +574,15 @@ def _scripted(pkg, ctrl_cls, chaos_mod, tmp_path):
                                   daemon=True)
             th.start()
             tokens, i = {}, 0
+            deadline = time.monotonic() + 300
             while th.is_alive():
+                assert time.monotonic() < deadline, \
+                    "the rollout still running after 300 s"
                 r = router.generate(prompts[i % 4], max_new_tokens=6)
                 tokens.setdefault(i % 4, r.tokens)
                 assert r.tokens == tokens[i % 4]
                 i += 1
-            th.join()
+            th.join(timeout=10)
             chaos_mod.disable()
             s = box["s"]
             out.append((s.phase, s.reason, sorted(s.rolled), s.diverged,

@@ -1192,7 +1192,7 @@ def test_adopted_replica_on_another_host_is_stopped_by_epoch(tmp_path):
             router.stop(drain=False)
         if proc.poll() is None:
             proc.kill()
-            proc.wait()
+            proc.wait(timeout=10)
 
 
 class _Sink:

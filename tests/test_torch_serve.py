@@ -34,8 +34,13 @@ from dtf_tpu_torch.serve import (Backpressure, PagePool, ServeEngine,
                                  collect_stats)
 from dtf_tpu_torch.serve.decode import (position_seed, sample_tokens,
                                         teacher_forced_logits)
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, SEQ, PAGE, CHUNK = 64, 32, 4, 8

@@ -54,8 +54,13 @@ from dtf_tpu_torch.models import registry
 from dtf_tpu_torch.models.transformer import TransformerLM
 from dtf_tpu_torch.runtime import mesh
 from dtf_tpu_torch.train import loop
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, SEQ, STEPS, L2 = 64, 16, 3, 1e-3
@@ -616,14 +621,22 @@ def test_indivisible_shapes_are_refused(kw, match):
 
 
 def test_grid_and_flag_refusals():
-    """The grid needs mp | world (the JAX message); ring attention is
-    still refused under its own name; --shard_lm_head needs mp > 1; a
+    """The grid needs mp x sp | world (the JAX message, for an
+    indivisible grid too); --model_parallelism 2 --seq_parallelism 2
+    parses (ring attention is ported); --shard_lm_head needs mp > 1; a
     shard run outside its group raises."""
     with pytest.raises(ValueError, match="not divisible by model_paral"):
         mesh.initialize(Config(device="cpu", model_parallelism=2,
                                distribution_strategy="off"))
-    with pytest.raises(ValueError, match="ring attention.*not ported"):
-        parse_flags(["--model_parallelism", "2", "--seq_parallelism", "2"])
+    cfg = parse_flags(["--model_parallelism", "2", "--seq_parallelism", "2"])
+    assert (cfg.model_parallelism, cfg.seq_parallelism) == (2, 2)
+    with pytest.raises(ValueError, match="6 devices not divisible by "
+                       r"model_parallelism\*seq_parallelism=4"):
+        mesh.initialize(Config(device="cpu", model_parallelism=2,
+                               seq_parallelism=2, process_count=6,
+                               process_id=0,
+                               coordinator_address="localhost:1",
+                               distribution_strategy="multi_worker_mirrored"))
     assert parse_flags(["--model_parallelism", "2",
                         "--shard_lm_head"]).shard_lm_head
     spec = dataclasses.replace(

@@ -538,9 +538,10 @@ def test_flags_parse_the_jax_training_names():
                                   "--model_parallelism", "--num_experts",
                                   "--remat_policy", "--plan"])
 def test_flags_of_unported_features_raise(flag):
-    if flag in ("--zero_stage", "--remat_policy", "--model_parallelism"):
-        # ported since (ZeRO, the selective remat policy, tensor
-        # parallelism): they parse
+    if flag in ("--zero_stage", "--remat_policy", "--model_parallelism",
+                "--seq_parallelism"):
+        # ported since (ZeRO, the selective remat policy, tensor and
+        # sequence parallelism): they parse
         assert getattr(parse_flags([flag, "1"]), flag[2:]) in (1, "1")
     else:
         with pytest.raises(ValueError, match="not ported"):

@@ -49,8 +49,13 @@ from dtf_tpu_torch.parallel import collectives
 from dtf_tpu_torch.serve import bridge
 from dtf_tpu_torch.train import zero
 from test_torch_dp import CASES, _batches, _initial, _jax_spec, _np
+from dtf_tpu_torch.runtime.mesh import TIMEOUT_ENV
 
 torch.set_num_threads(1)
+
+# every gloo group this file's ranks start gives up on a dead peer within
+# 120 s (runtime/mesh.py TIMEOUT_ENV), well inside the suite's limit
+os.environ.setdefault(TIMEOUT_ENV, "120")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, STEPS = 2, 3
@@ -105,6 +110,10 @@ for i, job in enumerate(args["jobs"]):
                  scattered=collectives.reduce_scatter(x, g).numpy(),
                  total=total.numpy(),
                  gathered=collectives.all_gather(x[:3], g).numpy())
+        # every rank past its last collective before any tears the group
+        # down: under load a rank that closed first aborted its peer
+        # ("terminate called without an active exception")
+        torch.distributed.barrier(group=g)
         rt.shutdown()
         continue
     weights["path"] = job.get("weights")
