@@ -49,7 +49,9 @@ Phases, each printing one JSON object per line (the card's
                  other case launches): K1 and K3 bf16 at
                  [2, 2048, 3, 128] causal and K4 bf16 at decode
                  [8, 1, 3, 128], each against its plain version under
-                 the same tolerances, twice bit for bit, timed.
+                 the same tolerances, twice bit for bit, timed; and a
+                 pipeline stage's (``kernels_pp``): K1 and K3 bf16 at
+                 [1, 2048, 8, 64] causal, likewise.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -405,7 +407,8 @@ Phases, each printing one JSON object per line (the card's
                  ``parallel/collectives.py ring_shift``):
                  ``cli.lm_main`` over two gloo ranks sharing the card
                  (data 1 x seq 2 x model 1), transformer_tpu at full
-                 width and depth, S 2048 (1024 a rank), global batch 2,
+                 width and 6 of its 12 layers (``SP_LAYERS``), S 2048
+                 (1024 a rank), global batch 2,
                  AdamW; every attention is ring attention over the two
                  ranks (plain torch, f32 carry), K and V and their
                  cotangents rotating through pinned host buffers.  (a)
@@ -414,8 +417,27 @@ Phases, each printing one JSON object per line (the card's
                  the world-1 run: step p50, peak memory a rank, the
                  ring's calls and bytes a step equal to
                  ``sp_ring_prediction`` (2 tensors x (2 forward + 1
-                 backward) rotations x 12 layers), K1 = K2a = K2b = K3
+                 backward) rotations x 6 layers), K1 = K2a = K2b = K3
                  = 0 on each seq rank, the two ranks' losses bit-equal.
+ 19. pipeline_parallel -- ``--model_parallelism`` with the pipeline
+                 family (``parallel/pipeline.py``,
+                 ``models/pipeline_lm.py``): ``cli.lm_main`` over two
+                 gloo ranks sharing the card (data 1 x model 2: the two
+                 stages), pipeline_transformer at full width and depth
+                 (12 layers, 6 a stage, 8 heads of 64), S 2048, global
+                 batch 8, the auto M = 8 (one sequence a microbatch),
+                 AdamW; the activations and their cotangents shift
+                 through pinned host buffers, the last stage's output is
+                 broadcast by a masked all-reduce.  (a) f32 3 steps
+                 against the ``off`` world-1 twin within
+                 ``PP_LOSS_RTOL``; (b) bf16 6 steps, GPipe and
+                 ``--pipeline_interleave 2``, each timed alone beside
+                 the world-1 run: step p50, peak memory a stage, the
+                 shifts' calls and bytes, the broadcast and K1 and K3 a
+                 step equal to ``pp_prediction`` (GPipe 17 shifts, K1 =
+                 K3 = 54; interleaved 33 and 51), K2a = K2b = 0, the
+                 stages' losses bit-equal.  The stages share the SMs:
+                 the step time says nothing of the bubble.
   Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
   with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
   none's; --remat's peak memory below none's); phase 7 trains ResNet-50
@@ -442,7 +464,10 @@ with ``tp_case``, phase 2's case at the shard's shape; K1 and K3 as
 ``launches_elastic`` (phase 17: rank 0 of the grown attempt); K1, K2a,
 K2b and K3 as ``launches_sp`` (phase 18: both seq ranks, 0 each: the
 attention rides the ring) beside ``launches_sp_twin`` (the world-1
-twin's) -- and, last, the device line.
+twin's); K1, K2a, K2b and K3 as ``launches_pp`` and
+``launches_pp_interleave`` (phase 19: both stages, GPipe and
+interleaved) beside ``launches_pp_twin``, K1 and K3 with ``pp_case``,
+phase 2's case at the stage's shape -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -475,6 +500,9 @@ TRAIN_SHAPE = (8, 2048, 6, 128)      # transformer_tpu at batch 8
 # a tensor-parallel rank's attention: transformer_tpu's 6 heads over
 # model_parallelism 2, at phase 16's batch 2
 TP_SHAPE = (2, 2048, 3, 128)
+# a pipeline stage's attention: pipeline_transformer (8 heads of 64) at
+# one sequence a microbatch, S 2048
+PP_SHAPE = (1, 2048, 8, 64)
 
 
 def emit(obj) -> None:
@@ -1200,22 +1228,19 @@ def check_paged(torch, timer, gen):
     return cases
 
 
-def check_tp_kernels(torch, timer, gen):
-    """K1, K3 and K4 at a tensor-parallel shard's shapes, bf16 (the
-    route phase 16 times): K1 and K3 at ``TP_SHAPE`` causal, K4 at a
-    decode step [8, 1, 3, 128] over check_paged's rows -- head counts
-    no other case launches.  Each against its plain version under the
-    same tolerances, run twice bit for bit, timed with its bound and
-    its library call (SDPA's forward and backward; none for K4)."""
+def flash_pair(torch, timer, gen, shape, what: str):
+    """K1 and K3 bf16 at ``shape`` causal: each against its plain
+    version under phase 2's tolerances, run twice bit for bit, timed
+    with its bound and its library call (SDPA's forward and backward).
+    Returns {"K1": case, "K3": case}."""
     import torch.nn.functional as F
 
     from dtf_tpu_torch.ops import flash_attention as fa
-    from dtf_tpu_torch.ops import paged_attention as pa
 
     dtype, dname = torch.bfloat16, "bfloat16"
-    b, s, h, d = TP_SHAPE
+    b, s, h, d = shape
     scale = d ** -0.5
-    q, k, v, do = (torch.randn(TP_SHAPE, generator=gen).to("cuda", dtype)
+    q, k, v, do = (torch.randn(shape, generator=gen).to("cuda", dtype)
                    for _ in range(4))
     o, lse = fa.flash_forward(q, k, v, causal=True)
     again, _ = fa.flash_forward(q, k, v, causal=True)
@@ -1226,16 +1251,16 @@ def check_tp_kernels(torch, timer, gen):
     lse_tol = 1e-5 * max(1.0, float(plse.abs().max()))
     same = torch.equal(o, again)
     if not (ratio <= 1.0 and lse_err <= lse_tol and same):
-        raise AssertionError(f"K1 {dname} {TP_SHAPE}: o err {err} ({ratio} "
-                             f"of tol), lse err {lse_err} (tol {lse_tol}), "
-                             f"bit-identical twice: {same}")
+        raise AssertionError(f"K1 {dname} {shape} ({what}): o err {err} "
+                             f"({ratio} of tol), lse err {lse_err} (tol "
+                             f"{lse_tol}), bit-identical twice: {same}")
     elem = q.element_size()
     qkvo = q.numel() * elem
     pairs = b * h * s * (s + 1) / 2
     copies = rotated((q, k, v), 3 * qkvo)
     tq = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
     cases = {"K1": {
-        "shape": list(TP_SHAPE), "causal": True, "dtype": dname,
+        "shape": list(shape), "causal": True, "dtype": dname,
         "design": route(dname), "max_abs_err": err, "tol": tol,
         "err_over_tol": ratio, "lse_err": lse_err, "bit_identical": same,
         "ms": timer.ms(lambda q_, k_, v_: fa.flash_forward(
@@ -1260,14 +1285,14 @@ def check_tp_kernels(torch, timer, gen):
     worst = max(res, key=lambda x: x[2])
     same = all(torch.equal(a, b_) for a, b_ in zip(outs, again))
     if not (worst[2] <= 1.0 and same):
-        raise AssertionError(f"K3 {dname} {TP_SHAPE}: {res}, bit-identical "
-                             f"twice: {same}")
+        raise AssertionError(f"K3 {dname} {shape} ({what}): {res}, "
+                             f"bit-identical twice: {same}")
     copies = rotated(args, 4 * qkvo)
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
                        for t in (q, k, v, do))
     ref_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     cases["K3"] = {
-        "shape": list(TP_SHAPE), "causal": True, "dtype": dname,
+        "shape": list(shape), "causal": True, "dtype": dname,
         "design": route(dname), "max_abs_err": max(x[0] for x in res),
         "tol": worst[1], "err_over_tol": worst[2], "bit_identical": same,
         "ms": timer.ms(lambda *a: fa.flash_bwd_fused(*a, **kw), copies),
@@ -1281,6 +1306,23 @@ def check_tp_kernels(torch, timer, gen):
                  dname)}
     del q, k, v, do, o, lse, delta, args, outs, again, plain, copies, \
         qt, kt, vt, dot, ref_o
+    return cases
+
+
+def check_tp_kernels(torch, timer, gen):
+    """K1, K3 and K4 at a tensor-parallel shard's shapes, bf16 (the
+    route phase 16 times): K1 and K3 at ``TP_SHAPE`` causal
+    (:func:`flash_pair`), K4 at a decode step [8, 1, 3, 128] over
+    check_paged's rows -- head counts no other case launches.  Each
+    against its plain version under the same tolerances, run twice bit
+    for bit, timed with its bound and its library call (none for
+    K4)."""
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    dtype, dname = torch.bfloat16, "bfloat16"
+    h, d = TP_SHAPE[2:]
+    cases = flash_pair(torch, timer, gen, TP_SHAPE, "tensor parallel")
+    elem = torch.empty((), dtype=dtype).element_size()
 
     pages, page, m = 1025, 16, 128
     lengths = [1, 15, 16, 17, 1000, 2047, 0, 0]
@@ -1322,6 +1364,18 @@ def check_tp_kernels(torch, timer, gen):
     del pool_k, pool_v, copies
     for name, case in cases.items():
         emit({"phase": "kernels_tp", "kernel": name, **case})
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_pp_kernels(torch, timer, gen):
+    """K1 and K3 bf16 at a pipeline stage's shape, ``PP_SHAPE`` causal
+    (one microbatch of pipeline_transformer: 8 heads of 64) -- the shape
+    phase 19 launches at every tick -- as :func:`flash_pair` checks and
+    times them."""
+    cases = flash_pair(torch, timer, gen, PP_SHAPE, "pipeline stage")
+    for name, case in cases.items():
+        emit({"phase": "kernels_pp", "kernel": name, **case})
     torch.cuda.empty_cache()
     return cases
 
@@ -2715,7 +2769,9 @@ else:
 fa.launches = fa.launches_dq = fa.launches_dkdv = fa.launches_fused = 0
 reg = default_registry()
 ring0 = [reg.counter(n).value for n in ("ring_shift_calls",
-                                        "ring_shift_bytes")]
+                                        "ring_shift_bytes",
+                                        "pipeline_broadcast_calls",
+                                        "pipeline_broadcast_bytes")]
 t0 = time.perf_counter()
 stats = run()
 if torch.cuda.is_available():
@@ -2731,6 +2787,10 @@ print("DP_RESULT=" + json.dumps({
     "seq_parallelism": trainer.rt.seq_parallelism,
     "ring_shift": {"calls": reg.counter("ring_shift_calls").value - ring0[0],
                    "bytes": reg.counter("ring_shift_bytes").value - ring0[1]},
+    "pipeline_broadcast": {
+        "calls": reg.counter("pipeline_broadcast_calls").value - ring0[2],
+        "bytes": reg.counter("pipeline_broadcast_bytes").value - ring0[3]},
+    "microbatches": getattr(trainer.model, "num_microbatches", None),
     "backend": trainer.rt.backend, "device": str(trainer.rt.device),
     "threads": torch.get_num_threads(),
     "losses": [v for _, v in stats["train_loss_log"]],
@@ -4050,44 +4110,47 @@ def ps_drop_case(torch, seed: int, card: str, root: str) -> dict:
     return line
 
 
-def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
+def ps_preempt_case(torch, seed: int, card: str, root: str,
+                    spawn=None) -> dict:
     """A store's rank preempted by SIGTERM while it serves, under
     ``--ps_snapshot_dir``: the launcher restarts the whole job (a new
     port, restart generation 1), the store restores its final snapshot
     and discards the done count of attempt 0, and the re-run workers
-    finish: the final version is the restored one plus their steps."""
+    finish: the final version is the restored one plus their steps.
+    The launcher runs on a thread here, its ranks started by ``spawn``
+    (default a fresh process)."""
     import re
     import signal
 
-    from dtf_tpu_torch.cli.launch import free_address
+    from dtf_tpu_torch.cli.launch import free_address, launch_local, \
+        popen_rank
     from dtf_tpu_torch.obs.watchdog import heartbeat_path, read_heartbeat
     from dtf_tpu_torch.parallel.ps import PsClient
 
     steps = 20
     log_dir = os.path.join(root, "ps_preempt")
     coordinator = free_address()
-    cmd = [sys.executable, "-m", "dtf_tpu_torch.cli.launch",
-           "--num_processes", "3", "--max_restarts", "1",
-           "--heartbeat_timeout", "120", "--teardown_grace", "10",
-           "--coordinator", coordinator, "--log_dir", log_dir, "--",
-           sys.executable, "-m", "dtf_tpu_torch.cli.cifar_main",
-           "--use_synthetic_data", "--device", "cuda", "--model",
-           "resnet56", "--dtype", "fp32", "--batch_size", "128",
-           "--train_steps", str(steps), "--log_steps", "1", "--skip_eval",
-           "--skip_checkpoint", "--seed", str(seed),
-           "--distribution_strategy", "parameter_server", "--ps_mode",
-           "async", "--ps_snapshot_dir", os.path.join(root, "ps_snaps"),
-           "--ps_snapshot_secs", "1", "--ps_reconnect_secs", "60"]
+    argv = ["--use_synthetic_data", "--device", "cuda", "--model",
+            "resnet56", "--dtype", "fp32", "--batch_size", "128",
+            "--train_steps", str(steps), "--log_steps", "1", "--skip_eval",
+            "--skip_checkpoint", "--seed", str(seed),
+            "--distribution_strategy", "parameter_server", "--ps_mode",
+            "async", "--ps_snapshot_dir", os.path.join(root, "ps_snaps"),
+            "--ps_snapshot_secs", "1", "--ps_reconnect_secs", "60"]
+    cmd = [sys.executable, "-c", PS_RANK,
+           json.dumps({"main": "cifar_main", "argv": argv})]
     t0 = time.perf_counter()
-    launcher = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+    launcher = overlapped(launch_local, cmd, 3, coordinator, log_dir,
+                          timeout_s=PS_TIMEOUT_S, max_restarts=1,
+                          heartbeat_timeout=120, teardown_grace=10,
+                          spawn=spawn or popen_rank)
     try:
         # wait for the store to reach version 6, then SIGTERM its rank
         # (the pid in its heartbeat file)
         deadline = time.time() + 120
         version = 0
         while version < 6:
-            if time.time() > deadline or launcher.poll() is not None:
+            if time.time() > deadline or launcher.done():
                 raise AssertionError("ps_faults preempt: the store never "
                                      "reached version 6")
             try:
@@ -4100,11 +4163,9 @@ def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
         hb = read_heartbeat(heartbeat_path(log_dir, 0))
         os.kill(hb["pid"], signal.SIGTERM)
         killed_at = version
-        out, _ = launcher.communicate(timeout=PS_TIMEOUT_S)
     finally:
-        if launcher.poll() is None:
-            launcher.kill()
-            launcher.wait()
+        # the launcher's own timeout ends its ranks
+        rc = launcher.result()
     wall = time.perf_counter() - t0
 
     def text(name):
@@ -4128,7 +4189,7 @@ def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
         losses.append(float(found[-1]) if found else None)
     line = {"phase": "ps_faults", "case": "ps rank sigterm, resumed",
             "card": card, "model": "resnet56", "steps_per_worker": steps,
-            "launcher_exit": launcher.returncode,
+            "launcher_exit": rc,
             "ps_first_exit": first.get("code"),
             "ps_first_classification": first.get("classification"),
             "sigterm_at_version": killed_at,
@@ -4147,7 +4208,8 @@ def ps_preempt_case(torch, seed: int, card: str, root: str) -> dict:
             and line["final_version"] == line["restored_version"]
             + 2 * steps
             and all(v is not None and math.isfinite(v) for v in losses)):
-        raise AssertionError(f"ps_faults preempt: {line}\n{out[-3000:]}")
+        raise AssertionError(f"ps_faults preempt: {line}\n"
+                             f"{text('log0.log')[-3000:]}")
     return line
 
 
@@ -4155,7 +4217,8 @@ def async_ps(torch, seed: int, card: str, spawn=None) -> dict:
     """Phase 11: the store, the reference's shape through the launcher
     on both wires (its ranks started by ``spawn``), then one worker
     twice, the LM worker's kernels and the two faults, the preempted job
-    (a launcher process of its own) beside the in-process runs."""
+    (the launcher on a thread, its ranks started by ``spawn`` too)
+    beside the in-process runs."""
     import concurrent.futures
     import tempfile
 
@@ -4166,7 +4229,8 @@ def async_ps(torch, seed: int, card: str, spawn=None) -> dict:
         # the preempted job in its processes while the in-process runs
         # go: each is gated on its own versions, losses and launches,
         # and no gate reads a time
-        preempt = overlapped(ps_preempt_case, torch, seed, card, root)
+        preempt = overlapped(ps_preempt_case, torch, seed, card, root,
+                             spawn)
         try:
             out["one_worker"] = ps_one_worker(torch, seed, card, root)
             out["lm"] = ps_lm(torch, seed, card)
@@ -6911,6 +6975,10 @@ def elastic_training(torch, seed: int, card: str, model_argv=None,
 
 SP_STEPS_F32 = 3
 SP_STEPS_BF16 = 6
+# phase 18 runs transformer_tpu at 6 of its 12 layers, every width kept,
+# to make room for phase 19 within the script's budget; its gates scale
+# with the depth
+SP_LAYERS = DP_LM_LAYERS
 # f32 losses of the ring (blockwise f32, the sequence split over two
 # ranks) against world 1 (K1/K3 split TF32): float32 rounding, ~1e-6
 # relative after three AdamW steps; the gate TP's phase 16 holds
@@ -6932,17 +7000,18 @@ def sp_ring_prediction(layers: int, sp: int, batch: int, seq: int,
 def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
     """Phase 18 (see the module's docstring): ``lm_main`` at
     ``--seq_parallelism 2`` on two gloo ranks sharing the card (data 1 x
-    seq 2 x model 1), transformer_tpu at full width and depth, S 2048
-    (1024 a rank), global batch 2, AdamW: (a) f32, 3 steps, against the
-    world-1 twin in this process; (b) bf16, 6 steps, timed alone beside
-    the world-1 run: step p50, each rank's peak memory, the ring's
-    calls and bytes a step against :func:`sp_ring_prediction`, and no
-    K1-K3 launch on a seq rank (the attention rides the ring)."""
+    seq 2 x model 1), transformer_tpu at full width and ``SP_LAYERS`` of
+    its 12 layers, S 2048 (1024 a rank), global batch 2, AdamW: (a)
+    f32, 3 steps, against the world-1 twin in this process; (b) bf16, 6
+    steps, timed alone beside the world-1 run: step p50, each rank's
+    peak memory, the ring's calls and bytes a step against
+    :func:`sp_ring_prediction`, and no K1-K3 launch on a seq rank (the
+    attention rides the ring)."""
     import tempfile
 
     def spec(args, **kw):
         return {"main": "lm_main", "defaults": "LM_DEFAULTS",
-                "backend": "gloo", "argv": args, **kw}
+                "backend": "gloo", "argv": args, "layers": SP_LAYERS, **kw}
 
     f32 = tp_lm_argv(seed, "fp32", SP_STEPS_F32)
     bf16 = tp_lm_argv(seed, "bf16", SP_STEPS_BF16)
@@ -6955,7 +7024,8 @@ def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
         try:
             sp32 = overlapped(zero_launch, spec(f32 + grid), 2, root,
                               "sp f32", spawn=spawn)
-            off32 = tp_lm_here(torch, f32 + off)
+            with fleet_depth(SP_LAYERS):
+                off32 = tp_lm_here(torch, f32 + off)
             # the timed run's ranks start now, build, and wait for their
             # go until the f32 run is done
             timed = overlapped(zero_launch, spec(bf16 + grid, go=go), 2,
@@ -6968,19 +7038,21 @@ def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
         correct_s = time.time() - t0
         t0 = time.time()
         spbf = timed.result()
-        offbf = tp_lm_here(torch, bf16 + off)
+        with fleet_depth(SP_LAYERS):
+            offbf = tp_lm_here(torch, bf16 + off)
         timed_s = time.time() - t0
 
     b, s, h, d = TP_BATCH, TRAIN_SHAPE[1], TRAIN_SHAPE[2], TRAIN_SHAPE[3]
-    want = sp_ring_prediction(12, 2, b, s, h, d, 2)
-    want32 = sp_ring_prediction(12, 2, b, s, h, d, 4)
+    want = sp_ring_prediction(SP_LAYERS, 2, b, s, h, d, 2)
+    want32 = sp_ring_prediction(SP_LAYERS, 2, b, s, h, d, 4)
     per_step = [{k: r["ring_shift"][k] / SP_STEPS_BF16
                  for k in ("calls", "bytes")} for r in spbf]
     gap = rel_gap(sp32[0]["losses"], off32["losses"])
     zero = {"K1": 0, "K2a": 0, "K2b": 0, "K3": 0}
     line = {
         "phase": "sequence_parallel", "card": card,
-        "model": "transformer_tpu", "layers": 12, "seq_parallelism": 2,
+        "model": "transformer_tpu", "layers": SP_LAYERS,
+        "seq_parallelism": 2,
         "seq": s, "seq_per_rank": s // 2, "global_batch": b,
         "optimizer": "adamw", "backend": "gloo (two ranks share the card; "
         "the ring's K/V and their cotangents ride pinned host buffers)",
@@ -7013,7 +7085,7 @@ def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
         line["train_bf16"]["step_s_p50_sp"][0]
         / line["train_bf16"]["step_s_p50_off"])
     emit(line)
-    k_off = 12 * SP_STEPS_BF16
+    k_off = SP_LAYERS * SP_STEPS_BF16
     gates = {
         "sp_f32_vs_off": gap <= SP_LOSS_RTOL,
         "grid": all(r["seq_parallelism"] == 2 and r["replicas"] == 1
@@ -7036,6 +7108,202 @@ def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
     line["launches_sp"] = {k: [r["launches"][k] for r in spbf]
                            for k in zero}
     line["launches_sp_twin"] = offbf["launches"]
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 19: pipeline parallelism (parallel/pipeline.py,
+# models/pipeline_lm.py, the pipeline stages on the model axis)
+# ---------------------------------------------------------------------------
+
+PP_STEPS_F32 = 3
+PP_STEPS_BF16 = 6
+PP_BATCH = 8             # global at data 1: the auto M = 4 pp = 8, mb 1
+PP_LAYERS = 12           # pipeline_transformer's full depth
+# f32 losses of the two stages (the same function, its sums in another
+# order: microbatches of one sequence) against world 1; the gate TP's
+# phase 16 and SP's phase 18 hold
+PP_LOSS_RTOL = 1e-4
+
+
+def pp_lm_argv(seed: int, dtype: str, steps: int) -> list:
+    return ["--use_synthetic_data", "--device", "cuda", "--model",
+            "pipeline_transformer", "--dtype", dtype, "--batch_size",
+            str(PP_BATCH), "--train_steps", str(steps), "--log_steps", "1",
+            "--seed", str(seed), "--step_time_guard_factor", "0"]
+
+
+def pp_prediction(pp: int, microbatches: int, layers: int, interleave: int,
+                  act_bytes: int) -> dict:
+    """A stage's traffic and launches a training step as
+    ``parallel/pipeline.py`` makes them: ``ticks`` (M + pp - 1 GPipe,
+    2 pp ceil(M / pp) + pp - 1 interleaved) activations of ``act_bytes``
+    shifted forward, all but the last tick's cotangent back; each tick
+    runs layers / pp (half that interleaved) blocks, one K1 and one K3
+    each, bubble ticks included; one last-stage broadcast of the whole
+    batch's activations a step."""
+    if interleave == 2:
+        ticks = 2 * pp * -(-microbatches // pp) + pp - 1
+        per_tick = layers // pp // 2
+    else:
+        ticks = microbatches + pp - 1
+        per_tick = layers // pp
+    calls = 2 * ticks - 1
+    return {"ticks": ticks, "ring_shift": {
+                "calls": calls, "bytes": calls * act_bytes},
+            "pipeline_broadcast": {"calls": 1,
+                                   "bytes": microbatches * act_bytes},
+            "K1": ticks * per_tick, "K3": ticks * per_tick}
+
+
+def pipeline_parallel(torch, seed: int, card: str, spawn=None) -> dict:
+    """Phase 19 (see the module's docstring): ``lm_main`` at
+    ``--model_parallelism 2`` with pipeline_transformer on two gloo
+    ranks sharing the card (data 1 x model 2: the pipeline's two
+    stages), full width and depth (12 layers, 6 a stage), S 2048, global
+    batch 8, the auto M = 8, AdamW: (a) f32, 3 steps, against the
+    world-1 twin in this process; (b) bf16, 6 steps, GPipe and
+    ``--pipeline_interleave 2``, each timed alone beside the world-1
+    run: step p50, each rank's peak memory, the activations' shifts and
+    the last-stage broadcast a step against :func:`pp_prediction`, K1
+    and K3 a step against the same, K2a = K2b = 0."""
+    import tempfile
+
+    def spec(args, **kw):
+        return {"main": "lm_main", "defaults": "LM_DEFAULTS",
+                "backend": "gloo", "argv": args, **kw}
+
+    f32 = pp_lm_argv(seed, "fp32", PP_STEPS_F32)
+    bf16 = pp_lm_argv(seed, "bf16", PP_STEPS_BF16)
+    grid = ["--distribution_strategy", "multi_worker_mirrored",
+            "--model_parallelism", "2", "--skip_checkpoint"]
+    interleave = grid + ["--pipeline_interleave", "2"]
+    off = ["--distribution_strategy", "off", "--skip_checkpoint"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        gos = {n: os.path.join(root, f"pp_{n}.go")
+               for n in ("gpipe", "interleave")}
+
+        def go(name):
+            with open(gos[name], "w"):
+                pass
+
+        runs = {}
+        try:
+            pp32 = overlapped(zero_launch, spec(f32 + grid), 2, root,
+                              "pp f32", spawn=spawn)
+            off32 = tp_lm_here(torch, f32 + off)
+            # the timed runs' ranks start now, build, and wait for their
+            # go until the f32 run is done
+            timed = {n: overlapped(zero_launch, spec(
+                         bf16 + argv, go=gos[n]), 2, root, f"pp bf16 {n}",
+                         spawn=spawn)
+                     for n, argv in (("gpipe", grid),
+                                     ("interleave", interleave))}
+            pp32 = pp32.result()
+            correct_s = time.time() - t0
+            # the timed runs, each alone, in turn
+            t0 = time.time()
+            for n in ("gpipe", "interleave"):
+                go(n)
+                runs[n] = timed[n].result()
+        finally:
+            # the timed ranks run (and end) whatever happened here
+            for n in gos:
+                if n not in runs:
+                    go(n)
+        offbf = tp_lm_here(torch, bf16 + off)
+        timed_s = time.time() - t0
+
+    s, d = TRAIN_SHAPE[1], 512
+    mb = PP_BATCH // 8
+    want = {n: pp_prediction(2, 8, PP_LAYERS, il, mb * s * d * 2)
+            for n, il in (("gpipe", 1), ("interleave", 2))}
+    want32 = pp_prediction(2, 8, PP_LAYERS, 1, mb * s * d * 4)
+
+    def per_step(r, steps):
+        return {"ring_shift": {k: r["ring_shift"][k] / steps
+                               for k in ("calls", "bytes")},
+                "pipeline_broadcast": {k: r["pipeline_broadcast"][k] / steps
+                                       for k in ("calls", "bytes")},
+                "K1": r["launches"]["K1"] / steps,
+                "K3": r["launches"]["K3"] / steps,
+                "K2a": r["launches"]["K2a"], "K2b": r["launches"]["K2b"]}
+
+    def as_predicted(r, steps, w):
+        got = per_step(r, steps)
+        return (got["ring_shift"] == w["ring_shift"]
+                and got["pipeline_broadcast"] == w["pipeline_broadcast"]
+                and got["K1"] == got["K3"] == w["K1"]
+                and got["K2a"] == got["K2b"] == 0)
+
+    gap = rel_gap(pp32[0]["losses"], off32["losses"])
+    bf = {}
+    for n, ranks in runs.items():
+        bf[n] = {
+            "step_s_p50": [statistics.median(r["window_step_s"])
+                           for r in ranks],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+            "losses": [r["losses"] for r in ranks],
+            "per_step": [per_step(r, PP_STEPS_BF16) for r in ranks],
+            "predicted": want[n],
+            "launches": [r["launches"] for r in ranks],
+            "microbatches": [r["microbatches"] for r in ranks],
+            "wall_s": [r["wall_s"] for r in ranks]}
+        bf[n]["slowdown_to_off"] = (
+            bf[n]["step_s_p50"][0]
+            / statistics.median(offbf["window_step_s"]))
+    line = {
+        "phase": "pipeline_parallel", "card": card,
+        "model": "pipeline_transformer", "layers": PP_LAYERS,
+        "layers_per_stage": PP_LAYERS // 2, "model_parallelism": 2,
+        "seq": s, "global_batch": PP_BATCH, "microbatches": 8,
+        "optimizer": "adamw", "backend": "gloo (two stages share the card; "
+        "the activations, their cotangents and the broadcast ride the "
+        "host)", "loss_rtol": PP_LOSS_RTOL,
+        "note": "both stages share one card's SMs: the step time says "
+                "nothing of the bubble or of PP across cards",
+        "train_f32": {"steps": PP_STEPS_F32,
+                      "losses_pp": pp32[0]["losses"],
+                      "losses_off": off32["losses"],
+                      "loss_rel_gap_pp_to_off": gap,
+                      "per_step": [per_step(r, PP_STEPS_F32) for r in pp32],
+                      "predicted": want32},
+        "train_bf16": {"steps": PP_STEPS_BF16, **bf,
+                       "step_s_p50_off": statistics.median(
+                           offbf["window_step_s"]),
+                       "peak_memory_bytes_off": offbf["peak_memory_bytes"],
+                       "losses_off": offbf["losses"],
+                       "launches_off": offbf["launches"]},
+        "tp_region_allreduce_bytes_per_step": PP_BATCH * s * d * 2,
+        "correct_wall_s": correct_s, "timed_wall_s": timed_s}
+    emit(line)
+    k_off = 12 * PP_STEPS_BF16
+    every = pp32 + runs["gpipe"] + runs["interleave"]
+    gates = {
+        "pp_f32_vs_off": gap <= PP_LOSS_RTOL,
+        "grid": all(r["model_parallelism"] == 2 and r["replicas"] == 1
+                    and r["microbatches"] == 8 for r in every),
+        "ranks_bit_equal": all(r[0]["losses"] == r[1]["losses"]
+                               for r in (pp32, runs["gpipe"],
+                                         runs["interleave"])),
+        "as_predicted": (
+            all(as_predicted(r, PP_STEPS_F32, want32) for r in pp32)
+            and all(as_predicted(r, PP_STEPS_BF16, want[n])
+                    for n in runs for r in runs[n])),
+        "twin_launches": (offbf["launches"]["K1"] == k_off
+                          and offbf["launches"]["K3"] == k_off),
+        "finite": all(math.isfinite(v) for r in every
+                      for v in r["losses"])}
+    emit({"phase": "pipeline_parallel_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"pipeline_parallel: {gates}")
+    line["launches_pp"] = {k: [r["launches"][k] for r in runs["gpipe"]]
+                           for k in ("K1", "K2a", "K2b", "K3")}
+    line["launches_pp_interleave"] = {
+        k: [r["launches"][k] for r in runs["interleave"]]
+        for k in ("K1", "K2a", "K2b", "K3")}
+    line["launches_pp_twin"] = offbf["launches"]
     return line
 
 
@@ -7093,6 +7361,7 @@ def main(argv=None) -> int:
     k4 = check_paged(torch, timer, gen)
     check_peaked(torch, gen)
     tp_cases = check_tp_kernels(torch, timer, gen)
+    pp_cases = check_pp_kernels(torch, timer, gen)
     clock.done("2")
 
     # phases 3 and 4: the serving path
@@ -7214,9 +7483,18 @@ def main(argv=None) -> int:
     # attention rides the ring; K1 and K3 in the world-1 twin)
     sp = sequence_parallel(torch, args.seed, card, spawn=forks.rank_spawn)
     sp_run = ("phase 18: both ranks of lm_main --seq_parallelism 2, bf16, "
-              "6 steps (launches_sp), and its world-1 twin "
+              "6 steps, 6 layers (launches_sp), and its world-1 twin "
               "(launches_sp_twin)")
     clock.done("18")
+
+    # phase 19: pipeline parallelism (K1 and K3 at [1, 2048, 8, 64] at
+    # every tick of each stage, bubble ticks included)
+    pp = pipeline_parallel(torch, args.seed, card, spawn=forks.rank_spawn)
+    pp_run = ("phase 19: both stages of lm_main pipeline_transformer "
+              "--model_parallelism 2, bf16, 6 steps, GPipe (launches_pp) "
+              "and --pipeline_interleave 2 (launches_pp_interleave), and "
+              "its world-1 twin (launches_pp_twin)")
+    clock.done("19")
 
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -7294,7 +7572,11 @@ def main(argv=None) -> int:
               launches_elastic_run=el["launches_elastic_run"],
               launches_sp=sp["launches_sp"]["K1"],
               launches_sp_twin=sp["launches_sp_twin"]["K1"],
-              launches_sp_run=sp_run),
+              launches_sp_run=sp_run,
+              launches_pp=pp["launches_pp"]["K1"],
+              launches_pp_interleave=pp["launches_pp_interleave"]["K1"],
+              launches_pp_twin=pp["launches_pp_twin"]["K1"],
+              launches_pp_run=pp_run, pp_case=pp_cases["K1"]),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -7307,7 +7589,11 @@ def main(argv=None) -> int:
               train_split["launches"]["K2a"], split_run,
               launches_sp=sp["launches_sp"]["K2a"],
               launches_sp_twin=sp["launches_sp_twin"]["K2a"],
-              launches_sp_run=sp_run),
+              launches_sp_run=sp_run,
+              launches_pp=pp["launches_pp"]["K2a"],
+              launches_pp_interleave=pp["launches_pp_interleave"]["K2a"],
+              launches_pp_twin=pp["launches_pp_twin"]["K2a"],
+              launches_pp_run=pp_run),
         entry("K2a f32", "dtf_tpu_torch/csrc/flash_bwd_dq_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:258", bwd["K2a float32"],
               split32["K2a"], split32_run),
@@ -7316,7 +7602,11 @@ def main(argv=None) -> int:
               train_split["launches"]["K2b"], split_run,
               launches_sp=sp["launches_sp"]["K2b"],
               launches_sp_twin=sp["launches_sp_twin"]["K2b"],
-              launches_sp_run=sp_run),
+              launches_sp_run=sp_run,
+              launches_pp=pp["launches_pp"]["K2b"],
+              launches_pp_interleave=pp["launches_pp_interleave"]["K2b"],
+              launches_pp_twin=pp["launches_pp_twin"]["K2b"],
+              launches_pp_run=pp_run),
         entry("K2b f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:317", bwd["K2b float32"],
               split32["K2b"], split32_run),
@@ -7341,6 +7631,10 @@ def main(argv=None) -> int:
               launches_sp=sp["launches_sp"]["K3"],
               launches_sp_twin=sp["launches_sp_twin"]["K3"],
               launches_sp_run=sp_run,
+              launches_pp=pp["launches_pp"]["K3"],
+              launches_pp_interleave=pp["launches_pp_interleave"]["K3"],
+              launches_pp_twin=pp["launches_pp_twin"]["K3"],
+              launches_pp_run=pp_run, pp_case=pp_cases["K3"],
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

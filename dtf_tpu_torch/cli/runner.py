@@ -32,7 +32,8 @@ under ``horovod`` and ``parameter_server``, where it is per replica
 (:func:`effective_global_batch`); each process feeds its share, the
 global batch over the data-parallel replicas (under
 ``--model_parallelism`` every model rank of a replica reads its data
-index's share, and a transformer is the rank's model shard; under
+index's share, and a transformer is the rank's model shard, a pipeline
+LM its pipeline stage; under
 ``--seq_parallelism`` every seq rank of a replica reads the replica's
 batch and keeps its own columns of a sequence batch, tokens and labels
 alike: seq rank i the columns [i S/sp, (i+1) S/sp), the labels as the
@@ -48,12 +49,14 @@ ResNets, ``--use_trivial_model``'s probe) draw their float32 parameters
 from ``--seed`` with their own flax initializers (``init_weights``) and
 are laid out ``torch.channels_last`` on ``--device``; their run sets
 ``torch.backends.cudnn.deterministic``, so the step is as deterministic
-as XLA's.  The transformer LMs draw theirs with
-``serve.bridge.random_init``.  Input: the synthetic stream for every
-dataset, CIFAR-10 binary files under ``--data_dir``, and ImageNet
-TFRecord shards under ``--data_dir``, on the uint8 wire (normalized on
-the device by the Trainer) or the float32 one; ``--data_dir`` for LM
-data raises.  ImageNet trains from the data service by default
+as XLA's.  The transformer and pipeline LMs draw theirs with
+``serve.bridge.random_init``, the pipeline family with the JAX
+runner's schedule rules (:func:`pipeline_kw`).  Input: the synthetic
+stream for every dataset, CIFAR-10 binary files under ``--data_dir``,
+and ImageNet TFRecord shards under ``--data_dir``, on the uint8 wire
+(normalized on the device by the Trainer) or the float32 one;
+``--data_dir`` for LM data raises.  ImageNet trains from the data
+service by default
 (``data/service``: batch n a pure function of (seed, process, n), so a
 resumed run replays its exact stream, whatever ``--input_workers``) or,
 with ``--input_service false``, the legacy threaded pipeline; its eval
@@ -84,7 +87,8 @@ from dtf_tpu_torch.config import parse_flags
 from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
 from dtf_tpu_torch.data.normalize import for_config
 from dtf_tpu_torch.data.pipeline import DevicePrefetcher
-from dtf_tpu_torch.models.registry import build_model, is_vision
+from dtf_tpu_torch.models.registry import (build_model, is_pipeline,
+                                           is_vision)
 from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.runtime.mesh import (LOCAL_STRATEGIES, MeshRuntime,
                                         initialize, mirrored_world)
@@ -205,15 +209,42 @@ def _channels_first_factory(fn):
     return wrapped
 
 
-def build_model_for(cfg, spec, device, bn_group=None, model_index=0):
+def pipeline_kw(cfg, per_replica_batch: int) -> dict:
+    """The pipeline family's schedule arguments, the JAX runner's rules:
+    ``--pipeline_interleave 2`` only with stages, and an unset
+    ``--num_microbatches`` auto-scaled to 4 pp -- the bubble is
+    (pp - 1) / (M + pp - 1), so M = 4 pp keeps it under 20% -- halved
+    until it divides the per-replica batch."""
+    pp = max(int(cfg.model_parallelism), 1)
+    kw = {}
+    if cfg.pipeline_interleave > 1:
+        if pp == 1:
+            raise ValueError(
+                "--pipeline_interleave > 1 needs pipeline stages: "
+                "set --model_parallelism > 1")
+        kw["interleave"] = cfg.pipeline_interleave
+    m = cfg.num_microbatches
+    if m is None:
+        m = 4 * pp
+        while m > 1 and per_replica_batch % m:
+            m //= 2
+    kw["num_microbatches"] = max(int(m), 1)
+    return kw
+
+
+def build_model_for(cfg, spec, device, bn_group=None, model_index=0,
+                    per_replica_batch=None):
     """(model on ``device`` with its seeded weights, l2 weight);
     ``bn_group`` makes a vision model's BatchNorms sync BN.  Under
     ``--model_parallelism`` a transformer is model shard
-    ``model_index`` (the rank's, ``MeshRuntime.model_index``): the full
-    model's seeded weights, cut by the partition rule."""
+    ``model_index`` (the rank's, ``MeshRuntime.model_index``) and a
+    pipeline LM pipeline stage ``model_index``: the full model's seeded
+    weights, cut by the model's partition rule (``split``).  The
+    pipeline's auto microbatch count divides ``per_replica_batch``
+    (default: the global batch)."""
     name = "trivial" if cfg.use_trivial_model else cfg.model
     mp = max(int(cfg.model_parallelism), 1)
-    if cfg.shard_lm_head and (mp == 1 or is_vision(name)):
+    if cfg.shard_lm_head and (mp == 1 or not name.startswith("transformer")):
         raise ValueError("--shard_lm_head needs the plain transformer "
                          "family with --model_parallelism > 1")
     model_kw = {}
@@ -237,22 +268,25 @@ def build_model_for(cfg, spec, device, bn_group=None, model_index=0):
     else:
         model_kw["remat"] = cfg.remat
         model_kw["remat_policy"] = cfg.remat_policy
+        if is_pipeline(name):
+            model_kw.update(pipeline_kw(
+                cfg, cfg.batch_size if per_replica_batch is None
+                else per_replica_batch))
     model, l2 = build_model(name, num_classes=spec.num_classes,
                             dtype=cfg.compute_dtype, bn_group=bn_group,
                             **model_kw)
     if not is_vision(name):
         random_init(model, cfg.seed)
         if mp > 1:
-            from dtf_tpu_torch.models.partition import shard_state_dict
+            from dtf_tpu_torch.models.partition import shard_for
+            if not is_pipeline(name):
+                model_kw["shard_vocab"] = cfg.shard_lm_head
             full = model.state_dict()
             model, _ = build_model(name, num_classes=spec.num_classes,
                                    dtype=cfg.compute_dtype,
                                    model_parallelism=mp,
-                                   model_index=model_index,
-                                   shard_vocab=cfg.shard_lm_head,
-                                   **model_kw)
-            model.load_state_dict(shard_state_dict(
-                full, mp, model_index, cfg.shard_lm_head))
+                                   model_index=model_index, **model_kw)
+            model.load_state_dict(shard_for(model, full))
         return model.to(device), l2
     if device.type == "cuda":
         # cuDNN's default may pick weight-gradient algorithms that add
@@ -283,7 +317,8 @@ def build_training(cfg, runtime: Optional[MeshRuntime] = None):
     model, l2 = build_model_for(
         cfg, spec, rt.device,
         bn_group=rt.data_group if cfg.sync_bn else None,
-        model_index=rt.model_index)
+        model_index=rt.model_index,
+        per_replica_batch=global_batch // rt.num_replicas)
     trainer = Trainer(cfg, model, l2, spec,
                       normalize_fn=for_config(cfg, spec), runtime=rt)
     train_fn, eval_fn = make_input_fns(cfg, spec, global_batch, rt)

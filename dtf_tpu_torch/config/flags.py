@@ -7,7 +7,8 @@ also accepts and ignores), or a key of ``NOT_PORTED``, whose message
 names the subsystem not ported yet.
 
 The fields the ported paths read: the model and its dtype (fp16 for
-the vision families only, behind the JAX loss-scale rule), the seed,
+the vision families only -- the transformer and pipeline families run
+the attention kernels -- behind the JAX loss-scale rule), the seed,
 the device, the training fields of ``cli/lm_main.py``,
 ``cli/cifar_main.py`` and ``cli/imagenet_main.py`` (dataset, input wire
 and layout, batch, steps, optimizer, loss scaling, accumulation,
@@ -47,8 +48,9 @@ picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Tensor parallelism's
 fields (``model_parallelism``, ``shard_lm_head``, ``serve_tp``) and
 sequence parallelism's (``seq_parallelism``: ring attention over the
-'seq' axis) are the JAX package's, with its validation.  Flags of
-features not ported yet (pipeline and expert parallelism, the planner)
+'seq' axis) and pipeline parallelism's (``num_microbatches``,
+``pipeline_interleave``) are the JAX package's, with its validation.
+Flags of features not ported yet (expert parallelism, the planner)
 raise with a message that says so; any other unknown flag raises too.
 """
 
@@ -68,6 +70,8 @@ DTYPES = {"fp32": torch.float32, "float32": torch.float32,
 # the attention kernels (K1-K4) have float32 and bfloat16 routes only,
 # so fp16 trains the vision families (cuDNN convolutions) alone
 _FP16 = ("fp16", "float16")
+# the model families that run the attention kernels
+_ATTENTION_FAMILIES = ("transformer", "pipeline_transformer")
 
 # reference-compat flags the JAX Config declares and ignores; the port
 # accepts and ignores them too
@@ -76,14 +80,13 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "batchnorm_spatial_persistent", "image_bytes_as_serving_input",
           "enable_eager", "verbose")
 
-_MP = "model parallelism (pipeline and expert)"
+_MP = "model parallelism (expert)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
     "plan": "the planner", "plan_mesh": "the planner",
     "plan_cache": "the planner",
     **{name: _MP for name in ("num_experts", "moe_capacity_factor",
-                              "moe_aux_weight", "moe_top_k",
-                              "num_microbatches", "pipeline_interleave")},
+                              "moe_aux_weight", "moe_top_k")},
 }
 
 # literal copy of serve/router.py PLACEMENTS: Config imports without the
@@ -143,6 +146,12 @@ class Config:
     # column-parallel lm_head over 'model' (Megatron's vocab-parallel
     # softmax): local logits and the collective cross-entropy
     shard_lm_head: bool = False
+    # pipeline parallelism (parallel/pipeline.py; the pipeline_transformer
+    # family's stages ride the model axis): GPipe microbatches per step
+    # (None: the runner's auto 4 * pp, halved until it divides the
+    # per-replica batch), and 2 for two virtual stages a rank
+    num_microbatches: Optional[int] = None
+    pipeline_interleave: int = 1
 
     # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
     dataset: str = ""                   # lm | cifar10 | imagenet
@@ -341,7 +350,8 @@ class Config:
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; choose from "
                              f"{sorted(DTYPES)}")
-        if (self.dtype in _FP16 and self.model.startswith("transformer")
+        if (self.dtype in _FP16
+                and self.model.startswith(_ATTENTION_FAMILIES)
                 and not self.use_trivial_model):
             raise ValueError(
                 f"--dtype {self.dtype} is for the vision families: "
@@ -417,6 +427,10 @@ class Config:
         if self.seq_parallelism < 1:
             raise ValueError(f"seq_parallelism must be >= 1, got "
                              f"{self.seq_parallelism}")
+        if self.pipeline_interleave not in (1, 2):
+            raise ValueError(
+                f"pipeline_interleave must be 1 or 2, got "
+                f"{self.pipeline_interleave}")
         if not 0 <= self.metrics_port <= 65535:
             raise ValueError(
                 f"metrics_port must be in [0, 65535] (0 = off), got "

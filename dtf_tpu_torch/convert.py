@@ -19,7 +19,17 @@ rules:
 
 A vision model's flax path of a leaf is its torch module path with "/"
 for "."; the transformer's names follow the flax module tree
-(``block{i}/attn/qkv``, ...).
+(``block{i}/attn/qkv``, ...).  The pipeline family's parameters carry
+the flax names and layouts themselves (``embed``, ``qkv_k`` [L, d,
+3 H Dh], ``head_k`` [d, V], ...): each maps to ``params/<name>`` as it
+is.
+
+A model shard -- a tensor-parallel shard or a pipeline stage, whose
+``split`` names each leaf's sharded dimension -- takes its own part of
+a full leaf (its stage's layers of a stacked one); a leaf already at
+the shard's shape (a stage-local tree, as a JAX stage holds it inside
+``shard_map``) is taken as it is.  Going out, a shard writes its own
+part; the Trainer gathers the full leaves first for a checkpoint.
 
 A training state (:func:`train_state_to_flax`,
 :func:`train_state_from_flax`) is the JAX package's ``TrainState`` as
@@ -106,6 +116,11 @@ def _lm_leaves(model):
     return out
 
 
+def _pipeline_leaves(model):
+    return [(name, "params", name, None)
+            for name, _ in model.named_parameters()]
+
+
 def _vision_leaves(model):
     from dtf_tpu_torch.models.resnet import BatchNorm
 
@@ -129,11 +144,14 @@ def _vision_leaves(model):
 
 def leaves(model):
     """(state-dict key, flax collection, flax path, layout) for every
-    leaf of a transformer LM or a vision model."""
+    leaf of a transformer LM, a pipeline LM or a vision model."""
+    from dtf_tpu_torch.models.pipeline_lm import PipelinedTransformerLM
     from dtf_tpu_torch.models.transformer import TransformerLM
 
     if isinstance(model, TransformerLM):
         return _lm_leaves(model)
+    if isinstance(model, PipelinedTransformerLM):
+        return _pipeline_leaves(model)
     return _vision_leaves(model)
 
 
@@ -171,11 +189,13 @@ def _split(model, key: str):
     return None if split is None else split(key)
 
 
-def _local(t: torch.Tensor, model, key: str) -> torch.Tensor:
-    """The model's own part of the full tensor ``t`` of ``key``: its
-    shard under tensor parallelism, else ``t``."""
+def _local(t: torch.Tensor, model, key: str, want) -> torch.Tensor:
+    """The model's own part of the tensor ``t`` of ``key``: its shard
+    (tensor parallelism) or its stage's layers (pipeline parallelism)
+    of a full ``t``; ``t`` itself when it is already at the shard's
+    shape ``want``, or the leaf is not sharded."""
     sp = _split(model, key)
-    if sp is None:
+    if sp is None or tuple(t.shape) == tuple(want):
         return t
     from dtf_tpu_torch.models.partition import shard
     return shard(t, sp, model.model_parallelism, model.model_index)
@@ -234,7 +254,7 @@ def model_from_flat(flat: dict, model, device=None) -> Dict[str, torch.Tensor]:
             raise KeyError(f"flax tree has no {path!r} in {coll}")
         used.add(name)
         t = _local(_from_flax(_tensor(flat[name]).to(device), layout,
-                              model), model, key)
+                              model), model, key, want[key].shape)
         if tuple(t.shape) != tuple(want[key].shape):
             raise ValueError(f"{key}: flax {coll} {path!r} of shape "
                              f"{tuple(t.shape)} does not fit "
@@ -311,7 +331,7 @@ def _moments_from_flat(model, prefix: str, flat: dict, device):
     out = [None] * len(params)
     for i, path, layout, key in _param_leaves(model):
         t = _local(_from_flax(_tensor(flat[f"{prefix}/{path}"]).to(device),
-                              layout, model), model, key)
+                              layout, model), model, key, params[i].shape)
         if tuple(t.shape) != tuple(params[i].shape):
             raise ValueError(f"{prefix}/{path} of shape {tuple(t.shape)} "
                              f"does not fit {tuple(params[i].shape)}")

@@ -11,7 +11,10 @@ LayerNorms) is replicated.  :func:`rule` says which dimension of a
 parameter (or of a tensor in its layout: a gradient, an optimizer
 moment) is sharded; :func:`shard` cuts model shard ``index`` of ``mp``
 from the full tensor and :func:`unshard` joins the shards back, so
-slicing and gathering go through one rule.
+slicing and gathering go through one rule.  The pipeline family's rule
+is its own (``models/pipeline_lm.py``: the layer dimension of a stacked
+block leaf, ``Split(0)``); :func:`shard_for` cuts by whichever rule the
+model carries.
 
 In the port's layout a Linear weight is [out, in]: qkv's [3·H·Dh, d]
 orders its rows (3, H, Dh), so its heads are the inner part of dim 0
@@ -96,3 +99,11 @@ def shard_state_dict(sd: dict, mp: int, index: int,
     """Model shard ``index`` of a full state dict."""
     return {k: shard(v, rule(k, shard_vocab), mp, index)
             for k, v in sd.items()}
+
+
+def shard_for(model, sd: dict) -> dict:
+    """``model``'s own part of a full state dict: each leaf cut by the
+    model's rule (``model.split``) -- its tensor-parallel shard, or its
+    pipeline stage's layers of a stacked leaf."""
+    return {k: shard(v, model.split(k), model.model_parallelism,
+                     model.model_index) for k, v in sd.items()}

@@ -1,10 +1,12 @@
 """Model registry + the L2-as-loss-term rule -- the vision and
-transformer LM entries of ``dtf_tpu/models/registry.py``, with the same
-names, default class counts and L2 weights: ResNet-50 v1.5, the CIFAR
-ResNet-(6n+2) family, the trivial input probe and the transformer LMs
-(a tensor-parallel shard through the transformer's
-``model_parallelism``, ``model_index`` and ``shard_vocab``).  The MoE
-and pipeline families are not ported yet.  Sync BN, the JAX
+transformer and pipeline LM entries of ``dtf_tpu/models/registry.py``,
+with the same names, default class counts and L2 weights: ResNet-50
+v1.5, the CIFAR ResNet-(6n+2) family, the trivial input probe, the
+transformer LMs (a tensor-parallel shard through the transformer's
+``model_parallelism``, ``model_index`` and ``shard_vocab``) and the
+pipeline-stacked LMs (a pipeline stage through the same
+``model_parallelism`` and ``model_index``).  The MoE family is not
+ported yet.  Sync BN, the JAX
 package's ``bn_axis``, is ``bn_group``: a process group for the BNs of
 every vision model but the trivial probe.
 
@@ -27,7 +29,8 @@ import functools
 import torch
 from torch import nn
 
-from dtf_tpu_torch.models import resnet, resnet_cifar, transformer, trivial
+from dtf_tpu_torch.models import (pipeline_lm, resnet, resnet_cifar,
+                                  transformer, trivial)
 from dtf_tpu_torch.parallel.collectives import tp_psum
 
 # reference weight-decay constants
@@ -54,6 +57,13 @@ _REGISTRY = {
         functools.partial(transformer.TransformerLM, num_layers=12,
                           d_model=768, num_heads=6, d_ff=3072),
         32_768, 0.0),
+    # pipeline-stacked LM family (pipeline stages over the model axis)
+    "pipeline_transformer": (pipeline_lm.PipelinedTransformerLM,
+                             32_768, 0.0),
+    "pipeline_transformer_small": (
+        functools.partial(pipeline_lm.PipelinedTransformerLM, num_layers=4,
+                          d_model=256, num_heads=4, d_ff=1024),
+        32_768, 0.0),
 }
 
 _KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
@@ -61,14 +71,19 @@ _KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
 
 def is_vision(name: str) -> bool:
     """True for the image-classifier entries (ResNets, trivial)."""
-    return not name.startswith("transformer")
+    return not name.startswith(("transformer", "pipeline_transformer"))
+
+
+def is_pipeline(name: str) -> bool:
+    """True for the pipeline-stacked LM family."""
+    return name.startswith("pipeline_transformer")
 
 
 def build_model(name: str, num_classes: int | None = None,
                 dtype=torch.float32, bn_group=None, **model_kw):
     """Returns (module, l2_weight).  Parameters are float32 and left as
     constructed: a vision model draws them with its ``init_weights(seed)``
-    and a transformer with ``serve.bridge.random_init``, both called by
+    and an LM with ``serve.bridge.random_init``, both called by
     ``cli/runner.py``.  ``bn_group`` (a process group, or None for
     per-replica statistics) makes the BatchNorms sync BN."""
     if name not in _REGISTRY:

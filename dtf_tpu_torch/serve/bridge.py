@@ -8,8 +8,13 @@ Four sources:
       initializers for the same leaves (lecun truncated-normal Dense
       kernels, zero biases, fan-in normal embeddings, N(0, 0.02)
       positions, unit LayerNorm scales), so a random-init run behaves
-      like the JAX package's.  The numbers differ from JAX's: torch does
-      not reproduce threefry.
+      like the JAX package's.  The pipeline family's flax-named leaves
+      take its module's initializers: N(0, 0.02) ``embed`` and
+      ``pos_embed``, lecun truncated-normal ``*_k`` kernels (a stacked
+      kernel [L, in, out] with its layer dimension as a batch axis: the
+      fan-in is ``in``), unit ``*_s`` scales and zero ``*_b`` biases.
+      The numbers differ from JAX's: torch does not reproduce
+      threefry.
   flax params -- ``load_flax_npz(path)``: an ``.npz`` whose keys are the
       flax param paths joined by "/" (``block0/attn/qkv/kernel``), as
       ``np.savez(path, **flat)`` writes them, carried into the model by
@@ -66,8 +71,14 @@ def random_init(model, seed: int):
     for name, p in model.named_parameters():
         w = torch.empty(p.shape, dtype=torch.float32)
         leaf = name.rsplit(".", 1)[-1]
-        if name == "pos_embed":
+        if name in ("pos_embed", "embed"):
             nn.init.normal_(w, std=0.02, generator=gen)
+        elif leaf.endswith("_k"):               # flax kernel [..., in, out]
+            variance_scaling_(w, 1.0, p.shape[-2], gen)
+        elif leaf.endswith("_s"):
+            w.fill_(1.0)
+        elif leaf.endswith("_b"):
+            w.zero_()
         elif name == "embed.weight":
             nn.init.normal_(w, std=1.0 / math.sqrt(p.shape[1]),
                             generator=gen)

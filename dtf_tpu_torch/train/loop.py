@@ -135,7 +135,19 @@ a stage-2/3 gradient is reduce-scattered over it and then averaged over
 the seq group (``train/zero.py``), and the global norm of slices sums
 over ``slice_group`` (data x model), so no seq rank's copy counts twice.
 
-Not ported yet: EP/PP; the flags that ask for them raise
+Pipeline parallelism (the pipeline_transformer family at
+``--model_parallelism`` pp > 1; ``models/pipeline_lm.py``) rides the
+same model axis: the model is the rank's pipeline stage, its
+``split`` names the stacked leaves' layer dimension, and the machinery
+above applies unchanged.  The replicated leaves (embedding, positions,
+final norm, head) get the same gradient on every stage by construction
+and reduce over the data (x seq) group alone; clipping's global norm
+sums the stacked leaves' squares over the model group; ZeRO slices each
+stage-local stack over the data group; eval runs the pipeline's forward
+under no_grad; the checkpoint gathers the stacks to the full [L, ...]
+leaves, so a step resumes at another pp.
+
+Not ported yet: EP; the flags that ask for it raise
 (``config/flags.py``).
 """
 

@@ -113,12 +113,14 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
     if subsystem in ("model parallelism", "serving tensor parallelism"):
         # ported since (tensor parallelism): --shard_lm_head,
         # --model_parallelism and --serve_tp parse, with the JAX
-        # package's defaults and validation; pipeline and expert
-        # parallelism stay refused under their own flags
+        # package's defaults and validation; then pipeline parallelism's
+        # --num_microbatches and --pipeline_interleave likewise; expert
+        # parallelism stays refused under its own flags
         tp = [f for f in flags if f in TP_FLAGS]
         _check_tp_flags(tp + (["model_parallelism"]
                               if subsystem == "model parallelism" else []))
-        flags = [f for f in flags if f not in TP_FLAGS]
+        _check_pp_flags([f for f in flags if f in PP_FLAGS])
+        flags = [f for f in flags if f not in TP_FLAGS + PP_FLAGS]
         subsystem = "model parallelism"
     if subsystem == "serving fleet":
         # ported since: the router and replica flags (cli/router_main and
@@ -249,6 +251,31 @@ def _check_tp_flags(flags):
             with pytest.raises(ValueError, match=match):
                 parse_flags(bad)
             with pytest.raises(ValueError, match=match):
+                jax_parse_flags(bad)
+
+
+PP_FLAGS = ("num_microbatches", "pipeline_interleave")
+
+
+def _check_pp_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+    for argv in (["--num_microbatches", "8"], ["--pipeline_interleave", "2"],
+                 ["--num_microbatches", "4", "--pipeline_interleave", "1"]):
+        got, want = parse_flags(argv), jax_parse_flags(argv)
+        for name in flags:
+            assert getattr(got, name) == getattr(want, name), (argv, name)
+    if "pipeline_interleave" in flags:
+        for bad in (["--pipeline_interleave", "3"],
+                    ["--pipeline_interleave", "0"]):
+            with pytest.raises(ValueError, match="pipeline_interleave must "
+                               "be 1 or 2"):
+                parse_flags(bad)
+            with pytest.raises(ValueError, match="pipeline_interleave must "
+                               "be 1 or 2"):
                 jax_parse_flags(bad)
 
 
