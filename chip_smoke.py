@@ -51,7 +51,9 @@ Phases, each printing one JSON object per line (the card's
                  [8, 1, 3, 128], each against its plain version under
                  the same tolerances, twice bit for bit, timed; and a
                  pipeline stage's (``kernels_pp``): K1 and K3 bf16 at
-                 [1, 2048, 8, 64] causal, likewise.
+                 [1, 2048, 8, 64] causal, likewise; and an
+                 expert-parallel rank's (``kernels_ep``): K1 and K3 bf16
+                 at [2, 2048, 8, 64] causal, likewise.
   3. correct  -- ``transformer_tpu`` at full width in float32, random
                  weights from ``--seed``: greedy tokens from the port's
                  ServeEngine equal the argmax of the port's teacher-
@@ -354,15 +356,17 @@ Phases, each printing one JSON object per line (the card's
  16. tensor_parallel -- ``--model_parallelism`` / ``--serve_tp``
                  (``runtime/mesh.py``'s grid, ``models/partition.py``,
                  the shard-local transformer, ``TensorParallelLM``):
-                 transformer_tpu at full size, 3 of 6 heads, d_ff 1536
+                 transformer_tpu at full width, 3 of 6 heads, d_ff 1536
                  and (``--shard_lm_head``) 16384 of the vocabulary a
-                 shard.  (a) ``cli.lm_main`` over two gloo ranks sharing
+                 shard, its training and f32 serving runs at 6 of its
+                 12 layers (``TP_LAYERS``; the bf16 burst at 12).  (a) ``cli.lm_main`` over two gloo
+                 ranks sharing
                  the card (data 1 x model 2), S 2048, batch 2, AdamW:
                  f32 3 steps against the ``off`` world-1 run within
                  ``TP_LOSS_RTOL``, ``--shard_lm_head`` against the plain
                  TP run, the TP run's step-2 checkpoint resumed at mp 1
                  against its step 3; bf16 6 steps timed alone beside the
-                 world-1 run (step p50, peak memory a rank, 12 K1 and 12
+                 world-1 run (step p50, peak memory a rank, 6 K1 and 6
                  K3 a step a rank).  (b) the engine in this process at
                  ``--serve_tp 2``, both shards on the one card: f32
                  greedy, 16 requests token-exact with ``serve_tp 1``;
@@ -423,8 +427,9 @@ Phases, each printing one JSON object per line (the card's
                  family (``parallel/pipeline.py``,
                  ``models/pipeline_lm.py``): ``cli.lm_main`` over two
                  gloo ranks sharing the card (data 1 x model 2: the two
-                 stages), pipeline_transformer at full width and depth
-                 (12 layers, 6 a stage, 8 heads of 64), S 2048, global
+                 stages), pipeline_transformer at full width and 8 of
+                 its 12 layers (``PP_LAYERS``: 4 a stage, 8 heads of
+                 64), S 2048, global
                  batch 8, the auto M = 8 (one sequence a microbatch),
                  AdamW; the activations and their cotangents shift
                  through pinned host buffers, the last stage's output is
@@ -435,9 +440,34 @@ Phases, each printing one JSON object per line (the card's
                  the world-1 run: step p50, peak memory a stage, the
                  shifts' calls and bytes, the broadcast and K1 and K3 a
                  step equal to ``pp_prediction`` (GPipe 17 shifts, K1 =
-                 K3 = 54; interleaved 33 and 51), K2a = K2b = 0, the
+                 K3 = 36; interleaved 33 and 34), K2a = K2b = 0, the
                  stages' losses bit-equal.  The stages share the SMs:
                  the step time says nothing of the bubble.
+ 20. expert_parallel -- the moe_transformer family (``models/moe.py``,
+                 ``parallel/collectives.py all_to_all``, the Trainer's
+                 expert leaves): ``cli.lm_main`` over two gloo ranks
+                 sharing the card, moe_transformer at full width and
+                 depth (12 layers, 8 experts of d_ff 2048 in every
+                 second block, top-2, capacity factor 1.25, 8 heads of
+                 64), S 2048, AdamW.  (a) f32 3 steps, experts over the
+                 data axis (data 2, global batch 4: two sequences a
+                 rank, the slot rows exchanged by two all_to_all a MoE
+                 block each way), both ranks against the world-1 twin
+                 at batch 2 in this process (the synthetic stream gives
+                 each rank a copy of one batch) within
+                 ``EP_LOSS_RTOL``; (b) f32 3 steps, experts over the
+                 model axis (``--model_parallelism 2``, data 1, batch
+                 2: no exchange, the partial outputs summed) against
+                 the same twin; (c) bf16 6 steps over data, timed alone
+                 beside the bf16 twin: step p50, peak memory a rank,
+                 the share of routed choices dropped, the exchanges a
+                 step equal to ``ep_prediction`` (24 calls, 251,658,240
+                 bytes; f32 503,316,480; 0 under the model axis), K1 =
+                 K3 = 12 and K2a = K2b = 0 a step a rank, the replicated
+                 leaves' digests equal across the ranks; (d) one
+                 MoEMLP forward and backward at a rank's shape
+                 ([2, 2048, 512] bf16) twice on the card, every output
+                 and gradient bit for bit.
   Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
   with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
   none's; --remat's peak memory below none's); phase 7 trains ResNet-50
@@ -467,7 +497,10 @@ attention rides the ring) beside ``launches_sp_twin`` (the world-1
 twin's); K1, K2a, K2b and K3 as ``launches_pp`` and
 ``launches_pp_interleave`` (phase 19: both stages, GPipe and
 interleaved) beside ``launches_pp_twin``, K1 and K3 with ``pp_case``,
-phase 2's case at the stage's shape -- and, last, the device line.
+phase 2's case at the stage's shape; K1 and K3 as ``launches_ep``
+(phase 20: both ranks of the bf16 data-axis run) beside
+``launches_ep_twin``, with ``ep_case``, phase 2's case at the rank's
+shape -- and, last, the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -503,6 +536,9 @@ TP_SHAPE = (2, 2048, 3, 128)
 # a pipeline stage's attention: pipeline_transformer (8 heads of 64) at
 # one sequence a microbatch, S 2048
 PP_SHAPE = (1, 2048, 8, 64)
+# moe_transformer's attention on a rank of phase 20 (two sequences a
+# rank, 8 heads of 64)
+EP_SHAPE = (2, 2048, 8, 64)
 
 
 def emit(obj) -> None:
@@ -1376,6 +1412,18 @@ def check_pp_kernels(torch, timer, gen):
     cases = flash_pair(torch, timer, gen, PP_SHAPE, "pipeline stage")
     for name, case in cases.items():
         emit({"phase": "kernels_pp", "kernel": name, **case})
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_ep_kernels(torch, timer, gen):
+    """K1 and K3 bf16 at an expert-parallel rank's shape, ``EP_SHAPE``
+    causal (moe_transformer: two sequences a rank, 8 heads of 64) --
+    the shape phase 20 launches in every block -- as :func:`flash_pair`
+    checks and times them."""
+    cases = flash_pair(torch, timer, gen, EP_SHAPE, "expert parallel")
+    for name, case in cases.items():
+        emit({"phase": "kernels_ep", "kernel": name, **case})
     torch.cuda.empty_cache()
     return cases
 
@@ -2742,8 +2790,9 @@ if os.environ.get("DTF_RESTART_GENERATION", "0") != "0":
 if spec.get("layers"):
     import functools
     from dtf_tpu_torch.models import registry
-    ctor, classes, l2 = registry._REGISTRY["transformer_tpu"]
-    registry._REGISTRY["transformer_tpu"] = (
+    name = spec.get("layers_model", "transformer_tpu")
+    ctor, classes, l2 = registry._REGISTRY[name]
+    registry._REGISTRY[name] = (
         functools.partial(ctor, num_layers=spec["layers"]), classes, l2)
 kept = {}
 build = runner.build_training
@@ -2771,7 +2820,9 @@ reg = default_registry()
 ring0 = [reg.counter(n).value for n in ("ring_shift_calls",
                                         "ring_shift_bytes",
                                         "pipeline_broadcast_calls",
-                                        "pipeline_broadcast_bytes")]
+                                        "pipeline_broadcast_bytes",
+                                        "all_to_all_calls",
+                                        "all_to_all_bytes")]
 t0 = time.perf_counter()
 stats = run()
 if torch.cuda.is_available():
@@ -2779,8 +2830,15 @@ if torch.cuda.is_available():
 wall = time.perf_counter() - kept.get("t0", t0)
 trainer = kept["trainer"]
 digest = hashlib.sha256()
-for t in trainer.model.state_dict().values():
-    digest.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+# the leaves every rank holds whole (a sharded model's split is None)
+replicated = hashlib.sha256()
+split = getattr(trainer.model, "split", lambda name: None)
+for name, t in trainer.model.state_dict().items():
+    raw = t.detach().float().cpu().contiguous().numpy().tobytes()
+    digest.update(raw)
+    if split(name) is None:
+        replicated.update(raw)
+moe = getattr(trainer.model, "moe_layers", [])
 print("DP_RESULT=" + json.dumps({
     "rank": trainer.rt.rank, "replicas": trainer.rt.num_replicas,
     "model_parallelism": trainer.rt.model_parallelism,
@@ -2790,6 +2848,11 @@ print("DP_RESULT=" + json.dumps({
     "pipeline_broadcast": {
         "calls": reg.counter("pipeline_broadcast_calls").value - ring0[2],
         "bytes": reg.counter("pipeline_broadcast_bytes").value - ring0[3]},
+    "all_to_all": {"calls": reg.counter("all_to_all_calls").value - ring0[4],
+                   "bytes": reg.counter("all_to_all_bytes").value - ring0[5]},
+    "moe_dropped_share": (sum(float(m.dropped) for m in moe)
+                          / sum(m.routed for m in moe) if moe else None),
+    "replicated_digest": replicated.hexdigest(),
     "microbatches": getattr(trainer.model, "num_microbatches", None),
     "backend": trainer.rt.backend, "device": str(trainer.rt.device),
     "threads": torch.get_num_threads(),
@@ -4755,7 +4818,7 @@ REPLICA_PRELOAD = ["numpy", "torch", "dtf_tpu_torch.cli.replica_main",
                    "dtf_tpu_torch.obs.trace"]
 
 
-# what a launcher rank of phases 9, 11 and 15-18 imports (DP_RANK,
+# what a launcher rank of phases 9, 11 and 15-20 imports (DP_RANK,
 # RECOVERY_RANK, PS_RANK): the forkserver imports it once for every
 # such rank
 RANK_PRELOAD = ["dtf_tpu_torch.cli.runner", "dtf_tpu_torch.cli.lm_main",
@@ -4948,30 +5011,45 @@ class ReplicaForkServer:
         self.spawned += 1
         return ForkedReplica(proc)
 
+    @staticmethod
+    def helper_pids() -> dict:
+        """The pids of the forkserver and of the resource tracker that
+        ``start`` began (None where not running): this process's
+        children."""
+        from multiprocessing import forkserver, resource_tracker
+        return {"forkserver": forkserver._forkserver._forkserver_pid,
+                "resource_tracker": resource_tracker._resource_tracker._pid}
+
     def stop(self) -> None:
-        """End the forkserver; its children are the routers' to stop."""
-        from multiprocessing import forkserver
-        stop = getattr(forkserver._forkserver, "_stop", None)
-        if stop is not None:
-            stop()
+        """End the forkserver, then the resource tracker ``start``
+        began, each waited for: a helper left to exit after this process
+        would outlive it as a zombie no one reaps.  The forkserver's
+        children are the routers' to stop."""
+        from multiprocessing import forkserver, resource_tracker
+        for helper in (forkserver._forkserver,
+                       resource_tracker._resource_tracker):
+            stop = getattr(helper, "_stop", None)
+            if stop is not None:
+                stop()
 
 
 @contextlib.contextmanager
-def fleet_depth(layers=None):
-    """``transformer_tpu`` at ``layers`` (``FLEET_LAYERS``) of its 12
-    layers, every width kept, in this process while phases 13-14 run
-    (their references and exports; each forked replica applies the
-    same, :func:`fleet_replica_child`) or phase 11's LM worker."""
+def fleet_depth(layers=None, model: str = "transformer_tpu"):
+    """``model`` (``transformer_tpu``) at ``layers`` (``FLEET_LAYERS``)
+    of its 12 layers, every width kept, in this process while phases
+    13-14 run (their references and exports; each forked replica
+    applies the same, :func:`fleet_replica_child`), phase 11's LM
+    worker, or the world-1 twins of phases 16 and 19."""
     from dtf_tpu_torch.models import registry
-    kept = registry._REGISTRY["transformer_tpu"]
+    kept = registry._REGISTRY[model]
     ctor, classes, l2 = kept
-    registry._REGISTRY["transformer_tpu"] = (
+    registry._REGISTRY[model] = (
         functools.partial(ctor, num_layers=layers or FLEET_LAYERS),
         classes, l2)
     try:
         yield
     finally:
-        registry._REGISTRY["transformer_tpu"] = kept
+        registry._REGISTRY[model] = kept
 
 
 # phases 13-14 run transformer_tpu at 6 of its 12 layers, every width
@@ -6332,6 +6410,12 @@ def zero_stages(torch, seed: int, card: str, model_argv=None,
 # ---------------------------------------------------------------------------
 
 TP_BATCH = 2             # global at data 1: TP_SHAPE's batch
+# the TP training runs (their world-1 twins, the serving of their
+# checkpoint) and the f32 serve_tp 2 / 1 comparison at 6 of
+# transformer_tpu's 12 layers, every width kept, as phases 15, 17 and 18
+# run: room for phase 20 within the script's budget; none of their
+# gates depends on depth (the bf16 burst stays phase 4's, 12 layers)
+TP_LAYERS = DP_LM_LAYERS
 TP_STEPS_F32 = 3
 TP_STEPS_BF16 = 6
 # f32 losses: the TP run against world 1, --shard_lm_head against the
@@ -6440,7 +6524,8 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
 
     def spec(args, backend="gloo", **kw):
         return {"main": "lm_main", "defaults": "LM_DEFAULTS",
-                "backend": backend, "argv": args, **kw}
+                "backend": backend, "argv": args, "layers": TP_LAYERS,
+                **kw}
 
     f32 = tp_lm_argv(seed, "fp32", TP_STEPS_F32)
     bf16 = tp_lm_argv(seed, "bf16", TP_STEPS_BF16)
@@ -6467,13 +6552,15 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
                 overlapped(tp_cli_refusal, seed)]
             # (b) meanwhile in this process: f32 greedy, serve_tp 2 and 1
             prompts = tp_prompts(seed, TP_SERVE_REQUESTS)
-            one, heads1 = tp_serve_tokens(torch, Config(**serve_cfg),
-                                          prompts, TP_SERVE_NEW)
-            tp2, heads2 = tp_serve_tokens(
-                torch, Config(serve_tp=2, **serve_cfg), prompts,
-                TP_SERVE_NEW, two)
+            with fleet_depth(TP_LAYERS):
+                one, heads1 = tp_serve_tokens(torch, Config(**serve_cfg),
+                                              prompts, TP_SERVE_NEW)
+                tp2, heads2 = tp_serve_tokens(
+                    torch, Config(serve_tp=2, **serve_cfg), prompts,
+                    TP_SERVE_NEW, two)
             stamps = {"served_f32": time.time() - t0}
-            off32 = [tp_lm_here(torch, f32 + off + skip)]
+            with fleet_depth(TP_LAYERS):
+                off32 = [tp_lm_here(torch, f32 + off + skip)]
             stamps["off_f32"] = time.time() - t0
             # the timed TP run's ranks start now (the runs that started
             # with the phase done or past their start), build, and wait
@@ -6503,14 +6590,16 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
             # its own
             ck_prompts = prompts[:TP_CKPT_REQUESTS]
             ck_cfg = dict(serve_cfg, model_dir=resume)
-            served = [overlapped(tp_serve_tokens, torch,
-                                 Config(serve_tp=n, **ck_cfg), ck_prompts,
-                                 TP_CKPT_NEW, two if n > 1 else None)
-                      for n in (1, 2)]
-            resumed = [tp_lm_here(torch, f32 + off + skip + [
-                "--model_dir", resume, "--resume"])]
-            stamps["resumed"] = time.time() - t0
-            (ck1, _), (ck2, ck_heads) = gathered(served)
+            with fleet_depth(TP_LAYERS):
+                served = [overlapped(tp_serve_tokens, torch,
+                                     Config(serve_tp=n, **ck_cfg),
+                                     ck_prompts, TP_CKPT_NEW,
+                                     two if n > 1 else None)
+                          for n in (1, 2)]
+                resumed = [tp_lm_here(torch, f32 + off + skip + [
+                    "--model_dir", resume, "--resume"])]
+                stamps["resumed"] = time.time() - t0
+                (ck1, _), (ck2, ck_heads) = gathered(served)
             stamps["served_checkpoint"] = time.time() - t0
             tp32, vocab, cli = gathered(futs)
         finally:
@@ -6521,7 +6610,8 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
         # the timed runs, alone
         t0 = time.time()
         tpbf = timed_tp.result()
-        offbf = [tp_lm_here(torch, bf16 + off + skip)]
+        with fleet_depth(TP_LAYERS):
+            offbf = [tp_lm_here(torch, bf16 + off + skip)]
         serve2 = serve_bf16(torch, seed, per_call, 2, two)
         timed_s = time.time() - t0
 
@@ -6529,7 +6619,7 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
     gap_tp = rel_gap(tp32[0]["losses"], ref)
     gap_vocab = rel_gap(vocab[0]["losses"], tp32[0]["losses"])
     gap_resume = rel_gap(resumed[0]["losses"], tp32[0]["losses"][2:])
-    k_f32, k_bf16 = 12 * TP_STEPS_F32, 12 * TP_STEPS_BF16
+    k_f32, k_bf16 = TP_LAYERS * TP_STEPS_F32, TP_LAYERS * TP_STEPS_BF16
 
     def launches_ok(ranks, k):
         return all(r["launches"]["K1"] == r["launches"]["K3"] == k
@@ -6543,7 +6633,7 @@ def tensor_parallel(torch, seed: int, card: str, per_call,
 
     line = {
         "phase": "tensor_parallel", "card": card, "model": "transformer_tpu",
-        "model_parallelism": 2, "heads_per_shard": 3, "d_ff_per_shard":
+        "layers_trained": TP_LAYERS, "model_parallelism": 2, "heads_per_shard": 3, "d_ff_per_shard":
         1536, "vocab_per_shard": 16384, "seq": TP_SHAPE[1],
         "global_batch": TP_BATCH, "optimizer": "adamw",
         "loss_rtol": TP_LOSS_RTOL,
@@ -7119,7 +7209,10 @@ def sequence_parallel(torch, seed: int, card: str, spawn=None) -> dict:
 PP_STEPS_F32 = 3
 PP_STEPS_BF16 = 6
 PP_BATCH = 8             # global at data 1: the auto M = 4 pp = 8, mb 1
-PP_LAYERS = 12           # pipeline_transformer's full depth
+# pipeline_transformer at 8 of its 12 layers (4 a stage, 2 a chunk
+# interleaved), every width kept: PP is no longer the newest path, and
+# none of its gates depends on depth (its counts follow PP_LAYERS)
+PP_LAYERS = 8
 # f32 losses of the two stages (the same function, its sums in another
 # order: microbatches of one sequence) against world 1; the gate TP's
 # phase 16 and SP's phase 18 hold
@@ -7171,7 +7264,8 @@ def pipeline_parallel(torch, seed: int, card: str, spawn=None) -> dict:
 
     def spec(args, **kw):
         return {"main": "lm_main", "defaults": "LM_DEFAULTS",
-                "backend": "gloo", "argv": args, **kw}
+                "backend": "gloo", "argv": args, "layers": PP_LAYERS,
+                "layers_model": "pipeline_transformer", **kw}
 
     f32 = pp_lm_argv(seed, "fp32", PP_STEPS_F32)
     bf16 = pp_lm_argv(seed, "bf16", PP_STEPS_BF16)
@@ -7192,7 +7286,8 @@ def pipeline_parallel(torch, seed: int, card: str, spawn=None) -> dict:
         try:
             pp32 = overlapped(zero_launch, spec(f32 + grid), 2, root,
                               "pp f32", spawn=spawn)
-            off32 = tp_lm_here(torch, f32 + off)
+            with fleet_depth(PP_LAYERS, "pipeline_transformer"):
+                off32 = tp_lm_here(torch, f32 + off)
             # the timed runs' ranks start now, build, and wait for their
             # go until the f32 run is done
             timed = {n: overlapped(zero_launch, spec(
@@ -7212,7 +7307,8 @@ def pipeline_parallel(torch, seed: int, card: str, spawn=None) -> dict:
             for n in gos:
                 if n not in runs:
                     go(n)
-        offbf = tp_lm_here(torch, bf16 + off)
+        with fleet_depth(PP_LAYERS, "pipeline_transformer"):
+            offbf = tp_lm_here(torch, bf16 + off)
         timed_s = time.time() - t0
 
     s, d = TRAIN_SHAPE[1], 512
@@ -7278,7 +7374,7 @@ def pipeline_parallel(torch, seed: int, card: str, spawn=None) -> dict:
         "tp_region_allreduce_bytes_per_step": PP_BATCH * s * d * 2,
         "correct_wall_s": correct_s, "timed_wall_s": timed_s}
     emit(line)
-    k_off = 12 * PP_STEPS_BF16
+    k_off = PP_LAYERS * PP_STEPS_BF16
     every = pp32 + runs["gpipe"] + runs["interleave"]
     gates = {
         "pp_f32_vs_off": gap <= PP_LOSS_RTOL,
@@ -7304,6 +7400,220 @@ def pipeline_parallel(torch, seed: int, card: str, spawn=None) -> dict:
         k: [r["launches"][k] for r in runs["interleave"]]
         for k in ("K1", "K2a", "K2b", "K3")}
     line["launches_pp_twin"] = offbf["launches"]
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 20: expert parallelism (models/moe.py, parallel/collectives.py
+# all_to_all, the Trainer's expert leaves)
+# ---------------------------------------------------------------------------
+
+EP_BATCH = 4             # global at data 2: two sequences a rank
+EP_TWIN_BATCH = 2        # the world-1 twin: one rank's batch
+EP_STEPS_F32 = 3
+EP_STEPS_BF16 = 6
+EP_LAYERS = 12           # moe_transformer's full depth, 6 MoE blocks
+# f32 losses of the two ranks (the same function: each rank's copy of
+# the synthetic batch, its slot rows exchanged with its peer's) against
+# world 1; the gate phases 16, 18 and 19 hold
+EP_LOSS_RTOL = 1e-4
+
+
+def ep_lm_argv(seed: int, dtype: str, steps: int, batch: int) -> list:
+    return ["--use_synthetic_data", "--device", "cuda", "--model",
+            "moe_transformer", "--dtype", dtype, "--batch_size",
+            str(batch), "--train_steps", str(steps), "--log_steps", "1",
+            "--seed", str(seed), "--step_time_guard_factor", "0"]
+
+
+def ep_prediction(experts: int, tokens: int, d: int, top_k: int,
+                  cf: float, moe_blocks: int, itemsize: int) -> dict:
+    """A data-axis expert rank's exchanges a training step as
+    ``models/moe.py`` makes them: two all_to_all a MoE block forward and
+    two backward, each the rank's [E, C, d] slot rows, C = max(1, min(n,
+    round(cf k n / E))) for its n tokens."""
+    cap = max(1, min(tokens, int(round(cf * top_k * tokens / experts))))
+    calls = 4 * moe_blocks
+    return {"capacity": cap, "calls": calls,
+            "bytes": calls * experts * cap * d * itemsize}
+
+
+def ep_dispatch_twice(torch, seed: int) -> dict:
+    """(d): one MoEMLP of moe_transformer (8 experts, d 512, d_ff 2048,
+    top-2, capacity factor 1.25) forward and backward on the card at a
+    rank's shape, [2, 2048, 512] bf16, twice: the output and every
+    gradient bit for bit (the scatter's one writer a row)."""
+    from dtf_tpu_torch.models.moe import MoEMLP
+    from dtf_tpu_torch.serve.bridge import random_init
+
+    gen = torch.Generator().manual_seed(seed + 20)
+    layer = random_init(MoEMLP(512, 8, 2048, dtype=torch.bfloat16),
+                        seed + 20).cuda().train()
+    x = torch.randn(2, 2048, 512, generator=gen).to("cuda", torch.bfloat16)
+    dy = torch.randn(2, 2048, 512, generator=gen).to("cuda", torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_()
+        layer.zero_grad(set_to_none=True)
+        y = layer(xi)
+        y.backward(dy)
+        runs.append([y.detach(), xi.grad] + [p.grad for p in
+                                             layer.parameters()])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    out = {"shape": [2, 2048, 512], "dtype": "bfloat16",
+           "bit_identical": same, "tensors": len(runs[0]),
+           "dropped_share": float(layer.dropped) / layer.routed,
+           "finite": all(bool(torch.isfinite(t).all()) for t in runs[0])}
+    del layer, x, dy, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_parallel(torch, seed: int, card: str, spawn=None) -> dict:
+    """Phase 20 (see the module's docstring): ``lm_main --model
+    moe_transformer`` at full width and depth (12 layers, 8 experts in
+    every second block, top-2, capacity factor 1.25), S 2048, AdamW, two
+    gloo ranks sharing the card: (a) f32, 3 steps, experts over the data
+    axis (data 2, global batch 4), both ranks against the world-1 twin
+    at batch 2 in this process; (b) f32, 3 steps, experts over the model
+    axis (``--model_parallelism 2``, data 1, global batch 2) against the
+    same twin; (c) bf16, 6 steps, experts over data, timed alone beside
+    the bf16 twin: step p50, each rank's peak memory, the exchanges and
+    K1/K3 a step, the share of routed tokens dropped, the replicated
+    leaves' digests across the ranks; (d) :func:`ep_dispatch_twice`."""
+    import tempfile
+
+    def spec(args, **kw):
+        return {"main": "lm_main", "defaults": "LM_DEFAULTS",
+                "backend": "gloo", "argv": args, **kw}
+
+    grid = ["--distribution_strategy", "multi_worker_mirrored",
+            "--skip_checkpoint"]
+    off = ["--distribution_strategy", "off", "--skip_checkpoint"]
+    f32 = ep_lm_argv(seed, "fp32", EP_STEPS_F32, EP_BATCH) + grid
+    f32_model = ep_lm_argv(seed, "fp32", EP_STEPS_F32, EP_TWIN_BATCH) + \
+        grid + ["--model_parallelism", "2"]
+    bf16 = ep_lm_argv(seed, "bf16", EP_STEPS_BF16, EP_BATCH) + grid
+    twin32 = ep_lm_argv(seed, "fp32", EP_STEPS_F32, EP_TWIN_BATCH) + off
+    twinbf = ep_lm_argv(seed, "bf16", EP_STEPS_BF16, EP_TWIN_BATCH) + off
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        go = os.path.join(root, "ep_bf16.go")
+        bfr = None
+        try:
+            futs = [overlapped(zero_launch, spec(f32), 2, root, "ep f32",
+                               spawn=spawn),
+                    overlapped(zero_launch, spec(f32_model), 2, root,
+                               "ep f32 model", spawn=spawn)]
+            off32 = tp_lm_here(torch, twin32)
+            dispatch = ep_dispatch_twice(torch, seed)
+            # the timed run's ranks start now, build, and wait for their
+            # go until the correctness runs are done
+            timed = overlapped(zero_launch, spec(bf16, go=go), 2, root,
+                               "ep bf16", spawn=spawn)
+            ep32, model32 = gathered(futs)
+            correct_s = time.time() - t0
+            t0 = time.time()
+            with open(go, "w"):
+                pass
+            bfr = timed.result()
+        finally:
+            # the timed ranks run (and end) whatever happened here
+            if bfr is None:
+                with open(go, "w"):
+                    pass
+        offbf = tp_lm_here(torch, twinbf)
+        timed_s = time.time() - t0
+
+    d, moe_blocks = 512, EP_LAYERS // 2
+    tokens = EP_BATCH // 2 * TRAIN_SHAPE[1]
+    want32 = ep_prediction(8, tokens, d, 2, 1.25, moe_blocks, 4)
+    wantbf = ep_prediction(8, tokens, d, 2, 1.25, moe_blocks, 2)
+
+    def per_step(r, steps):
+        return {"all_to_all": {k: r["all_to_all"][k] / steps
+                               for k in ("calls", "bytes")},
+                "K1": r["launches"]["K1"] / steps,
+                "K3": r["launches"]["K3"] / steps,
+                "K2a": r["launches"]["K2a"], "K2b": r["launches"]["K2b"]}
+
+    def as_predicted(r, steps, want):
+        got = per_step(r, steps)
+        return (got["all_to_all"] == {k: want[k] for k in ("calls", "bytes")}
+                and got["K1"] == got["K3"] == EP_LAYERS
+                and got["K2a"] == got["K2b"] == 0)
+
+    ref = off32["losses"]
+    gaps = [rel_gap(r["losses"], ref) for r in ep32]
+    gaps_model = [rel_gap(r["losses"], ref) for r in model32]
+    line = {
+        "phase": "expert_parallel", "card": card, "model": "moe_transformer",
+        "layers": EP_LAYERS, "moe_blocks": moe_blocks, "experts": 8,
+        "top_k": 2, "capacity_factor": 1.25, "seq": TRAIN_SHAPE[1],
+        "global_batch": EP_BATCH, "twin_batch": EP_TWIN_BATCH,
+        "optimizer": "adamw", "loss_rtol": EP_LOSS_RTOL,
+        "backend": "gloo (two ranks share the card; the slot rows and the "
+                   "gradient all-reduce ride the host)",
+        "train_f32_data": {
+            "steps": EP_STEPS_F32, "losses": [r["losses"] for r in ep32],
+            "losses_off": ref, "loss_rel_gap_to_off": gaps,
+            "per_step": [per_step(r, EP_STEPS_F32) for r in ep32],
+            "predicted": want32,
+            "dropped_share": [r["moe_dropped_share"] for r in ep32]},
+        "train_f32_model_axis": {
+            "steps": EP_STEPS_F32, "losses": [r["losses"] for r in model32],
+            "loss_rel_gap_to_off": gaps_model,
+            "per_step": [per_step(r, EP_STEPS_F32) for r in model32]},
+        "train_bf16": {
+            "steps": EP_STEPS_BF16,
+            "step_s_p50": [statistics.median(r["window_step_s"])
+                           for r in bfr],
+            "step_s_p50_off": statistics.median(offbf["window_step_s"]),
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in bfr],
+            "peak_memory_bytes_off": offbf["peak_memory_bytes"],
+            "losses": [r["losses"] for r in bfr],
+            "losses_off": offbf["losses"],
+            "per_step": [per_step(r, EP_STEPS_BF16) for r in bfr],
+            "predicted": wantbf,
+            "dropped_share": [r["moe_dropped_share"] for r in bfr],
+            "replicated_digests": [r["replicated_digest"] for r in bfr],
+            "launches": [r["launches"] for r in bfr],
+            "launches_off": offbf["launches"],
+            "wall_s": [r["wall_s"] for r in bfr]},
+        "dispatch_twice": dispatch,
+        "correct_wall_s": correct_s, "timed_wall_s": timed_s}
+    emit(line)
+    k_off = EP_LAYERS * EP_STEPS_BF16
+    gates = {
+        "ep_f32_vs_off": max(gaps) <= EP_LOSS_RTOL,
+        "model_axis_f32_vs_off": max(gaps_model) <= EP_LOSS_RTOL,
+        "grid": (all(r["replicas"] == 2 and r["model_parallelism"] == 1
+                     for r in ep32 + bfr)
+                 and all(r["replicas"] == 1 and r["model_parallelism"] == 2
+                         for r in model32)),
+        "as_predicted": (
+            all(as_predicted(r, EP_STEPS_F32, want32) for r in ep32)
+            and all(as_predicted(r, EP_STEPS_BF16, wantbf) for r in bfr)
+            and all(as_predicted(r, EP_STEPS_F32, {"calls": 0, "bytes": 0})
+                    for r in model32)),
+        "ranks_bit_equal": all(r[0]["losses"] == r[1]["losses"]
+                               for r in (ep32, model32, bfr)),
+        "replicated_digests_equal": all(
+            r[0]["replicated_digest"] == r[1]["replicated_digest"]
+            for r in (ep32, bfr)),
+        "twin_launches": (offbf["launches"]["K1"] == k_off
+                          and offbf["launches"]["K3"] == k_off),
+        "dispatch_bit_identical": dispatch["bit_identical"]
+        and dispatch["finite"],
+        "finite": all(math.isfinite(v) for r in ep32 + model32 + bfr
+                      for v in r["losses"])}
+    emit({"phase": "expert_parallel_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"expert_parallel: {gates}")
+    line["launches_ep"] = {k: [r["launches"][k] for r in bfr]
+                           for k in ("K1", "K2a", "K2b", "K3")}
+    line["launches_ep_twin"] = offbf["launches"]
     return line
 
 
@@ -7362,6 +7672,7 @@ def main(argv=None) -> int:
     check_peaked(torch, gen)
     tp_cases = check_tp_kernels(torch, timer, gen)
     pp_cases = check_pp_kernels(torch, timer, gen)
+    ep_cases = check_ep_kernels(torch, timer, gen)
     clock.done("2")
 
     # phases 3 and 4: the serving path
@@ -7385,12 +7696,13 @@ def main(argv=None) -> int:
     resnet_step_s = train_resnet(torch, timer, args.seed, card)
     clock.done("7")
 
-    # the launcher ranks of phases 9, 11 and 15-18 and the replicas of
+    # the launcher ranks of phases 9, 11 and 15-20 and the replicas of
     # phases 13-14 fork from one pre-imported spawner, which imports
     # beside phase 8's processes' own imports (before any timed turn);
     # it ends with this process
     forks = ReplicaForkServer().start()
     atexit.register(forks.stop)
+    emit({"phase": "spawner", **forks.helper_pids()})
 
     # phase 8: data parallelism (K1 and K3 on the LM's path)
     dp = train_data_parallel(torch, args.seed, card)
@@ -7496,6 +7808,15 @@ def main(argv=None) -> int:
               "its world-1 twin (launches_pp_twin)")
     clock.done("19")
 
+    # phase 20: expert parallelism (K1 and K3 at [2, 2048, 8, 64] in
+    # every block of each rank; the experts' products, the dispatch and
+    # the exchange in plain torch, as XLA computes them)
+    ep = expert_parallel(torch, args.seed, card, spawn=forks.rank_spawn)
+    ep_run = ("phase 20: both ranks of lm_main moe_transformer, experts "
+              "over data 2, bf16, 6 steps (launches_ep), and its world-1 "
+              "twin at batch 2 (launches_ep_twin)")
+    clock.done("20")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -7576,7 +7897,10 @@ def main(argv=None) -> int:
               launches_pp=pp["launches_pp"]["K1"],
               launches_pp_interleave=pp["launches_pp_interleave"]["K1"],
               launches_pp_twin=pp["launches_pp_twin"]["K1"],
-              launches_pp_run=pp_run, pp_case=pp_cases["K1"]),
+              launches_pp_run=pp_run, pp_case=pp_cases["K1"],
+              launches_ep=ep["launches_ep"]["K1"],
+              launches_ep_twin=ep["launches_ep_twin"]["K1"],
+              launches_ep_run=ep_run, ep_case=ep_cases["K1"]),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -7635,6 +7959,9 @@ def main(argv=None) -> int:
               launches_pp_interleave=pp["launches_pp_interleave"]["K3"],
               launches_pp_twin=pp["launches_pp_twin"]["K3"],
               launches_pp_run=pp_run, pp_case=pp_cases["K3"],
+              launches_ep=ep["launches_ep"]["K3"],
+              launches_ep_twin=ep["launches_ep_twin"]["K3"],
+              launches_ep_run=ep_run, ep_case=ep_cases["K3"],
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",

@@ -33,7 +33,7 @@ under ``horovod`` and ``parameter_server``, where it is per replica
 global batch over the data-parallel replicas (under
 ``--model_parallelism`` every model rank of a replica reads its data
 index's share, and a transformer is the rank's model shard, a pipeline
-LM its pipeline stage; under
+LM its pipeline stage, a MoE LM its expert shard; under
 ``--seq_parallelism`` every seq rank of a replica reads the replica's
 batch and keeps its own columns of a sequence batch, tokens and labels
 alike: seq rank i the columns [i S/sp, (i+1) S/sp), the labels as the
@@ -49,9 +49,12 @@ ResNets, ``--use_trivial_model``'s probe) draw their float32 parameters
 from ``--seed`` with their own flax initializers (``init_weights``) and
 are laid out ``torch.channels_last`` on ``--device``; their run sets
 ``torch.backends.cudnn.deterministic``, so the step is as deterministic
-as XLA's.  The transformer and pipeline LMs draw theirs with
+as XLA's.  The transformer, pipeline and MoE LMs draw theirs with
 ``serve.bridge.random_init``, the pipeline family with the JAX
-runner's schedule rules (:func:`pipeline_kw`).  Input: the synthetic
+runner's schedule rules (:func:`pipeline_kw`), the MoE family with the
+MoE flags given and its experts placed by the JAX runner's rule
+(:func:`expert_place`: over the data axis, two all_to_all a MoE layer,
+or over the model axis under ``--model_parallelism``).  Input: the synthetic
 stream for every dataset, CIFAR-10 binary files under ``--data_dir``,
 and ImageNet TFRecord shards under ``--data_dir``, on the uint8 wire
 (normalized on the device by the Trainer) or the float32 one;
@@ -87,8 +90,9 @@ from dtf_tpu_torch.config import parse_flags
 from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
 from dtf_tpu_torch.data.normalize import for_config
 from dtf_tpu_torch.data.pipeline import DevicePrefetcher
-from dtf_tpu_torch.models.registry import (build_model, is_pipeline,
-                                           is_vision)
+from dtf_tpu_torch.models.partition import shard_for
+from dtf_tpu_torch.models.registry import (build_model, is_moe,
+                                           is_pipeline, is_vision)
 from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.runtime.mesh import (LOCAL_STRATEGIES, MeshRuntime,
                                         initialize, mirrored_world)
@@ -232,16 +236,42 @@ def pipeline_kw(cfg, per_replica_batch: int) -> dict:
     return kw
 
 
+def moe_kw(cfg) -> dict:
+    """The MoE family's model arguments from the flags given (None
+    defers to the preset's own: moe_transformer_small's 4 experts)."""
+    return {k: v for k, v in dict(
+        num_experts=cfg.num_experts,
+        capacity_factor=cfg.moe_capacity_factor,
+        aux_weight=cfg.moe_aux_weight,
+        router_top_k=cfg.moe_top_k).items() if v is not None}
+
+
+def expert_place(cfg, model_index: int, data_index: int,
+                 data_parallelism: int) -> dict:
+    """The MoE family's placement, the JAX runner's rule: experts over
+    the model axis under ``--model_parallelism`` > 1 (the batch
+    replicated over it), else over the data axis."""
+    mp = max(int(cfg.model_parallelism), 1)
+    if mp > 1:
+        return dict(expert_axis="model", expert_parallelism=mp,
+                    expert_index=model_index)
+    return dict(expert_axis="data", expert_parallelism=data_parallelism,
+                expert_index=data_index)
+
+
 def build_model_for(cfg, spec, device, bn_group=None, model_index=0,
-                    per_replica_batch=None):
+                    per_replica_batch=None, data_index=0,
+                    data_parallelism=1):
     """(model on ``device`` with its seeded weights, l2 weight);
     ``bn_group`` makes a vision model's BatchNorms sync BN.  Under
     ``--model_parallelism`` a transformer is model shard
     ``model_index`` (the rank's, ``MeshRuntime.model_index``) and a
-    pipeline LM pipeline stage ``model_index``: the full model's seeded
-    weights, cut by the model's partition rule (``split``).  The
-    pipeline's auto microbatch count divides ``per_replica_batch``
-    (default: the global batch)."""
+    pipeline LM pipeline stage ``model_index``; a MoE LM is the rank's
+    expert shard (:func:`expert_place`: ``model_index`` on the model
+    axis, else ``data_index`` of ``data_parallelism``): the full
+    model's seeded weights, cut by the model's partition rule
+    (``split``).  The pipeline's auto microbatch count divides
+    ``per_replica_batch`` (default: the global batch)."""
     name = "trivial" if cfg.use_trivial_model else cfg.model
     mp = max(int(cfg.model_parallelism), 1)
     if cfg.shard_lm_head and (mp == 1 or not name.startswith("transformer")):
@@ -272,13 +302,25 @@ def build_model_for(cfg, spec, device, bn_group=None, model_index=0,
             model_kw.update(pipeline_kw(
                 cfg, cfg.batch_size if per_replica_batch is None
                 else per_replica_batch))
+        if is_moe(name):
+            model_kw.update(moe_kw(cfg))
     model, l2 = build_model(name, num_classes=spec.num_classes,
                             dtype=cfg.compute_dtype, bn_group=bn_group,
                             **model_kw)
+    if is_moe(name):
+        place = expert_place(cfg, model_index, data_index,
+                             data_parallelism)
+        # the full model's draws, whatever this rank's experts
+        random_init(model, cfg.seed)
+        _check_expert_world(model, place)
+        full = model.state_dict()
+        model, _ = build_model(name, num_classes=spec.num_classes,
+                               dtype=cfg.compute_dtype, **model_kw, **place)
+        model.load_state_dict(shard_for(model, full))
+        return model.to(device), l2
     if not is_vision(name):
         random_init(model, cfg.seed)
         if mp > 1:
-            from dtf_tpu_torch.models.partition import shard_for
             if not is_pipeline(name):
                 model_kw["shard_vocab"] = cfg.shard_lm_head
             full = model.state_dict()
@@ -296,6 +338,23 @@ def build_model_for(cfg, spec, device, bn_group=None, model_index=0,
         torch.backends.cudnn.benchmark = False
     model = model.init_weights(cfg.seed)
     return model.to(device, memory_format=torch.channels_last), l2
+
+
+def _check_expert_world(full, place: dict) -> None:
+    """A world whose expert axis does not divide the experts (an elastic
+    resume's) is refused naming each expert leaf, before any shard is
+    built (``train/elastic.py check_reshardable``)."""
+    from dtf_tpu_torch.models.moe import expert_rule
+    axis = place["expert_axis"]
+    names = [n for n, _ in full.named_parameters()]
+    problems = elastic.check_reshardable(
+        {n: expert_rule(n) for n in names},
+        {n: tuple(p.shape) for n, p in full.named_parameters()},
+        {axis: place["expert_parallelism"]}, {n: axis for n in names})
+    if problems:
+        raise ValueError("model cannot shard onto this world (an elastic "
+                         "resume must refuse, not garble): "
+                         + "; ".join(problems))
 
 
 def build_training(cfg, runtime: Optional[MeshRuntime] = None):
@@ -318,7 +377,8 @@ def build_training(cfg, runtime: Optional[MeshRuntime] = None):
         cfg, spec, rt.device,
         bn_group=rt.data_group if cfg.sync_bn else None,
         model_index=rt.model_index,
-        per_replica_batch=global_batch // rt.num_replicas)
+        per_replica_batch=global_batch // rt.num_replicas,
+        data_index=rt.data_index, data_parallelism=rt.num_replicas)
     trainer = Trainer(cfg, model, l2, spec,
                       normalize_fn=for_config(cfg, spec), runtime=rt)
     train_fn, eval_fn = make_input_fns(cfg, spec, global_batch, rt)
@@ -434,7 +494,7 @@ def _checkpointing(cfg, trainer: Trainer, rt: MeshRuntime, state):
                             every_steps=cfg.checkpoint_steps,
                             host_state_fn=host_state_fn,
                             keep=cfg.checkpoint_keep, runtime=rt,
-                            collective=trainer.zero or trainer.tp)
+                            collective=trainer.collective_state)
     if not cfg.resume:
         return cb, state, 0
     payload = cb.ckpt.restore()
@@ -516,7 +576,7 @@ def _run(cfg, rt: MeshRuntime) -> dict:
             and not cfg.use_synthetic_data:
         from dtf_tpu_torch import native
         stats["input_decode"] = native.decode_path()
-    if cfg.export_dir and trainer.tp:
+    if cfg.export_dir and (trainer.tp or trainer.ep):
         # the full model's leaves, gathered from every shard
         flat = trainer.inference_flat(state)
         if rt.is_coordinator:

@@ -7,8 +7,9 @@ also accepts and ignores), or a key of ``NOT_PORTED``, whose message
 names the subsystem not ported yet.
 
 The fields the ported paths read: the model and its dtype (fp16 for
-the vision families only -- the transformer and pipeline families run
-the attention kernels -- behind the JAX loss-scale rule), the seed,
+the vision families only -- the transformer, pipeline and MoE
+families run the attention kernels -- behind the JAX loss-scale rule),
+the seed,
 the device, the training fields of ``cli/lm_main.py``,
 ``cli/cifar_main.py`` and ``cli/imagenet_main.py`` (dataset, input wire
 and layout, batch, steps, optimizer, loss scaling, accumulation,
@@ -48,10 +49,12 @@ picks the CPU on its own) and ``serve_params_npz`` (flax params saved
 as an ``.npz``, see ``serve/bridge.py``).  Tensor parallelism's
 fields (``model_parallelism``, ``shard_lm_head``, ``serve_tp``) and
 sequence parallelism's (``seq_parallelism``: ring attention over the
-'seq' axis) and pipeline parallelism's (``num_microbatches``,
-``pipeline_interleave``) are the JAX package's, with its validation.
-Flags of features not ported yet (expert parallelism, the planner)
-raise with a message that says so; any other unknown flag raises too.
+'seq' axis), pipeline parallelism's (``num_microbatches``,
+``pipeline_interleave``) and expert parallelism's (``num_experts``,
+``moe_capacity_factor``, ``moe_aux_weight``, ``moe_top_k``) are the
+JAX package's, with its validation.  Flags of a feature not ported yet
+(the planner) raise with a message that says so; any other unknown
+flag raises too.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ DTYPES = {"fp32": torch.float32, "float32": torch.float32,
 # so fp16 trains the vision families (cuDNN convolutions) alone
 _FP16 = ("fp16", "float16")
 # the model families that run the attention kernels
-_ATTENTION_FAMILIES = ("transformer", "pipeline_transformer")
+_ATTENTION_FAMILIES = ("transformer", "pipeline_transformer",
+                       "moe_transformer")
 
 # reference-compat flags the JAX Config declares and ignores; the port
 # accepts and ignores them too
@@ -80,13 +84,10 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "batchnorm_spatial_persistent", "image_bytes_as_serving_input",
           "enable_eager", "verbose")
 
-_MP = "model parallelism (expert)"
 # flags of the JAX package whose features the port does not have yet
 NOT_PORTED = {
     "plan": "the planner", "plan_mesh": "the planner",
     "plan_cache": "the planner",
-    **{name: _MP for name in ("num_experts", "moe_capacity_factor",
-                              "moe_aux_weight", "moe_top_k")},
 }
 
 # literal copy of serve/router.py PLACEMENTS: Config imports without the
@@ -152,6 +153,13 @@ class Config:
     # per-replica batch), and 2 for two virtual stages a rank
     num_microbatches: Optional[int] = None
     pipeline_interleave: int = 1
+    # mixture of experts (the moe_transformer family, models/moe.py;
+    # experts over the data axis, or the model axis under
+    # --model_parallelism).  None: the model preset's own value
+    num_experts: Optional[int] = None
+    moe_capacity_factor: Optional[float] = None
+    moe_aux_weight: Optional[float] = None
+    moe_top_k: Optional[int] = None     # router choices: 1 Switch, 2 GShard
 
     # --- training (cli/lm_main.py -> cli/runner.py -> train/loop.py) ---
     dataset: str = ""                   # lm | cifar10 | imagenet
@@ -427,6 +435,8 @@ class Config:
         if self.seq_parallelism < 1:
             raise ValueError(f"seq_parallelism must be >= 1, got "
                              f"{self.seq_parallelism}")
+        if self.moe_top_k is not None and self.moe_top_k < 1:
+            raise ValueError(f"moe_top_k must be >= 1, got {self.moe_top_k}")
         if self.pipeline_interleave not in (1, 2):
             raise ValueError(
                 f"pipeline_interleave must be 1 or 2, got "

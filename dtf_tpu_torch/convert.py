@@ -19,14 +19,19 @@ rules:
 
 A vision model's flax path of a leaf is its torch module path with "/"
 for "."; the transformer's names follow the flax module tree
-(``block{i}/attn/qkv``, ...).  The pipeline family's parameters carry
+(``block{i}/attn/qkv``, ...), and so do the MoE LM's: its dense blocks
+are the transformer's, its MoE blocks carry ``block{i}/moe/router``
+(a Dense) and ``block{i}/moe/{w1,b1,w2,b2}`` in the flax layout as they
+are ([E, d, d_ff], ...).  The pipeline family's parameters carry
 the flax names and layouts themselves (``embed``, ``qkv_k`` [L, d,
 3 H Dh], ``head_k`` [d, V], ...): each maps to ``params/<name>`` as it
 is.
 
-A model shard -- a tensor-parallel shard or a pipeline stage, whose
-``split`` names each leaf's sharded dimension -- takes its own part of
-a full leaf (its stage's layers of a stacked one); a leaf already at
+A model shard -- a tensor-parallel shard, a pipeline stage or an
+expert shard (under either placement), whose ``split`` names each
+leaf's sharded dimension -- takes its own part of a full leaf (its
+stage's layers of a stacked one, its experts of an expert leaf); a
+leaf already at
 the shard's shape (a stage-local tree, as a JAX stage holds it inside
 ``shard_map``) is taken as it is.  Going out, a shard writes its own
 part; the Trainer gathers the full leaves first for a checkpoint.
@@ -87,7 +92,7 @@ def unflatten(flat: dict) -> dict:
 
 def _lm_leaves(model):
     """(state-dict key, flax collection, flax path, layout) of each
-    transformer leaf."""
+    transformer or MoE LM leaf."""
     out = [("embed.weight", "params", "embed/embedding", None),
            ("pos_embed", "params", "pos_embed", None)]
 
@@ -109,8 +114,13 @@ def _lm_leaves(model):
                  f"{blk}/attn/qkv/bias", "qkv_bias")]
         dense(f"{blk}.attn.out", f"{blk}/attn/out", bias=False)
         norm(f"{blk}.ln2", f"{blk}/ln2")
-        dense(f"{blk}.fc1", f"{blk}/fc1")
-        dense(f"{blk}.fc2", f"{blk}/fc2", bias=False)
+        if hasattr(getattr(model, blk), "moe"):
+            dense(f"{blk}.moe.router", f"{blk}/moe/router")
+            out += [(f"{blk}.moe.{name}", "params", f"{blk}/moe/{name}",
+                     None) for name in ("w1", "b1", "w2", "b2")]
+        else:
+            dense(f"{blk}.fc1", f"{blk}/fc1")
+            dense(f"{blk}.fc2", f"{blk}/fc2", bias=False)
     norm("ln_f", "ln_f")
     dense("lm_head", "lm_head")
     return out
@@ -144,11 +154,13 @@ def _vision_leaves(model):
 
 def leaves(model):
     """(state-dict key, flax collection, flax path, layout) for every
-    leaf of a transformer LM, a pipeline LM or a vision model."""
+    leaf of a transformer LM, a MoE LM, a pipeline LM or a vision
+    model."""
+    from dtf_tpu_torch.models.moe import MoETransformerLM
     from dtf_tpu_torch.models.pipeline_lm import PipelinedTransformerLM
     from dtf_tpu_torch.models.transformer import TransformerLM
 
-    if isinstance(model, TransformerLM):
+    if isinstance(model, (TransformerLM, MoETransformerLM)):
         return _lm_leaves(model)
     if isinstance(model, PipelinedTransformerLM):
         return _pipeline_leaves(model)
@@ -191,14 +203,15 @@ def _split(model, key: str):
 
 def _local(t: torch.Tensor, model, key: str, want) -> torch.Tensor:
     """The model's own part of the tensor ``t`` of ``key``: its shard
-    (tensor parallelism) or its stage's layers (pipeline parallelism)
-    of a full ``t``; ``t`` itself when it is already at the shard's
-    shape ``want``, or the leaf is not sharded."""
+    (tensor parallelism), its stage's layers (pipeline parallelism) or
+    its experts (expert parallelism) of a full ``t``; ``t`` itself when
+    it is already at the shard's shape ``want``, or the leaf is not
+    sharded."""
     sp = _split(model, key)
     if sp is None or tuple(t.shape) == tuple(want):
         return t
-    from dtf_tpu_torch.models.partition import shard
-    return shard(t, sp, model.model_parallelism, model.model_index)
+    from dtf_tpu_torch.models.partition import place, shard
+    return shard(t, sp, *place(model))
 
 
 def _tensor(leaf) -> torch.Tensor:

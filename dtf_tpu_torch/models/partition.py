@@ -13,8 +13,10 @@ moment) is sharded; :func:`shard` cuts model shard ``index`` of ``mp``
 from the full tensor and :func:`unshard` joins the shards back, so
 slicing and gathering go through one rule.  The pipeline family's rule
 is its own (``models/pipeline_lm.py``: the layer dimension of a stacked
-block leaf, ``Split(0)``); :func:`shard_for` cuts by whichever rule the
-model carries.
+block leaf, ``Split(0)``), and so is the MoE family's (``models/moe.py``:
+the expert dimension of an expert leaf, over the data or the model
+axis); :func:`shard_for` cuts by whichever rule the model carries, at
+the model's own place (:func:`place`).
 
 In the port's layout a Linear weight is [out, in]: qkv's [3·H·Dh, d]
 orders its rows (3, H, Dh), so its heads are the inner part of dim 0
@@ -101,9 +103,17 @@ def shard_state_dict(sd: dict, mp: int, index: int,
             for k, v in sd.items()}
 
 
+def place(model) -> tuple:
+    """(shards, index): how many parts ``model``'s rule cuts a split
+    leaf into and which is the model's -- its expert shard for a MoE
+    model under either placement, else its model-axis shard."""
+    return (getattr(model, "expert_parallelism", model.model_parallelism),
+            getattr(model, "expert_index", model.model_index))
+
+
 def shard_for(model, sd: dict) -> dict:
     """``model``'s own part of a full state dict: each leaf cut by the
-    model's rule (``model.split``) -- its tensor-parallel shard, or its
-    pipeline stage's layers of a stacked leaf."""
-    return {k: shard(v, model.split(k), model.model_parallelism,
-                     model.model_index) for k, v in sd.items()}
+    model's rule (``model.split``) -- its tensor-parallel shard, its
+    pipeline stage's layers of a stacked leaf, or its experts."""
+    n, index = place(model)
+    return {k: shard(v, model.split(k), n, index) for k, v in sd.items()}

@@ -1,12 +1,13 @@
 """Model registry + the L2-as-loss-term rule -- the vision and
-transformer and pipeline LM entries of ``dtf_tpu/models/registry.py``,
-with the same names, default class counts and L2 weights: ResNet-50
-v1.5, the CIFAR ResNet-(6n+2) family, the trivial input probe, the
-transformer LMs (a tensor-parallel shard through the transformer's
-``model_parallelism``, ``model_index`` and ``shard_vocab``) and the
-pipeline-stacked LMs (a pipeline stage through the same
-``model_parallelism`` and ``model_index``).  The MoE family is not
-ported yet.  Sync BN, the JAX
+transformer, pipeline and MoE LM entries of
+``dtf_tpu/models/registry.py``, with the same names, default class
+counts and L2 weights: ResNet-50 v1.5, the CIFAR ResNet-(6n+2) family,
+the trivial input probe, the transformer LMs (a tensor-parallel shard
+through the transformer's ``model_parallelism``, ``model_index`` and
+``shard_vocab``), the pipeline-stacked LMs (a pipeline stage through
+the same ``model_parallelism`` and ``model_index``) and the
+mixture-of-experts LMs (an expert shard through ``expert_axis``,
+``expert_parallelism`` and ``expert_index``).  Sync BN, the JAX
 package's ``bn_axis``, is ``bn_group``: a process group for the BNs of
 every vision model but the trivial probe.
 
@@ -29,7 +30,7 @@ import functools
 import torch
 from torch import nn
 
-from dtf_tpu_torch.models import (pipeline_lm, resnet, resnet_cifar,
+from dtf_tpu_torch.models import (moe, pipeline_lm, resnet, resnet_cifar,
                                   transformer, trivial)
 from dtf_tpu_torch.parallel.collectives import tp_psum
 
@@ -57,6 +58,13 @@ _REGISTRY = {
         functools.partial(transformer.TransformerLM, num_layers=12,
                           d_model=768, num_heads=6, d_ff=3072),
         32_768, 0.0),
+    # routed-expert LM family (expert parallelism over the data axis, or
+    # the model axis under --model_parallelism)
+    "moe_transformer": (moe.MoETransformerLM, 32_768, 0.0),
+    "moe_transformer_small": (
+        functools.partial(moe.MoETransformerLM, num_layers=4, d_model=256,
+                          num_heads=4, d_ff=1024, num_experts=4),
+        32_768, 0.0),
     # pipeline-stacked LM family (pipeline stages over the model axis)
     "pipeline_transformer": (pipeline_lm.PipelinedTransformerLM,
                              32_768, 0.0),
@@ -71,12 +79,18 @@ _KERNEL_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
 
 def is_vision(name: str) -> bool:
     """True for the image-classifier entries (ResNets, trivial)."""
-    return not name.startswith(("transformer", "pipeline_transformer"))
+    return not name.startswith(("transformer", "pipeline_transformer",
+                                "moe_transformer"))
 
 
 def is_pipeline(name: str) -> bool:
     """True for the pipeline-stacked LM family."""
     return name.startswith("pipeline_transformer")
+
+
+def is_moe(name: str) -> bool:
+    """True for the mixture-of-experts LM family."""
+    return name.startswith("moe_transformer")
 
 
 def build_model(name: str, num_classes: int | None = None,

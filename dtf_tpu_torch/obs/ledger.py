@@ -33,8 +33,9 @@ Where the counts come from -- the documented divergences from the JAX
 ledger, which reads XLA's ``cost_analysis()`` of the compiled program:
 
   FLOPs -- :func:`count_flops` runs one call and counts its
-      ``F.linear`` matmuls and convolutions, forward and backward, with
-      the formulas of ``torch.utils.flop_counter``; that cannot see a
+      ``F.linear`` matmuls, ``torch.bmm`` products (the MoE experts, at
+      their capacity shapes) and convolutions, forward and backward,
+      with the formulas of ``torch.utils.flop_counter``; that cannot see a
       kernel launched through ctypes, so the attention kernels K1-K4
       report their own operation counts (:func:`kernel_ops`, the counts
       the kernels' bounds use).  Their plain versions (einsums) are not
@@ -172,6 +173,14 @@ def _linear_flops(x, w, grad: bool) -> int:
     return fwd * (1 + grad * (int(x.requires_grad) + int(w.requires_grad)))
 
 
+def _bmm_flops(a, b, grad: bool) -> int:
+    """torch.bmm(a, b) -- [B, M, K] by [B, K, N]: 2 B M N K forward, as
+    much again for each operand whose gradient autograd will compute
+    (the MoE experts' products at their capacity shapes)."""
+    fwd = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    return fwd * (1 + grad * (int(a.requires_grad) + int(b.requires_grad)))
+
+
 def _conv_flops(x, w, out, grad: bool) -> int:
     """A convolution and its backward's grad_input and grad_weight --
     ``torch.utils.flop_counter``'s formulas (FlopCounterMode's)."""
@@ -192,8 +201,9 @@ def _conv_flops(x, w, out, grad: bool) -> int:
 def count_flops(fn, *args, **kw):
     """(fn(*args, **kw), :class:`Count`) -- one call counted.
 
-    A torch-function mode sees each ``F.linear`` and convolution the
-    call makes and adds its forward FLOPs and those of the gradients
+    A torch-function mode sees each ``F.linear``, ``torch.bmm`` (the MoE
+    experts) and convolution the call makes and adds its forward FLOPs
+    and those of the gradients
     autograd will take (the formulas ``FlopCounterMode`` applies to the
     aten ops; the tests hold the two equal).  A torch-function mode,
     not ``FlopCounterMode``: a dispatch mode imports dynamo, the
@@ -211,6 +221,9 @@ def count_flops(fn, *args, **kw):
             if func is torch.nn.functional.linear:
                 count.aten += _linear_flops(args[0], args[1],
                                             torch.is_grad_enabled())
+            elif func is torch.bmm:
+                count.aten += _bmm_flops(args[0], args[1],
+                                         torch.is_grad_enabled())
             elif func in convs:
                 count.aten += _conv_flops(args[0], args[1], out,
                                           torch.is_grad_enabled())

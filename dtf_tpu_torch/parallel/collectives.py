@@ -61,6 +61,18 @@ as the model axis's all-reduces ride gloo through the host.  Every call
 adds one to the default registry's ``ring_shift_calls`` and its
 payload's bytes to ``ring_shift_bytes`` (``obs/registry.py``).
 
+``all_to_all`` (the tiled ``lax.all_to_all`` over the data axis, expert
+parallelism's token exchange, ``models/moe.py``) is an autograd
+Function too: ``x`` is cut into n equal chunks along ``split_dim``,
+chunk j goes to rank j, and the chunks received are joined along
+``concat_dim`` in rank order -- [E, C, d] split on 0 and joined on 1 is
+[E/n, n C, d], the slots ordered by their source rank.  Its backward is
+the inverse exchange (split ``concat_dim``, join ``split_dim``).  NCCL
+takes ``all_to_all_single``, which cuts dim 0 only, so the chunks are
+moved to dim 0 around the call; a CUDA tensor on gloo rides pinned host
+buffers both ways, as ``ring_shift``'s do.  Every call adds one to
+``all_to_all_calls`` and the input's bytes to ``all_to_all_bytes``.
+
 Not ported: ``axis_size``/``axis_index`` (``MeshRuntime`` holds the
 ranks and sizes).
 """
@@ -262,3 +274,49 @@ def ring_shift(x: torch.Tensor, group: Optional[dist.ProcessGroup],
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _RingShift.apply(x, group, shift)
+
+
+def _exchange(x: torch.Tensor, group, split_dim: int,
+              concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all of ``x`` over ``group`` (a new tensor)."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} ({x.shape[split_dim]}"
+                         f") not divisible by the group's {n} ranks")
+    reg = default_registry()
+    reg.counter("all_to_all_calls").inc()
+    reg.counter("all_to_all_bytes", "bytes").inc(x.numel()
+                                                  * x.element_size())
+    # the chunks on dim 0, each contiguous: chunk j is rank j's
+    send = x.movedim(split_dim, 0).contiguous()
+    host = send.is_cuda and dist.get_backend(group) == "gloo"
+    if host:
+        send = send.cpu().pin_memory()
+    recv = torch.empty_like(send, pin_memory=host)
+    dist.all_to_all_single(recv, send, group=group)
+    if host:
+        recv = recv.to(x.device)
+    parts = recv.chunk(n, 0)
+    return torch.cat([p.movedim(0, split_dim) for p in parts], concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return _exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_dim, concat_dim = ctx.args
+        return _exchange(grad, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+               split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True)`` over ``group``: differentiable, its backward the
+    inverse exchange.  None, or a group of one rank: the identity."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)

@@ -84,9 +84,9 @@ def random_init(model, seed: int):
                             generator=gen)
         elif ".ln" in f".{name}" and leaf == "weight":
             w.fill_(1.0)
-        elif leaf == "bias":
+        elif leaf in ("bias", "b1", "b2"):
             w.zero_()
-        else:                                   # Linear weight [out, in]
+        else:          # Linear weight [out, in]; expert w1/w2 [E, in, out]
             variance_scaling_(w, 1.0, p.shape[1], gen)   # lecun_normal
         p.copy_(w)
     return model

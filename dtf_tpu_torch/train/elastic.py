@@ -43,10 +43,12 @@ Divergences from the JAX package, on purpose:
     crashes.
   - :func:`check_reshardable` reads the port's shard description: the
     partition rule's ``Split`` of each leaf (``models/partition.py``)
-    and its full shape, over ``{"data": dp, "model": mp}``.  The port
-    has no expert leaves (expert parallelism is not ported), and
-    nothing is sharded over the seq axis (parameters and ZeRO slices are
-    replicated over it), so it has nothing there to check.
+    and its full shape, over ``{"data": dp, "model": mp}``, with the
+    axis each split rides: a MoE expert leaf names the data axis under
+    that placement (its experts must divide by the new dp), the model
+    axis under the other.  Nothing is sharded over the seq axis
+    (parameters and ZeRO slices are replicated over it), so there is
+    nothing there to check.
   - The world the supervisor sizes is dp x sp x mp
     (:func:`note_elastic_resume`).  A shrink to a world that mp x sp
     does not divide is refused by ``runtime/mesh.py initialize`` with
@@ -142,29 +144,33 @@ def announce_rejoin(log_dir: str, devices: int) -> str:
 
 def check_reshardable(splits: Dict[str, Optional[Split]],
                       shapes: Dict[str, Sequence[int]],
-                      mesh_shape: dict) -> List[str]:
+                      mesh_shape: dict,
+                      axes: Optional[Dict[str, str]] = None) -> List[str]:
     """Messages naming the leaves that cannot shard onto a world of
     ``mesh_shape`` (``{"data": dp, "model": mp}``); empty when every
     leaf reshards.
 
     ``splits`` maps a leaf's name to its partition-rule ``Split`` (None:
-    replicated over the model axis) and ``shapes`` to its full shape.
-    A ZeRO leaf is a flat slice padded to any data-parallel degree, and
-    a replicated one is whole on every rank, so only a tensor-parallel
-    dimension constrains the world: the model axis must divide it (per
-    group: ``Split(0, 3)``'s inner third of the rows)."""
-    mp = int(mesh_shape.get("model", 1))
+    replicated) and ``shapes`` to its full shape; ``axes`` names the
+    mesh axis a leaf's split rides (default "model": a tensor-parallel
+    dimension or a pipeline stack; "data" for a MoE expert leaf on the
+    data axis).  A ZeRO leaf is a flat slice padded to any
+    data-parallel degree, and a replicated one is whole on every rank,
+    so only a split dimension constrains the world: its axis must
+    divide it (per group: ``Split(0, 3)``'s inner third of the rows)."""
     problems: List[str] = []
     for name, split in splits.items():
-        if split is None or mp == 1:
+        axis = (axes or {}).get(name, "model")
+        ways = int(mesh_shape.get(axis, 1))
+        if split is None or ways == 1:
             continue
         n = int(shapes[name][split.dim])
         inner = n // split.groups
-        if n % split.groups or inner % mp:
+        if n % split.groups or inner % ways:
             problems.append(
                 f"{name}: dim {split.dim} ({n}, {split.groups} group(s) "
-                f"of {inner}) is not divisible by the model axis "
-                f"(size {mp})")
+                f"of {inner}) is not divisible by the {axis} axis "
+                f"(size {ways})")
     return problems
 
 

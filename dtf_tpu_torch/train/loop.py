@@ -147,8 +147,25 @@ stage-local stack over the data group; eval runs the pipeline's forward
 under no_grad; the checkpoint gathers the stacks to the full [L, ...]
 leaves, so a step resumes at another pp.
 
-Not ported yet: EP; the flags that ask for it raise
-(``config/flags.py``).
+Expert parallelism (the moe_transformer family, ``models/moe.py``):
+the training objective adds the MoE layers' load-balance terms of the
+step's forward (``model.aux_loss()``; the JAX package's sown
+``aux_loss`` collection), and the reported loss carries them.  Under
+``--model_parallelism`` the experts ride the model axis and the tensor
+parallelism above carries them unchanged.  Otherwise they ride the data
+axis, each data rank holding E / dp of them (``self.ep``), and their
+leaves are reduced as the JAX Trainer reduces a leaf sharded over a
+batch axis:
+  - their gradients stay out of the flat mean: reverse-mode all_to_all
+    has already summed each one over the data group, so it is averaged
+    over the seq group (under sequence parallelism) and divided by dp;
+  - clipping's global norm sums their squares over the data group;
+  - ZeRO keeps them at their local shape at every stage
+    (``train/zero.py``): neither sliced nor gathered, divided rather
+    than reduce-scattered;
+  - the checkpoint gathers them over the data group into the full
+    [E, ...] leaves, so a step resumes at another dp (a dp the experts
+    do not divide is refused naming each leaf, ``cli/runner.py``).
 """
 
 from __future__ import annotations
@@ -375,6 +392,20 @@ class Trainer:
             model.set_seq_group(self.rt.seq_group)
         self._splits = [model.split(n) if self.tp else None
                         for n, _ in model.named_parameters()]
+        # expert parallelism on the data axis: each data rank holds
+        # distinct experts of the expert leaves (self._expert)
+        if getattr(model, "expert_axis", None) == "data":
+            if model.expert_parallelism != replicas:
+                raise ValueError(
+                    f"the model holds experts for {model.expert_parallelism}"
+                    f" data ranks, the runtime's data axis {replicas}")
+            model.set_expert_group(self.rt.data_group)
+        self.ep = (getattr(model, "expert_axis", None) == "data"
+                   and model.expert_parallelism > 1)
+        self._expert = [self.ep and model.split(n) is not None
+                        for n, _ in model.named_parameters()]
+        # the MoE load-balance terms of a training forward
+        self._aux_loss = getattr(model, "aux_loss", None)
         self._shapes = [tuple(p.shape) for p in self.params]
         self._channels_last = [
             p.dim() == 4 and not p.is_contiguous()
@@ -400,8 +431,8 @@ class Trainer:
             return TrainState(step=0, params=params,
                               opt_state=self.tx.init(params), **scale)
         # the optimizer's state over this rank's slices, from zeros
-        opt_state = self.tx.init([zero_lib.slice_zeros(p, self.nd)
-                                  for p in params])
+        opt_state = self.tx.init([zero_lib.slice_zeros(p, self.nd, e)
+                                  for p, e in zip(params, self._expert)])
         return self.staged_state(TrainState(step=0, params=params,
                                             opt_state=opt_state, **scale),
                                  sliced_opt=True)
@@ -418,10 +449,11 @@ class Trainer:
         """Stage 3: the model's parameters from their slices."""
         group = self.rt.data_group
         with torch.no_grad():
-            for p, s, shape, cl in zip(self.params, slices, self._shapes,
-                                       self._channels_last):
+            for p, s, shape, cl, e in zip(self.params, slices,
+                                          self._shapes, self._channels_last,
+                                          self._expert):
                 full = zero_lib.gather_leaf(s, shape, s.dtype, self.nd,
-                                            group, comm_off)
+                                            group, comm_off, e)
                 if cl:
                     full = full.contiguous(memory_format=torch.channels_last)
                 _set_storage(p, full)
@@ -461,20 +493,29 @@ class Trainer:
             return list(opt.mu) + list(opt.nu)
         return list(opt.velocity)
 
+    @property
+    def collective_state(self) -> bool:
+        """True when the checkpoint's canonical form is gathered from
+        other ranks (ZeRO, tensor parallelism, experts on the data
+        axis): every rank takes part in a save."""
+        return self.zero or self.tp or self.ep
+
     def canonical_state(self, state: TrainState) -> TrainState:
         """The stage-0 (checkpoint) form of a live TrainState: full
         parameters and optimizer state -- gathered over the data group
-        (ZeRO), then over the model group (tensor parallelism), where
-        the parameters are no longer the model's.  Identity without
-        either; a collective under them, which every rank calls."""
-        if not self.zero and not self.tp:
+        (ZeRO), then over the model group (tensor parallelism) or, for
+        an expert leaf on the data axis, the data group, where the
+        parameters are no longer the model's.  Identity without any of
+        these; a collective under them, which every rank calls."""
+        if not self.collective_state:
             return state
         group = self.rt.data_group
 
         def gather(i, s):
             if self.zero:
                 s = zero_lib.gather_leaf(s, self._shapes[i], s.dtype,
-                                         self.nd, group)
+                                         self.nd, group,
+                                         expert=self._expert[i])
             return self._gather_model(i, s)
 
         if self.zero_stage == 3:
@@ -488,7 +529,10 @@ class Trainer:
 
     def _gather_model(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """The full tensor of leaf ``i`` from the model group's shards
-        (the partition rule's split); ``t`` itself when replicated."""
+        (the partition rule's split), or an expert leaf's from the data
+        group's experts; ``t`` itself when replicated."""
+        if self._expert[i]:
+            return gather_dim(t, 0, self.rt.data_group)
         split = self._splits[i]
         if split is None:
             return t
@@ -527,11 +571,11 @@ class Trainer:
         opt = canonical.opt_state
         if not sliced_opt:
             opt = self._opt_map(opt, lambda i, t: zero_lib.slice_leaf(
-                t, self.nd, self.idx))
+                t, self.nd, self.idx, self._expert[i]))
         params = canonical.params
         if self.zero_stage == 3:
-            params = [zero_lib.slice_leaf(p.detach(), self.nd, self.idx)
-                      for p in self.params]
+            params = [zero_lib.slice_leaf(p.detach(), self.nd, self.idx, e)
+                      for p, e in zip(self.params, self._expert)]
             self._free_params()
         return dataclasses.replace(canonical, params=params, opt_state=opt)
 
@@ -589,15 +633,19 @@ class Trainer:
     def _sumsq(self, tensors, sharded_group, replicated_group=None):
         """The global sum of squares of per-leaf tensors: the sharded
         leaves' summed over ``sharded_group``, the replicated leaves'
-        over ``replicated_group`` (None: this rank's alone)."""
-        parts = {True: [], False: []}
-        for t, split in zip(tensors, self._splits):
-            parts[split is not None].append(t.float().square().sum())
+        over ``replicated_group`` (None: this rank's alone), and the
+        expert leaves on the data axis over the data group."""
+        parts = {"replicated": [], "sharded": [], "expert": []}
+        for t, split, e in zip(tensors, self._splits, self._expert):
+            kind = ("expert" if e else "sharded" if split is not None
+                    else "replicated")
+            parts[kind].append(t.float().square().sum())
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for sharded, group in ((False, replicated_group),
-                               (True, sharded_group)):
-            if parts[sharded]:
-                ss = torch.stack(parts[sharded]).sum()
+        for kind, group in (("replicated", replicated_group),
+                            ("sharded", sharded_group),
+                            ("expert", self.rt.data_group)):
+            if parts[kind]:
+                ss = torch.stack(parts[kind]).sum()
                 total = total + all_reduce_sum(ss, group)
         return total
 
@@ -616,6 +664,11 @@ class Trainer:
                                             device=self.device),
                             torch.full((), latched, dtype=torch.float32,
                                        device=self.device)])
+        # an expert leaf on the data axis stays out of the mean (the
+        # module's docstring): averaged over the seq group, divided by dp
+        experts = [all_reduce_mean(g, self.rt.seq_group) / self.nd
+                   for g, e in zip(grads, self._expert) if e]
+        grads = [g for g, e in zip(grads, self._expert) if not e]
         parts = grads + self.bn_buffers + [tail]
         flat = all_reduce_mean(
             torch.cat([t.reshape(-1).float() for t in parts]),
@@ -632,7 +685,12 @@ class Trainer:
         # the latch reaches the other model ranks too: the whole grid,
         # set (1) when any rank latched, as the JAX psum's bool
         latch = all_max((tail[2:] > 0).float(), self.rt.model_group)[0]
-        return views[:n], tail[0], tail[1], latch
+        reduced, views = views[:n], iter(views[:n])
+        if experts:
+            experts = iter(experts)
+            reduced = [next(experts) if e else next(views)
+                       for e in self._expert]
+        return reduced, tail[0], tail[1], latch
 
     def _inputs(self, images):
         """The batch as the model takes it: NHWC, normalized."""
@@ -649,8 +707,8 @@ class Trainer:
     def _scatter(self, grads, comm_off: bool):
         return [zero_lib.scatter_leaf(g, self.nd, self.rt.data_group,
                                       comm_off, self.idx, self.zero_wire,
-                                      self.rt.seq_group)
-                for g in grads]
+                                      self.rt.seq_group, e)
+                for g, e in zip(grads, self._expert)]
 
     def _clip_slices(self, slices):
         """Clipping to the global norm of the gradient held in slices:
@@ -697,6 +755,8 @@ class Trainer:
             logits = model(imgs)
             loss = (self._cross_entropy(logits, lbls)
                     + l2_weight_penalty(model, self.l2_weight))
+            if self._aux_loss is not None:
+                loss = loss + self._aux_loss()
             (loss * scale).backward()
             loss_sum = loss_sum + loss.detach()
             if self.report_acc:
@@ -739,8 +799,8 @@ class Trainer:
         # replicas' full mean, which its slices view
         held_grads = slices if stage >= 2 else grads
         if stage == 1:
-            slices = [zero_lib.slice_view(g, self.nd, self.idx)
-                      for g in grads]
+            slices = [zero_lib.slice_view(g, self.nd, self.idx, e)
+                      for g, e in zip(grads, self._expert)]
         if self.zero:
             grads = slices = self._clip_slices(slices)
         else:
@@ -771,17 +831,17 @@ class Trainer:
         elif finite:
             # this rank's slices updated with its slices of the state
             p_slices = (state.params if stage == 3 else
-                        [zero_lib.slice_leaf(p.detach(), self.nd, self.idx)
-                         for p in params])
+                        [zero_lib.slice_leaf(p.detach(), self.nd, self.idx, e)
+                         for p, e in zip(params, self._expert)])
             updates, opt_state = self.tx.update(slices, state.opt_state,
                                                 p_slices, step=state.step)
             apply_updates(p_slices, updates)
             if stage < 3:
                 with torch.no_grad():
-                    for p, s in zip(params, p_slices):
+                    for p, s, e in zip(params, p_slices, self._expert):
                         p.copy_(zero_lib.gather_leaf(
                             s, p.shape, p.dtype, self.nd,
-                            self.rt.data_group, comm_off))
+                            self.rt.data_group, comm_off, e))
         else:
             with torch.no_grad():
                 for b, k in zip(buffers, kept):
@@ -1144,8 +1204,10 @@ class Trainer:
         slices = self._scatter(full, False)
         scatters, gathers = ([wall(fn) for _ in range(4)][1:] for fn in (
             lambda: self._scatter(full, False),
-            lambda: [zero_lib.gather_leaf(s, shape, s.dtype, self.nd, group)
-                     for s, shape in zip(slices, self._shapes)]))
+            lambda: [zero_lib.gather_leaf(s, shape, s.dtype, self.nd, group,
+                                          expert=e)
+                     for s, shape, e in zip(slices, self._shapes,
+                                            self._expert)]))
         del full, slices
         # the step and its twin run on copies: the live state, the
         # model's parameters (stage 2 writes them) and buffers are put

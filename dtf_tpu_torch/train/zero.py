@@ -22,9 +22,12 @@ Under sequence parallelism the slices are replicated over the seq axis:
 each seq rank of a (data, model) coordinate holds the same slice, and a
 gradient's slice is the data group's reduce-scatter averaged over the
 seq group (the JAX ``pmean`` over 'seq' after the ``psum_scatter``).
-MoE experts, sharded over a data axis, have no layout here: the flags
-that would make them are refused as not ported (``config/flags.py
-NOT_PORTED``).
+A MoE expert leaf on the data axis (``expert=True``; ``models/moe.py``)
+is already sharded over it -- each data rank holds distinct experts --
+so it keeps its local shape at every stage: it is neither sliced nor
+gathered, and its gradient is averaged over the seq group and divided
+by nd, not reduce-scattered (reverse-mode all_to_all has already summed
+it over the data group), in float32 whatever ``--zero_wire``.
 
 ``comm_off=True`` replaces each collective with a local op of the same
 output shape (the values are garbage).  It exists for one purpose: the
@@ -58,24 +61,32 @@ def pad_flat(p: torch.Tensor, nd: int) -> torch.Tensor:
     return flat
 
 
-def slice_view(p: torch.Tensor, nd: int, idx: int) -> torch.Tensor:
+def slice_view(p: torch.Tensor, nd: int, idx: int,
+               expert: bool = False) -> torch.Tensor:
     """Rank ``idx``'s ZeRO slice of a full leaf: a view of a
-    contiguous leaf that needs no padding, else of its padded copy."""
+    contiguous leaf that needs no padding, else of its padded copy; an
+    expert leaf itself."""
+    if expert:
+        return p
     flat = pad_flat(p, nd)
     k = flat.numel() // nd
     return flat[idx * k:(idx + 1) * k]
 
 
-def slice_leaf(p: torch.Tensor, nd: int, idx: int) -> torch.Tensor:
+def slice_leaf(p: torch.Tensor, nd: int, idx: int,
+               expert: bool = False) -> torch.Tensor:
     """Rank ``idx``'s ZeRO slice of a full leaf (a new tensor)."""
-    return slice_view(p, nd, idx).clone()
+    return slice_view(p, nd, idx, expert).clone()
 
 
 def gather_leaf(s: torch.Tensor, shape, dtype, nd: int, group,
-                comm_off: bool = False) -> torch.Tensor:
+                comm_off: bool = False, expert: bool = False
+                ) -> torch.Tensor:
     """The full leaf (``shape``, ``dtype``) from its ZeRO slices: the
     stage-3 parameter all-gather, and the canonical-checkpoint
-    re-gather."""
+    re-gather (an expert leaf is its own slice: nothing to gather)."""
+    if expert:
+        return s.view(tuple(shape)).to(dtype)
     full = s.repeat(nd) if comm_off else all_gather(s, group)
     numel = 1
     for d in shape:
@@ -84,8 +95,8 @@ def gather_leaf(s: torch.Tensor, shape, dtype, nd: int, group,
 
 
 def scatter_leaf(g: torch.Tensor, nd: int, group, comm_off: bool = False,
-                 idx: int = 0, wire=torch.float32,
-                 seq_group=None) -> torch.Tensor:
+                 idx: int = 0, wire=torch.float32, seq_group=None,
+                 expert: bool = False) -> torch.Tensor:
     """Reduce-scatter one full gradient leaf into this rank's float32
     slice of the replicas' mean (over ``group``, the data axis, then
     averaged over ``seq_group``, the seq axis; None: no seq axis).
@@ -94,7 +105,14 @@ def scatter_leaf(g: torch.Tensor, nd: int, group, comm_off: bool = False,
     halves the stage-2/3 scatter volume, and the collective then also
     sums in bf16 -- the documented trade.  The slice returned is float32
     whatever crossed the wire, so the accumulation carry and the
-    optimizer's math keep full precision."""
+    optimizer's math keep full precision.  An expert leaf's gradient,
+    already summed over the data group, is averaged over the seq group
+    and divided by nd in float32."""
+    if expert:
+        g = g.float()
+        if not comm_off:
+            g = all_reduce_mean(g.clone(), seq_group)
+        return g / nd
     flat = pad_flat(g.to(wire), nd)
     if comm_off:
         k = flat.numel() // nd
@@ -103,10 +121,13 @@ def scatter_leaf(g: torch.Tensor, nd: int, group, comm_off: bool = False,
                            seq_group)
 
 
-def slice_zeros(p: torch.Tensor, nd: int) -> torch.Tensor:
+def slice_zeros(p: torch.Tensor, nd: int,
+                expert: bool = False) -> torch.Tensor:
     """float32 zeros shaped like :func:`scatter_leaf`'s output for the
     full leaf ``p``: the stage-2 gradient-accumulation carry and the
     ZeRO optimizer state's proto."""
+    if expert:
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros((slice_len(p.numel(), nd),), dtype=torch.float32,
                        device=p.device)
 

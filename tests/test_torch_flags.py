@@ -114,14 +114,15 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         # ported since (tensor parallelism): --shard_lm_head,
         # --model_parallelism and --serve_tp parse, with the JAX
         # package's defaults and validation; then pipeline parallelism's
-        # --num_microbatches and --pipeline_interleave likewise; expert
-        # parallelism stays refused under its own flags
+        # --num_microbatches and --pipeline_interleave likewise, then
+        # expert parallelism's --num_experts and --moe_top_k
         tp = [f for f in flags if f in TP_FLAGS]
         _check_tp_flags(tp + (["model_parallelism"]
                               if subsystem == "model parallelism" else []))
         _check_pp_flags([f for f in flags if f in PP_FLAGS])
-        flags = [f for f in flags if f not in TP_FLAGS + PP_FLAGS]
-        subsystem = "model parallelism"
+        _check_moe_flags([f for f in flags if f in MOE_FLAGS])
+        assert set(flags) <= set(TP_FLAGS + PP_FLAGS + MOE_FLAGS)
+        return
     if subsystem == "serving fleet":
         # ported since: the router and replica flags (cli/router_main and
         # cli/replica_main), then the HA pair's (serve/ha.py) and the
@@ -277,6 +278,28 @@ def _check_pp_flags(flags):
             with pytest.raises(ValueError, match="pipeline_interleave must "
                                "be 1 or 2"):
                 jax_parse_flags(bad)
+
+
+MOE_FLAGS = ("num_experts", "moe_capacity_factor", "moe_aux_weight",
+             "moe_top_k")
+
+
+def _check_moe_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+    for argv in (["--num_experts", "16", "--moe_top_k", "1"],
+                 ["--moe_capacity_factor", "1.5", "--moe_aux_weight",
+                  "0.05", "--moe_top_k", "2"]):
+        got, want = parse_flags(argv), jax_parse_flags(argv)
+        for name in flags:
+            assert getattr(got, name) == getattr(want, name), (argv, name)
+    if "moe_top_k" in flags:
+        for parse in (parse_flags, jax_parse_flags):
+            with pytest.raises(ValueError, match="moe_top_k must be >= 1"):
+                parse(["--moe_top_k", "0"])
 
 
 def _check_zero_flags(flags):

@@ -295,6 +295,35 @@ def test_train_step_ledger_counts_the_closed_form(tmp_path, monkeypatch):
     assert rows[0]["flops"] == want and rows[0]["count"] == 3
 
 
+def test_train_step_ledger_counts_the_moe_experts(tmp_path, monkeypatch):
+    """lm_main with moe_transformer_small on the CPU: train_step's FLOPs
+    are 6 x tokens x the weights every token meets (qkv and out in
+    every block, fc1 and fc2 in the two dense blocks, the router in the
+    two MoE blocks, the head), the attention kernels' pair counts, and
+    the experts' two batched products at their capacity shapes -- 12 x
+    E x C x d x d_ff a MoE block (forward and both gradients), C =
+    round(1.25 x 2 x tokens / E) -- what the card computes, kept slots
+    or not."""
+    monkeypatch.setenv("DTF_PEAK_TFLOPS", "0.5")
+    b, s, layers, d, ff, vocab, e = 4, 32, 4, 256, 1024, 256, 4
+    stats = lm_main.main([
+        "--use_synthetic_data", "--device", "cpu", "--model",
+        "moe_transformer_small", "--seq_len", str(s), "--num_classes",
+        str(vocab), "--batch_size", str(b), "--train_steps", "3",
+        "--log_steps", "1", "--dtype", "fp32", "--skip_checkpoint",
+        "--trace_dir", str(tmp_path)])
+    trace.disable()
+    n, moe_blocks = b * s, layers // 2
+    cap = int(round(1.25 * 2 * n / e))
+    weights = (layers * 4 * d * d + (layers - moe_blocks) * 2 * d * ff
+               + moe_blocks * d * e + d * vocab)
+    pairs = s * (s + 1) // 2
+    want = (6 * n * weights + layers * (4 + 10) * b * d * pairs
+            + moe_blocks * 12 * e * cap * d * ff)
+    assert stats["ledger"]["train_step"]["flops"] == want
+    assert default_registry().get("ledger_train_step_flops").value == want
+
+
 def test_ledger_env_kill_switch(tmp_path, monkeypatch):
     monkeypatch.setenv("DTF_LEDGER", "0")
     stats = lm_main.main([

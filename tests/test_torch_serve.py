@@ -425,6 +425,7 @@ def _jax_imports(files, repo=REPO):
 def test_port_imports_nothing_of_jax_ast():
     files = _port_files()
     assert len(files) > 20
+    assert os.path.join(REPO, "dtf_tpu_torch", "models", "moe.py") in files
     assert not _jax_imports(files)
 
 
@@ -455,7 +456,7 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.runtime.mesh, dtf_tpu_torch.cli.launch; "
             "import dtf_tpu_torch.parallel.collectives; "
             "import dtf_tpu_torch.chaos, dtf_tpu_torch.train.checkpoint; "
-            "import dtf_tpu_torch.train.zero; "
+            "import dtf_tpu_torch.train.zero, dtf_tpu_torch.models.moe; "
             "import dtf_tpu_torch.cli.trace_main; "
             "import dtf_tpu_torch.obs.ledger, dtf_tpu_torch.obs.prom; "
             "import dtf_tpu_torch.cli.router_main; "
@@ -470,6 +471,34 @@ def test_port_import_loads_no_jax_module():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_chip_smoke_spawner_stop_reaps_its_helpers():
+    """``ReplicaForkServer.stop`` ends and waits for both processes its
+    ``start`` began -- the forkserver and multiprocessing's resource
+    tracker -- so neither outlives the smoke script as an unreaped
+    zombie (on the card's machine PID 1 reaps none)."""
+    code = (
+        "import json, os, sys; sys.path.insert(0, %r); "
+        "import chip_smoke; "
+        "forks = chip_smoke.ReplicaForkServer().start(); "
+        "pids = forks.helper_pids(); forks.stop(); "
+        "gone = {}\n"
+        "for name, pid in pids.items():\n"
+        "    try:\n"
+        "        os.waitpid(pid, os.WNOHANG); gone[name] = False\n"
+        "    except ChildProcessError:\n"
+        "        gone[name] = True\n"
+        "print('PIDS=' + json.dumps({'pids': pids, 'gone': gone, "
+        "'after': forks.helper_pids()}))" % REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("PIDS=")]
+    got = json.loads(line[-1][len("PIDS="):])
+    assert all(isinstance(p, int) for p in got["pids"].values()), got
+    assert got["gone"] == {"forkserver": True, "resource_tracker": True}
+    assert got["after"] == {"forkserver": None, "resource_tracker": None}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

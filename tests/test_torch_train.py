@@ -539,10 +539,14 @@ def test_flags_parse_the_jax_training_names():
                                   "--remat_policy", "--plan"])
 def test_flags_of_unported_features_raise(flag):
     if flag in ("--zero_stage", "--remat_policy", "--model_parallelism",
-                "--seq_parallelism"):
-        # ported since (ZeRO, the selective remat policy, tensor and
-        # sequence parallelism): they parse
-        assert getattr(parse_flags([flag, "1"]), flag[2:]) in (1, "1")
+                "--seq_parallelism", "--num_experts"):
+        # ported since (ZeRO, the selective remat policy, tensor,
+        # sequence and expert parallelism): they parse, the MoE flags
+        # beside the JAX defaults of the others
+        cfg = parse_flags([flag, "1"])
+        assert getattr(cfg, flag[2:]) in (1, "1")
+        if flag == "--num_experts":
+            assert (cfg.moe_top_k, cfg.moe_capacity_factor) == (None, None)
     else:
         with pytest.raises(ValueError, match="not ported"):
             parse_flags([flag, "1"])

@@ -217,8 +217,8 @@ def test_layout_is_the_jax_layout(numel, nd):
 def test_replicated_sentinel_and_sharded_leaves():
     """The step count -- the JAX layout's replicated leaf -- stays whole
     in the sliced optimizer state while the moments are sliced; an
-    expert leaf has no ZeRO layout in the port: the flag that would
-    make one is refused, naming the subsystem."""
+    expert leaf keeps its local shape (the JAX ``zero_leaf_spec`` of a
+    leaf sharded over 'data'), and the MoE flags parse."""
     from dtf_tpu_torch.train.loop import Trainer
     from dtf_tpu_torch.train.optimizer import AdamWState
     opt = AdamWState(count=3, mu=[torch.arange(3.0)],
@@ -227,8 +227,14 @@ def test_replicated_sentinel_and_sharded_leaves():
     assert sliced.count == 3
     assert torch.equal(sliced.mu[0], torch.tensor([2.0, 0.0]))
     assert torch.equal(sliced.nu[0], torch.tensor([3.0, 0.0]))
-    with pytest.raises(ValueError, match="expert.*not ported"):
-        parse_flags(["--zero_stage", "3", "--num_experts", "4"])
+    # expert parallelism is ported since: the flags parse with the JAX
+    # defaults, and an expert leaf keeps its local shape at every stage
+    # (train/zero.py; tests/test_torch_ep.py)
+    cfg = parse_flags(["--zero_stage", "3", "--num_experts", "4"])
+    assert (cfg.zero_stage, cfg.num_experts, cfg.moe_top_k) == (3, 4, None)
+    w = torch.arange(6.0).view(3, 2)
+    assert torch.equal(zero.slice_leaf(w, 2, 1, expert=True), w)
+    assert zero.slice_zeros(w, 2, expert=True).shape == w.shape
     # tensor parallelism is ported since: a model-sharded leaf slices
     # its local shard over the data axis (tests/test_torch_tp.py)
     assert parse_flags(["--zero_stage", "3", "--model_parallelism",
