@@ -447,9 +447,9 @@ Phases, each printing one JSON object per line (the card's
                  ``parallel/collectives.py all_to_all``, the Trainer's
                  expert leaves): ``cli.lm_main`` over two gloo ranks
                  sharing the card, moe_transformer at full width and
-                 depth (12 layers, 8 experts of d_ff 2048 in every
-                 second block, top-2, capacity factor 1.25, 8 heads of
-                 64), S 2048, AdamW.  (a) f32 3 steps, experts over the
+                 6 of its 12 layers (``EP_LAYERS``: 8 experts of d_ff
+                 2048 in every second block, top-2, capacity factor
+                 1.25, 8 heads of 64), S 2048, AdamW.  (a) f32 3 steps, experts over the
                  data axis (data 2, global batch 4: two sequences a
                  rank, the slot rows exchanged by two all_to_all a MoE
                  block each way), both ranks against the world-1 twin
@@ -461,13 +461,41 @@ Phases, each printing one JSON object per line (the card's
                  the same twin; (c) bf16 6 steps over data, timed alone
                  beside the bf16 twin: step p50, peak memory a rank,
                  the share of routed choices dropped, the exchanges a
-                 step equal to ``ep_prediction`` (24 calls, 251,658,240
-                 bytes; f32 503,316,480; 0 under the model axis), K1 =
-                 K3 = 12 and K2a = K2b = 0 a step a rank, the replicated
+                 step equal to ``ep_prediction`` (12 calls, 125,829,120
+                 bytes; f32 251,658,240; 0 under the model axis), K1 =
+                 K3 = 6 and K2a = K2b = 0 a step a rank, the replicated
                  leaves' digests equal across the ranks; (d) one
                  MoEMLP forward and backward at a rank's shape
                  ([2, 2048, 512] bf16) twice on the card, every output
                  and gradient bit for bit.
+ 21. planner  -- the parallelism planners (``dtf_tpu_torch/plan``,
+                 ``cli/plan_main.py``, ``cli/plan_serve_main.py``): the
+                 live mesh on the card (hosts x devices, memory a rank,
+                 FLOP/s, the bandwidths marked data sheet and
+                 uncalibrated); ``calibrate_device_flops`` on ``cuda``
+                 (transformer_small f32, batch 2, S 64: K1 and K3 on
+                 their f32 routes); transformer_tpu (bf16, S 2048,
+                 AdamW, global batch 256) ranked on ``h100x8`` and
+                 ``4xh100x8``, the milliseconds and the top plans;
+                 ``lm_main --plan auto`` at full width (bf16, S 2048,
+                 batch 8, world 1, 3 steps) against its twin with the
+                 plan's flags set by hand: losses and state digest bit
+                 for bit; two gloo ranks training from a plan file that
+                 names phase 15's ZeRO-3 arm (data 2, zero 3) against
+                 that arm's losses and digests, bit for bit;
+                 ``plan_main --calibrate`` at the JAX contract's shape
+                 (transformer_small, S 64, batch 4, AdamW): the
+                 step-time ratio in [0.5, 2] and predicted peak over
+                 live bytes in [1, 4]; the same at full width
+                 (transformer_tpu bf16 S 2048 batch 8) with
+                 ``--calibrate_probe run`` (the probe at the run's own
+                 model, shapes and dtype), its ratio printed beside the
+                 one the small probe's rate gives, neither gated;
+                 ``plan_serve_main --calibrate`` (its defaults:
+                 transformer_small bf16, 12 requests of 24 tokens, 4
+                 slots): tokens/s and p99 ratios in [0.5, 2]; and
+                 ``--measure_tp_comm`` (``serve_tp`` 2, both shards on
+                 the card): its ``tp_comm_frac``.
   Phase 6 also trains the ``train`` run with ``--remat_policy dots`` and
   with ``--remat`` (12, 12 and 24 K1 a step; losses within 5e-3 of
   none's; --remat's peak memory below none's); phase 7 trains ResNet-50
@@ -500,7 +528,10 @@ interleaved) beside ``launches_pp_twin``, K1 and K3 with ``pp_case``,
 phase 2's case at the stage's shape; K1 and K3 as ``launches_ep``
 (phase 20: both ranks of the bf16 data-axis run) beside
 ``launches_ep_twin``, with ``ep_case``, phase 2's case at the rank's
-shape -- and, last, the device line.
+shape; K1 and K3 as ``launches_plan`` (phase 21: the FLOP/s probe, the
+``--plan auto`` run and the calibration runs, by run) and K1 and K4 as
+``launches_plan_serve`` (phase 21's serving calibration) -- and, last,
+the device line.
 Any failure raises: the script exits non-zero and prints no result.
 Without CUDA, or without the ``dtf_tpu_torch`` package beside it, it
 exits 2 before doing anything.
@@ -2811,7 +2842,10 @@ def keep(cfg, rt=None):
 runner.build_training = keep
 main = __import__("dtf_tpu_torch.cli." + spec["main"], fromlist=["main"])
 if spec["backend"]:
-    cfg = parse_flags(spec["argv"], defaults=getattr(main, spec["defaults"]))
+    from dtf_tpu_torch.plan import resolve_plan
+    # --plan's flags first: the runtime's grid is built from them
+    cfg = resolve_plan(parse_flags(spec["argv"],
+                                   defaults=getattr(main, spec["defaults"])))
     run = lambda: runner.run(cfg, initialize(cfg, backend=spec["backend"]))
 else:
     run = lambda: main.main(spec["argv"])
@@ -6402,6 +6436,10 @@ def zero_stages(torch, seed: int, card: str, model_argv=None,
     line["launches_zero_run"] = (f"rank 0 of the stage-0 two-rank run, "
                                  f"{ZERO_STEPS} steps (phase 15); each "
                                  f"stage's ranks alike")
+    # the stage-3 arm as phase 21's plan file names it
+    line["stage3_arm"] = {"argv": two + ["--zero_stage", "3"],
+                          "losses": [r["losses"] for r in stages[3]],
+                          "digests": [r["digest"] for r in stages[3]]}
     return line
 
 
@@ -7412,7 +7450,9 @@ EP_BATCH = 4             # global at data 2: two sequences a rank
 EP_TWIN_BATCH = 2        # the world-1 twin: one rank's batch
 EP_STEPS_F32 = 3
 EP_STEPS_BF16 = 6
-EP_LAYERS = 12           # moe_transformer's full depth, 6 MoE blocks
+# moe_transformer at 6 of its 12 layers (3 MoE blocks), every width
+# kept, to make room for phase 21; no gate depends on depth
+EP_LAYERS = 6
 # f32 losses of the two ranks (the same function: each rank's copy of
 # the synthetic batch, its slot rows exchanged with its peer's) against
 # world 1; the gate phases 16, 18 and 19 hold
@@ -7472,8 +7512,9 @@ def ep_dispatch_twice(torch, seed: int) -> dict:
 
 def expert_parallel(torch, seed: int, card: str, spawn=None) -> dict:
     """Phase 20 (see the module's docstring): ``lm_main --model
-    moe_transformer`` at full width and depth (12 layers, 8 experts in
-    every second block, top-2, capacity factor 1.25), S 2048, AdamW, two
+    moe_transformer`` at full width and ``EP_LAYERS`` of its 12 layers (8
+    experts in every second block, top-2, capacity factor 1.25), S 2048,
+    AdamW, two
     gloo ranks sharing the card: (a) f32, 3 steps, experts over the data
     axis (data 2, global batch 4), both ranks against the world-1 twin
     at batch 2 in this process; (b) f32, 3 steps, experts over the model
@@ -7486,7 +7527,8 @@ def expert_parallel(torch, seed: int, card: str, spawn=None) -> dict:
 
     def spec(args, **kw):
         return {"main": "lm_main", "defaults": "LM_DEFAULTS",
-                "backend": "gloo", "argv": args, **kw}
+                "backend": "gloo", "argv": args, "layers": EP_LAYERS,
+                "layers_model": "moe_transformer", **kw}
 
     grid = ["--distribution_strategy", "multi_worker_mirrored",
             "--skip_checkpoint"]
@@ -7506,7 +7548,8 @@ def expert_parallel(torch, seed: int, card: str, spawn=None) -> dict:
                                spawn=spawn),
                     overlapped(zero_launch, spec(f32_model), 2, root,
                                "ep f32 model", spawn=spawn)]
-            off32 = tp_lm_here(torch, twin32)
+            with fleet_depth(EP_LAYERS, "moe_transformer"):
+                off32 = tp_lm_here(torch, twin32)
             dispatch = ep_dispatch_twice(torch, seed)
             # the timed run's ranks start now, build, and wait for their
             # go until the correctness runs are done
@@ -7523,7 +7566,8 @@ def expert_parallel(torch, seed: int, card: str, spawn=None) -> dict:
             if bfr is None:
                 with open(go, "w"):
                     pass
-        offbf = tp_lm_here(torch, twinbf)
+        with fleet_depth(EP_LAYERS, "moe_transformer"):
+            offbf = tp_lm_here(torch, twinbf)
         timed_s = time.time() - t0
 
     d, moe_blocks = 512, EP_LAYERS // 2
@@ -7614,6 +7658,355 @@ def expert_parallel(torch, seed: int, card: str, spawn=None) -> dict:
     line["launches_ep"] = {k: [r["launches"][k] for r in bfr]
                            for k in ("K1", "K2a", "K2b", "K3")}
     line["launches_ep_twin"] = offbf["launches"]
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the parallelism planners (plan/, cli/plan_main.py,
+# cli/plan_serve_main.py)
+# ---------------------------------------------------------------------------
+
+PLAN_STEPS = 3           # the --plan auto run and its hand-flagged twin
+PLAN_BATCH = 256         # the ranked workload's global batch
+PLAN_CALIBRATE_STEPS = 8     # plan_main's default
+PLAN_FULL_STEPS = 6          # the full-width calibration's steps
+PLAN_RATIO = (0.5, 2.0)      # the JAX contracts' step-time / serving band
+PLAN_MEM_FACTOR = (1.0, 4.0)  # predicted peak over live bytes
+
+
+def plan_flags_argv(cfg) -> list:
+    """The flags a resolved plan wrote, as a hand-typed argv: every
+    plan-owned flag off its default, and ``--num_devices``."""
+    from dtf_tpu_torch.plan.compile import PLAN_OWNED_FLAGS
+
+    out = ["--num_devices", str(cfg.num_devices)]
+    for name, default in PLAN_OWNED_FLAGS.items():
+        value = getattr(cfg, name)
+        if value != default:
+            out += [f"--{name}", str(value).lower()
+                    if isinstance(value, bool) else str(value)]
+    return out
+
+
+def plan_lm_here(torch, argv) -> dict:
+    """``lm_main.main(argv)`` in this process, the kernels' counters
+    zeroed just before and read just after: the losses, a sha256 of the
+    trained state dict and the launches."""
+    import hashlib
+
+    from dtf_tpu_torch.cli import lm_main, runner
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    kept = {}
+    build = runner.build_training
+
+    def keep(cfg, rt=None):
+        out = build(cfg, rt)
+        kept["trainer"], kept["cfg"] = out[0], cfg
+        return out
+
+    runner.build_training = keep
+    try:
+        torch.cuda.empty_cache()
+        reset_counts(fa, pa)
+        stats = lm_main.main(argv)
+        torch.cuda.synchronize()
+        launches = kernel_counts(fa, pa)
+    finally:
+        runner.build_training = build
+    digest = hashlib.sha256()
+    for t in kept.pop("trainer").model.state_dict().values():
+        digest.update(t.detach().float().cpu().contiguous().numpy()
+                      .tobytes())
+    return {"losses": [v for _, v in stats["train_loss_log"]],
+            "digest": digest.hexdigest(), "launches": launches,
+            "cfg": kept["cfg"], "window_step_s": stats["window_step_s"]}
+
+
+def plan_gauges(names) -> dict:
+    from dtf_tpu_torch.obs.registry import default_registry
+    reg = default_registry()
+    return {n: (float(reg.get(n).value) if reg.get(n) is not None
+                else None) for n in names}
+
+
+def plan_main_calibrate(torch, argv) -> dict:
+    """``plan_main --calibrate`` in this process (the FLOP/s probe, then
+    the measured run), its output dropped, its gauges and launches
+    read."""
+    from dtf_tpu_torch.cli import plan_main
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    from dtf_tpu_torch.obs.registry import default_registry
+
+    names = ("plan_probe_flops", "plan_predicted_step_s",
+             "plan_measured_step_s", "plan_step_time_ratio",
+             "plan_predicted_peak_bytes", "plan_measured_live_bytes",
+             "plan_live_bytes_ratio")
+    for name in names:      # a gauge this run does not set reads NaN
+        if default_registry().get(name) is not None:
+            default_registry().get(name).set(math.nan)
+    reset_counts(fa, pa)
+    t0 = time.perf_counter()
+    rc = quiet(plan_main.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = plan_gauges(names)
+    return {"rc": rc, **out, "launches": kernel_counts(fa, pa),
+            "wall_s": wall}
+
+
+def plan_serve_run(torch, argv) -> dict:
+    """``plan_serve_main`` in this process, its output dropped, the
+    kernels' counters zeroed just before and read just after."""
+    from dtf_tpu_torch.cli import plan_serve_main
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+
+    reset_counts(fa, pa)
+    t0 = time.perf_counter()
+    rc = quiet(plan_serve_main.main, argv)
+    torch.cuda.synchronize()
+    return {"rc": rc, "launches": kernel_counts(fa, pa),
+            "wall_s": time.perf_counter() - t0}
+
+
+def planner(torch, seed: int, card: str, zero3: dict, spawn=None) -> dict:
+    """Phase 21 (see the module's docstring).  ``zero3``: phase 15's
+    stage-3 arm (its argv, both ranks' losses and digests), which the
+    plan-file run must reproduce bit for bit."""
+    import importlib
+    import tempfile
+
+    from dtf_tpu_torch.config import parse_flags
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import paged_attention as pa
+    from dtf_tpu_torch.plan import (Plan, characterize, predict,
+                                    resolve_plan, search)
+    from dtf_tpu_torch.cli.lm_main import LM_DEFAULTS
+
+    ms = importlib.import_module("dtf_tpu_torch.plan.mesh_spec")
+    t_phase = time.time()
+    b = TRAIN_SHAPE[0]
+    base = ["--use_synthetic_data", "--device", "cuda", "--model",
+            "transformer_tpu", "--dtype", "bf16", "--batch_size", str(b),
+            "--train_steps", str(PLAN_STEPS), "--log_steps", "1",
+            "--seed", str(seed), "--skip_checkpoint",
+            "--step_time_guard_factor", "0"]
+    with tempfile.TemporaryDirectory() as root:
+        # (a) two gloo ranks from a plan file naming phase 15's ZeRO-3
+        # arm, beside (b)-(f) in this process: no gate of theirs is a
+        # time; the gated calibrations (g) wait for the ranks to end
+        plan_file = os.path.join(root, "zero3.json")
+        with open(plan_file, "w") as f:
+            json.dump({"plan": {"data": 2, "zero": 3}}, f)
+        arm = list(zero3["argv"])
+        i = arm.index("--zero_stage")
+        del arm[i:i + 2]
+        filed = overlapped(zero_launch, {
+            "main": "lm_main", "defaults": "LM_DEFAULTS", "backend": "gloo",
+            "argv": arm + ["--plan", plan_file], "layers": DP_LM_LAYERS},
+            2, root, "plan file zero3", spawn=spawn)
+        # (b) the live mesh of a world-1 run on the card
+        live = ms.mesh_spec("", cfg=parse_flags(["--device", "cuda"]))
+        total = torch.cuda.get_device_properties(0).total_memory
+        mesh_line = {
+            "name": live.name, "hosts": live.num_hosts,
+            "devices_per_host": live.devices_per_host,
+            "hbm_bytes_per_rank": live.hbm_bytes,
+            "card_total_memory": total,
+            "preset_hbm_bytes": ms.H100_HBM_BYTES,
+            "preset_matches_card": ms.H100_HBM_BYTES == total,
+            "device_flops": live.device_flops,
+            "intra_bw": live.intra_bw, "inter_bw": live.inter_bw,
+            "bandwidths": "data sheet, uncalibrated ("
+                          + ", ".join(ms.DATASHEET_UNCALIBRATED) + ")"}
+        # (c) the FLOP/s probe on the card (beside the ranks: its rate
+        # is printed; the gated calibration takes its own, alone)
+        reset_counts(fa, pa)
+        t0 = time.perf_counter()
+        probe_flops = ms.calibrate_device_flops("cuda")
+        probe_s = time.perf_counter() - t0
+        probe_launches = kernel_counts(fa, pa)
+        # (d) the flagship's lattice on the H100 presets
+        stats = characterize("transformer_tpu", seq_len=TRAIN_SHAPE[1],
+                             dtype_bytes=2)
+        ranked = {}
+        for name in ("h100x8", "4xh100x8"):
+            t0 = time.perf_counter()
+            r = search(stats, ms.PRESETS[name], PLAN_BATCH,
+                       optimizer="adamw")
+            top = r[0]
+            ranked[name] = {
+                "ms": 1e3 * (time.perf_counter() - t0), "plans": len(r),
+                "feasible": sum(1 for x in r if x.feasible),
+                "top": top.plan.describe(),
+                "predicted_step_ms": 1e3 * top.cost.step_time_s,
+                "predicted_peak_gib": top.cost.peak_bytes / 2 ** 30}
+        # (e) --plan auto at full width against its hand-flagged twin
+        t0 = time.perf_counter()
+        auto = plan_lm_here(torch, base + ["--plan", "auto"])
+        resolved = resolve_plan(parse_flags(base + ["--plan", "auto"],
+                                            defaults=LM_DEFAULTS))
+        hand = plan_lm_here(torch, base + plan_flags_argv(resolved))
+        auto_s = time.perf_counter() - t0
+        # (f) tp_comm_frac: with both shards on one card its tp-2 step
+        # is the two shards' in turn, a measurement with no gate
+        tp = plan_serve_run(torch, [
+            "--measure_tp_comm", "--device", "cuda", "--rate", "8",
+            "--duration", "5", "--decode_step_ms", "12",
+            "--prefill_chunk_ms", "9"])
+        tp.update(plan_gauges(("plan_serve_tp_comm_frac",)))
+        plan_run = filed.result()
+    plan_desc = auto["cfg"]
+    # (g) the training calibration contract (gated), then full width
+    # (printed), then the serving calibration contract (gated)
+    small = plan_main_calibrate(torch, [
+        "--model", "transformer_small", "--dataset", "lm",
+        "--use_synthetic_data", "--seq_len", "64", "--batch_size", "4",
+        "--optimizer", "adamw", "--calibrate", "--calibrate_tolerance",
+        str(PLAN_RATIO[1]), "--top", "0", "--device", "cuda"])
+    # full width: the probe at the run's own shapes; its ratio outside
+    # the band is a finding (rc 1), printed, not a failure
+    full = plan_main_calibrate(torch, [
+        "--model", "transformer_tpu", "--dataset", "lm",
+        "--use_synthetic_data", "--seq_len", str(TRAIN_SHAPE[1]),
+        "--batch_size", str(b), "--dtype", "bf16", "--optimizer", "adamw",
+        "--calibrate", "--calibrate_steps", str(PLAN_FULL_STEPS),
+        "--calibrate_probe", "run", "--top", "0", "--device", "cuda"])
+    # what the small probe's rate (c) predicts for the same run
+    full_stats = characterize("transformer_tpu", seq_len=TRAIN_SHAPE[1],
+                              dtype_bytes=2)
+    small_probe_step = predict(Plan(), full_stats, live, b,
+                               optimizer="adamw",
+                               device_flops=probe_flops).step_time_s
+    full["small_probe_predicted_step_s"] = small_probe_step
+    full["small_probe_step_time_ratio"] = (
+        small_probe_step / full["plan_measured_step_s"]
+        if full["plan_measured_step_s"] else None)
+    serve = plan_serve_run(torch, ["--calibrate", "--device", "cuda"])
+    serve.update(plan_gauges(("plan_serve_tokens_ratio",
+                              "plan_serve_p99_ratio")))
+    phase_s = time.time() - t_phase
+
+    layers = 12
+    small_layers, small_steps = 4, PLAN_CALIBRATE_STEPS
+    # the probe: a warm-up and three timed fwd+bwd of 4 layers
+    want_probe = {"K1": 4 * small_layers, "K3": 4 * small_layers}
+    want_small = {k: v + small_layers * small_steps
+                  for k, v in want_probe.items()}
+    # the run-shape probe: a warm-up and three timed fwd+bwd of 12
+    want_full = {k: 4 * layers + layers * PLAN_FULL_STEPS
+                 for k in ("K1", "K3")}
+    want_auto = {"K1": layers * PLAN_STEPS, "K3": layers * PLAN_STEPS}
+    # serving: every request's one prefill chunk (its prompt is at most
+    # a page) through K1 in each of 4 layers: 2 warm-up + 12 measured
+    want_serve_k1 = small_layers * (2 + 12)
+
+    def pick(launches):
+        return {k: launches[k] for k in ("K1", "K3")}
+
+    calib_ratio = small["plan_step_time_ratio"]
+    mem_factor = small["plan_live_bytes_ratio"]
+    line = {
+        "phase": "planner", "card": card, "live_mesh": mesh_line,
+        "probe": {"device_flops": probe_flops, "seconds": probe_s,
+                  "launches": probe_launches,
+                  "run": "transformer_small f32, batch 2, S 64: a warm-up "
+                         "and 3 timed fwd+bwd"},
+        "ranked": ranked,
+        "plan_auto": {
+            "plan_flags": plan_flags_argv(resolved),
+            "num_devices": plan_desc.num_devices,
+            "zero_stage": plan_desc.zero_stage_effective,
+            "losses": auto["losses"], "losses_hand": hand["losses"],
+            "losses_bit_identical": auto["losses"] == hand["losses"],
+            "state_bit_identical": auto["digest"] == hand["digest"],
+            "launches": auto["launches"], "launches_hand": hand["launches"],
+            "wall_s": auto_s},
+        "plan_file_zero3": {
+            "plan": {"data": 2, "zero": 3},
+            "losses": [r["losses"] for r in plan_run],
+            "zero_stage": [r["zero_stage"] for r in plan_run],
+            "losses_bit_identical": [r["losses"] for r in plan_run]
+            == zero3["losses"],
+            "digests_bit_identical": [r["digest"] for r in plan_run]
+            == zero3["digests"],
+            "launches": [r["launches"] for r in plan_run]},
+        "calibrate": {k: v for k, v in small.items()},
+        "calibrate_full_width": {k: v for k, v in full.items()},
+        "serve_calibrate": serve, "measure_tp_comm": tp,
+        "phase_s": phase_s}
+    emit(line)
+    k_plan = DP_LM_LAYERS * ZERO_STEPS
+    gates = {
+        "live_mesh": (live.hbm_bytes == total and live.num_devices == 1
+                      and live.name == "runtime"),
+        "probe_flops": math.isfinite(probe_flops) and probe_flops > 0
+        and pick(probe_launches) == want_probe,
+        "ranked": all(v["feasible"] > 0 for v in ranked.values()),
+        "plan_auto_bit_identical": (
+            line["plan_auto"]["losses_bit_identical"]
+            and line["plan_auto"]["state_bit_identical"]
+            and all(math.isfinite(v) for v in auto["losses"])
+            and pick(auto["launches"]) == want_auto),
+        "plan_file_bit_identical": (
+            line["plan_file_zero3"]["losses_bit_identical"]
+            and line["plan_file_zero3"]["digests_bit_identical"]
+            and all(r["zero_stage"] == 3 and r["replicas"] == 2
+                    for r in plan_run)
+            and all(r["launches"]["K1"] == r["launches"]["K3"] == k_plan
+                    for r in plan_run)),
+        "calibrate_ratio": (small["rc"] == 0 and calib_ratio is not None
+                            and PLAN_RATIO[0] <= calib_ratio
+                            <= PLAN_RATIO[1]),
+        "calibrate_memory": (mem_factor is not None
+                             and PLAN_MEM_FACTOR[0] <= mem_factor
+                             <= PLAN_MEM_FACTOR[1]),
+        "calibrate_launches": (pick(small["launches"]) == want_small
+                               and pick(full["launches"]) == want_full),
+        "calibrate_full_ran": (
+            full["rc"] in (0, 1)
+            and all(full[k] is not None and math.isfinite(full[k])
+                    and full[k] > 0
+                    for k in ("plan_probe_flops", "plan_step_time_ratio",
+                              "small_probe_step_time_ratio"))),
+        "serve_ratios": (serve["rc"] == 0 and all(
+            serve[k] is not None and PLAN_RATIO[0] <= serve[k]
+            <= PLAN_RATIO[1]
+            for k in ("plan_serve_tokens_ratio", "plan_serve_p99_ratio"))),
+        "serve_launches": (serve["launches"]["K1"] == want_serve_k1
+                           and serve["launches"]["K4"] > 0
+                           and serve["launches"]["K4"] % small_layers == 0),
+        "tp_comm": (tp["rc"] == 0
+                    and tp["plan_serve_tp_comm_frac"] is not None
+                    and tp["launches"]["K4"] > 0)}
+    emit({"phase": "planner_gates", "card": card, **gates})
+    if not all(gates.values()):
+        raise AssertionError(f"planner: {gates}")
+    line["launches_plan"] = {
+        kern: {"probe_f32": probe_launches[kern],
+               "plan_auto_bf16": auto["launches"][kern],
+               "calibrate_f32": small["launches"][kern],
+               "calibrate_full_bf16": full["launches"][kern]}
+        for kern in ("K1", "K3")}
+    line["launches_plan_run"] = (
+        "phase 21: calibrate_device_flops on cuda (transformer_small f32, "
+        "a warm-up and 3 fwd+bwd); lm_main --plan auto, transformer_tpu "
+        f"bf16, {PLAN_STEPS} steps; plan_main --calibrate at "
+        "transformer_small f32 (the probe and 8 steps) and at full width "
+        f"bf16 (the run-shape probe and {PLAN_FULL_STEPS} steps)")
+    line["launches_plan_serve"] = {
+        kern: {"calibrate": serve["launches"][kern],
+               "measure_tp_comm": tp["launches"][kern]}
+        for kern in ("K1", "K4")}
+    line["launches_plan_serve_run"] = (
+        "phase 21: plan_serve_main --calibrate (transformer_small bf16, 2 "
+        "warm-up and 12 requests of 24 tokens, 4 slots) and "
+        "--measure_tp_comm (the same burst at tp 1 and at serve_tp 2, "
+        "both shards on the card)")
     return line
 
 
@@ -7817,6 +8210,13 @@ def main(argv=None) -> int:
               "twin at batch 2 (launches_ep_twin)")
     clock.done("20")
 
+    # phase 21: the planners (K1 and K3 in the FLOP/s probe, the --plan
+    # auto run and the calibrations; K1 and K4 in the serving
+    # calibration's engines)
+    plan = planner(torch, args.seed, card, zero["stage3_arm"],
+                   spawn=forks.rank_spawn)
+    clock.done("21")
+
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     f32_keys = ("bound_cuda_core_ms",)
@@ -7900,7 +8300,11 @@ def main(argv=None) -> int:
               launches_pp_run=pp_run, pp_case=pp_cases["K1"],
               launches_ep=ep["launches_ep"]["K1"],
               launches_ep_twin=ep["launches_ep_twin"]["K1"],
-              launches_ep_run=ep_run, ep_case=ep_cases["K1"]),
+              launches_ep_run=ep_run, ep_case=ep_cases["K1"],
+              launches_plan=plan["launches_plan"]["K1"],
+              launches_plan_run=plan["launches_plan_run"],
+              launches_plan_serve=plan["launches_plan_serve"]["K1"],
+              launches_plan_serve_run=plan["launches_plan_serve_run"]),
         entry("K1 f32", "dtf_tpu_torch/csrc/flash_fwd_x3.cuh",
               "dtf_tpu/ops/flash_attention.py:98", k1_case("float32"),
               fused32["K1"], f32_run,
@@ -7962,6 +8366,8 @@ def main(argv=None) -> int:
               launches_ep=ep["launches_ep"]["K3"],
               launches_ep_twin=ep["launches_ep_twin"]["K3"],
               launches_ep_run=ep_run, ep_case=ep_cases["K3"],
+              launches_plan=plan["launches_plan"]["K3"],
+              launches_plan_run=plan["launches_plan_run"],
               partial_bytes=bwd["K3"]["partial_bytes"],
               passes_ms=bwd["K3"]["passes_ms"]),
         entry("K3 f32", "dtf_tpu_torch/csrc/flash_bwd_x3.cuh",
@@ -7993,6 +8399,8 @@ def main(argv=None) -> int:
               keys_per_split=k4[0]["keys_per_split"],
               chunk_case=k4_brief(k4_case("bfloat16", "chunk@1984")),
               f32_decode_case=k4_brief(k4_case("float32", "decode")),
+              launches_plan_serve=plan["launches_plan_serve"]["K4"],
+              launches_plan_serve_run=plan["launches_plan_serve_run"],
               passes_ms_per_call=decode_profile["k4_passes_ms_per_call"],
               decode_step_share=decode_profile["k4_share_of_busy"])]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -70,6 +70,14 @@ under another ``--input_num_shards``.  The train stream is closed at
 the end of the run; the stats name the JPEG decode path (``native`` or
 ``pil``, ``input_decode``).  ``--enable_tensorboard`` writes scalar
 event files under ``--model_dir/train`` from the coordinator.
+
+``--plan auto|<file>`` (``plan/compile.py resolve_plan``) is compiled
+into the ordinary parallelism flags first of all, before the runtime
+builds the rank groups from them: from there on the run is the same
+flags set by hand, bit for bit.  Every rank resolves the same plan from
+the same inputs (the flags and the topology's environment), with no
+collective.  A ``mirrored`` command resolves before it decides how many
+ranks to start.
 """
 
 from __future__ import annotations
@@ -91,7 +99,8 @@ from dtf_tpu_torch.data import get_dataset_spec, synthetic_input_fn
 from dtf_tpu_torch.data.normalize import for_config
 from dtf_tpu_torch.data.pipeline import DevicePrefetcher
 from dtf_tpu_torch.models.partition import shard_for
-from dtf_tpu_torch.models.registry import (build_model, is_moe,
+from dtf_tpu_torch.models.registry import (auto_num_microbatches,
+                                           build_model, is_moe,
                                            is_pipeline, is_vision)
 from dtf_tpu_torch.obs import trace
 from dtf_tpu_torch.runtime.mesh import (LOCAL_STRATEGIES, MeshRuntime,
@@ -216,9 +225,7 @@ def _channels_first_factory(fn):
 def pipeline_kw(cfg, per_replica_batch: int) -> dict:
     """The pipeline family's schedule arguments, the JAX runner's rules:
     ``--pipeline_interleave 2`` only with stages, and an unset
-    ``--num_microbatches`` auto-scaled to 4 pp -- the bubble is
-    (pp - 1) / (M + pp - 1), so M = 4 pp keeps it under 20% -- halved
-    until it divides the per-replica batch."""
+    ``--num_microbatches`` picked by :func:`auto_num_microbatches`."""
     pp = max(int(cfg.model_parallelism), 1)
     kw = {}
     if cfg.pipeline_interleave > 1:
@@ -229,9 +236,7 @@ def pipeline_kw(cfg, per_replica_batch: int) -> dict:
         kw["interleave"] = cfg.pipeline_interleave
     m = cfg.num_microbatches
     if m is None:
-        m = 4 * pp
-        while m > 1 and per_replica_batch % m:
-            m //= 2
+        m = auto_num_microbatches(pp, per_replica_batch)
     kw["num_microbatches"] = max(int(m), 1)
     return kw
 
@@ -394,6 +399,8 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
     checkpoint and ``SystemExit(EXIT_PREEMPTED)``; a lost card
     (``train/elastic.py``) in ``SystemExit(EXIT_DEVICE_LOST)``, touching
     nothing on the card on the way out."""
+    if cfg.plan:
+        cfg = _resolve_plan(cfg, runtime)
     rt, poller, metrics_server = runtime, None, None
     try:
         trace.maybe_configure(cfg)
@@ -451,6 +458,23 @@ def run(cfg, runtime: Optional[MeshRuntime] = None) -> dict:
         preemption.restore()
         if rt is not None:
             rt.shutdown()
+
+
+def _resolve_plan(cfg, runtime: Optional[MeshRuntime]):
+    """``--plan``'s flags; a runtime the caller initialized must already
+    be the grid those flags describe (initialize the resolved config)."""
+    from dtf_tpu_torch.plan import resolve_plan
+    out = resolve_plan(cfg)
+    if runtime is not None and (
+            runtime.model_parallelism, runtime.seq_parallelism) != (
+            max(out.model_parallelism, 1), max(out.seq_parallelism, 1)):
+        raise ValueError(
+            f"the runtime was initialized before --plan resolved: its "
+            f"grid (model {runtime.model_parallelism}, seq "
+            f"{runtime.seq_parallelism}) is not the plan's (model "
+            f"{out.model_parallelism}, seq {out.seq_parallelism}) -- "
+            f"initialize plan.resolve_plan(cfg)")
+    return out
 
 
 def service_on(cfg, spec) -> bool:
@@ -606,11 +630,18 @@ def main_run(module: str, argv, defaults: dict) -> dict:
     ``cli/launch.py`` (``python -m module argv`` each, logs under
     ``./ranklogs``) and returns {} once they all succeed."""
     cfg = parse_flags(argv, defaults=defaults)
-    if (cfg.distribution_strategy in LOCAL_STRATEGIES
-            and cfg.process_count is None and mirrored_world(cfg) > 1):
+    local = (cfg.distribution_strategy in LOCAL_STRATEGIES
+             and cfg.process_count is None)
+    if cfg.plan and local:
+        # a plan names the devices it runs on: resolve it before
+        # counting the ranks to start (each rank resolves it again,
+        # alike, from the argv)
+        cfg = _resolve_plan(cfg, None)
+    world = mirrored_world(cfg)
+    if local and world > 1:
         from dtf_tpu_torch.cli.launch import free_address, launch_local
         rc = launch_local([sys.executable, "-m", module] + list(argv),
-                          mirrored_world(cfg), free_address(), "./ranklogs")
+                          world, free_address(), "./ranklogs")
         if rc:
             raise SystemExit(rc)
         return {}

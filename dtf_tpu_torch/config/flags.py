@@ -3,8 +3,8 @@
 The PyTorch counterpart of ``dtf_tpu/config/flags.py``.  Every field of
 the JAX ``Config`` is one of three things here: a field the port reads,
 a declared no-op (``NO_OPS``: reference-compat flags the JAX package
-also accepts and ignores), or a key of ``NOT_PORTED``, whose message
-names the subsystem not ported yet.
+also accepts and ignores), or a key of ``NOT_PORTED`` (empty now),
+whose message would name a subsystem not ported yet.
 
 The fields the ported paths read: the model and its dtype (fp16 for
 the vision families only -- the transformer, pipeline and MoE
@@ -50,11 +50,12 @@ as an ``.npz``, see ``serve/bridge.py``).  Tensor parallelism's
 fields (``model_parallelism``, ``shard_lm_head``, ``serve_tp``) and
 sequence parallelism's (``seq_parallelism``: ring attention over the
 'seq' axis), pipeline parallelism's (``num_microbatches``,
-``pipeline_interleave``) and expert parallelism's (``num_experts``,
-``moe_capacity_factor``, ``moe_aux_weight``, ``moe_top_k``) are the
-JAX package's, with its validation.  Flags of a feature not ported yet
-(the planner) raise with a message that says so; any other unknown
-flag raises too.
+``pipeline_interleave``), expert parallelism's (``num_experts``,
+``moe_capacity_factor``, ``moe_aux_weight``, ``moe_top_k``) and the
+planner's (``plan``, ``plan_mesh``, ``plan_cache``) are the JAX
+package's, with its validation; ``plan_mesh`` names the port's presets.
+``NOT_PORTED`` is empty: every field of the JAX ``Config`` is ported or
+a declared no-op.  An unknown flag raises.
 """
 
 from __future__ import annotations
@@ -84,11 +85,9 @@ NO_OPS = ("enable_xla", "all_reduce_alg", "num_packs",
           "batchnorm_spatial_persistent", "image_bytes_as_serving_input",
           "enable_eager", "verbose")
 
-# flags of the JAX package whose features the port does not have yet
-NOT_PORTED = {
-    "plan": "the planner", "plan_mesh": "the planner",
-    "plan_cache": "the planner",
-}
+# flags of the JAX package whose features the port does not have yet:
+# none is left
+NOT_PORTED: dict = {}
 
 # literal copy of serve/router.py PLACEMENTS: Config imports without the
 # serving stack (a test pins the two)
@@ -354,6 +353,24 @@ class Config:
     # the persisted rollout state; "" = <rendezvous>/rollout_state.json
     rollout_state: str = ""
 
+    # --- the parallelism planner (plan/) ---
+    # "" = off (hand-set flags rule); "auto" = search the feasible plan
+    # lattice on --plan_mesh and compile the fastest predicted plan into
+    # the parallelism flags; <path> = a plan JSON (plan_main --out
+    # artifact, a {"plan": ...} wrapper, or a bare plan object).  A
+    # plan-selected run is bit-identical to the same flags set by hand;
+    # plan-owned flags (--model_parallelism & co.) must stay at their
+    # defaults when --plan is given -- conflicts are loud errors
+    plan: str = ""
+    # the mesh the planner costs against: "" = the live run (its ranks,
+    # on their cards), a preset (cpu | h100x8 | 4xh100x8), or a
+    # "hosts=4,devices=8,hbm=79g,flops=494t,intra=450g,inter=50g"
+    # descriptor
+    plan_mesh: str = ""
+    # ranked-lattice memoization sidecar (plan/cache.py): a JSON file
+    # keyed by (workload, mesh descriptor, batch); "" = off
+    plan_cache: str = ""
+
     def __post_init__(self):
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}; choose from "
@@ -566,6 +583,15 @@ class Config:
             raise ValueError(
                 f"heartbeat_secs must be > 0 and preemption_poll_s >= 0, "
                 f"got {self.heartbeat_secs} and {self.preemption_poll_s}")
+        if self.plan and self.plan != "auto" and not os.path.exists(self.plan):
+            # fail at flag-parse time, not after dataset/model setup
+            raise ValueError(
+                f"--plan {self.plan!r}: no such plan file (pass 'auto' "
+                f"to search, or a plan_main --out JSON artifact)")
+        if self.plan_mesh:
+            # a typo'd preset or descriptor fails at flag-parse time
+            from dtf_tpu_torch.plan.mesh_spec import mesh_spec
+            mesh_spec(self.plan_mesh)
         if self.fault:
             from dtf_tpu_torch.chaos import parse_spec
             parse_spec(self.fault)              # raises on a bad spec

@@ -88,6 +88,17 @@ def is_pipeline(name: str) -> bool:
     return name.startswith("pipeline_transformer")
 
 
+def auto_num_microbatches(pp: int, per_replica_batch: int) -> int:
+    """The pipeline family's microbatch count when ``--num_microbatches``
+    is unset, the JAX runner's rule: 4 pp -- the bubble is
+    (pp - 1) / (M + pp - 1), so M = 4 pp keeps it under 20% -- halved
+    until it divides the per-replica batch."""
+    m = 4 * max(int(pp), 1)
+    while m > 1 and per_replica_batch % m:
+        m //= 2
+    return m
+
+
 def is_moe(name: str) -> bool:
     """True for the mixture-of-experts LM family."""
     return name.startswith("moe_transformer")

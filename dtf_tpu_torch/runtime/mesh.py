@@ -56,8 +56,10 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import logging
 import os
+import socket
 from typing import Optional
 
 import torch
@@ -279,8 +281,72 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
-def topology() -> dict:
-    """Hosts (processes), devices a host, and the platform, as the JAX
-    package's ``topology()`` reports them: one device a process here."""
-    return {"num_hosts": process_count(), "devices_per_host": 1,
-            "platform": "gpu" if torch.cuda.is_available() else "cpu"}
+def run_world(cfg) -> int:
+    """The ranks a run of ``cfg`` has, known before any process group
+    exists (the planner resolves ``--plan`` from it): the named
+    topology's count, else a ``mirrored`` command's local devices
+    (:func:`mirrored_world`), else 1."""
+    if cfg.distribution_strategy in SINGLE_DEVICE:
+        return 1
+    if cfg.process_count:
+        return int(cfg.process_count)
+    if cfg.distribution_strategy in LOCAL_STRATEGIES:
+        return mirrored_world(cfg)
+    return 1
+
+
+def count_hosts(cfg) -> int:
+    """The hosts a run of ``cfg`` spans, from its named topology: the
+    distinct host names of ``TF_CONFIG``'s cluster or of
+    ``--worker_hosts``; else, for the launcher's environment, one host
+    when the rendezvous is local (the local fan-out: ``localhost``, a
+    ``file://`` store, this host's name) and one a rank when it is not
+    (``cli/launch.py --hosts`` puts one rank on each host); else one."""
+    addrs = []
+    if os.environ.get("TF_CONFIG"):
+        try:
+            cluster = json.loads(os.environ["TF_CONFIG"]).get("cluster", {})
+        except (json.JSONDecodeError, AttributeError):
+            cluster = {}
+        addrs = list(cluster.get("ps", [])) + list(cluster.get("worker", []))
+    elif cfg.worker_hosts:
+        addrs = cfg.worker_hosts.split(",")
+    if addrs:
+        return max(len({a.strip().rsplit(":", 1)[0] for a in addrs
+                        if a.strip()}), 1)
+    coordinator = cfg.coordinator_address or ""
+    if not cfg.process_count or not coordinator or "://" in coordinator:
+        return 1
+    host = coordinator.rsplit(":", 1)[0].strip("[]")
+    local = ("localhost", "127.0.0.1", "::1", "0.0.0.0",
+             socket.gethostname())
+    return 1 if host in local else int(cfg.process_count)
+
+
+def topology(cfg=None) -> dict:
+    """Hosts, devices a host and the platform, as the JAX package's
+    ``topology()`` reports them, for a run of ``cfg`` (the parsed flags
+    and the environment; the defaults when None) before it joins a
+    process group.  One rank is one device; the hosts are the named
+    topology's (:func:`count_hosts`), its ranks spread over them.  On
+    CUDA (which must be there: :func:`resolve_device` raises without a
+    card), ``cards_per_host`` is the host's cards, ``ranks_per_device``
+    how many ranks share one (``cuda:{rank % device_count}``) and
+    ``device_memory`` a card's ``total_memory``."""
+    if cfg is None:
+        from dtf_tpu_torch.config.flags import Config, apply_env_topology
+        cfg = apply_env_topology(Config(
+            device="cuda" if torch.cuda.is_available() else "cpu"))
+    world = run_world(cfg)
+    hosts = min(count_hosts(cfg), world)
+    per_host = -(-world // hosts)
+    out = {"num_hosts": hosts, "devices_per_host": per_host,
+           "platform": "cpu", "cards_per_host": 0, "ranks_per_device": 1,
+           "device_memory": 0}
+    if resolve_device(cfg.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        out.update(platform="gpu", cards_per_host=cards,
+                   ranks_per_device=-(-per_host // cards),
+                   device_memory=int(torch.cuda.get_device_properties(
+                       0).total_memory))
+    return out

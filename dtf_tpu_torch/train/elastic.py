@@ -55,8 +55,8 @@ Divergences from the JAX package, on purpose:
     the JAX message, as the JAX re-mesh refuses it
     (``dtf_tpu/runtime/mesh.py:179-182``): the rank exits as a crash,
     loudly, never training mis-sharded.
-  - :func:`replan_for_surviving` refuses: ``--plan auto`` needs the
-    planner, which is not ported.
+  - :func:`replan_for_surviving` is the JAX body: ``--plan auto``
+    re-resolved against the surviving ranks, the global batch kept.
 """
 
 from __future__ import annotations
@@ -204,10 +204,24 @@ def note_elastic_resume(runtime, resumed_step: int) -> None:
 
 
 def replan_for_surviving(cfg, surviving_devices: int):
-    """The JAX package re-resolves a ``--plan auto`` config against the
-    surviving device count here.  The planner is not ported, so this
-    refuses, naming it (``--plan`` itself is refused by the flags)."""
-    raise NotImplementedError(
-        f"replan_for_surviving({surviving_devices}): --plan auto "
-        f"re-resolution needs the planner, which is not ported to "
-        f"dtf_tpu_torch yet")
+    """Re-resolve a ``--plan auto`` config against a surviving device
+    count -- the reshard-time planning step a shrunken relaunch
+    performs implicitly (each relaunched rank's runner resolves
+    ``--plan`` against the world it joins).  A pure function, so the
+    invariants are test-pinnable without relaunching anything: the
+    GLOBAL batch never changes (a plan compiles parallelism flags,
+    never the batch), and an infeasible surviving mesh dies loudly at
+    resolve time.  A launched world (``process_count``) becomes the
+    survivors'; a ``mirrored`` one is capped by the plan's devices."""
+    from dtf_tpu_torch.plan import resolve_plan
+    from dtf_tpu_torch.plan.mesh_spec import mesh_spec
+    n = int(surviving_devices)
+    survivors = cfg.replace(process_count=n) if cfg.process_count else cfg
+    mesh = mesh_spec("", live_devices=n, cfg=survivors)
+    out = resolve_plan(survivors, mesh=mesh)
+    if out.batch_size != cfg.batch_size:
+        raise AssertionError(
+            f"plan re-resolution changed the global batch "
+            f"({cfg.batch_size} -> {out.batch_size}) -- step semantics "
+            f"would silently differ across the shrink")
+    return out

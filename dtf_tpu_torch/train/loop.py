@@ -172,6 +172,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import os
 import signal
@@ -299,6 +300,12 @@ class Trainer:
                  runtime: Optional[MeshRuntime] = None):
         self.cfg = cfg
         self.model = model
+        # what the card's allocator held before this run: its count now
+        # less the model this run built (train_live_bytes is this
+        # run's, whatever an earlier run in the process left allocated)
+        self._alloc_base = self._allocated()
+        if self._alloc_base is not None:
+            self._alloc_base -= _allocator_bytes(model)
         self.rt = runtime or MeshRuntime(
             strategy=cfg.distribution_strategy,
             device=next(model.parameters()).device)
@@ -1160,6 +1167,8 @@ class Trainer:
         self.materialize(state)
         ledger.emit_summary()
         trace.flush()
+        resident = self.zero_resident_bytes(state)
+        self._publish_calibration_gauges(resident)
         stats = build_stats(history, eval_output, time_cb)
         stats["train_loss_log"] = list(self.loss_log)
         stats["window_step_s"] = list(self.window_step_s)
@@ -1170,8 +1179,31 @@ class Trainer:
             stats["eval_count"] = self.eval_count
         if self.zero_probe_result is not None:
             stats["zero_probe"] = dict(self.zero_probe_result)
-        stats["resident_bytes"] = self.zero_resident_bytes(state)
+        stats["resident_bytes"] = resident
         return state, stats
+
+    def _publish_calibration_gauges(self, resident: dict) -> None:
+        """The two gauges ``plan_main --calibrate`` reads after a
+        measured run, as the JAX Trainer publishes them at the end of a
+        fit: ``train_step_s``, the median clean-window step time (the
+        JAX package's median, the upper one of an even count), and
+        ``train_live_bytes``, what this rank holds -- on CUDA the
+        allocator's count on its card, on the CPU its parameters,
+        optimizer state and gradients (ZeRO's local slices counted as
+        held).  On CUDA the count is this run's: what the allocator held
+        before the Trainer, less its model, is taken off."""
+        from dtf_tpu_torch.obs.registry import default_registry
+        reg = default_registry()
+        if self.window_step_s:
+            window = sorted(self.window_step_s)
+            reg.gauge("train_step_s", unit="s").set(window[len(window) // 2])
+        live = self._allocated()
+        if live is None:
+            live = resident["total_bytes"]
+        else:
+            live -= self._alloc_base
+        if live:
+            reg.gauge("train_live_bytes", unit="bytes").set(live)
 
     def _zero_probe(self, state: TrainState, batch, ledger) -> dict:
         """--zero_probe: the ZeRO-2/3 communication as measured numbers,
@@ -1269,6 +1301,18 @@ class Trainer:
         if pending is None or not float(pending):
             return None
         return preemption.triggered() or int(signal.SIGTERM)
+
+
+def _allocator_bytes(model) -> int:
+    """The CUDA allocator's bytes for the model's parameters and
+    buffers: each storage once, rounded up to the allocator's 512-byte
+    blocks."""
+    seen = {}
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        if t.device.type == "cuda":
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+    return sum(seen.values())
 
 
 @contextlib.contextmanager

@@ -544,8 +544,16 @@ def test_check_reshardable_agrees_with_the_jax_rule():
 
 
 def test_replan_for_surviving_is_refused_naming_the_planner():
-    with pytest.raises(NotImplementedError, match="the planner"):
-        elastic.replan_for_surviving(Config(), 2)
+    """The planner is ported (``tests/test_torch_plan.py`` holds the
+    re-resolution to the JAX package's): what it cannot plan is refused
+    with its message, as the JAX planner refuses it -- MoE."""
+    cfg = Config(model="moe_transformer_small", dataset="lm", seq_len=64,
+                 batch_size=8, use_synthetic_data=True, plan="auto",
+                 device="cpu", distribution_strategy="multi_worker_mirrored",
+                 process_count=4)
+    with pytest.raises(ValueError, match="the planner does not model "
+                                         "routed-expert"):
+        elastic.replan_for_surviving(cfg, 2)
 
 
 def test_note_elastic_resume(monkeypatch, tmp_path):

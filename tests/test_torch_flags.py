@@ -78,6 +78,8 @@ def test_every_jax_config_field_is_accounted_for():
         seen["no-op" if f.name in NO_OPS else "ported"] += 1
     assert len(JAX_FIELDS) == 132 and sum(seen.values()) == 132
     assert seen["no-op"] == len(NO_OPS) == 9
+    # the planner was the last subsystem left: every field is ported
+    assert seen["not ported"] == 0 and NOT_PORTED == {}
     assert set(NO_OPS) <= {f.name for f in JAX_FIELDS}
 
 
@@ -122,6 +124,12 @@ def test_unported_flags_name_their_subsystem(subsystem, flags):
         _check_pp_flags([f for f in flags if f in PP_FLAGS])
         _check_moe_flags([f for f in flags if f in MOE_FLAGS])
         assert set(flags) <= set(TP_FLAGS + PP_FLAGS + MOE_FLAGS)
+        return
+    if subsystem == "planner":
+        # ported since (plan/, cli/plan_main.py): they parse, with the
+        # JAX package's defaults and validation; --plan_mesh names the
+        # port's presets
+        _check_plan_flags(flags)
         return
     if subsystem == "serving fleet":
         # ported since: the router and replica flags (cli/router_main and
@@ -228,6 +236,27 @@ def _check_ported_flags(flags):
                 parse_flags(bad)
             with pytest.raises(ValueError, match="metrics_port"):
                 jax_parse_flags(bad)
+
+
+def _check_plan_flags(flags):
+    from dtf_tpu.config import parse_flags as jax_parse_flags
+    jax_defaults, port_defaults = JaxConfig(), Config()
+    for name in flags:
+        assert name not in NOT_PORTED, name
+        assert getattr(port_defaults, name) == getattr(jax_defaults, name)
+    argv = ["--plan", "auto", "--plan_mesh", "cpu", "--plan_cache", "/x.json"]
+    got, want = parse_flags(argv), jax_parse_flags(argv)
+    for name in flags:
+        assert getattr(got, name) == getattr(want, name), name
+    with pytest.raises(ValueError, match="no such plan file"):
+        parse_flags(["--plan", "/no/such/plan.json"])
+    with pytest.raises(ValueError, match="no such plan file"):
+        jax_parse_flags(["--plan", "/no/such/plan.json"])
+    # the TPU presets are not carried: refused, naming the port's
+    with pytest.raises(ValueError, match="unknown mesh preset 'v4-8'.*"
+                                         "h100x8"):
+        parse_flags(["--plan_mesh", "v4-8"])
+    assert parse_flags(["--plan_mesh", "4xh100x8"]).plan_mesh == "4xh100x8"
 
 
 TP_FLAGS = ("model_parallelism", "shard_lm_head", "serve_tp")

@@ -357,7 +357,7 @@ def test_moe_family_is_an_lm_with_the_jax_presets():
 def test_moe_flags_parse_with_the_jax_defaults_and_validation():
     """The four MoE flags parse (None: the preset's own), as the JAX
     Config declares them; ``moe_top_k`` below 1 is refused with the JAX
-    message; only the planner's flags are left unported."""
+    message; no flag is left unported."""
     from dtf_tpu.config.flags import define_flags
     from dtf_tpu_torch.config.flags import NOT_PORTED
     jax_defaults = define_flags()
@@ -371,7 +371,7 @@ def test_moe_flags_parse_with_the_jax_defaults_and_validation():
         assert getattr(Config(), name) is None is jax_defaults[name]
     with pytest.raises(ValueError, match="moe_top_k must be >= 1, got 0"):
         parse_flags(["--moe_top_k", "0"])
-    assert set(NOT_PORTED) == {"plan", "plan_mesh", "plan_cache"}
+    assert NOT_PORTED == {}
 
 
 @pytest.mark.parametrize("model", ["moe_transformer",

@@ -426,6 +426,14 @@ def test_port_imports_nothing_of_jax_ast():
     files = _port_files()
     assert len(files) > 20
     assert os.path.join(REPO, "dtf_tpu_torch", "models", "moe.py") in files
+    # the planners: every module of plan/ and the two CLIs
+    for name in ("__init__", "cache", "compile", "cost_model", "mesh_spec",
+                 "model_stats", "search", "serve_model", "serve_trace"):
+        assert os.path.join(REPO, "dtf_tpu_torch", "plan",
+                            f"{name}.py") in files, name
+    for name in ("plan_main", "plan_serve_main"):
+        assert os.path.join(REPO, "dtf_tpu_torch", "cli",
+                            f"{name}.py") in files, name
     assert not _jax_imports(files)
 
 
@@ -464,6 +472,8 @@ def test_port_import_loads_no_jax_module():
             "import dtf_tpu_torch.serve.router, dtf_tpu_torch.serve.migrate; "
             "import dtf_tpu_torch.serve.replica, dtf_tpu_torch.serve.journal; "
             "import dtf_tpu_torch.serve.ha, dtf_tpu_torch.serve.rollout; "
+            "import dtf_tpu_torch.plan, dtf_tpu_torch.cli.plan_main; "
+            "import dtf_tpu_torch.cli.plan_serve_main; "
             "bad = [m for m in sys.modules if m in ('jax', 'dtf_tpu') or "
             "m.startswith(('jax.', 'flax', 'dtf_tpu.'))]; "
             "assert not bad, bad")

@@ -548,7 +548,10 @@ def test_flags_of_unported_features_raise(flag):
         if flag == "--num_experts":
             assert (cfg.moe_top_k, cfg.moe_capacity_factor) == (None, None)
     else:
-        with pytest.raises(ValueError, match="not ported"):
+        # ported since (the planner): "auto" parses, and a plan file
+        # that does not exist is refused with the JAX message
+        assert parse_flags([flag, "auto"]).plan == "auto"
+        with pytest.raises(ValueError, match="no such plan file"):
             parse_flags([flag, "1"])
     with pytest.raises(ValueError, match="unknown flag"):
         parse_flags(["--no_such_flag", "1"])
